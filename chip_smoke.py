@@ -6,19 +6,33 @@
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
 
 1. prints the card (``nvidia-smi`` name and power limit) and turns TF32 off;
-2. holds the paged decode kernel against its plain PyTorch version on the
-   card (SLM shapes, GQA, a window, scattered pages, an idle slot, lengths
-   that end mid-page; bf16 and f32);
-3. holds the prefill attention kernel against its plain version (SLM
-   shapes at S in {32, 131, 256}, GQA, a window, Sq < Sk, D = 256);
-4. serves 48 soft-prompted requests through ``ServingEngine`` at the full
+2. holds the paged decode kernel (A) against its plain PyTorch version on
+   the card (SLM shapes, GQA, a window, scattered pages, an idle slot,
+   lengths that end mid-page; bf16 and f32);
+3. holds the prefill attention kernel (B) against its plain version (SLM
+   shapes at S in {32, 131, 256}, GQA, a window, Sq < Sk, D = 256), and
+   B's gradient against the plain version's autograd at a training shape;
+4. holds the fused LoRA projection (C) against its plain version (the
+   SLM's and the LLM's projection shapes at M = 1088, ragged M/N/K, the
+   transposed-W mode; bf16 and f32; dx, dA, dB against autograd) and the
+   Gram log-volume (D), forward and backward (k in {4, 8}, d = 1280,
+   masked and all-zero rows, a batch that is no multiple of the block);
+5. serves 48 soft-prompted requests through ``ServingEngine`` at the full
    width of ``mlecs-slm-720m`` (bf16, random weights from a seed), checks
    every budget, the free lists and both launch counters, then checks the
    paged decode logits against a full forward over the same tokens;
-5. prints a ``{"serving": ...}`` line, then profiles an admission tick
+6. prints a ``{"serving": ...}`` line, then profiles an admission tick
    and four decode steps (``torch.profiler``; kernel time against wall
    time, traces under ``build/profile/``) into a ``{"profile": ...}`` line;
-6. prints a ``{"kernels": [...]}`` line (times from CUDA-graph replay,
+7. runs one federated round of Algorithm 1 on the loop engine through
+   ``FederatedRunner`` at full width (3 devices on ``mlecs-slm-720m``,
+   ``mlecs-llm-6b`` on the server, both with a 1280-wide connector latent;
+   bf16, random weights from a seed), checks losses, the frozen backbone,
+   the trained leaves, the MMA weights and the launch counters of B, C and
+   D against the counts the step structure gives, and prints a
+   ``{"training": ...}`` line; then profiles one CCL step and one SE-CCL
+   step into a ``{"training_profile": ...}`` line;
+8. prints a ``{"kernels": [...]}`` line (times from CUDA-graph replay,
    bounds from this run's inputs).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
@@ -28,7 +42,9 @@ It imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -542,6 +558,549 @@ def phase_numbers(engine, snap, launches):
     return kernels
 
 
+# ---------------------------------------------------------------------------
+# phase 3b / 4: B's gradient, kernels C and D against their plain versions
+
+def rel_check(name, got, want, tol):
+    """check_close on tensors scaled by the largest |want| of each row of
+    the first axis (gradients whose size varies by orders of magnitude)."""
+    import torch
+    dims = tuple(range(1, want.dim()))
+    scale = want.float().abs().amax(dim=dims, keepdim=True).clamp(min=1.0)
+    return check_close(name, got.float() / scale, want.float() / scale, tol)
+
+
+def phase_flash_grad_check():
+    """B's interim backward (plain recompute) against the plain version's
+    autograd at the SLM's training shape: batch 8, 8 soft + 128 tokens."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.models.layers import BIG_WINDOW
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    B, S, H, D = 8, 136, 20, 64
+    q, k, v = (torch.randn((B, S, H, D), generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    do = torch.randn((B, S, H * D), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    grads = []
+    for kernel in (True, False):
+        ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        if kernel:
+            out = ops.attention(*ins, causal=True, window=BIG_WINDOW)
+        else:
+            out = flash_attention_plain(*ins, True, 0).reshape(B, S, H * D)
+        out.backward(do)
+        grads.append([t.grad for t in ins])
+    torch.cuda.synchronize()
+    errs = {n: check_close(f"flash grad d{n}", g, w, BF16_TOL)
+            for n, g, w in zip("qkv", *grads)}
+    emit({"phase": "flash_attention_grad_vs_plain",
+          "shape": [B, S, H, D], "dtype": "bfloat16", "max_abs_err": errs,
+          "backward": "interim: plain recompute under autograd"})
+
+
+def lora_inputs(gen, M, K, N, r, dtype, trans_w=False):
+    import torch
+    dev = "cuda"
+    x = torch.randn((M, K), generator=gen, device=dev).to(dtype)
+    wshape = (N, K) if trans_w else (K, N)
+    w = (torch.randn(wshape, generator=gen, device=dev) / math.sqrt(K)
+         ).to(dtype)
+    a = (torch.randn((K, r), generator=gen, device=dev) / math.sqrt(K)
+         ).to(dtype)
+    b = (0.1 * torch.randn((r, N), generator=gen, device=dev)).to(dtype)
+    return x, w, a, b
+
+
+def phase_lora_checks():
+    """C against its plain version: the SLM's and the LLM's projections at
+    the training M = 8 x 136, ragged M/N/K, the transposed-W mode of the
+    backward, and the autograd gradients (dx, dA, dB)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.lora_matmul import (lora_matmul_cuda,
+                                                 lora_matmul_plain)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    cases = {"slm_proj": (1088, 1280, 1280), "llm_proj": (1088, 4096, 4096),
+             "ragged": (1001, 1283, 771)}
+    results = {}
+    for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+        dt = str(dtype)[6:]
+        for name, (M, K, N) in cases.items():
+            x, w, a, b = lora_inputs(gen, M, K, N, 8, dtype)
+            got = lora_matmul_cuda(x, w, a, b, 2.0)
+            want = lora_matmul_plain(x, w, a, b, 2.0)
+            torch.cuda.synchronize()
+            results[f"{name}/{dt}"] = check_close(f"lora {name}/{dt}", got,
+                                                  want, tol)
+        # transposed W: dx = dy @ W^T + s (dy @ B^T) @ A^T at the LLM shape
+        dy, wt, bt, at = lora_inputs(gen, 1088, 4096, 4096, 8, dtype,
+                                     trans_w=True)
+        got = lora_matmul_cuda(dy, wt, bt, at, 2.0, trans_w=True)
+        want = lora_matmul_plain(dy, wt.t(), bt, at, 2.0)
+        torch.cuda.synchronize()
+        results[f"transposed_w/{dt}"] = check_close(
+            f"lora transposed/{dt}", got, want, tol)
+        # gradients through autograd at the SLM shape
+        x, w, a, b = lora_inputs(gen, 1088, 1280, 1280, 8, dtype)
+        g = torch.randn((1088, 1280), generator=gen, device="cuda").to(dtype)
+        grads = []
+        for fn in (ops.lora_matmul, lora_matmul_plain):
+            ins = [t.clone().requires_grad_(True) for t in (x, a, b)]
+            fn(ins[0], w, ins[1], ins[2], 2.0).backward(g)
+            grads.append([t.grad for t in ins])
+        torch.cuda.synchronize()
+        for n, got, want in zip(("dx", "dA", "dB"), *grads):
+            results[f"grad_{n}/{dt}"] = rel_check(f"lora {n}/{dt}", got,
+                                                  want, tol)
+    emit({"phase": "lora_matmul_vs_plain", "max_abs_err": results,
+          "tolerance": {"bfloat16": BF16_TOL, "float32": F32_TOL,
+                        "gradients": "relative to the largest |value|"}})
+
+
+def gram_inputs(gen, B, k, d, dtype):
+    import torch
+    vs = torch.randn((B, k, d), generator=gen, device="cuda")
+    mask = torch.rand((B, k), generator=gen, device="cuda") < 0.6
+    mask[:, 0] = True
+    vs = vs * mask[..., None]           # masked rows are all zero
+    vs[3, k - 1] = 0.0                  # a present row that is all zero
+    mask[3, k - 1] = True
+    return vs.to(dtype).contiguous(), mask.contiguous()
+
+
+GRAM_TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def phase_gram_checks():
+    """D against its plain version, forward and backward: k in {4, 8},
+    d = 1280, masked rows, all-zero rows, batches of 80 (the CCL loss's
+    2 x (1 + 4) x 8 candidate sets), 81 and 130 (no multiple of the
+    4-sample block)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.gram_volume import gram_log_volume_plain
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    results = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype)[6:]
+        for B, k in ((80, 4), (81, 4), (130, 8)):
+            vs, mask = gram_inputs(gen, B, k, 1280, dtype)
+            gout = torch.randn((B,), generator=gen, device="cuda")
+            outs, grads = [], []
+            for fn in (ops.gram_log_volume, gram_log_volume_plain):
+                v = vs.clone().requires_grad_(True)
+                y = fn(v, mask)
+                y.backward(gout)
+                outs.append(y.detach())
+                grads.append(v.grad)
+            torch.cuda.synchronize()
+            tag = f"B{B}_k{k}/{dt}"
+            results[f"fwd/{tag}"] = check_close(f"gram fwd {tag}", outs[0],
+                                                outs[1], GRAM_TOL)
+            tol = GRAM_TOL if dtype == torch.float32 else BF16_TOL
+            results[f"bwd/{tag}"] = rel_check(f"gram bwd {tag}", grads[0],
+                                              grads[1], tol)
+            if bool((grads[0][~mask] != 0).any()):
+                raise AssertionError(f"gram bwd {tag}: masked rows got a "
+                                     "gradient")
+    emit({"phase": "gram_log_volume_vs_plain", "max_abs_err": results,
+          "tolerance": {"forward": GRAM_TOL, "backward_float32": GRAM_TOL,
+                        "backward_bfloat16": BF16_TOL,
+                        "backward": "relative to each sample's largest "
+                                    "|gradient|"}})
+
+
+# ---------------------------------------------------------------------------
+# phase 7: one federated round at full width
+
+ROUND = dict(n_devices=3, local_steps_ccl=2, local_steps_amt=2,
+             server_steps=2, engine="loop", seed=0)
+CORPUS = dict(n_samples=1536, seq_len=128, vocab_size=50257, n_classes=8,
+              n_modalities=3, modality_dim=256, template_len=8)
+COUNTED = ("lora_matmul", "gram_log_volume", "gram_log_volume_backward",
+           "flash_attention")
+
+
+def counters():
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.gram_volume import (
+        gram_log_volume_backward_cuda, gram_log_volume_cuda)
+    from repro_torch.kernels.lora_matmul import lora_matmul_cuda
+    return dict(zip(COUNTED, (lora_matmul_cuda, gram_log_volume_cuda,
+                              gram_log_volume_backward_cuda,
+                              flash_attention_cuda)))
+
+
+def expected_round_launches(runner):
+    """Launches of B, C and D in one evaluated round, from the step
+    structure.  A trained pass of an L-layer model launches C 4L times
+    forward, 4L more when ``remat`` recomputes the layers in the backward,
+    and 4L for dx (3 fewer on a raw batch: layer 0's wq/wk/wv inputs are
+    the frozen embedding, which needs no gradient); B L times forward and
+    L more under remat (its interim backward launches nothing).  Each CCL
+    loss launches D once forward and once backward.  An eval batch is one
+    forward without autograd: 4L C and L B."""
+    cfg, s, l = runner.cfg, runner.slm.cfg, runner.llm.cfg
+
+    def trained(mc, prefix):
+        rem = 2 if mc.remat else 1
+        L = mc.n_layers
+        return 4 * L * rem + 4 * L - (0 if prefix else 3), L * rem
+
+    bs = cfg.batch_size
+    client_batches = sum(-(-t["tokens"].shape[0] // bs)
+                         for t in runner.priv_test)
+    server_batches = -(-runner.public_test["tokens"].shape[0] // bs)
+    device_steps = cfg.n_devices * (cfg.local_steps_ccl + cfg.local_steps_amt)
+    passes = [(s, True)] * device_steps + cfg.server_steps * [
+        (l, True), (l, False), (s, True), (s, False)]
+    c = sum(trained(m, p)[0] for m, p in passes)
+    b = sum(trained(m, p)[1] for m, p in passes)
+    c += 4 * (s.n_layers * client_batches + l.n_layers * server_batches)
+    b += s.n_layers * client_batches + l.n_layers * server_batches
+    d = cfg.n_devices * cfg.local_steps_ccl + cfg.server_steps
+    return {"lora_matmul": c, "flash_attention": b, "gram_log_volume": d,
+            "gram_log_volume_backward": d}
+
+
+def frozen_fingerprint(tree):
+    """(pointer, version counter, bit-pattern sum) of every frozen leaf."""
+    import torch
+    from repro_torch.core.lora import default_trainable, flatten
+    return {k: (t.data_ptr(), t._version,
+                int(torch.sum(t.view(torch.int16), dtype=torch.int64)))
+            for k, t in flatten(tree).items() if not default_trainable(k)}
+
+
+def trainable_copy(tree):
+    from repro_torch.core.lora import partition
+    return {k: v.clone() for k, v in partition(tree).items()}
+
+
+def round_models():
+    """The paper's SLM and LLM at full width, with one 1280-wide connector
+    latent on both: the reference's FederationSpec refuses the paper's
+    pair as published (SLM latent 1280, LLM latent 4096)."""
+    from repro_torch.configs.mlecs_paper import LLM, SLM
+    return (dataclasses.replace(SLM, connector_dim=1280),
+            dataclasses.replace(LLM, connector_dim=1280))
+
+
+def phase_training(device="cuda"):
+    import torch
+    from repro_torch.core.federated import FederatedConfig, FederatedRunner
+    from repro_torch.core.lora import default_trainable, flatten
+    from repro_torch.data.synthetic import synthetic_multimodal_corpus
+    from repro_torch.models.model import build_model
+
+    slm_cfg, llm_cfg = round_models()
+    corpus = synthetic_multimodal_corpus(
+        0, CORPUS["n_samples"], CORPUS["seq_len"], CORPUS["vocab_size"],
+        n_classes=CORPUS["n_classes"], n_modalities=CORPUS["n_modalities"],
+        modality_dim=CORPUS["modality_dim"],
+        template_len=CORPUS["template_len"])
+    fcfg = FederatedConfig(**ROUND)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner = FederatedRunner(fcfg, build_model(slm_cfg), build_model(llm_cfg),
+                             corpus, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    # step timers and metric sinks around the runner's steps
+    seconds = {"ccl": [], "amt": [], "seccl": []}
+    metrics = []
+    steps = {"ccl": runner.ccl_step, "amt": runner.amt_step,
+             "seccl": runner.se_step}
+
+    def timed(kind):
+        fn = steps[kind]
+
+        def run(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            seconds[kind].append(time.perf_counter() - t)
+            metrics.append({k: float(v) for k, v in out[-1].items()})
+            return out
+        return run
+    runner.ccl_step, runner.amt_step, runner.se_step = (
+        timed("ccl"), timed("amt"), timed("seccl"))
+
+    t0 = time.perf_counter()
+    pre = runner.evaluate()["summary"]
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+
+    trees = {"device_base": runner.cohort_base,
+             "server_slm": runner.server_slm,
+             "server_llm": runner.server_llm}
+    frozen0 = {n: frozen_fingerprint(t) for n, t in trees.items()}
+    train0 = {f"device{j}": trainable_copy(p)
+              for j, p in enumerate(runner.device_params)}
+    train0.update(server_slm=trainable_copy(runner.server_slm),
+                  server_llm=trainable_copy(runner.server_llm))
+
+    # the main path, counted
+    ctr = counters()
+    for fn in ctr.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = runner.run_round()
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in ctr.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    post = out["summary"]
+
+    # checks of the round
+    for m in metrics + [pre, post]:
+        bad = [k for k, v in m.items() if not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"non-finite {bad} in {m}")
+    for c in out["client"] + [out["server"]]:
+        if not all(math.isfinite(v) for v in c.values()):
+            raise AssertionError(f"non-finite eval metrics {c}")
+    for n, t in (("device_base", runner.cohort_base),
+                 ("server_slm", runner.server_slm),
+                 ("server_llm", runner.server_llm)):
+        if frozen_fingerprint(t) != frozen0[n]:
+            raise AssertionError(f"{n}: the frozen backbone changed")
+    base = flatten(runner.cohort_base)
+    for j, p in enumerate(runner.device_params):
+        for k, v in flatten(p).items():
+            if not default_trainable(k) and v is not base[k]:
+                raise AssertionError(f"device {j}: {k} is not the shared "
+                                     "backbone tensor")
+    now = {f"device{j}": p for j, p in enumerate(runner.device_params)}
+    now.update(server_slm=runner.server_slm, server_llm=runner.server_llm)
+    unmoved = [f"{n}:{k}" for n, leaves in train0.items()
+               for k, v in flatten(now[n]).items()
+               if k in leaves and torch.equal(v, leaves[k])]
+    if unmoved:
+        raise AssertionError(f"{len(unmoved)} trainable leaves did not "
+                             f"move, e.g. {unmoved[:5]}")
+    wsum = float(runner.agg_weights.sum())
+    if abs(wsum - 1.0) > 1e-6:
+        raise AssertionError(f"MMA weights sum to {wsum}")
+    want = expected_round_launches(runner)
+    if launches != want:
+        raise AssertionError(f"launches {launches} != expected {want}")
+    if runner.comm_stats["uplink_bytes"] <= 0:
+        raise AssertionError("no upload was counted")
+
+    def ms(kind):
+        return 1e3 * statistics.mean(seconds[kind])
+
+    training = {
+        "slm": slm_cfg.name, "llm": llm_cfg.name, "dtype": slm_cfg.dtype,
+        "connector_dim": slm_cfg.connector_dim, "remat": [slm_cfg.remat, llm_cfg.remat],
+        "round": dict(ROUND),
+        "batch_size": fcfg.batch_size, "lr": fcfg.lr, "rho": fcfg.rho,
+        "n_negatives": fcfg.n_negatives,
+        "tokens_per_sequence": CORPUS["seq_len"] + slm_cfg.n_soft_tokens,
+        "mma_weights": [float(w) for w in runner.agg_weights],
+        "ccl_step_ms": ms("ccl"), "amt_step_ms": ms("amt"),
+        "seccl_step_ms": ms("seccl"),
+        "steps": {k: len(v) for k, v in seconds.items()},
+        "round_wall_s": round_s, "eval_ms": 1e3 * eval_s,
+        "init_s": init_s,
+        "pre": {k: pre[k] for k in ("avg_ce", "server_ce", "avg_acc")},
+        "post": {k: post[k] for k in ("avg_ce", "server_ce", "avg_acc")},
+        "peak_mem_gb": peak_gb,
+        "launches_per_round": launches,
+        "uplink_bytes": runner.comm_stats["uplink_bytes"],
+        "downlink_bytes": runner.comm_stats["downlink_bytes"],
+        "first_step_metrics": metrics[0], "last_seccl_metrics": metrics[-1],
+    }
+    runner.ccl_step, runner.amt_step, runner.se_step = (
+        steps["ccl"], steps["amt"], steps["seccl"])
+    return runner, training, launches
+
+
+TRAIN_GROUPS = (("lora_matmul", ("lora_matmul_kernel",)),
+                ("gram_log_volume", ("gram_log_volume",)),
+                ("flash_attention_forward", ("flash_attention_kernel",)),
+                ("cublas", ("gemm", "xmma", "cutlass", "nvjet", "splitk",
+                            "sm90_")))
+INTERIM = "flash_attention.interim_backward"
+
+
+def _training_trace(prof, path):
+    """Kernel ms by group from the trace; kernels inside the GPU ranges of
+    the ``flash_attention.interim_backward`` annotation form their own
+    group (B's interim plain backward)."""
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text()).get("traceEvents", [])
+    ranges = [(float(ev["ts"]), float(ev["ts"]) + float(ev.get("dur", 0)))
+              for ev in events if ev.get("cat") == "gpu_user_annotation"
+              and ev.get("name") == INTERIM]
+    groups, busy = {}, 0.0
+    for ev in events:
+        if ev.get("ph") != "X" or ev.get("cat") not in (
+                "kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        dur = float(ev.get("dur", 0.0)) / 1e3
+        busy += dur
+        name = ev.get("name", "").lower()
+        group = next((g for g, keys in TRAIN_GROUPS
+                      if any(k in name for k in keys)), None)
+        if group is None or group == "cublas":
+            ts = float(ev.get("ts", 0.0))
+            if any(a <= ts < b for a, b in ranges):
+                group = "flash_attention_interim_backward"
+        group = group or "other"
+        groups[group] = groups.get(group, 0.0) + dur
+    return busy, groups, len(ranges)
+
+
+def phase_training_profile(runner):
+    """Profile one CCL step (device 0) and one SE-CCL step; the outputs
+    are dropped, so the runner's state does not change."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    out_dir = ROOT / "build" / "profile"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    pub = runner.pull("pub/0")
+    anchor = runner.anchors(pub)
+    server = runner.pull("server")
+    calls = {
+        "ccl_step": lambda: runner.ccl_step(
+            runner.device_params[0], runner.device_opt[0], pub, anchor),
+        "seccl_step": lambda: runner.se_step(
+            runner.server_llm, runner.server_slm, runner.server_llm_opt,
+            runner.server_slm_opt, server),
+    }
+    result = {}
+    for name, call in calls.items():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        busy, groups, n_ranges = _training_trace(
+            prof, out_dir / f"trace_{name}.json")
+        result[name] = {
+            "wall_ms": wall, "device_busy_ms": busy,
+            "device_idle_share": (1.0 - busy / wall) if busy
+            else "not measured",
+            "kernel_ms_by_group": groups,
+            "interim_backward_ranges": n_ranges}
+    return result
+
+
+def _bound(bytes_, flops, flop_rate=BF16_FLOP_PER_S):
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, flops / flop_rate
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def training_kernel_rows(launches):
+    """Rows for C and D at the round's shapes (bf16), from CUDA-graph
+    replay; bounds from these inputs."""
+    import torch
+    from repro_torch.kernels.gram_volume import (
+        gram_log_volume_backward_cuda, gram_log_volume_cuda,
+        gram_log_volume_plain)
+    from repro_torch.kernels.lora_matmul import (lora_matmul_cuda,
+                                                 lora_matmul_plain)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    dt = torch.bfloat16
+    rows = []
+
+    # C: the LLM's projections carry most of the round's C time; the
+    # SLM's forward and the LLM's dx (transposed W) are timed beside it
+    def c_case(M, K, N, r, trans_w):
+        x, w, a, b = lora_inputs(gen, M, K, N, r, dt, trans_w=trans_w)
+        ms = graph_ms(lambda i: lora_matmul_cuda(x, w, a, b, 2.0,
+                                                 trans_w=trans_w))
+        wt = w.t() if trans_w else w
+        plain = graph_ms(lambda i: lora_matmul_plain(x, wt, a, b, 2.0))
+        lib = graph_ms(lambda i: torch.matmul(x, wt))
+        got = lora_matmul_cuda(x, w, a, b, 2.0, trans_w=trans_w)
+        err = check_close("lora row", got, lora_matmul_plain(x, wt, a, b,
+                                                             2.0), BF16_TOL)
+        es = x.element_size()
+        bytes_ = (M * K + K * N + K * r + r * N + M * N) * es
+        flops = 2 * M * K * N + 2 * M * K * r + 2 * M * r * N
+        bound, by = _bound(bytes_, flops)
+        return {"ms": ms, "plain_ms": plain, "library_ms": lib,
+                "bound_ms": bound, "bound_by": by, "max_abs_err": err,
+                "shape": {"M": M, "K": K, "N": N, "r": r,
+                          "trans_w": trans_w, "dtype": str(dt)}}
+
+    main = c_case(1088, 4096, 4096, 8, False)
+    others = {"slm_forward": c_case(1088, 1280, 1280, 8, False),
+              "llm_dx_transposed_w": c_case(1088, 4096, 4096, 8, True)}
+    rows.append({
+        "name": "lora_matmul", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/lora_matmul.cu",
+        "replaces": "src/repro/kernels/lora_matmul.py:55",
+        "launches": launches["lora_matmul"],
+        "max_abs_err": max([main["max_abs_err"]]
+                           + [o["max_abs_err"] for o in others.values()]),
+        "tolerance": BF16_TOL,
+        **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "shape")},
+        "library_call": "torch.matmul(x, W): the dense part alone (no "
+                        "single PyTorch call computes the whole function)",
+        "at_other_shapes": others,
+    })
+
+    # D: the CCL loss's 2 x (1 + 4) x 8 = 80 candidate sets of 1 + 3 rows
+    B, k, d = 80, 4, 1280
+    vs, mask = gram_inputs(gen, B, k, d, dt)
+    gout = torch.randn((B,), generator=gen, device="cuda")
+    got = gram_log_volume_cuda(vs, mask)
+    err = check_close("gram row", got, gram_log_volume_plain(vs, mask),
+                      GRAM_TOL)
+    ms = graph_ms(lambda i: gram_log_volume_cuda(vs, mask))
+    plain = graph_ms(lambda i: gram_log_volume_plain(vs, mask))
+    bytes_ = B * k * d * vs.element_size() + B * k + B * 4
+    flops = B * (k * (k + 1) // 2 * 2 * d + k ** 3)
+    bound, by = _bound(bytes_, flops, 67e12)
+    rows.append({
+        "name": "gram_log_volume", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/gram_volume.cu",
+        "replaces": "src/repro/kernels/gram_volume.py:56",
+        "launches": launches["gram_log_volume"], "max_abs_err": err,
+        "tolerance": GRAM_TOL, "ms": ms, "plain_ms": plain,
+        "bound_ms": bound, "bound_by": by, "library_ms": None,
+        "shape": {"B": B, "k": k, "d": d, "dtype": str(dt)}})
+
+    vg = vs.clone().requires_grad_(True)
+    want = torch.autograd.grad(gram_log_volume_plain(vg, mask), vg, gout)[0]
+    got = gram_log_volume_backward_cuda(vs, mask, gout)
+    err = rel_check("gram bwd row", got, want, BF16_TOL)
+    ms = graph_ms(lambda i: gram_log_volume_backward_cuda(vs, mask, gout))
+
+    def plain_bwd(i):
+        v = vs.detach().requires_grad_(True)
+        return torch.autograd.grad(gram_log_volume_plain(v, mask), v, gout)
+    plain = graph_ms(plain_bwd)
+    bytes_ = 2 * B * k * d * vs.element_size() + B * k + B * 4
+    flops = B * (k * (k + 1) * d + 2 * k * k * d + 3 * k ** 3)
+    bound, by = _bound(bytes_, flops, 67e12)
+    rows.append({
+        "name": "gram_log_volume_backward", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/gram_volume.cu",
+        "replaces": "src/repro/kernels/gram_volume.py:56 (its gradient; "
+                    "the TPU kernel is forward only)",
+        "launches": launches["gram_log_volume_backward"],
+        "max_abs_err": err, "tolerance": "2e-2 + 1e-2 |x|, relative to each "
+        "sample's largest |gradient|", "ms": ms,
+        "plain_ms": plain, "plain_is": "autograd of the plain forward "
+        "(forward included)", "bound_ms": bound, "bound_by": by,
+        "library_ms": None,
+        "shape": {"B": B, "k": k, "d": d, "dtype": str(dt)}})
+    return rows
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -553,10 +1112,27 @@ def main() -> int:
     phase_build()
     phase_paged_checks()
     phase_flash_checks()
+    phase_flash_grad_check()
+    phase_lora_checks()
+    phase_gram_checks()
     engine, snap, launches, serving, reqs = phase_serving()
     emit({"serving": serving})
     emit({"profile": phase_profile(engine, reqs)})
     kernels = phase_numbers(engine, snap, launches)
+    del engine, snap, reqs
+    torch.cuda.empty_cache()
+    runner, training, train_launches = phase_training()
+    emit({"training": training})
+    emit({"training_profile": phase_training_profile(runner)})
+    del runner
+    torch.cuda.empty_cache()
+    for row in kernels:
+        if row["name"] == "flash_attention":
+            row["launches_by_path"] = {
+                "serving": row["launches"],
+                "training_round": train_launches["flash_attention"]}
+            row["launches"] += train_launches["flash_attention"]
+    kernels += training_kernel_rows(train_launches)
     emit({"kernels": kernels})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

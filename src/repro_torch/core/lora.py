@@ -1,12 +1,14 @@
-"""LoRA parameter handling (port of the serving part of ``repro.core.lora``).
+"""LoRA parameter handling and the trainable/frozen split (port of
+``repro.core.lora``, without the channel path).
 
 Params are nested dicts of tensors.  Their flat form is keyed by the
 '/'-joined paths of the reference's ``path_str`` (``layers/attn/wq``), the
-key space :mod:`repro_torch.interop` carries weights across in.
+key space :mod:`repro_torch.interop` carries weights across in.  The
+trainable subset is such a flat dict: gradients are taken over it only.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Callable, Dict, Sequence, Tuple
 
 import torch
 
@@ -42,6 +44,58 @@ def unflatten(flat: Dict[str, torch.Tensor]) -> dict:
 def is_lora_leaf(path: str) -> bool:
     """True for LoRA adapter leaves (``*_lora_a`` / ``*_lora_b``)."""
     return "_lora_a" in path or "_lora_b" in path
+
+
+def default_trainable(path: str) -> bool:
+    """The paper's AMT trainable set: LoRA adapters + the multimodal
+    connector + the (stub) frontend projector."""
+    return (is_lora_leaf(path) or path.startswith("connector")
+            or path.startswith("frontend"))
+
+
+def partition(params: dict,
+              predicate: Callable[[str], bool] = default_trainable
+              ) -> Dict[str, torch.Tensor]:
+    """The leaves whose path satisfies ``predicate``, as a flat dict."""
+    return {k: v for k, v in flatten(params).items() if predicate(k)}
+
+
+def combine(params: dict, trainable: Dict[str, torch.Tensor]) -> dict:
+    """A new tree with ``trainable``'s leaves put in; leaves without an
+    entry (a partial dict) pass through as the same tensors."""
+    def visit(tree, prefix):
+        return {k: visit(v, (*prefix, k)) if isinstance(v, dict)
+                else trainable.get(path_str((*prefix, k)), v)
+                for k, v in tree.items()}
+    return visit(params, ())
+
+
+def shared_keys(a: Dict[str, torch.Tensor], b: Dict[str, torch.Tensor]
+                ) -> Tuple[str, ...]:
+    """Keys present in both flat dicts with one shape and dtype."""
+    return tuple(sorted(
+        k for k, v in a.items()
+        if k in b and b[k].shape == v.shape and b[k].dtype == v.dtype))
+
+
+def stack_trees(trees: Sequence[dict]) -> dict:
+    """Stack identically-structured dicts of tensors on a new axis 0."""
+    first = trees[0]
+    return {k: stack_trees([t[k] for t in trees]) if isinstance(v, dict)
+            else torch.stack([t[k] for t in trees]) for k, v in first.items()}
+
+
+def n_params(tree: dict) -> int:
+    """Number of scalars in a (nested or flat) dict of tensors."""
+    return sum(v.numel() for v in flatten(tree).values())
+
+
+def communicated_fraction(params: dict,
+                          predicate: Callable[[str], bool] = is_lora_leaf
+                          ) -> float:
+    """Communicated parameters over all parameters (the count form of the
+    paper's Fig. 3 figure)."""
+    return n_params(partition(params, predicate)) / max(1, n_params(params))
 
 
 def merge_lora(params: dict, cfg) -> dict:

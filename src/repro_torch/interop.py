@@ -23,6 +23,14 @@ def params_from_numpy(flat: Dict[str, np.ndarray], device="cuda",
     ``dtype`` is the parameter dtype of the tree: a ``uint16`` leaf is a
     bfloat16 bit pattern when ``dtype`` is bfloat16; every floating leaf
     must already be in ``dtype`` (no silent casts)."""
+    return unflatten(leaves_from_numpy(flat, device, dtype))
+
+
+def leaves_from_numpy(flat: Dict[str, np.ndarray], device="cuda",
+                      dtype: torch.dtype = torch.bfloat16
+                      ) -> Dict[str, torch.Tensor]:
+    """:func:`params_from_numpy` without the nesting: a flat dict of
+    tensors, keyed as given."""
     out = {}
     for path, arr in flat.items():
         arr = np.array(arr)          # a writable copy the tensor owns
@@ -33,7 +41,7 @@ def params_from_numpy(flat: Dict[str, np.ndarray], device="cuda",
             if t.is_floating_point() and t.dtype != dtype:
                 raise TypeError(f"{path}: {t.dtype} leaf in a {dtype} tree")
         out[path] = t.to(device)
-    return unflatten(out)
+    return out
 
 
 def params_to_numpy(params: dict) -> Dict[str, np.ndarray]:

@@ -6,6 +6,11 @@ flash_attention``.  Unlike the TPU wrapper it takes the model layout
 (B, S, heads, D) and grouped KV heads directly: no transpose, no repeat,
 no padding.  :func:`flash_attention_cuda` counts its launches in
 ``flash_attention_cuda.launches``.
+
+The TPU kernel is forward only.  :func:`flash_attention_autograd` wraps the
+kernel in a ``torch.autograd.Function`` whose backward is INTERIM: it
+recomputes the attention with the plain version under autograd and
+differentiates that.  A hand-written backward kernel is later work.
 """
 from __future__ import annotations
 
@@ -17,7 +22,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import attention_ref
 
 __all__ = ["flash_attention_cuda", "flash_attention_plain",
-           "SUPPORTED_HEAD_DIMS"]
+           "flash_attention_autograd", "SUPPORTED_HEAD_DIMS"]
 
 SUPPORTED_HEAD_DIMS = (32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -87,3 +92,33 @@ def flash_attention_cuda(q, k, v, causal: bool = True, window: int = 0):
 
 
 flash_attention_cuda.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward through the kernel; INTERIM backward through the plain
+    version's autograd (recomputed, f32)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return flash_attention_cuda(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def backward(ctx, dout):
+        saved = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:3]
+        with torch.enable_grad(), torch.profiler.record_function(
+                "flash_attention.interim_backward"):
+            ins = [t.detach().requires_grad_(n) for t, n in zip(saved, needs)]
+            out = flash_attention_plain(*ins, causal=ctx.causal,
+                                        window=ctx.window)
+            wanted = [t for t in ins if t.requires_grad]
+            got = iter(torch.autograd.grad(out, wanted, dout))
+        grads = [next(got) if n else None for n in needs]
+        return (*grads, None, None)
+
+
+def flash_attention_autograd(q, k, v, causal: bool = True, window: int = 0):
+    """The kernel with gradients for q, k and v (interim plain backward)."""
+    return _FlashAttention.apply(q, k, v, causal, window)

@@ -4,8 +4,10 @@ embeddings.  Params are plain dicts of tensors in the reference's layout:
 weights are (in, out) and ``y = x @ W``.
 
 The cast points follow the reference: ``rms_norm`` computes in float32 and
-returns the input dtype, the projections and the MLP multiply in the param
-dtype, and ``unembed`` multiplies in the param dtype, then casts to float32.
+returns the input dtype, the MLP multiplies in the param dtype, and
+``unembed`` multiplies in the param dtype, then casts to float32.  An
+adapted projection sums in float32 and rounds once (the reference rounds
+each of its three products to the param dtype; equal at float32).
 """
 from __future__ import annotations
 
@@ -45,13 +47,16 @@ def init_lora(gen: torch.Generator, p: dict, name: str, in_dim: int,
 
 
 def proj(p: dict, name: str, x, cfg: ModelConfig):
-    """Linear projection with the optional unmerged LoRA update."""
-    y = x @ p[name]
+    """Linear projection with the optional unmerged LoRA update; with
+    adapter leaves present it is one fused ``ops.lora_matmul`` (kernel C
+    on the card), f32 sums rounded once."""
+    w = p[name]
     a = p.get(f"{name}_lora_a")
-    if a is not None:
-        y = y + (cfg.lora_alpha / cfg.lora_rank) * ((x @ a)
-                                                    @ p[f"{name}_lora_b"])
-    return y
+    if a is None:
+        return x @ w
+    y = ops.lora_matmul(x.reshape(-1, x.shape[-1]).contiguous(), w, a,
+                        p[f"{name}_lora_b"], cfg.lora_alpha / cfg.lora_rank)
+    return y.reshape(*x.shape[:-1], w.shape[1])
 
 
 # ---------------------------------------------------------------------------

@@ -3,6 +3,7 @@ dense family.
 
   bundle.init(gen)                                      -> params
   bundle.logits(params, batch)                          -> (logits, aux)
+  bundle.lm_loss(params, batch)                         -> (loss, metrics)
   bundle.init_paged(n_slots, n_pages, page_size, device)-> pstate
   bundle.prefill_paged(params, batch, true_len)         -> (last, pack, kv_len)
   bundle.insert_paged(pstate, pack, slot, page_ids)     -> pstate
@@ -17,8 +18,11 @@ from __future__ import annotations
 import functools
 from typing import Any, Callable, Dict, NamedTuple
 
+import torch
+
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import paged, transformer
+from repro_torch.models.layers import padded_vocab
 
 
 class ModelBundle(NamedTuple):
@@ -26,6 +30,7 @@ class ModelBundle(NamedTuple):
     cfg: ModelConfig
     init: Callable
     logits: Callable
+    lm_loss: Callable
     init_paged: Callable
     prefill_paged: Callable
     insert_paged: Callable
@@ -35,6 +40,15 @@ class ModelBundle(NamedTuple):
 def _prefix(params, cfg: ModelConfig, batch: Dict[str, Any]):
     """The embedding prefix: the ML-ECS soft prompt, if present."""
     return batch.get("prefix_embeds")
+
+
+def cross_entropy(logits, targets, mask, vocab_size: int):
+    """Token-level CE in f32 over the padded vocab, averaged over the
+    positions where ``mask`` is set (at least 1)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
 
 def build_model(cfg: ModelConfig) -> ModelBundle:
@@ -49,6 +63,21 @@ def build_model(cfg: ModelConfig) -> ModelBundle:
                                           _prefix(params, cfg, batch))
         return out, aux
 
+    def lm_loss(params, batch):
+        logits, aux = logits_fn(params, batch)
+        tokens = batch["tokens"]
+        S = tokens.shape[1]
+        P = logits.shape[1] - S               # prefix length
+        targets = tokens[:, 1:]
+        pred = logits[:, P:P + S - 1]
+        mask = batch.get("loss_mask")
+        mask = torch.ones(targets.shape, dtype=torch.float32,
+                          device=targets.device) if mask is None \
+            else mask[:, 1:]
+        ce = cross_entropy(pred, targets, mask, padded_vocab(cfg))
+        loss = ce + cfg.router_aux_weight * aux
+        return loss, {"ce": ce, "aux": aux}
+
     def prefill_paged_fn(params, batch, true_len):
         return paged.prefill_paged(params, cfg, batch, true_len)
 
@@ -57,7 +86,7 @@ def build_model(cfg: ModelConfig) -> ModelBundle:
         return paged.decode_paged(params, cfg, pstate, block_tables,
                                   seq_lens, tokens, active)
 
-    return ModelBundle(cfg, init, logits_fn,
+    return ModelBundle(cfg, init, logits_fn, lm_loss,
                        functools.partial(paged.init_paged, cfg),
                        prefill_paged_fn,
                        functools.partial(paged.insert_paged, cfg),

@@ -11,8 +11,10 @@ from __future__ import annotations
 from typing import List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.lora import stack_trees
 from repro_torch.models import layers as L
 
 
@@ -27,13 +29,6 @@ def require_dense(cfg: ModelConfig) -> None:
     if cfg.frontend:
         raise NotImplementedError(
             f"frontend={cfg.frontend!r} is not ported yet")
-
-
-def stack_trees(trees: List[dict]) -> dict:
-    """Stack identically-structured dicts of tensors on a new axis 0."""
-    first = trees[0]
-    return {k: stack_trees([t[k] for t in trees]) if isinstance(v, dict)
-            else torch.stack([t[k] for t in trees]) for k, v in first.items()}
 
 
 def layer_params(layers: dict, i: int) -> dict:
@@ -98,9 +93,14 @@ def forward(params, cfg: ModelConfig, tokens,
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     ks, vs = [], []
+    remat = cfg.remat and torch.is_grad_enabled()
     for i, w in enumerate(window_array(cfg)):
-        x, (k, v) = _block(layer_params(params["layers"], i), cfg, x,
-                           positions, w)
+        lp = layer_params(params["layers"], i)
+        if remat:      # jax.checkpoint of the scanned layer body
+            x, (k, v) = checkpoint(_block, lp, cfg, x, positions, w,
+                                   use_reentrant=False)
+        else:
+            x, (k, v) = _block(lp, cfg, x, positions, w)
         if collect_kv:
             ks.append(k)
             vs.append(v)

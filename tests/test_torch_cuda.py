@@ -13,6 +13,11 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_plain)
+from repro_torch.kernels.gram_volume import (gram_log_volume_backward_cuda,
+                                             gram_log_volume_cuda,
+                                             gram_log_volume_plain)
+from repro_torch.kernels.lora_matmul import (lora_matmul_cuda,
+                                             lora_matmul_plain)
 from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                  paged_attention_plain)
 from repro_torch.models.layers import BIG_WINDOW
@@ -86,3 +91,131 @@ def test_kernels_reject_what_they_do_not_take(gen):
     q = torch.randn((1, 8, 2, 64), device="cuda")
     with pytest.raises(TypeError):
         flash_attention_cuda(q, q.half(), q.half())
+
+
+# ---------------------------------------------------------------------------
+# kernel C: fused LoRA projection
+
+def _lora_inputs(gen, M, K, N, r, dtype):
+    x = torch.randn((M, K), generator=gen, device="cuda").to(dtype)
+    w = (torch.randn((K, N), generator=gen, device="cuda") / K ** 0.5).to(dtype)
+    a = (torch.randn((K, r), generator=gen, device="cuda") / K ** 0.5).to(dtype)
+    b = (0.1 * torch.randn((r, N), generator=gen, device="cuda")).to(dtype)
+    return x, w, a, b
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N,r", [
+    (64, 64, 64, 8),
+    (1088, 128, 192, 8),      # the training M = 8 x (8 + 128)
+    (37, 70, 45, 4),          # ragged M, N and K
+    (5, 3, 130, 32),          # K shorter than a tile, the largest rank
+])
+def test_lora_kernel_matches_plain(gen, dtype, M, K, N, r):
+    x, w, a, b = _lora_inputs(gen, M, K, N, r, dtype)
+    n = lora_matmul_cuda.launches
+    got = ops.lora_matmul(x, w, a, b, 2.0)
+    assert lora_matmul_cuda.launches == n + 1
+    want = lora_matmul_plain(x, w, a, b, 2.0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lora_kernel_transposed_w(gen, dtype):
+    """trans_w reads W (N, K) in place as the (K, N) operand."""
+    M, K, N, r = 50, 99, 77, 8
+    x, _, a, b = _lora_inputs(gen, M, K, N, r, dtype)
+    wt = torch.randn((N, K), generator=gen, device="cuda").to(dtype) / K ** 0.5
+    got = lora_matmul_cuda(x, wt, a, b, 0.5, trans_w=True)
+    want = lora_matmul_plain(x, wt.t(), a, b, 0.5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lora_kernel_gradients_match_plain_autograd(gen, dtype):
+    M, K, N, r = 67, 96, 80, 8
+    x, w, a, b = _lora_inputs(gen, M, K, N, r, dtype)
+    dy = torch.randn((M, N), generator=gen, device="cuda").to(dtype)
+    grads = []
+    for fn in (ops.lora_matmul, lora_matmul_plain):
+        xx, aa, bb = (t.clone().requires_grad_(True) for t in (x, a, b))
+        n = lora_matmul_cuda.launches
+        fn(xx, w, aa, bb, 2.0).backward(dy)
+        if fn is ops.lora_matmul:
+            assert lora_matmul_cuda.launches == n + 2     # forward and dx
+        grads.append([t.grad.float() for t in (xx, aa, bb)])
+    torch.cuda.synchronize()
+    tol = TOL[dtype] if dtype == torch.float32 else dict(atol=5e-2, rtol=2e-2)
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, **tol)
+
+
+# ---------------------------------------------------------------------------
+# kernel D: masked Gram log-volume, forward and backward
+
+def _gram_inputs(gen, B, k, d, dtype):
+    vs = torch.randn((B, k, d), generator=gen, device="cuda")
+    mask = torch.rand((B, k), generator=gen, device="cuda") < 0.7
+    mask[:, 0] = True
+    vs = vs * mask[..., None]          # masked rows are all zero
+    vs[1, k - 1] = 0.0                 # an unmasked all-zero row
+    mask[1, k - 1] = True
+    return vs.to(dtype), mask
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,k,d", [(7, 4, 1280), (130, 8, 1280), (3, 2, 33)])
+def test_gram_kernel_matches_plain(gen, dtype, B, k, d):
+    vs, mask = _gram_inputs(gen, B, k, d, dtype)
+    n = gram_log_volume_cuda.launches
+    got = ops.gram_log_volume(vs, mask)
+    assert gram_log_volume_cuda.launches == n + 1
+    want = gram_log_volume_plain(vs, mask)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,k,d", [(7, 4, 1280), (130, 8, 1280)])
+def test_gram_kernel_backward_matches_plain_autograd(gen, dtype, B, k, d):
+    vs, mask = _gram_inputs(gen, B, k, d, dtype)
+    gout = torch.randn((B,), generator=gen, device="cuda")
+    grads = []
+    for fn in (ops.gram_log_volume, gram_log_volume_plain):
+        v = vs.clone().requires_grad_(True)
+        n = gram_log_volume_backward_cuda.launches
+        fn(v, mask).backward(gout)
+        if fn is ops.gram_log_volume:
+            assert gram_log_volume_backward_cuda.launches == n + 1
+        grads.append(v.grad.float())
+    torch.cuda.synchronize()
+    # the unmasked all-zero row has r = 1e6: compare relative to the
+    # largest gradient of each sample
+    scale = grads[1].abs().amax(dim=(1, 2), keepdim=True).clamp(min=1.0)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(grads[0] / scale, grads[1] / scale,
+                               atol=tol, rtol=tol)
+    masked = ~mask
+    assert torch.all(grads[0][masked] == 0)
+
+
+def test_flash_attention_gradient_matches_plain_autograd(gen):
+    """B's interim backward (plain recompute) at an LLM training shape."""
+    q, k, v = (torch.randn((2, 136, 16, 256), generator=gen,
+                           device="cuda").to(torch.bfloat16) for _ in range(3))
+    do = torch.randn((2, 136, 16 * 256), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    grads = []
+    for fn in ("kernel", "plain"):
+        ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        if fn == "kernel":
+            out = ops.attention(*ins, causal=True, window=BIG_WINDOW)
+        else:
+            out = flash_attention_plain(*ins, True, 0).reshape(2, 136, -1)
+        out.backward(do)
+        grads.append([t.grad.float() for t in ins])
+    torch.cuda.synchronize()
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, atol=5e-2, rtol=2e-2)
