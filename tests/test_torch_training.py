@@ -33,6 +33,7 @@ from repro.models import layers as jlayers
 from repro.models.model import build_model as jbuild
 from repro.optim.adamw import adamw as jadamw
 from repro.optim.adamw import apply_updates as japply
+from repro.optim import schedule as jschedule
 from repro_torch import interop
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import ccl, gram, lora, mma, seccl
@@ -43,6 +44,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.gram_volume import gram_log_volume_plain
 from repro_torch.kernels.lora_matmul import lora_matmul_plain
 from repro_torch.models.model import build_model
+from repro_torch.optim import schedule
 from repro_torch.optim.adamw import adamw, apply_updates
 
 torch.set_num_threads(1)
@@ -335,6 +337,45 @@ def test_adamw_matches_jax_after_steps():
                                    atol=1e-6)
     np.testing.assert_allclose(_np(tp["b"]), np.asarray(jp["b"]), atol=1e-6)
     np.testing.assert_allclose(_np(tp["a"]), _np(jp["a"]), atol=1e-2)
+
+
+@pytest.mark.parametrize("name,args", [("constant", (3e-3,)),
+                                       ("cosine_warmup", (3e-3, 3, 12, 1e-4))])
+def test_schedules_and_scheduled_adamw_match_jax(name, args):
+    """The learning-rate schedules at steps 0-15 (f32, 1e-6 relative: the
+    two libraries' cos differ by an ulp or two), and
+    five AdamW steps with the schedule as ``lr`` (f32 params, 1e-6)."""
+    jsched, tsched = getattr(jschedule, name)(*args), \
+        getattr(schedule, name)(*args)
+    for step in range(16):
+        np.testing.assert_allclose(
+            _np(tsched(torch.tensor(step, dtype=torch.int32))),
+            np.asarray(jsched(jnp.asarray(step, jnp.int32))), rtol=1e-6,
+            err_msg=f"step {step}")
+    rng = np.random.RandomState(5)
+    p = {"a": rng.randn(4, 3).astype(np.float32)}
+    jp, tp = {"a": jnp.asarray(p["a"])}, {"a": _t(p["a"])}
+    jo, to = jadamw(jsched), adamw(tsched)
+    js, ts = jo.init(jp), to.init(tp)
+    for _ in range(5):
+        g = rng.randn(4, 3).astype(np.float32)
+        ju, js = jo.update({"a": jnp.asarray(g)}, js, jp)
+        jp = japply(jp, ju)
+        tu, ts = to.update({"a": _t(g)}, ts, tp)
+        tp = apply_updates(tp, tu)
+    np.testing.assert_allclose(_np(tp["a"]), np.asarray(jp["a"]), atol=1e-6)
+
+
+def test_communicated_fraction_matches_jax():
+    """Parameter counts and the communicated fraction of the toy model,
+    for the LoRA leaves and for the whole trainable set: exact."""
+    _, jp, _, tp = unified_pair(toy_cfg())
+    assert lora.n_params(tp) == jlora.n_params(jp)
+    for tpred, jpred in ((lora.is_lora_leaf, jlora.is_lora_leaf),
+                         (lora.default_trainable, jlora.default_trainable)):
+        got = lora.communicated_fraction(tp, tpred)
+        assert got == jlora.communicated_fraction(jp, jpred)
+        assert 0.0 < got < 1.0
 
 
 def test_mma_matches_jax():
