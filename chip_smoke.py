@@ -11,10 +11,16 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    lengths that end mid-page; bf16 and f32);
 3. holds the prefill attention kernel (B) against its plain version (SLM
    shapes at S in {32, 131, 256}, GQA, a window, Sq < Sk, D = 256), and
-   B's output and gradient against the plain version and its autograd at
-   the round's shapes (batch 8, S = 136; the SLM's and the LLM's heads;
-   bf16 and f32);
-4. holds the fused LoRA projection (C) against its plain version (the
+   B's output, log-sum-exp and backward kernels against the plain
+   versions (the explicit backward formulas and the plain forward's
+   autograd) at the round's shapes (batch 8, S = 136; the SLM's and the
+   LLM's heads; bf16 and f32) and in a GQA case with a window, Sq < Sk and
+   a ragged S, each row of a gradient relative to its own size;
+4. holds the wire codec's quantize / dequantize kernels (E, F) bit for bit
+   against their plain versions on the card and on a CPU copy (the
+   round's uplink and downlink tiles and ragged shapes, all-zero rows,
+   half-way ties, qmax 127 and 7, f32 and bf16), then the fused LoRA
+   projection (C) against its plain version (the
    SLM's and the LLM's projection shapes at M = 1088, ragged M/N/K, the
    transposed-W mode; bf16 and f32; dx, dA, dB against autograd) and the
    Gram log-volume (D), forward and backward (k in {4, 8}, d = 1280,
@@ -30,11 +36,17 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    ``FederatedRunner`` at full width (3 devices on ``mlecs-slm-720m``,
    ``mlecs-llm-6b`` on the server, both with a 1280-wide connector latent;
    bf16, random weights from a seed), checks losses, the frozen backbone,
-   the trained leaves, the MMA weights and the launch counters of B, C and
-   D against the counts the step structure gives, and prints a
-   ``{"training": ...}`` line; then profiles one CCL step and one SE-CCL
-   step into a ``{"training_profile": ...}`` line;
-8. prints a ``{"kernels": [...]}`` line (times from CUDA-graph replay,
+   the trained leaves, the MMA weights and the launch counters of B (with
+   its backward), C and D against the counts the step structure gives,
+   and prints a ``{"training": ...}`` line; then profiles one CCL step and
+   one SE-CCL step into a ``{"training_profile": ...}`` line;
+8. runs two rounds of the same federation over the int8 wire (error
+   feedback on, 1 CCL + 1 AMT + 1 SE-CCL step each, no evaluation) and
+   checks the exact bytes on the wire, the residuals and the decoded
+   uploads against their quantization steps, the devices' copies of the
+   decoded downlink and every launch counter, E and F included, into a
+   ``{"channel": ...}`` line;
+9. prints a ``{"kernels": [...]}`` line (times from CUDA-graph replay,
    bounds from this run's inputs).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
@@ -45,6 +57,7 @@ It imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import statistics
@@ -58,6 +71,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor-core peak
+F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 F32_TOL = dict(atol=2e-4, rtol=2e-4)
 # kernel and plain version both round one f32 result to bf16: <= 1-2 ulp
 BF16_TOL = dict(atol=2e-2, rtol=1e-2)
@@ -275,8 +289,6 @@ def phase_serving():
     from repro_torch.configs.mlecs_paper import SLM
     from repro_torch.core.connector import init_unified
     from repro_torch.core.lora import flatten, is_lora_leaf
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
-    from repro_torch.kernels.paged_attention import paged_attention_cuda
     from repro_torch.launch.serve_engine import EngineConfig, ServingEngine
     from repro_torch.models import transformer
     from repro_torch.models.layers import padded_vocab
@@ -311,8 +323,7 @@ def phase_serving():
                 dec=engine.decode_seconds, pre=engine.prefill_seconds)
 
     # the main path, counted
-    paged_attention_cuda.launches = 0
-    flash_attention_cuda.launches = 0
+    zero_counters()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     rids = [engine.submit(t, max_new=m, prefix_embeds=s) for t, m, s in reqs]
@@ -328,8 +339,11 @@ def phase_serving():
                     sd["active"].clone())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"paged_attention": paged_attention_cuda.launches,
-                "flash_attention": flash_attention_cuda.launches}
+    launches = read_counters()
+    others = {n: v for n, v in launches.items()
+              if v and n not in ("paged_attention", "flash_attention")}
+    if others:
+        raise AssertionError(f"serving launched other kernels: {others}")
     steps = engine.n_steps - base["steps"]
     prefills = engine.n_prefills - base["prefills"]
 
@@ -493,7 +507,7 @@ def phase_profile(engine, reqs):
 # ---------------------------------------------------------------------------
 # phase 6: numbers
 
-def phase_numbers(engine, snap, launches):
+def phase_numbers(engine, snap):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
@@ -535,7 +549,7 @@ def phase_numbers(engine, snap, launches):
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention.py:113",
-        "launches": launches["paged_attention"], "max_abs_err": err_a,
+        "max_abs_err": err_a,
         "tolerance": BF16_TOL, "ms": ms_a, "plain_ms": plain_a,
         "bound_ms": bound_a, "bound_by": by_a,
         "library_ms": None,
@@ -565,7 +579,7 @@ def phase_numbers(engine, snap, launches):
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:105",
-        "launches": launches["flash_attention"], "max_abs_err": err_b,
+        "max_abs_err": err_b,
         "tolerance": BF16_TOL, "ms": ms_b, "plain_ms": plain_b,
         "bound_ms": bound_b, "bound_by": by_b,
         "library_ms": lib_b,
@@ -596,47 +610,176 @@ def rel_check(name, got, want, tol, floor=0.0):
                                           float(scale.max())]}
 
 
+# B's gradients: each (position, head) row of D is held relative to its own
+# largest |value|, but to no less than a tenth of the tensor's largest.  A
+# query that sees one key (the first row under the causal mask) has a dq of
+# exactly zero in exact arithmetic; f32 leaves noise of ~1e-7 there (dS =
+# P (dP - delta) cancels), in the plain version as in the kernel.
+FLASH_GRAD_FLOOR = 0.1
+# bf16 kernel against the plain forward's autograd: the kernel forms
+# delta = rowsum(dO * O) from the bf16 output (as FlashAttention does),
+# the autograd from the f32 one, which moves dS by up to ~2^-9 sum|dO||O|
+# per row; dq's small rows feel it most (CPU emulation: 0.022 after the
+# floor at the round's shapes).
+FLASH_BF16_AUTOGRAD_TOL = dict(atol=5e-2, rtol=2e-2)
+
+
+def grad_rows(name, got, want, tol):
+    """rel_check with each (position, head) row of D as a row."""
+    D = want.shape[-1]
+    return rel_check(name, got.reshape(-1, D), want.reshape(-1, D), tol,
+                     floor=FLASH_GRAD_FLOOR)
+
+
 def phase_flash_grad_check():
-    """B's forward and its interim backward (plain recompute) against the
-    plain version and its autograd at the round's shapes: batch 8, 8 soft
-    + 128 tokens, the SLM's 20 heads of 64 and the LLM's 16 of 256."""
+    """B's forward, log-sum-exp and backward kernels against the plain
+    versions: the explicit backward formulas on the kernel's own output
+    and log-sum-exp, and the plain forward's autograd.  The round's
+    shapes (batch 8, 8 soft + 128 tokens, the SLM's 20 heads of 64 and the
+    LLM's 16 of 256) and a GQA case with a window, Sq < Sk and a ragged S;
+    bf16 and f32."""
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.kernels.flash_attention import flash_attention_plain
-    from repro_torch.models.layers import BIG_WINDOW
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward_cuda, flash_attention_backward_plain,
+        flash_attention_cuda, flash_attention_plain)
     gen = torch.Generator(device="cuda").manual_seed(6)
-    B, S = 8, 136
+    cases = {"slm": dict(B=8, Sq=136, Sk=136, H=20, K=20, D=64, window=0),
+             "llm": dict(B=8, Sq=136, Sk=136, H=16, K=16, D=256, window=0),
+             "gqa_window": dict(B=3, Sq=57, Sk=131, H=8, K=2, D=64,
+                                window=45)}
     results = {}
-    for model, H, D in (("slm", 20, 64), ("llm", 16, 256)):
+    for model, c in cases.items():
+        B, Sq, Sk, H, K, D, w = (c[n] for n in
+                                 ("B", "Sq", "Sk", "H", "K", "D", "window"))
         for dtype, tol in ((torch.bfloat16, BF16_TOL),
                            (torch.float32, F32_TOL)):
-            q, k, v = (torch.randn((B, S, H, D), generator=gen,
-                                   device="cuda").to(dtype) for _ in range(3))
-            do = torch.randn((B, S, H * D), generator=gen,
+            q = torch.randn((B, Sq, H, D), generator=gen,
+                            device="cuda").to(dtype)
+            k, v = (torch.randn((B, Sk, K, D), generator=gen,
+                                device="cuda").to(dtype) for _ in range(2))
+            do = torch.randn((B, Sq, H * D), generator=gen,
                              device="cuda").to(dtype)
+            tag = f"{model}/{str(dtype)[6:]}"
+            # the kernels end to end through autograd, then the plain
+            # forward's autograd
             outs, grads = [], []
             for kernel in (True, False):
                 ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+                n = flash_attention_backward_cuda.launches
                 if kernel:
-                    out = ops.attention(*ins, causal=True, window=BIG_WINDOW)
+                    out = ops.attention(*ins, causal=True, window=w)
                 else:
-                    out = flash_attention_plain(*ins, True, 0).reshape(
-                        B, S, H * D)
+                    out = flash_attention_plain(*ins, True, w).reshape(
+                        B, Sq, H * D)
                 out.backward(do)
+                if flash_attention_backward_cuda.launches != n + kernel:
+                    raise AssertionError(f"flash bwd {tag}: launches")
                 outs.append(out.detach())
                 grads.append([t.grad for t in ins])
+            # the backward kernels against the explicit formulas
+            o, lse = flash_attention_cuda(q, k, v, True, w, with_lse=True)
+            _, plain_lse = flash_attention_plain(q, k, v, True, w,
+                                                 with_lse=True)
+            dov = do.reshape(B, Sq, H, D)
+            got = flash_attention_backward_cuda(q, k, v, o, dov, lse, True, w)
+            want = flash_attention_backward_plain(q, k, v, o, dov, lse, True,
+                                                  w)
             torch.cuda.synchronize()
-            tag = f"{model}/{str(dtype)[6:]}"
             results[f"out/{tag}"] = check_close(f"flash fwd {tag}", *outs,
                                                 tol)
-            for n, g, w in zip("qkv", *grads):
-                results[f"d{n}/{tag}"] = check_close(f"flash grad d{n} {tag}",
-                                                     g, w, tol)
-    emit({"phase": "flash_attention_train_shapes_vs_plain",
-          "shapes": {"slm": [B, S, 20, 64], "llm": [B, S, 16, 256]},
-          "max_abs_err": results,
-          "tolerance": {"bfloat16": BF16_TOL, "float32": F32_TOL},
-          "backward": "interim: plain recompute under autograd"})
+            results[f"lse/{tag}"] = check_close(f"flash lse {tag}", lse,
+                                                plain_lse, LSE_TOL)
+            for i, n in enumerate("qkv"):
+                results[f"d{n}_vs_formulas/{tag}"] = grad_rows(
+                    f"flash bwd d{n} {tag}", got[i], want[i], tol)
+                results[f"d{n}_vs_autograd/{tag}"] = grad_rows(
+                    f"flash grad d{n} {tag}", grads[0][i], grads[1][i],
+                    tol if dtype == torch.float32
+                    else FLASH_BF16_AUTOGRAD_TOL)
+    emit({"phase": "flash_attention_backward_vs_plain",
+          "shapes": cases, "max_abs_err": results,
+          "tolerance": {"bfloat16": BF16_TOL, "float32": F32_TOL,
+                        "lse": LSE_TOL,
+                        "bfloat16_vs_autograd": FLASH_BF16_AUTOGRAD_TOL,
+                        "gradients": "on each (position, head) row of D "
+                                     "divided by the larger of its largest "
+                                     "|value| and 0.1 x the tensor's "
+                                     "(scale: smallest, largest divisor)"}})
+
+
+# log-sum-exp: both sides in f32 from the same inputs, summed in other orders
+LSE_TOL = dict(atol=1e-4, rtol=1e-5)
+
+
+def tile_rows(R, L, qmax, seed):
+    """(R, L) f32 wire tiles on the host: random rows over six decades of
+    scale, all-zero rows, and rows of exact half-way ties (absmax = qmax *
+    2^e makes the scale exactly 2^e, and (k + 1/2) * 2^e divides to
+    k + 1/2)."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    x = rng.randn(R, L) * 10.0 ** rng.uniform(-3, 2, (R, 1))
+    x[0] = 0.0
+    if R > 2:
+        x[R // 2] = 0.0
+    for i in range(1, R, 5):
+        e = 2.0 ** rng.randint(-6, 4)
+        x[i] = (rng.randint(1 - qmax, qmax - 1, L) + 0.5) * e
+        x[i, rng.randint(L)] = qmax * e * rng.choice([-1, 1])
+    return torch.from_numpy(x.astype(np.float32))
+
+
+def bits_equal(a, b) -> bool:
+    """Equal bit for bit (floats by their bit pattern), wherever they lie."""
+    import torch
+    a, b = a.detach().cpu().contiguous(), b.detach().cpu().contiguous()
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+QUANT_SHAPES = {"uplink": (8640, 128), "downlink": (2880, 128),
+                "ragged": (129, 131), "tiny": (7, 3), "one_row": (1, 257)}
+
+
+def phase_quantize_checks():
+    """E and F bit for bit against their plain versions, on the card and
+    on a CPU copy of the same inputs."""
+    import torch
+    from repro_torch.kernels.quantize import (dequantize_rows_cuda,
+                                              dequantize_rows_plain,
+                                              quantize_rows_cuda,
+                                              quantize_rows_plain)
+    checked = {}
+    for name, (R, L) in QUANT_SHAPES.items():
+        for qmax in (127, 7):
+            for dtype in (torch.float32, torch.bfloat16):
+                tag = f"{name}/q{qmax}/{str(dtype)[6:]}"
+                x = tile_rows(R, L, qmax, R + L + qmax).to(dtype)
+                xc = x.cuda()
+                q, s = quantize_rows_cuda(xc, qmax)
+                out = dequantize_rows_cuda(q, s)
+                for where, xr in (("card", xc), ("cpu", x)):
+                    pq, ps = quantize_rows_plain(xr, qmax)
+                    pout = dequantize_rows_plain(pq, ps)
+                    torch.cuda.synchronize()
+                    for what, a, b in (("codes", q, pq), ("scales", s, ps),
+                                       ("dequantized", out, pout)):
+                        if not bits_equal(a, b):
+                            raise AssertionError(
+                                f"quantize {tag}: {what} differ from the "
+                                f"plain version on the {where}")
+                if float(s[0]) != 0.0 or bool((q[0] != 0).any()):
+                    raise AssertionError(f"quantize {tag}: zero row")
+                ties = (x[1].float() / s[1].cpu()) if R > 1 else None
+                if ties is not None and not bool(
+                        (ties - ties.floor() == 0.5).any()):
+                    raise AssertionError(f"quantize {tag}: no tie was hit")
+                checked[tag] = True
+    emit({"phase": "quantize_vs_plain", "equal_bit_for_bit": checked,
+          "against": ["plain on the card", "plain on a CPU copy"]})
 
 
 def lora_inputs(gen, M, K, N, r, dtype, trans_w=False):
@@ -770,29 +913,48 @@ ROUND = dict(n_devices=3, local_steps_ccl=2, local_steps_amt=2,
              server_steps=2, engine="loop", seed=0)
 CORPUS = dict(n_samples=1536, seq_len=128, vocab_size=50257, n_classes=8,
               n_modalities=3, modality_dim=256, template_len=8)
-COUNTED = ("lora_matmul", "gram_log_volume", "gram_log_volume_backward",
-           "flash_attention")
-
-
 def counters():
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    """Every kernel wrapper of the port, by name (each counts its own
+    launches in ``.launches``)."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward_cuda, flash_attention_cuda)
     from repro_torch.kernels.gram_volume import (
         gram_log_volume_backward_cuda, gram_log_volume_cuda)
     from repro_torch.kernels.lora_matmul import lora_matmul_cuda
-    return dict(zip(COUNTED, (lora_matmul_cuda, gram_log_volume_cuda,
-                              gram_log_volume_backward_cuda,
-                              flash_attention_cuda)))
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    from repro_torch.kernels.quantize import (dequantize_rows_cuda,
+                                              quantize_rows_cuda)
+    return {"paged_attention": paged_attention_cuda,
+            "flash_attention": flash_attention_cuda,
+            "flash_attention_backward": flash_attention_backward_cuda,
+            "lora_matmul": lora_matmul_cuda,
+            "gram_log_volume": gram_log_volume_cuda,
+            "gram_log_volume_backward": gram_log_volume_backward_cuda,
+            "quantize_rows": quantize_rows_cuda,
+            "dequantize_rows": dequantize_rows_cuda}
 
 
-def expected_round_launches(runner):
-    """Launches of B, C and D in one evaluated round, from the step
-    structure.  A trained pass of an L-layer model launches C 4L times
-    forward, 4L more when ``remat`` recomputes the layers in the backward,
-    and 4L for dx (3 fewer on a raw batch: layer 0's wq/wk/wv inputs are
-    the frozen embedding, which needs no gradient); B L times forward and
-    L more under remat (its interim backward launches nothing).  Each CCL
-    loss launches D once forward and once backward.  An eval batch is one
-    forward without autograd: 4L C and L B."""
+def zero_counters():
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counters():
+    return {n: fn.launches for n, fn in counters().items()}
+
+
+def expected_round_launches(runner, evaluate=True):
+    """Launches of every kernel in one round (evaluated or not), from the
+    step structure.  A trained pass of an L-layer model launches C 4L
+    times forward, 4L more when ``remat`` recomputes the layers in the
+    backward, and 4L for dx (3 fewer on a raw batch: layer 0's wq/wk/wv
+    inputs are the frozen embedding, which needs no gradient); B L times
+    forward, L more under remat, and its backward L times.  Each CCL loss
+    launches D once forward and once backward.  An eval batch is one
+    forward without autograd: 4L C and L B.  A quantized channel encodes
+    each of the K LoRA leaves once on the uplink and once on the downlink
+    (E 2K) and decodes each of them on both (F 2K), plus once more for
+    the uplink's error feedback (F 3K)."""
     cfg, s, l = runner.cfg, runner.slm.cfg, runner.llm.cfg
 
     def trained(mc, prefix):
@@ -809,11 +971,17 @@ def expected_round_launches(runner):
         (l, True), (l, False), (s, True), (s, False)]
     c = sum(trained(m, p)[0] for m, p in passes)
     b = sum(trained(m, p)[1] for m, p in passes)
-    c += 4 * (s.n_layers * client_batches + l.n_layers * server_batches)
-    b += s.n_layers * client_batches + l.n_layers * server_batches
+    b_bwd = sum(m.n_layers for m, _ in passes)
+    if evaluate:
+        c += 4 * (s.n_layers * client_batches + l.n_layers * server_batches)
+        b += s.n_layers * client_batches + l.n_layers * server_batches
     d = cfg.n_devices * cfg.local_steps_ccl + cfg.server_steps
-    return {"lora_matmul": c, "flash_attention": b, "gram_log_volume": d,
-            "gram_log_volume_backward": d}
+    k = len(runner.up_like) if not runner.channel.is_identity else 0
+    return {"paged_attention": 0, "flash_attention": b,
+            "flash_attention_backward": b_bwd, "lora_matmul": c,
+            "gram_log_volume": d, "gram_log_volume_backward": d,
+            "quantize_rows": 2 * k,
+            "dequantize_rows": (3 if runner.channel.stateful else 2) * k}
 
 
 def frozen_fingerprint(tree):
@@ -839,24 +1007,47 @@ def round_models():
             dataclasses.replace(LLM, connector_dim=1280))
 
 
-def phase_training():
-    import torch
-    from repro_torch.core.federated import FederatedConfig, FederatedRunner
-    from repro_torch.core.lora import default_trainable, flatten
+def round_corpus():
     from repro_torch.data.synthetic import synthetic_multimodal_corpus
-    from repro_torch.models.model import build_model
-
-    slm_cfg, llm_cfg = round_models()
-    corpus = synthetic_multimodal_corpus(
+    return synthetic_multimodal_corpus(
         0, CORPUS["n_samples"], CORPUS["seq_len"], CORPUS["vocab_size"],
         n_classes=CORPUS["n_classes"], n_modalities=CORPUS["n_modalities"],
         modality_dim=CORPUS["modality_dim"],
         template_len=CORPUS["template_len"])
+
+
+def unmoved_leaves(before, runner):
+    """Trainable leaves (of ``trainable_copy`` snapshots) that did not
+    change since the snapshot."""
+    import torch
+    from repro_torch.core.lora import flatten
+    now = {f"device{j}": p for j, p in enumerate(runner.device_params)}
+    now.update(server_slm=runner.server_slm, server_llm=runner.server_llm)
+    return [f"{n}:{k}" for n, leaves in before.items()
+            for k, v in flatten(now[n]).items()
+            if k in leaves and torch.equal(v, leaves[k])]
+
+
+def snapshot_trainable(runner):
+    out = {f"device{j}": trainable_copy(p)
+           for j, p in enumerate(runner.device_params)}
+    out.update(server_slm=trainable_copy(runner.server_slm),
+               server_llm=trainable_copy(runner.server_llm))
+    return out
+
+
+def phase_training():
+    import torch
+    from repro_torch.core.federated import FederatedConfig, FederatedRunner
+    from repro_torch.core.lora import default_trainable, flatten
+    from repro_torch.models.model import build_model
+
+    slm_cfg, llm_cfg = round_models()
     fcfg = FederatedConfig(**ROUND)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     runner = FederatedRunner(fcfg, build_model(slm_cfg), build_model(llm_cfg),
-                             corpus, device="cuda")
+                             round_corpus(), device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
 
@@ -890,21 +1081,16 @@ def phase_training():
              "server_slm": runner.server_slm,
              "server_llm": runner.server_llm}
     frozen0 = {n: frozen_fingerprint(t) for n, t in trees.items()}
-    train0 = {f"device{j}": trainable_copy(p)
-              for j, p in enumerate(runner.device_params)}
-    train0.update(server_slm=trainable_copy(runner.server_slm),
-                  server_llm=trainable_copy(runner.server_llm))
+    train0 = snapshot_trainable(runner)
 
     # the main path, counted
-    ctr = counters()
-    for fn in ctr.values():
-        fn.launches = 0
+    zero_counters()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = runner.run_round()
     torch.cuda.synchronize()
     round_s = time.perf_counter() - t0
-    launches = {n: fn.launches for n, fn in ctr.items()}
+    launches = read_counters()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     post = out["summary"]
 
@@ -927,11 +1113,7 @@ def phase_training():
             if not default_trainable(k) and v is not base[k]:
                 raise AssertionError(f"device {j}: {k} is not the shared "
                                      "backbone tensor")
-    now = {f"device{j}": p for j, p in enumerate(runner.device_params)}
-    now.update(server_slm=runner.server_slm, server_llm=runner.server_llm)
-    unmoved = [f"{n}:{k}" for n, leaves in train0.items()
-               for k, v in flatten(now[n]).items()
-               if k in leaves and torch.equal(v, leaves[k])]
+    unmoved = unmoved_leaves(train0, runner)
     if unmoved:
         raise AssertionError(f"{len(unmoved)} trainable leaves did not "
                              f"move, e.g. {unmoved[:5]}")
@@ -976,9 +1158,10 @@ def phase_training():
 TRAIN_GROUPS = (("lora_matmul", ("lora_matmul_kernel",)),
                 ("gram_log_volume", ("gram_log_volume",)),
                 ("flash_attention_forward", ("flash_attention_kernel",)),
+                ("flash_attention_backward", ("flash_attention_bwd_",)),
                 ("cublas", ("gemm", "xmma", "cutlass", "nvjet", "splitk",
                             "sm90_")))
-# B's interim plain backward: every kernel inside this annotation's ranges
+# the range the earlier interim plain backward ran in: none may remain
 INTERIM = "flash_attention.interim_backward"
 
 
@@ -1010,6 +1193,10 @@ def phase_training_profile(runner):
             wall = (time.perf_counter() - t0) * 1e3
         busy, groups, top, n_ranges = _device_busy(
             prof, out_dir / f"trace_{name}.json", TRAIN_GROUPS, INTERIM)
+        if n_ranges:
+            raise AssertionError(f"{name}: {n_ranges} {INTERIM} ranges")
+        if not groups.get("flash_attention_backward"):
+            raise AssertionError(f"{name}: no backward kernel of B ran")
         result[name] = {
             "wall_ms": wall, "device_busy_ms": busy,
             "device_idle_share": (1.0 - busy / wall) if busy
@@ -1019,7 +1206,7 @@ def phase_training_profile(runner):
     return result
 
 
-def training_kernel_rows(launches):
+def training_kernel_rows():
     """Rows for C and D at the round's shapes (bf16), from CUDA-graph
     replay; bounds from these inputs."""
     import torch
@@ -1060,7 +1247,6 @@ def training_kernel_rows(launches):
         "name": "lora_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/lora_matmul.cu",
         "replaces": "src/repro/kernels/lora_matmul.py:55",
-        "launches": launches["lora_matmul"],
         "max_abs_err": max([main["max_abs_err"]]
                            + [o["max_abs_err"] for o in others.values()]),
         "tolerance": BF16_TOL,
@@ -1082,12 +1268,12 @@ def training_kernel_rows(launches):
     plain = graph_ms(lambda i: gram_log_volume_plain(vs, mask))
     bytes_ = B * k * d * vs.element_size() + B * k + B * 4
     flops = B * (k * (k + 1) // 2 * 2 * d + k ** 3)
-    bound, by = _bound(bytes_, flops, 67e12)
+    bound, by = _bound(bytes_, flops, F32_FLOP_PER_S)
     rows.append({
         "name": "gram_log_volume", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/gram_volume.cu",
         "replaces": "src/repro/kernels/gram_volume.py:56",
-        "launches": launches["gram_log_volume"], "max_abs_err": err,
+        "max_abs_err": err,
         "tolerance": GRAM_TOL, "ms": ms, "plain_ms": plain,
         "bound_ms": bound, "bound_by": by, "library_ms": None,
         "shape": {"B": B, "k": k, "d": d, "dtype": str(dt)}})
@@ -1105,13 +1291,12 @@ def training_kernel_rows(launches):
     plain = graph_ms(plain_bwd)
     bytes_ = 2 * B * k * d * vs.element_size() + B * k + B * 4
     flops = B * (k * (k + 1) * d + 2 * k * k * d + 3 * k ** 3)
-    bound, by = _bound(bytes_, flops, 67e12)
+    bound, by = _bound(bytes_, flops, F32_FLOP_PER_S)
     rows.append({
         "name": "gram_log_volume_backward", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/gram_volume.cu",
         "replaces": "src/repro/kernels/gram_volume.py:56 (its gradient; "
                     "the TPU kernel is forward only)",
-        "launches": launches["gram_log_volume_backward"],
         "max_abs_err": err["max_abs_err"], "max_rel_err": err["max_rel_err"],
         "grad_scale": err["scale"],
         "tolerance": "2e-2 + 1e-2 |x| on each sample divided by the larger "
@@ -1121,6 +1306,302 @@ def training_kernel_rows(launches):
         "library_ms": None,
         "shape": {"B": B, "k": k, "d": d, "dtype": str(dt)}})
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 8: two rounds over the int8 wire
+
+CHANNEL_ROUND = dict(n_devices=3, local_steps_ccl=1, local_steps_amt=1,
+                     server_steps=1, engine="loop", seed=0)
+CHANNEL_ROUNDS = 2
+# |x - deQ(Q(x))| <= scale / 2 exactly; f32 rounds x / scale and q * scale
+STEP_SLACK = 1e-4
+
+
+def wire_steps(ch, x, qmax):
+    """(tile rows of x, each row's quantization step) for a stacked
+    (N, ...) f32 tensor encoded by channel ``ch`` (plain version)."""
+    from repro_torch.kernels.quantize import quantize_rows_plain
+    rows = ch._to_rows(x.float())
+    return rows, quantize_rows_plain(rows, qmax)[1][:, None]
+
+
+def expected_comm_stats(runner, rounds):
+    """The int8 wire's bytes from the upload templates: per leaf and
+    client L codes and ceil(L / block) f32 scales."""
+    N, block = runner.cfg.n_devices, runner.channel.spec.block
+    leaves = [math.prod(t.shape[1:]) for t in runner.up_like.values()]
+    per_client = sum(n + 4 * -(-n // block) for n in leaves)
+    dense = sum(n * t.dtype.itemsize for n, t in
+                zip(leaves, runner.up_like.values()))
+    f32 = 4 * sum(leaves)
+    return {"codec": "int8", "rounds": rounds,
+            "uplink_bytes": rounds * N * per_client,
+            "uplink_dense_bytes": rounds * N * dense,
+            "uplink_f32_bytes": rounds * N * f32,
+            "uplink_ratio": dense / per_client,
+            "uplink_ratio_f32": f32 / per_client,
+            "downlink_bytes": rounds * per_client,
+            "uplink_client_bytes": {0: per_client}}
+
+
+def phase_channel():
+    """Two rounds of the round's federation over ChannelSpec("int8") with
+    error feedback, without evaluation; every kernel counted per round."""
+    import torch
+    from repro_torch.core.channel import ChannelSpec
+    from repro_torch.core.federated import FederatedConfig, FederatedRunner
+    from repro_torch.core.lora import is_lora_leaf, partition
+    from repro_torch.models.model import build_model
+
+    slm_cfg, llm_cfg = round_models()
+    spec = ChannelSpec(codec="int8")
+    fcfg = FederatedConfig(channel=spec, **CHANNEL_ROUND)
+    allocated_before = torch.cuda.memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    runner = FederatedRunner(fcfg, build_model(slm_cfg), build_model(llm_cfg),
+                             round_corpus(), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    N, qmax = fcfg.n_devices, 127
+
+    metrics = []
+    steps = {"ccl": runner.ccl_step, "amt": runner.amt_step,
+             "seccl": runner.se_step}
+
+    def logged(fn):
+        def run(*args):
+            out = fn(*args)
+            metrics.append({k: float(v) for k, v in out[-1].items()})
+            return out
+        return run
+    runner.ccl_step, runner.amt_step, runner.se_step = (
+        logged(steps["ccl"]), logged(steps["amt"]), logged(steps["seccl"]))
+
+    # what crosses the wire: the uplink's encoded input (uploads plus the
+    # carried residuals) and what the server decodes, and the downlink
+    ch, wire = runner.channel, {}
+    roundtrip, roundtrip_tree = ch.roundtrip, ch.roundtrip_tree
+
+    def rec_roundtrip(flat, state=None, rnd=0):
+        dec, new_state = roundtrip(flat, state, rnd)
+        if next(iter(flat.values())).shape[0] == N:
+            wire["up_in"] = {k: v.float() + (state[k] if state else 0.0)
+                             for k, v in flat.items()}
+            wire["up_dec"] = dec
+        return dec, new_state
+
+    def rec_tree(tree, rnd=0):
+        wire["down"] = roundtrip_tree(tree, rnd)
+        return wire["down"]
+    ch.roundtrip, ch.roundtrip_tree = rec_roundtrip, rec_tree
+
+    train0 = snapshot_trainable(runner)
+    K = len(runner.up_like)
+    rounds, total = [], {}
+    torch.cuda.reset_peak_memory_stats()
+    for r in range(CHANNEL_ROUNDS):
+        zero_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner.run_round(evaluate=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counters()
+        want = expected_round_launches(runner, evaluate=False)
+        if launches != want:
+            raise AssertionError(f"channel round {r}: launches {launches} "
+                                 f"!= expected {want}")
+        if (launches["quantize_rows"], launches["dequantize_rows"]) != \
+                (2 * K, 3 * K):
+            raise AssertionError(f"channel round {r}: E/F launches")
+        total = {n: total.get(n, 0) + v for n, v in launches.items()}
+
+        # residuals and decoded uploads against their tiles' steps
+        res_ratio = dec_ratio = 0.0
+        nonzero = 0
+        for k, x in wire["up_in"].items():
+            rows, step = wire_steps(ch, x, qmax)
+            e = ch._to_rows(runner.chan_state[k])
+            if bool((e.abs() > step * (0.5 + STEP_SLACK)).any()):
+                raise AssertionError(f"round {r} {k}: residual beyond half "
+                                     "a step")
+            nonzero += int((e != 0).sum())
+            d = ch._to_rows(wire["up_dec"][k].float())
+            # the decoded upload is rounded to the leaf's bf16 on decode
+            if bool(((d - rows).abs() > step * (0.5 + STEP_SLACK)
+                     + d.abs() * 2.0 ** -8).any()):
+                raise AssertionError(f"round {r} {k}: decoded upload beyond "
+                                     "half a step")
+            safe = step.clamp(min=1e-30)
+            res_ratio = max(res_ratio, float((e.abs() / safe).max()))
+            dec_ratio = max(dec_ratio, float(((d - rows).abs() / safe).max()))
+        if not nonzero:
+            raise AssertionError(f"round {r}: every residual is zero")
+
+        # the devices hold exactly the decoded downlink; the server SLM
+        # keeps its own (undecoded) values
+        for j, p in enumerate(runner.device_params):
+            ups = partition(p, is_lora_leaf)
+            if sorted(ups) != sorted(wire["down"]) or not all(
+                    bits_equal(ups[k].float(), v.float())
+                    for k, v in wire["down"].items()):
+                raise AssertionError(f"round {r}: device {j} does not hold "
+                                     "the decoded downlink")
+        srv = partition(runner.server_slm, is_lora_leaf)
+        if all(torch.equal(srv[k], v) for k, v in wire["down"].items()):
+            raise AssertionError(f"round {r}: the server SLM holds the "
+                                 "decoded downlink")
+        rounds.append({"wall_s": wall, "launches": launches,
+                       "max_residual_over_step": res_ratio,
+                       "max_decode_err_over_step": dec_ratio,
+                       "nonzero_residuals": nonzero})
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+
+    for m in metrics:
+        bad = [k for k, v in m.items() if not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"non-finite {bad} in {m}")
+    unmoved = unmoved_leaves(train0, runner)
+    if unmoved:
+        raise AssertionError(f"{len(unmoved)} trainable leaves did not "
+                             f"move, e.g. {unmoved[:5]}")
+    shapes = sorted({tuple(t.shape[1:]) for t in runner.up_like.values()})
+    stats = runner.comm_stats
+    want = expected_comm_stats(runner, CHANNEL_ROUNDS)
+    if stats != want:
+        raise AssertionError(f"comm_stats {stats} != {want}")
+    ch.roundtrip, ch.roundtrip_tree = roundtrip, roundtrip_tree
+    result = {
+        "slm": slm_cfg.name, "llm": llm_cfg.name, "dtype": slm_cfg.dtype,
+        "channel": dataclasses.asdict(spec), "round": dict(CHANNEL_ROUND),
+        "rounds": rounds, "evaluate": False, "init_s": init_s,
+        "peak_mem_gb": peak_gb, "allocated_before_gb": allocated_before,
+        "lora_leaves": K,
+        "lora_leaf_shapes": shapes, "comm_stats": stats,
+        "step_slack": STEP_SLACK, "steps": len(metrics),
+        "first_step_metrics": metrics[0], "last_step_metrics": metrics[-1],
+    }
+    return result, total
+
+
+def channel_kernel_rows():
+    """Rows for E, F and B's backward at the rounds' shapes, from CUDA-graph
+    replay; bounds from these inputs."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward_cuda, flash_attention_backward_plain,
+        flash_attention_cuda)
+    from repro_torch.kernels.quantize import (dequantize_rows_cuda,
+                                              dequantize_rows_plain,
+                                              quantize_rows_cuda,
+                                              quantize_rows_plain)
+    from repro_torch.models.layers import BIG_WINDOW
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    rows = []
+
+    # E and F: one LoRA leaf of the uplink, 3 clients x 2,880 tiles of 128
+    # f32 values (the leaf plus its residual)
+    R, L = QUANT_SHAPES["uplink"]
+    x = torch.randn((R, L), generator=gen, device="cuda") * 0.02
+    q, s = quantize_rows_cuda(x, 127)
+    pq, ps = quantize_rows_plain(x, 127)
+    if not (bits_equal(q, pq) and bits_equal(s, ps)):
+        raise AssertionError("quantize row: differs from the plain version")
+    ms = graph_ms(lambda i: quantize_rows_cuda(x, 127))
+    plain = graph_ms(lambda i: quantize_rows_plain(x, 127))
+    bound, by = _bound(R * L * 4 + R * L + 4 * R, 5 * R * L, F32_FLOP_PER_S)
+    rows.append({
+        "name": "quantize_rows", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/quantize.cu",
+        "replaces": "src/repro/kernels/quantize.py:49",
+        "max_abs_err": 0.0, "tolerance": "bit for bit", "ms": ms,
+        "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+        "library_ms": None,
+        "library_call": "none: no single PyTorch call computes per-row "
+                        "abs-max codes and scales",
+        "shape": {"R": R, "L": L, "qmax": 127, "dtype": str(x.dtype)}})
+
+    out = dequantize_rows_cuda(q, s)
+    if not bits_equal(out, dequantize_rows_plain(q, s)):
+        raise AssertionError("dequantize row: differs from the plain version")
+    ms = graph_ms(lambda i: dequantize_rows_cuda(q, s))
+    plain = graph_ms(lambda i: dequantize_rows_plain(q, s))
+    lib = graph_ms(lambda i: torch.mul(q, s[:, None]))
+    bound, by = _bound(R * L + 4 * R + 4 * R * L, R * L, F32_FLOP_PER_S)
+    rows.append({
+        "name": "dequantize_rows", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/quantize.cu",
+        "replaces": "src/repro/kernels/quantize.py:71",
+        "max_abs_err": 0.0, "tolerance": "bit for bit", "ms": ms,
+        "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+        "library_ms": lib, "library_call": "torch.mul(q, scale[:, None])",
+        "shape": {"R": R, "L": L, "dtype": "int8 -> float32"}})
+
+    # B's backward at the LLM's and the SLM's training shapes (bf16)
+    def b_case(B, S, H, D):
+        dt = torch.bfloat16
+        q, k, v, do = (torch.randn((B, S, H, D), generator=gen,
+                                   device="cuda").to(dt) for _ in range(4))
+        o, lse = flash_attention_cuda(q, k, v, True, BIG_WINDOW,
+                                      with_lse=True)
+        args = (q, k, v, o, do, lse, True, BIG_WINDOW)
+        got = flash_attention_backward_cuda(*args)
+        want = flash_attention_backward_plain(*args)
+        err = max((grad_rows("flash bwd row", g, w, BF16_TOL) for g, w in
+                   zip(got, want)), key=lambda e: e["max_rel_err"])
+        ms = graph_ms(lambda i: flash_attention_backward_cuda(*args))
+        plain = graph_ms(lambda i: flash_attention_backward_plain(*args))
+        # SDPA's backward: forward + backward less the forward alone
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                      for t in (q, k, v))
+        dot = do.transpose(1, 2).contiguous()
+
+        def sdpa(i):
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+        both = graph_ms(lambda i: torch.autograd.grad(sdpa(i), (qt, kt, vt),
+                                                      dot))
+        fwd = graph_ms(sdpa)
+        es = q.element_size()
+        n = B * S * H * D
+        bytes_ = 5 * n * es + B * H * S * 4 + 3 * n * es
+        flops = 10 * D * B * H * S * (S + 1) // 2
+        bound, by = _bound(bytes_, flops)
+        return {"ms": ms, "plain_ms": plain, "library_ms": both - fwd,
+                "library_fwd_bwd_ms": both, "library_fwd_ms": fwd,
+                "bound_ms": bound, "bound_by": by,
+                "max_abs_err": err["max_abs_err"],
+                "max_rel_err": err["max_rel_err"],
+                "shape": {"B": B, "S": S, "H": H, "K": H, "D": D,
+                          "dtype": str(dt)}}
+
+    main = b_case(8, 136, 16, 256)
+    rows.append({
+        "name": "flash_attention_backward", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:105 (its "
+                    "gradient; the TPU kernel is forward only)",
+        "tolerance": "2e-2 + 1e-2 |x| on each (position, head) row of D "
+                     "divided by the larger of its largest |gradient| and "
+                     "0.1 x the tensor's",
+        **main,
+        "bound_counts": "5 products over the visible pairs (2 recomputed, "
+                        "3 of the gradient)",
+        "library_call": "scaled_dot_product_attention(enable_gqa=True): "
+                        "forward + backward less the forward",
+        "at_other_shapes": {"slm": b_case(8, 136, 20, 64)}})
+    return rows
+
+
+def release():
+    """Free what the last phase left: its objects hold reference cycles
+    (a runner's step closures refer back to it), so collect them before
+    the caching allocator can return their memory."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1135,26 +1616,35 @@ def main() -> int:
     phase_paged_checks()
     phase_flash_checks()
     phase_flash_grad_check()
+    phase_quantize_checks()
     phase_lora_checks()
     phase_gram_checks()
     engine, snap, launches, serving, reqs = phase_serving()
     emit({"serving": serving})
     emit({"profile": phase_profile(engine, reqs)})
-    kernels = phase_numbers(engine, snap, launches)
+    kernels = phase_numbers(engine, snap)
     del engine, snap, reqs
-    torch.cuda.empty_cache()
+    release()
     runner, training, train_launches = phase_training()
     emit({"training": training})
     emit({"training_profile": phase_training_profile(runner)})
     del runner
-    torch.cuda.empty_cache()
+    release()
+    channel, channel_launches = phase_channel()
+    emit({"channel": channel})
+    release()
+    kernels += training_kernel_rows()
+    kernels += channel_kernel_rows()
+    # each row's launches: the counted runs of the main paths
+    paths = {"serving": launches, "training_round": train_launches,
+             "channel_rounds": channel_launches}
     for row in kernels:
-        if row["name"] == "flash_attention":
-            row["launches_by_path"] = {
-                "serving": row["launches"],
-                "training_round": train_launches["flash_attention"]}
-            row["launches"] += train_launches["flash_attention"]
-    kernels += training_kernel_rows(train_launches)
+        by_path = {p: n[row["name"]] for p, n in paths.items()
+                   if n[row["name"]]}
+        if not by_path:
+            raise AssertionError(f"{row['name']}: no launch on a main path")
+        row["launches_by_path"] = by_path
+        row["launches"] = sum(by_path.values())
     emit({"kernels": kernels})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

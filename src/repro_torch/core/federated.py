@@ -16,8 +16,10 @@ One cloud server (a unified LLM and a server-side SLM) and N edge devices
 
 Covered: one homogeneous cohort, ``engine="loop"``, the modes mlecs /
 fedavg / standalone, the ablations ``use_mma`` / ``use_seccl`` /
-``use_ccl``, both CCL scores, ``prox_weight``, the mean reduction, the
-identity channel.  Everything else raises ``NotImplementedError``.
+``use_ccl``, both CCL scores, ``prox_weight``, the mean reduction, and the
+identity, int8 and int4 channels (uploads cross the wire before MMA, the
+redistribution crosses it on the way down).  Everything else, the sketch
+codec included, raises ``NotImplementedError``.
 
 Every device shares ONE frozen backbone (the tensors of the cohort base);
 only its personal leaves (LoRA + connector) are its own.  Steps never
@@ -35,6 +37,7 @@ import torch
 from repro_torch import interop
 from repro_torch.core import ccl as ccl_lib
 from repro_torch.core import lora, mma, seccl
+from repro_torch.core.channel import ChannelSpec, TensorSpec
 from repro_torch.core.connector import latent_dim
 from repro_torch.core.spec import ENGINES, draw_masks, validate_protocol
 from repro_torch.data.multimodal import (paper_split, take_fraction,
@@ -61,9 +64,10 @@ def _ccl_weight(cfg: "FederatedConfig") -> float:
 @dataclasses.dataclass
 class FederatedConfig:
     """Hyperparameters of one federated simulation: the reference's fields
-    and defaults.  ``faults``, ``sampler`` and a non-identity ``channel``
-    are accepted here (as the reference's objects, opaque to the port) and
-    refused by :class:`FederatedRunner`."""
+    and defaults.  ``channel`` is a :class:`ChannelSpec` of the port (None
+    = identity).  ``faults`` and ``sampler`` are accepted here (as the
+    reference's objects, opaque to the port) and refused by
+    :class:`FederatedRunner`, as is the sketch codec."""
 
     n_devices: int = 3
     rounds: int = 5
@@ -88,7 +92,7 @@ class FederatedConfig:
     trim_frac: float = 0.2
     faults: Optional[Any] = None
     sampler: Optional[Any] = None
-    channel: Optional[Any] = None    # None (or an identity spec) only
+    channel: Optional[ChannelSpec] = None   # wire codec (None = identity)
 
     def __post_init__(self):
         if self.n_devices < 1:
@@ -106,10 +110,13 @@ def _refuse_unported(cfg: FederatedConfig, engine: str) -> None:
     if cfg.robust != "mean":
         raise NotImplementedError(
             f"robust={cfg.robust!r} MMA is not ported (mean only)")
-    if cfg.channel is not None and getattr(cfg.channel, "codec",
-                                           None) != "identity":
-        raise NotImplementedError(
-            "only the identity channel is ported (channel=None)")
+    if cfg.channel is not None:
+        if not isinstance(cfg.channel, ChannelSpec):
+            raise TypeError("channel must be repro_torch.core.channel."
+                            f"ChannelSpec; got {type(cfg.channel).__name__}")
+        if cfg.channel.codec == "sketch":
+            raise NotImplementedError(
+                "the sketch codec is not ported (identity, int8, int4)")
     if cfg.faults is not None:
         raise NotImplementedError("client faults are not ported (faults=None)")
     if cfg.sampler is not None:
@@ -202,13 +209,24 @@ class FederatedRunner:
                 "heterogeneous cohorts are not ported")
         self.last_global = dict(server_lora)
 
-        # identity channel: the dense leaf bytes cross the wire
-        self._uplink_client_bytes = sum(v.numel() * v.element_size()
-                                        for v in up0.values())
+        # the wire: the stacked upload templates, the error-feedback
+        # residuals (f32, (N, ...)) and the exact per-round byte costs
+        # (bytes_on_wire is linear in the client axis)
+        self.channel = (cfg.channel or ChannelSpec()).make()
+        self.up_like = {k: TensorSpec((N, *v.shape), v.dtype)
+                        for k, v in up0.items()}
+        self.chan_state = self.channel.init_state(self.up_like, self.device)
+        self._uplink_client_bytes = \
+            self.channel.bytes_on_wire(self.up_like) // N
+        self._dense_client_bytes = \
+            ChannelSpec().make().bytes_on_wire(self.up_like) // N
+        # the paper's Fig. 3 baseline is dense float32 uploads
         self._f32_client_bytes = 4 * sum(v.numel() for v in up0.values())
-        self._downlink_bytes = sum(v.numel() * v.element_size()
-                                   for v in server_lora.values())
-        self._bytes_up = self._bytes_up_f32 = self._bytes_down = 0
+        self._downlink_bytes = self.channel.bytes_on_wire(
+            {k: TensorSpec((1, *v.shape), v.dtype)
+             for k, v in server_lora.items()})
+        self._bytes_up = self._bytes_up_dense = 0
+        self._bytes_up_f32 = self._bytes_down = 0
         self.comm_log: List[Dict] = []
 
         self._streams = ClientStreams()
@@ -321,36 +339,52 @@ class FederatedRunner:
         return ccl_lib.server_anchors(self.server_llm, self.llm, batch)
 
     def _deliver(self, delivery: Dict[str, torch.Tensor]) -> None:
-        """Alg. 1 step 5: splice the delivery into every device."""
+        """Alg. 1 step 5: splice the (decoded) delivery into every device;
+        it is also the prox reference of the next round."""
         self.last_global = delivery
         self.device_params = [lora.combine(p, delivery)
                               for p in self.device_params]
 
+    def _encode_uploads(self, uploads: List[Dict]) -> Dict[str, torch.Tensor]:
+        """The uplink: every device's upload, stacked on the client axis,
+        crosses the channel; returns what the server receives (stacked)
+        and advances the error-feedback residuals."""
+        stacked = {k: torch.stack([u[k] for u in uploads])
+                   for k in uploads[0]}
+        # stateless codecs hold {} as their state and get {} back
+        dec, self.chan_state = self.channel.roundtrip(
+            stacked, self.chan_state, self._round_idx - 1)
+        return dec
+
     def _commit_comm(self) -> None:
-        """Account one round's bytes on the wire (identity codec): every
-        device's LoRA upload and one multicast downlink; standalone rounds
-        move nothing."""
+        """Account one round's exact bytes on the wire: every device's
+        encoded upload and one multicast downlink; standalone rounds move
+        nothing."""
+        rnd = self._round_idx - 1
         if self.cfg.mode == "standalone":
-            self.comm_log.append({"round": self._round_idx - 1,
-                                  "uplink": 0, "downlink": 0})
+            self.comm_log.append({"round": rnd, "uplink": 0, "downlink": 0})
             return
         N = self.cfg.n_devices
         up = N * self._uplink_client_bytes
         self._bytes_up += up
+        self._bytes_up_dense += N * self._dense_client_bytes
         self._bytes_up_f32 += N * self._f32_client_bytes
         self._bytes_down += self._downlink_bytes
-        self.comm_log.append({"round": self._round_idx - 1, "uplink": up,
+        self.comm_log.append({"round": rnd, "uplink": up,
                               "downlink": self._downlink_bytes})
 
     @property
     def comm_stats(self) -> Dict:
-        """Wire-traffic totals over the committed rounds (identity codec:
-        the dense leaf bytes)."""
-        up, f32 = int(self._bytes_up), int(self._bytes_up_f32)
-        return {"codec": "identity", "rounds": len(self.comm_log),
-                "uplink_bytes": up, "uplink_dense_bytes": up,
+        """Wire-traffic totals over the committed rounds: the codec, the
+        exact uplink and downlink bytes, what the same uploads would cost
+        dense (in their own dtype and in f32), and the ratios."""
+        up, dense = int(self._bytes_up), int(self._bytes_up_dense)
+        f32 = int(self._bytes_up_f32)
+        return {"codec": self.channel.spec.codec,
+                "rounds": len(self.comm_log),
+                "uplink_bytes": up, "uplink_dense_bytes": dense,
                 "uplink_f32_bytes": f32,
-                "uplink_ratio": 1.0 if up else float("inf"),
+                "uplink_ratio": (dense / up) if up else float("inf"),
                 "uplink_ratio_f32": (f32 / up) if up else float("inf"),
                 "downlink_bytes": int(self._bytes_down),
                 "uplink_client_bytes": {0: self._uplink_client_bytes}}
@@ -383,12 +417,14 @@ class FederatedRunner:
             self._commit_comm()
             return self._finalize_eval(client_eval) if evaluate else {}
 
-        # (3) MMA (Eq. 13): f32, left to right over the devices
-        agg = mma.aggregate_stacked(
-            {k: torch.stack([u[k] for u in uploads]) for k in uploads[0]},
-            self.agg_weights)
+        # the uplink wire, then (3) MMA (Eq. 13) over what the server
+        # received: f32, left to right over the devices.  The devices keep
+        # their own (undecoded) parameters.
+        agg = mma.aggregate_stacked(self._encode_uploads(uploads),
+                                    self.agg_weights)
+        rnd = self._round_idx - 1
         if cfg.mode == "fedavg":
-            self._deliver(agg)
+            self._deliver(self.channel.roundtrip_tree(agg, rnd))
             self._commit_comm()
             return self._finalize_eval(client_eval) if evaluate else {}
 
@@ -400,8 +436,10 @@ class FederatedRunner:
                  self.server_slm_opt, _) = self.se_step(
                     self.server_llm, self.server_slm, self.server_llm_opt,
                     self.server_slm_opt, self.pull("server"))
-        # (5) redistribute the server SLM's LoRA leaves
-        self._deliver(lora.partition(self.server_slm, lora.is_lora_leaf))
+        # (5) redistribute the server SLM's LoRA leaves through the
+        # downlink; the server SLM keeps its own values
+        self._deliver(self.channel.roundtrip_tree(
+            lora.partition(self.server_slm, lora.is_lora_leaf), rnd))
         self._commit_comm()
         return self._finalize_eval(client_eval) if evaluate else {}
 

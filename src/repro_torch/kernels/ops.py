@@ -2,9 +2,10 @@
 
 A tensor on the CPU takes the plain PyTorch version; a tensor on a CUDA
 device launches the hand-written kernel, or raises.  There is no switch
-and no fallback: the device of the input decides.  Every wrapper is
-differentiable: on the card through the kernels' ``autograd.Function``s,
-on the CPU through the plain versions' own autograd.
+and no fallback: the device of the input decides.  The model's wrappers
+are differentiable: on the card through the kernels'
+``autograd.Function``s, on the CPU through the plain versions' own
+autograd.  The wire codec's pair is forward only.
 """
 from __future__ import annotations
 
@@ -16,6 +17,10 @@ from repro_torch.kernels.lora_matmul import (lora_matmul_autograd,
                                              lora_matmul_plain)
 from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                  paged_attention_plain)
+from repro_torch.kernels.quantize import (dequantize_rows_cuda,
+                                          dequantize_rows_plain,
+                                          quantize_rows_cuda,
+                                          quantize_rows_plain)
 
 
 def attention(q, k, v, causal: bool = True, window: int = 0):
@@ -53,3 +58,16 @@ def paged_attention(q, k_pages, v_pages, block_tables, lens, window: int):
     fn = paged_attention_cuda if q.is_cuda else paged_attention_plain
     return fn(q, k_pages, v_pages, block_tables, lens, window).reshape(
         B, 1, H * D)
+
+
+def quantize(x, qmax: int = 127):
+    """Per-row symmetric abs-max quantization.  x: (R, L), one wire tile
+    per row -> (q int8 (R, L), scale f32 (R,))."""
+    fn = quantize_rows_cuda if x.is_cuda else quantize_rows_plain
+    return fn(x, qmax)
+
+
+def dequantize(q, scale):
+    """Inverse of :func:`quantize`: (R, L) int8 and (R,) f32 -> f32."""
+    fn = dequantize_rows_cuda if q.is_cuda else dequantize_rows_plain
+    return fn(q, scale)

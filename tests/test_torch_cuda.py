@@ -7,12 +7,14 @@ a machine that has only PyTorch; from the root of a checkout:
     python -m pytest -q --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda.py
 """
+import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import (flash_attention_cuda,
-                                                 flash_attention_plain)
+from repro_torch.kernels.flash_attention import (
+    flash_attention_backward_cuda, flash_attention_backward_plain,
+    flash_attention_cuda, flash_attention_plain)
 from repro_torch.kernels.gram_volume import (gram_log_volume_backward_cuda,
                                              gram_log_volume_cuda,
                                              gram_log_volume_plain)
@@ -20,6 +22,10 @@ from repro_torch.kernels.lora_matmul import (lora_matmul_cuda,
                                              lora_matmul_plain)
 from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                  paged_attention_plain)
+from repro_torch.kernels.quantize import (dequantize_rows_cuda,
+                                          dequantize_rows_plain,
+                                          quantize_rows_cuda,
+                                          quantize_rows_plain)
 from repro_torch.models.layers import BIG_WINDOW
 
 pytestmark = pytest.mark.cuda
@@ -206,9 +212,23 @@ def test_gram_kernel_backward_matches_plain_autograd(gen, dtype, B, k, d):
     assert torch.all(grads[0][masked] == 0)
 
 
+def _row_scaled(got, want):
+    """Each (position, head) row of D divided by its own largest |want|,
+    so that the tolerance is relative to the row and zeros fail, but by
+    no less than a tenth of the tensor's largest: a query that sees one
+    key has a dq of exactly zero, where f32 leaves ~1e-7 of noise (dS =
+    P (dP - delta) cancels)."""
+    D = want.shape[-1]
+    want, got = want.float().reshape(-1, D), got.float().reshape(-1, D)
+    scale = torch.maximum(want.abs().amax(dim=1, keepdim=True),
+                          0.1 * want.abs().max()).clamp(min=1e-30)
+    return got / scale, want / scale
+
+
 def test_flash_attention_gradient_matches_plain_autograd(gen):
-    """B's output and its interim backward (plain recompute) at an LLM
-    training shape."""
+    """B's output and its backward kernels against the plain version's
+    autograd at an LLM training shape (bf16, each row of D held relative
+    to its own size)."""
     q, k, v = (torch.randn((2, 136, 16, 256), generator=gen,
                            device="cuda").to(torch.bfloat16) for _ in range(3))
     do = torch.randn((2, 136, 16 * 256), generator=gen,
@@ -216,14 +236,103 @@ def test_flash_attention_gradient_matches_plain_autograd(gen):
     outs, grads = [], []
     for fn in ("kernel", "plain"):
         ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        n = flash_attention_backward_cuda.launches
         if fn == "kernel":
             out = ops.attention(*ins, causal=True, window=BIG_WINDOW)
         else:
             out = flash_attention_plain(*ins, True, 0).reshape(2, 136, -1)
         out.backward(do)
+        assert flash_attention_backward_cuda.launches == n + (fn == "kernel")
         outs.append(out.detach().float())
         grads.append([t.grad.float() for t in ins])
     torch.cuda.synchronize()
     torch.testing.assert_close(*outs, **TOL[torch.bfloat16])
+    # the kernel forms delta = rowsum(dO * O) from the bf16 output, the
+    # plain autograd from the f32 one
     for got, want in zip(*grads):
-        torch.testing.assert_close(got, want, atol=5e-2, rtol=2e-2)
+        torch.testing.assert_close(*_row_scaled(got, want), atol=5e-2,
+                                   rtol=2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,K,Sq,Sk,D,window", [
+    (8, 20, 20, 136, 136, 64, 0),      # the SLM in the round
+    (2, 16, 16, 136, 136, 256, 0),     # the LLM in the round
+    (2, 6, 2, 45, 131, 64, 37),        # GQA, a window, Sq < Sk, ragged
+    (1, 4, 1, 97, 97, 128, 0),         # MQA
+])
+def test_flash_backward_kernel_matches_plain(gen, dtype, B, H, K, Sq, Sk, D,
+                                             window):
+    """The backward kernels against the explicit formulas on the same
+    inputs (the kernel's own output and log-sum-exp), row-scaled."""
+    q = torch.randn((B, Sq, H, D), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((B, Sk, K, D), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    do = torch.randn((B, Sq, H, D), generator=gen, device="cuda").to(dtype)
+    o, lse = flash_attention_cuda(q, k, v, True, window, with_lse=True)
+    _, want_lse = flash_attention_plain(q, k, v, True, window, with_lse=True)
+    n = flash_attention_backward_cuda.launches
+    got = flash_attention_backward_cuda(q, k, v, o, do, lse, True, window)
+    assert flash_attention_backward_cuda.launches == n + 1
+    want = flash_attention_backward_plain(q, k, v, o, do, lse, True, window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+    tol = TOL[torch.float32] if dtype == torch.float32 else \
+        dict(atol=2e-2, rtol=1e-2)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype
+        torch.testing.assert_close(*_row_scaled(g, w), **tol)
+
+
+# ---------------------------------------------------------------------------
+# kernels E and F: the wire codec's quantize / dequantize pair
+
+def _tile_rows(R, L, qmax, seed):
+    """Random rows over six decades, all-zero rows and exact half-way ties
+    (absmax = qmax * 2^e makes the scale 2^e exactly)."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(R, L) * 10.0 ** rng.uniform(-3, 2, (R, 1))
+    x[0] = 0.0
+    for i in range(1, R, 5):
+        e = 2.0 ** rng.randint(-6, 4)
+        x[i] = (rng.randint(1 - qmax, qmax - 1, L) + 0.5) * e
+        x[i, rng.randint(L)] = qmax * e
+    return torch.from_numpy(x.astype(np.float32))
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qmax", [127, 7])
+@pytest.mark.parametrize("R,L", [(8640, 128), (2880, 128), (129, 131),
+                                 (7, 3), (1, 257)])
+def test_quantize_kernels_equal_plain_bitwise(gen, dtype, qmax, R, L):
+    x = _tile_rows(R, L, qmax, R + L + qmax).to(dtype)
+    xc = x.cuda()
+    n = (quantize_rows_cuda.launches, dequantize_rows_cuda.launches)
+    q, s = ops.quantize(xc, qmax)
+    out = ops.dequantize(q, s)
+    assert (quantize_rows_cuda.launches,
+            dequantize_rows_cuda.launches) == (n[0] + 1, n[1] + 1)
+    for ref_x in (xc, x):                   # plain on the card, on the CPU
+        pq, ps = quantize_rows_plain(ref_x, qmax)
+        pout = dequantize_rows_plain(pq, ps)
+        torch.cuda.synchronize()
+        assert torch.equal(q.cpu(), pq.cpu())
+        assert torch.equal(_bits(s).cpu(), _bits(ps).cpu())
+        assert torch.equal(_bits(out).cpu(), _bits(pout).cpu())
+    assert s[0].item() == 0.0 and bool((q[0] == 0).all())
+
+
+def test_quantize_kernels_reject_what_they_do_not_take(gen):
+    with pytest.raises(TypeError):
+        quantize_rows_cuda(torch.zeros((4, 8), dtype=torch.float16,
+                                       device="cuda"))
+    with pytest.raises(ValueError, match="qmax"):
+        quantize_rows_cuda(torch.zeros((4, 8), device="cuda"), 200)
+    with pytest.raises(ValueError):
+        dequantize_rows_cuda(torch.zeros((4, 8), dtype=torch.int8,
+                                         device="cuda"),
+                             torch.zeros((3,), device="cuda"))

@@ -528,10 +528,11 @@ def test_attention_gradient_matches_jax(window):
 
 def test_kernel_autograd_wrappers_with_plain_launches(monkeypatch):
     """The autograd Functions the card runs (forward and dx through kernel
-    C with W read transposed, f32 dA/dB; D's backward entry; B's interim
-    backward), driven on the CPU with every launch replaced by the plain
-    version: their gradients equal the plain versions' autograd (f32,
-    1e-5), and a frozen W that asks for a gradient is refused."""
+    C with W read transposed, f32 dA/dB; D's backward entry; B's forward
+    with its log-sum-exp and B's backward entry), driven on the CPU with
+    every launch replaced by the plain version: their gradients equal the
+    plain versions' autograd (f32, 1e-5), and a frozen W that asks for a
+    gradient is refused."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gram_volume as gv
     from repro_torch.kernels import lora_matmul as lm
@@ -548,6 +549,8 @@ def test_kernel_autograd_wrappers_with_plain_launches(monkeypatch):
     monkeypatch.setattr(gv, "gram_log_volume_cuda", gv.gram_log_volume_plain)
     monkeypatch.setattr(gv, "gram_log_volume_backward_cuda", gram_bwd_launch)
     monkeypatch.setattr(fa, "flash_attention_cuda", fa.flash_attention_plain)
+    monkeypatch.setattr(fa, "flash_attention_backward_cuda",
+                        fa.flash_attention_backward_plain)
 
     x, w, a, b = (_t(v) for v in _lora_np(21, 30, 17, 4, seed=3))
     dy = _t(np.random.RandomState(4).randn(21, 17))
