@@ -24,7 +24,11 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    SLM's and the LLM's projection shapes at M = 1088, ragged M/N/K, the
    transposed-W mode; bf16 and f32; dx, dA, dB against autograd) and the
    Gram log-volume (D), forward and backward (k in {4, 8}, d = 1280,
-   masked and all-zero rows, a batch that is no multiple of the block);
+   masked and all-zero rows, a batch that is no multiple of the block),
+   then the SSD chunk scan (G) at mamba2's and hymba's shapes, with two
+   groups, over several chunks and at toy sizes (bf16 and f32), the whole
+   ``ops.ssd_chunked`` against the token-by-token recurrence at ragged S
+   of 1, 2 and 3 chunks, and G's output at a large |A| dt;
 5. serves 48 soft-prompted requests through ``ServingEngine`` at the full
    width of ``mlecs-slm-720m`` (bf16, random weights from a seed), checks
    every budget, the free lists and both launch counters, then checks the
@@ -46,8 +50,18 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    uploads against their quantization steps, the devices' copies of the
    decoded downlink and every launch counter, E and F included, into a
    ``{"channel": ...}`` line;
-9. prints a ``{"kernels": [...]}`` line (times from CUDA-graph replay,
-   bounds from this run's inputs).
+9. serves 24 soft-prompted requests each on ``mamba2-2.7b`` (prompts of
+   20-700 tokens, no pages) and ``hymba-1.5b`` (20-1200, the window
+   bites) at full width, checks budgets, free lists and exact launch
+   counts (G 64 per mamba2 admission; B and G 32 per hymba admission,
+   A 32 per decode step), holds prefill -> decode at exact length against
+   a full forward on the served weights upcast to f32 (and the bf16 run
+   inside the bf16 forward's own distance from f32), profiles an
+   admission tick and four decode steps, and prints ``{"ssm_serving":
+   ...}`` and ``{"hybrid_serving": ...}`` lines;
+10. prints ``{"phase_seconds": ...}`` and a ``{"kernels": [...]}`` line
+   (times from CUDA-graph replay, bounds from this run's inputs; rows
+   A-G, each with its launches on the main paths).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero and prints no result; it also exits
@@ -78,6 +92,7 @@ BF16_TOL = dict(atol=2e-2, rtol=1e-2)
 # paged decode vs full forward at bf16 (tests/test_serving.py's bound):
 # the two paths round bf16 products at different shapes
 E2E_TOL = dict(atol=6e-2, rtol=5e-2)
+NO_TOL = dict(atol=math.inf, rtol=0.0)     # measure only (finite values)
 
 CARD = {}
 
@@ -256,31 +271,33 @@ def phase_flash_checks():
 N_REQUESTS = 48
 
 
-def make_requests(cfg, params, seed=0):
-    """48 prompts (lengths 20-240, budgets 16-64) with 8-token soft prompts
-    from the connector on random modality features and availability."""
+def make_requests(cfg, params, seed=0, n=N_REQUESTS, lo=20, hi=240,
+                  fixed=()):
+    """``n`` prompts (lengths lo-hi, the first ones set to ``fixed``,
+    budgets 16-64) with 8-token soft prompts from the connector on random
+    modality features and availability."""
     import numpy as np
     import torch
     from repro_torch.core.connector import connector_prefix
     rng = np.random.RandomState(seed)
-    lens = rng.randint(20, 241, N_REQUESTS)
-    budgets = rng.randint(16, 65, N_REQUESTS)
-    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
-               for n in lens]
-    feats = rng.randn(N_REQUESTS, cfg.n_modalities,
-                      cfg.modality_dim).astype(np.float32)
-    mask = rng.rand(N_REQUESTS, cfg.n_modalities) < 0.6
+    lens = rng.randint(lo, hi + 1, n)
+    lens[:len(fixed)] = fixed
+    budgets = rng.randint(16, 65, n)
+    prompts = [rng.randint(0, cfg.vocab_size, k).astype(np.int32)
+               for k in lens]
+    feats = rng.randn(n, cfg.n_modalities, cfg.modality_dim).astype(np.float32)
+    mask = rng.rand(n, cfg.n_modalities) < 0.6
     for i in np.nonzero(~mask.any(1))[0]:
         mask[i, rng.randint(cfg.n_modalities)] = True
     with torch.no_grad():
         soft, _, _ = connector_prefix(params["connector"], cfg,
                                       torch.from_numpy(feats).cuda(),
                                       torch.from_numpy(mask).cuda())
-    if soft.shape != (N_REQUESTS, cfg.n_soft_tokens, cfg.d_model):
+    if soft.shape != (n, cfg.n_soft_tokens, cfg.d_model):
         raise AssertionError(f"soft prompt shape {tuple(soft.shape)}")
     if not torch.isfinite(soft.float()).all():
         raise AssertionError("non-finite soft prompt")
-    return [(prompts[i], int(budgets[i]), soft[i]) for i in range(N_REQUESTS)]
+    return [(prompts[i], int(budgets[i]), soft[i]) for i in range(n)]
 
 
 def phase_serving():
@@ -386,15 +403,18 @@ def phase_serving():
         "launches_per_prefill": launches["flash_attention"] / prefills,
     }
 
-    e2e_err = prefill_decode_consistency(bundle, merged, reqs[0][2])
+    e2e_err, _ = prefill_decode_consistency(bundle, merged, reqs[0][2])
     serving["prefill_vs_decode_max_abs_err"] = e2e_err
     return engine, snap, launches, serving, reqs
 
 
-def prefill_decode_consistency(bundle, params, soft, S=100, K=8, pad=28):
-    """tests/test_serving.py's contract at full width: prefill a padded
-    prompt, seat it in slot 1, decode K teacher-forced tokens and hold
-    every step's logits against one full forward over the same tokens."""
+def prefill_decode_consistency(bundle, params, soft, S=100, K=8, pad=28,
+                               tol=E2E_TOL):
+    """tests/test_serving.py's contract at full width: prefill a prompt
+    (padded by ``pad``; the recurrent families take pad 0), seat it in
+    slot 1, decode K teacher-forced tokens and hold every step's logits
+    against one full forward over the same tokens (``tol`` None: measure
+    only).  Returns (the largest error, the full forward's logits)."""
     import torch
     from repro_torch.models.paged import pages_for
     cfg = bundle.cfg
@@ -406,17 +426,18 @@ def prefill_decode_consistency(bundle, params, soft, S=100, K=8, pad=28):
     ps = 16
     with torch.no_grad():
         full, _ = bundle.logits(params, {"tokens": toks, "prefix_embeds": prefix})
-        pstate = bundle.init_paged(2, 64, ps, "cuda")
+        n_pg = pages_for(P + S + pad + K, ps)
+        pstate = bundle.init_paged(2, n_pg + 1, ps, "cuda")
         pre = torch.nn.functional.pad(toks[:, :S], (0, pad))
         last, pack, kv_len = bundle.prefill_paged(
             params, {"tokens": pre, "prefix_embeds": prefix}, S)
         errs = [check_close("prefill last logits", last[0], full[0, P + S - 1],
-                            E2E_TOL)]
+                            tol or NO_TOL)]
         slot = 1
-        n_pg = pages_for(P + S + pad + K, ps)
         page_ids = torch.arange(1, 1 + n_pg, device="cuda")
         pstate = bundle.insert_paged(pstate, pack, slot, page_ids)
-        bt = torch.zeros((2, 32), dtype=torch.int32, device="cuda")
+        bt = torch.zeros((2, max(n_pg, 32)), dtype=torch.int32,
+                         device="cuda")
         bt[slot, :n_pg] = page_ids.int()
         seq_lens = torch.zeros((2,), dtype=torch.int32, device="cuda")
         seq_lens[slot] = kv_len
@@ -427,9 +448,9 @@ def prefill_decode_consistency(bundle, params, soft, S=100, K=8, pad=28):
             logits, pstate = bundle.decode_paged(params, pstate, bt, seq_lens,
                                                  tok, active)
             errs.append(check_close(f"decode step {i}", logits[slot],
-                                    full[0, P + S + i], E2E_TOL))
+                                    full[0, P + S + i], tol or NO_TOL))
             seq_lens = seq_lens + active.int()
-    return max(errs)
+    return max(errs), full
 
 
 # ---------------------------------------------------------------------------
@@ -437,6 +458,7 @@ def prefill_decode_consistency(bundle, params, soft, S=100, K=8, pad=28):
 
 KERNEL_GROUPS = (("paged_attention", ("paged_attention_kernel",)),
                  ("flash_attention", ("flash_attention_kernel",)),
+                 ("ssd_chunk", ("ssd_chunk_kernel",)),
                  ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "splitk")))
 
 
@@ -475,7 +497,7 @@ def _device_busy(prof, path, groups_table, annotation=None):
                           for k, (c, t) in top], len(ranges)
 
 
-def phase_profile(engine, reqs):
+def phase_profile(engine, reqs, tag=""):
     """Profile one admission tick (16 prefills + 1 decode step) and then
     4 decode steps of 16 busy slots: wall time against kernel time."""
     import torch
@@ -495,7 +517,7 @@ def phase_profile(engine, reqs):
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
         busy, groups, top, _ = _device_busy(
-            prof, out_dir / f"trace_{window}.json", KERNEL_GROUPS)
+            prof, out_dir / f"trace_{tag}{window}.json", KERNEL_GROUPS)
         result[window] = {
             "ticks": n_ticks, "wall_ms": wall, "device_busy_ms": busy,
             "device_idle_share": (1.0 - busy / wall) if busy else "not measured",
@@ -924,6 +946,7 @@ def counters():
     from repro_torch.kernels.paged_attention import paged_attention_cuda
     from repro_torch.kernels.quantize import (dequantize_rows_cuda,
                                               quantize_rows_cuda)
+    from repro_torch.kernels.ssd_scan import ssd_chunk_cuda
     return {"paged_attention": paged_attention_cuda,
             "flash_attention": flash_attention_cuda,
             "flash_attention_backward": flash_attention_backward_cuda,
@@ -931,7 +954,8 @@ def counters():
             "gram_log_volume": gram_log_volume_cuda,
             "gram_log_volume_backward": gram_log_volume_backward_cuda,
             "quantize_rows": quantize_rows_cuda,
-            "dequantize_rows": dequantize_rows_cuda}
+            "dequantize_rows": dequantize_rows_cuda,
+            "ssd_chunk": ssd_chunk_cuda}
 
 
 def zero_counters():
@@ -981,7 +1005,8 @@ def expected_round_launches(runner, evaluate=True):
             "flash_attention_backward": b_bwd, "lora_matmul": c,
             "gram_log_volume": d, "gram_log_volume_backward": d,
             "quantize_rows": 2 * k,
-            "dequantize_rows": (3 if runner.channel.stateful else 2) * k}
+            "dequantize_rows": (3 if runner.channel.stateful else 2) * k,
+            "ssd_chunk": 0}
 
 
 def frozen_fingerprint(tree):
@@ -1594,6 +1619,321 @@ def channel_kernel_rows():
         "at_other_shapes": {"slm": b_case(8, 136, 20, 64)}})
     return rows
 
+# ---------------------------------------------------------------------------
+# phase 9: kernel G (the SSD chunk scan) against its plain version
+
+# both sides compute in f32 on the same (bf16 or f32) values
+SSD_TOL = dict(atol=2e-4, rtol=2e-4)
+# the chunked SSD against the token-by-token recurrence at f32
+# (tests/test_kernels.py's bound)
+SSD_RECURRENCE_TOL = dict(atol=1e-4, rtol=1e-3)
+SSD_SHAPES = {            # (B, S, H, P, G, N, chunk)
+    "mamba2": (1, 256, 80, 64, 1, 128, 256),
+    "hymba": (1, 256, 50, 64, 1, 16, 256),
+    "groups2": (1, 256, 8, 64, 2, 64, 256),
+    "mamba2_chunks3": (1, 768, 80, 64, 1, 128, 256),
+    "batch2_chunks4": (2, 512, 16, 64, 1, 128, 128),
+    "toy": (1, 16, 4, 16, 1, 8, 8),
+}
+
+
+def ssd_inputs(gen, B, S, H, P, G, N, dtype, a_div=1.0, dt_shift=0.0):
+    """Model-like inputs: A = -linspace(1, 16, H) / a_div (the SSM's
+    init), dt = softplus(N(0, 1) + dt_shift) f32."""
+    import torch
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    x = (0.5 * randn(B, S, H, P)).to(dtype)
+    dt = torch.nn.functional.softplus(randn(B, S, H) + dt_shift)
+    A = -torch.linspace(1.0, 16.0, H, device="cuda") / a_div
+    Bm = (0.5 * randn(B, S, G, N)).to(dtype)
+    Cm = (0.5 * randn(B, S, G, N)).to(dtype)
+    return x, dt, A, Bm, Cm
+
+
+def chunk_cum(dt, A, chunk):
+    """The within-chunk cumulative dt * A, (B, S, H) f32."""
+    import torch
+    B, S, H = dt.shape
+    return torch.cumsum((dt * A).reshape(B, S // chunk, chunk, H),
+                        dim=2).reshape(B, S, H)
+
+
+def phase_ssd_checks():
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import ssd_recurrent_ref
+    from repro_torch.kernels.ssd_scan import ssd_chunk_cuda, ssd_chunk_plain
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    results = {}
+    for name, (B, S, H, P, G, N, L) in SSD_SHAPES.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            x, dt, A, Bm, Cm = ssd_inputs(gen, B, S, H, P, G, N, dtype)
+            cum = chunk_cum(dt, A, L)
+            y, st = ssd_chunk_cuda(x, dt, cum, Bm, Cm, L)
+            py, pst = ssd_chunk_plain(x, dt, cum, Bm, Cm, L)
+            torch.cuda.synchronize()
+            tag = f"{name}/{str(dtype)[6:]}"
+            results[tag] = max(check_close(f"ssd y {tag}", y, py, SSD_TOL),
+                               check_close(f"ssd state {tag}", st, pst,
+                                           SSD_TOL))
+    # the whole chunked SSD (one G launch, padding, the recurrence across
+    # chunks, the final state) against the token-by-token recurrence, at
+    # ragged S of 1, 2 and 3 chunks; decays that reach across chunks
+    chunked = {}
+    for S in (200, 300, 700):
+        x, dt, A, Bm, Cm = ssd_inputs(gen, 1, S, 80, 64, 1, 128,
+                                      torch.float32, a_div=8.0)
+        n = ssd_chunk_cuda.launches
+        y, h = ops.ssd_chunked(x, dt, A, Bm, Cm, 256, return_state=True)
+        if ssd_chunk_cuda.launches != n + 1:
+            raise AssertionError("ssd_chunked: not one launch of G")
+        ry, rh = ssd_recurrent_ref(x, dt, A, Bm, Cm, return_state=True)
+        torch.cuda.synchronize()
+        chunked[f"S{S}"] = max(
+            check_close(f"ssd_chunked y S={S}", y, ry, SSD_RECURRENCE_TOL),
+            check_close(f"ssd_chunked state S={S}", h, rh,
+                        SSD_RECURRENCE_TOL))
+    # |A| dt up to ~16 x 6 per row: exp above the diagonal would be inf
+    x, dt, A, Bm, Cm = ssd_inputs(gen, 1, 512, 80, 64, 1, 128,
+                                  torch.bfloat16, dt_shift=5.0)
+    cum = chunk_cum(dt, A, 256)
+    y, st = ssd_chunk_cuda(x, dt, cum, Bm, Cm, 256)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(y).all() and torch.isfinite(st).all()):
+        raise AssertionError("ssd: non-finite output at large |A| dt")
+    py, pst = ssd_chunk_plain(x, dt, cum, Bm, Cm, 256)
+    large = max(check_close("ssd large decay y", y, py, SSD_TOL),
+                check_close("ssd large decay state", st, pst, SSD_TOL))
+    emit({"phase": "ssd_chunk_vs_plain", "max_abs_err": results,
+          "tolerance": SSD_TOL,
+          "ssd_chunked_vs_recurrence_f32": chunked,
+          "recurrence_tolerance": SSD_RECURRENCE_TOL,
+          "large_decay_finite_max_abs_err": large,
+          "min_cum": float(cum.min())})
+
+
+# ---------------------------------------------------------------------------
+# phases 10 / 11: serving the ssm and hybrid families at full width
+
+N_RECURRENT_REQUESTS = 24
+
+
+def serve_recurrent(cfg, econf, lo, hi, fixed, expect, consistency_lens,
+                    tag):
+    """Serve 24 soft-prompted requests (prompts lo-hi tokens, the first
+    ones ``fixed``, budgets 16-64) through ``ServingEngine`` at full width
+    (bf16, random weights from a seed).  Checks every budget, the free
+    lists and the launch counters (``expect(prefills, steps)``), then
+    prefill -> decode consistency at exact length for each S of
+    ``consistency_lens``; then profiles an admission tick and four decode
+    steps.  Returns (the {"..._serving": ...} metrics, the counted
+    launches)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.connector import init_unified
+    from repro_torch.core.lora import flatten, is_lora_leaf
+    from repro_torch.launch.serve_engine import ServingEngine
+    from repro_torch.models.layers import padded_vocab
+    from repro_torch.models.model import build_model
+
+    bundle = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    params = init_unified(gen, bundle)
+    for path, leaf in flatten(params).items():     # make merge_lora real work
+        if path.endswith("_lora_b"):
+            leaf.copy_(torch.randn(leaf.shape, generator=gen,
+                                   device="cuda") * 0.02)
+    engine = ServingEngine(bundle, params, econf)
+    if any(is_lora_leaf(p) for p in flatten(engine.params)):
+        raise AssertionError("merged params still carry adapters")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    reqs = make_requests(cfg, params, seed=1, n=N_RECURRENT_REQUESTS, lo=lo,
+                         hi=hi, fixed=fixed)
+    del params
+
+    for toks, _, soft in reqs[-3:]:            # warm-up
+        engine.submit(toks, max_new=4, prefix_embeds=soft)
+    engine.run()
+    torch.cuda.synchronize()
+    base = dict(steps=engine.n_steps, prefills=engine.n_prefills,
+                dec=engine.decode_seconds, pre=engine.prefill_seconds)
+
+    # the main path, counted
+    zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rids = [engine.submit(t, max_new=m, prefix_embeds=s) for t, m, s in reqs]
+    engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    steps = engine.n_steps - base["steps"]
+    prefills = engine.n_prefills - base["prefills"]
+    want = {n: 0 for n in launches}
+    want.update(expect(prefills, steps))
+    if launches != want or prefills != len(reqs) or steps == 0:
+        raise AssertionError(f"{tag} launches {launches} != {want} "
+                             f"({prefills} prefills, {steps} steps)")
+
+    V = padded_vocab(cfg)
+    n_tokens = 0
+    for rid, (_, budget, _) in zip(rids, reqs):
+        out = engine.finished[rid].out
+        if len(out) != budget:
+            raise AssertionError(f"{tag} request {rid}: {len(out)} tokens, "
+                                 f"budget {budget}")
+        if out.min() < 0 or out.max() >= V:
+            raise AssertionError(f"{tag} request {rid}: token id out of "
+                                 "range")
+        n_tokens += len(out)
+    if sorted(engine._free_pages) != list(range(1, econf.n_pages)):
+        raise AssertionError(f"{tag}: pages not returned to the free list")
+    if sorted(engine._free_slots) != list(range(econf.n_slots)):
+        raise AssertionError(f"{tag}: slots not returned to the free list")
+    lat = sorted(engine.finished[r].latency for r in rids)
+    P = cfg.n_soft_tokens
+    metrics = {
+        "model": cfg.name, "dtype": cfg.dtype, "requests": len(reqs),
+        "prompt_tokens": [int(min(len(r[0]) for r in reqs)),
+                          int(max(len(r[0]) for r in reqs))],
+        "chunks_per_prefill": sorted({-(-(P + len(r[0])) // cfg.ssm_chunk)
+                                      for r in reqs}),
+        "tokens": n_tokens, "wall_s": wall,
+        "tokens_per_s": n_tokens / wall,
+        "latency_p50_s": float(np.percentile(lat, 50)),
+        "latency_p99_s": float(np.percentile(lat, 99)),
+        "decode_steps": steps,
+        "decode_step_ms_mean": 1e3 * (engine.decode_seconds - base["dec"])
+        / steps,
+        "prefills": prefills,
+        "prefill_ms_mean": 1e3 * (engine.prefill_seconds - base["pre"])
+        / prefills,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+        "init_s": init_s,
+        "launches": {n: v for n, v in launches.items() if v},
+    }
+    metrics["prefill_vs_decode"] = recurrent_consistency(
+        cfg, engine.params, reqs[0][2], consistency_lens)
+    metrics["profile"] = phase_profile(engine, reqs, tag=f"{tag}_")
+    return metrics, launches
+
+
+def recurrent_consistency(cfg, params, soft, lens):
+    """Prefill -> decode consistency at exact length S for each S of
+    ``lens``, held at ``E2E_TOL`` on the served weights upcast to f32:
+    with random weights a bf16 SSM stack strays from its own f32 forward
+    by more than that bound (a bf16 rounding of dt moves every later
+    decay), while a wrong handoff moves the f32 logits by far more.  The
+    bf16 run is measured and held only inside that noise: its decode may
+    stray from its forward by no more than its forward strays from the
+    f32 forward on the same tokens."""
+    from repro_torch.core.lora import flatten, unflatten
+    from repro_torch.models.model import build_model
+    bundle = build_model(cfg)
+    b32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+    p32 = unflatten({k: v.float() for k, v in flatten(params).items()})
+    out = {}
+    for S in lens:
+        err32, full32 = prefill_decode_consistency(b32, p32, soft.float(),
+                                                   S=S, pad=0)
+        err16, full16 = prefill_decode_consistency(bundle, params, soft,
+                                                   S=S, pad=0, tol=None)
+        noise = float((full16 - full32)[0, -9:].abs().max())
+        if err16 > noise:
+            raise AssertionError(f"{cfg.name} S={S}: bf16 decode strays "
+                                 f"{err16:.3e} from its forward, more than "
+                                 f"the forward's bf16 noise {noise:.3e}")
+        out[f"S{S}"] = {"f32_max_abs_err": err32, "f32_tolerance": E2E_TOL,
+                        "bf16_max_abs_err": err16,
+                        "bf16_forward_vs_f32_forward_max_abs": noise}
+        del full16, full32
+    del p32
+    return out
+
+
+def phase_ssm_serving():
+    """mamba2-2.7b: prompts 20-700 (1, 2 and 3 chunks of 256 with the 8
+    soft tokens); no pages; G 64 launches per admission, nothing else."""
+    from repro_torch.configs.mamba2_2p7b import CONFIG
+    from repro_torch.launch.serve_engine import EngineConfig
+    econf = EngineConfig(n_slots=16, page_size=16, n_pages=2,
+                         max_pages_per_seq=64, max_out=64)
+    L = CONFIG.n_layers
+    return serve_recurrent(
+        CONFIG, econf, 20, 700, (20, 300, 700),
+        lambda prefills, steps: {"ssd_chunk": L * prefills},
+        (300,), "ssm")
+
+
+def phase_hybrid_serving():
+    """hymba-1.5b: prompts 20-1200, so the 1024 window bites in prefill (B)
+    and decode (A) on the local layers; B and G 32 per admission, A 32 per
+    decode step."""
+    from repro_torch.configs.hymba_1p5b import CONFIG
+    from repro_torch.launch.serve_engine import EngineConfig
+    econf = EngineConfig(n_slots=16, page_size=16, n_pages=16 * 80 + 1,
+                         max_pages_per_seq=80, max_out=64)
+    L = CONFIG.n_layers
+    return serve_recurrent(
+        CONFIG, econf, 20, 1200, (20, 600, 1200),
+        lambda prefills, steps: {"ssd_chunk": L * prefills,
+                                 "flash_attention": L * prefills,
+                                 "paged_attention": L * steps},
+        (300, 1100), "hybrid")
+
+
+def ssd_kernel_rows():
+    """Row G at mamba2's prefill shapes (bf16), from CUDA-graph replay;
+    bounds from these inputs."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ssd_chunk_cuda, ssd_chunk_plain
+    gen = torch.Generator(device="cuda").manual_seed(12)
+
+    def case(B, S, H, P, G, N, L):
+        x, dt, A, Bm, Cm = ssd_inputs(gen, B, S, H, P, G, N, torch.bfloat16)
+        cum = chunk_cum(dt, A, L)
+        got = ssd_chunk_cuda(x, dt, cum, Bm, Cm, L)
+        want = ssd_chunk_plain(x, dt, cum, Bm, Cm, L)
+        err = max(check_close("ssd row y", got[0], want[0], SSD_TOL),
+                  check_close("ssd row state", got[1], want[1], SSD_TOL))
+        ms = graph_ms(lambda i: ssd_chunk_cuda(x, dt, cum, Bm, Cm, L))
+        plain = graph_ms(lambda i: ssd_chunk_plain(x, dt, cum, Bm, Cm, L))
+        nc, es = S // L, x.element_size()
+        bytes_ = (B * S * H * P * es + 2 * B * S * G * N * es
+                  + 2 * B * S * H * 4 + B * S * H * P * 4
+                  + B * nc * H * P * N * 4)
+        tri = L * (L + 1) // 2
+        # C.B^T once per group, then per head the masked product with x
+        # and the end state
+        flops = 2 * B * nc * (G * tri * N + H * tri * P + H * L * P * N)
+        bound, by = _bound(bytes_, flops)
+        return {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+                "bound_by": by, "max_abs_err": err, "bytes": bytes_,
+                "flops": flops,
+                "shape": {"B": B, "S": S, "H": H, "P": P, "G": G, "N": N,
+                          "chunk": L, "dtype": str(x.dtype)}}
+
+    main = case(*SSD_SHAPES["mamba2"])
+    others = {"mamba2_chunks3": case(*SSD_SHAPES["mamba2_chunks3"]),
+              "hymba": case(*SSD_SHAPES["hymba"])}
+    return [{
+        "name": "ssd_chunk", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:55",
+        "max_abs_err": max([main["max_abs_err"]]
+                           + [o["max_abs_err"] for o in others.values()]),
+        "tolerance": SSD_TOL,
+        **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "shape", "bytes", "flops")},
+        "library_ms": None,
+        "library_call": "none: no single PyTorch call computes the SSD "
+                        "chunk scan",
+        "at_other_shapes": others}]
+
 
 def release():
     """Free what the last phase left: its objects hold reference cycles
@@ -1611,33 +1951,60 @@ def main() -> int:
               "an NVIDIA GPU", file=sys.stderr)
         return 2
     import repro_torch.kernels.ops  # noqa: F401  (fails here without the port)
+    seconds = {}
+    t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        t1 = time.perf_counter()
+        seconds[name] = t1 - t0
+        t0 = t1
+
     phase_card()
     phase_build()
+    lap("build")
     phase_paged_checks()
     phase_flash_checks()
     phase_flash_grad_check()
     phase_quantize_checks()
     phase_lora_checks()
     phase_gram_checks()
+    phase_ssd_checks()
+    lap("kernel_checks")
     engine, snap, launches, serving, reqs = phase_serving()
     emit({"serving": serving})
     emit({"profile": phase_profile(engine, reqs)})
     kernels = phase_numbers(engine, snap)
     del engine, snap, reqs
     release()
+    lap("serving")
     runner, training, train_launches = phase_training()
     emit({"training": training})
     emit({"training_profile": phase_training_profile(runner)})
     del runner
     release()
+    lap("training")
     channel, channel_launches = phase_channel()
     emit({"channel": channel})
     release()
+    lap("channel")
+    ssm_serving, ssm_launches = phase_ssm_serving()
+    emit({"ssm_serving": ssm_serving})
+    release()
+    lap("ssm_serving")
+    hybrid_serving, hybrid_launches = phase_hybrid_serving()
+    emit({"hybrid_serving": hybrid_serving})
+    release()
+    lap("hybrid_serving")
     kernels += training_kernel_rows()
     kernels += channel_kernel_rows()
+    kernels += ssd_kernel_rows()
+    lap("kernel_rows")
+    emit({"phase_seconds": seconds})
     # each row's launches: the counted runs of the main paths
     paths = {"serving": launches, "training_round": train_launches,
-             "channel_rounds": channel_launches}
+             "channel_rounds": channel_launches,
+             "ssm_serving": ssm_launches, "hybrid_serving": hybrid_launches}
     for row in kernels:
         by_path = {p: n[row["name"]] for p, n in paths.items()
                    if n[row["name"]]}

@@ -5,6 +5,10 @@ The exchange format is a flat ``{path: np.ndarray}`` dict keyed by the
 (``layers/attn/wq``), leaves in the reference's layout ((in, out) weights,
 layers stacked on axis 0).  bfloat16 travels as its ``uint16`` bit pattern
 and is reinterpreted with ``.view``, never through a float round trip.
+
+Every floating leaf has the tree's dtype, with one named exception: the
+SSM's ``A_log``, ``dt_bias`` and ``D_skip`` stay float32 inside a bf16
+model (``repro.models.ssm.init_ssm`` keeps them so on purpose).
 """
 from __future__ import annotations
 
@@ -15,6 +19,10 @@ import torch
 
 from repro_torch.core.lora import flatten, unflatten
 
+# leaves (by the last component of their path) that stay float32 in a tree
+# of any dtype: the SSM's decay, step bias and skip
+F32_LEAVES = ("A_log", "dt_bias", "D_skip")
+
 
 def params_from_numpy(flat: Dict[str, np.ndarray], device="cuda",
                       dtype: torch.dtype = torch.bfloat16) -> dict:
@@ -22,7 +30,8 @@ def params_from_numpy(flat: Dict[str, np.ndarray], device="cuda",
 
     ``dtype`` is the parameter dtype of the tree: a ``uint16`` leaf is a
     bfloat16 bit pattern when ``dtype`` is bfloat16; every floating leaf
-    must already be in ``dtype`` (no silent casts)."""
+    must already be in ``dtype`` (no silent casts), except a float32 leaf
+    named in :data:`F32_LEAVES`."""
     return unflatten(leaves_from_numpy(flat, device, dtype))
 
 
@@ -38,7 +47,9 @@ def leaves_from_numpy(flat: Dict[str, np.ndarray], device="cuda",
             t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
         else:
             t = torch.from_numpy(arr)
-            if t.is_floating_point() and t.dtype != dtype:
+            if t.is_floating_point() and t.dtype != dtype and not (
+                    t.dtype == torch.float32
+                    and path.rsplit("/", 1)[-1] in F32_LEAVES):
                 raise TypeError(f"{path}: {t.dtype} leaf in a {dtype} tree")
         out[path] = t.to(device)
     return out

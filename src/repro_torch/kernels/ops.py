@@ -5,9 +5,13 @@ device launches the hand-written kernel, or raises.  There is no switch
 and no fallback: the device of the input decides.  The model's wrappers
 are differentiable: on the card through the kernels'
 ``autograd.Function``s, on the CPU through the plain versions' own
-autograd.  The wire codec's pair is forward only.
+autograd.  The wire codec's pair and the SSD scan are forward only (the
+SSD kernel raises where a gradient would be needed).
 """
 from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import (flash_attention_autograd,
                                                  flash_attention_plain)
@@ -21,6 +25,7 @@ from repro_torch.kernels.quantize import (dequantize_rows_cuda,
                                           dequantize_rows_plain,
                                           quantize_rows_cuda,
                                           quantize_rows_plain)
+from repro_torch.kernels.ssd_scan import ssd_chunk_cuda, ssd_chunk_plain
 
 
 def attention(q, k, v, causal: bool = True, window: int = 0):
@@ -71,3 +76,46 @@ def dequantize(q, scale):
     """Inverse of :func:`quantize`: (R, L) int8 and (R,) f32 -> f32."""
     fn = dequantize_rows_cuda if q.is_cuda else dequantize_rows_plain
     return fn(q, scale)
+
+
+def ssd_chunked(x, dt, A, B_, C_, chunk: int, return_state: bool = False):
+    """Full chunked SSD (the contract of ``repro.models.ssm.ssd_reference``).
+
+    x: (B,S,H,P)  dt: (B,S,H)  A: (H,) negative  B_,C_: (B,S,G,N).  A
+    ragged S is padded with zero rows (dt = 0 rows add nothing and keep the
+    cumulative decay flat) and trimmed again.  The intra-chunk term and the
+    chunk end states of all chunks and heads come from one call of the SSD
+    chunk kernel (its plain version on the CPU); the recurrence across
+    chunks and its output term are plain PyTorch, as the reference keeps
+    them in jnp.  Returns y (B,S,H,P) in x's dtype and, with
+    ``return_state``, the final state (B,H,P,N) f32."""
+    Bsz, S, H, P = x.shape
+    G, N = B_.shape[2], B_.shape[3]
+    pad = -S % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        B_ = F.pad(B_, (0, 0, 0, 0, 0, pad))
+        C_ = F.pad(C_, (0, 0, 0, 0, 0, pad))
+    Sp = S + pad
+    nc, L = Sp // chunk, chunk
+    dt = dt.float().contiguous()
+    cum = torch.cumsum((dt * A.float()).reshape(Bsz, nc, L, H), dim=2)
+    fn = ssd_chunk_cuda if x.is_cuda else ssd_chunk_plain
+    y_intra, states = fn(x.contiguous(), dt, cum.reshape(Bsz, Sp, H),
+                         B_.contiguous(), C_.contiguous(), chunk)
+
+    # the recurrence across chunks: h_c = exp(total_c) h_{c-1} + states_c
+    total = torch.exp(cum[:, :, -1])                             # (B,nc,H)
+    h = torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    h_prev = []
+    for c in range(nc):
+        h_prev.append(h)
+        h = total[:, c, :, None, None] * h + states[:, c]
+    h_prev = torch.stack(h_prev, dim=1).reshape(Bsz, nc, G, H // G, P, N)
+    Cc = C_.float().reshape(Bsz, nc, L, G, N)
+    y_inter = torch.einsum("bclgn,bcgrpn->bclgrp", Cc, h_prev).reshape(
+        Bsz, nc, L, H, P) * torch.exp(cum)[..., None]
+    y = (y_intra.reshape(Bsz, nc, L, H, P) + y_inter).reshape(
+        Bsz, Sp, H, P)[:, :S].to(x.dtype)
+    return (y, h) if return_state else y

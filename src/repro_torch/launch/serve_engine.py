@@ -8,7 +8,10 @@
   contiguous region; admission needs ``ceil(ctx / page_size)`` free pages,
   and eviction returns them as soon as a sequence finishes.
 * **Admission control**: pending requests are admitted whenever a slot and
-  enough pages are free; prompts are right-padded to prefill buckets.
+  enough pages are free; prompts are right-padded to prefill buckets for
+  the dense family, and prefilled at exact length for the recurrent
+  families (ssm, hybrid), whose state would fold padding in.  An ssm
+  request takes no pages.
 * **Mid-flight eviction**: a sequence that reaches its budget (or
   ``eos_id``) has its block-table row zeroed on the device, so later
   unconditional cache writes land on scratch page 0, and its pages freed
@@ -89,7 +92,7 @@ def _resolve_device(name) -> torch.device:
 
 
 class ServingEngine:
-    """Continuous batching for one dense-family model.
+    """Continuous batching for one dense, ssm or hybrid model.
 
     ``params`` must already lie on ``econf.device``; with ``merge`` the
     LoRA adapters are folded into the weights first.  Besides the
@@ -109,6 +112,9 @@ class ServingEngine:
             raise ValueError(f"params not on {dev}: {off[:3]}...")
         with torch.no_grad():
             self.params = merge_lora(params, self.cfg) if merge else params
+        self.paged_fam = self.cfg.family != "ssm"
+        # recurrent state would integrate padded tokens -> exact lengths
+        self.exact_len = self.cfg.family in ("ssm", "hybrid")
         self.pstate = bundle.init_paged(ec.n_slots, ec.n_pages, ec.page_size,
                                         dev)
         n = ec.n_slots
@@ -191,6 +197,8 @@ class ServingEngine:
         return req.rid
 
     def _bucket_len(self, n: int) -> int:
+        if self.exact_len:
+            return n
         for b in sorted(self.econf.buckets):
             if b >= n:
                 return b
@@ -210,7 +218,8 @@ class ServingEngine:
                 raise ValueError(
                     f"request needs {ctx} cache entries > block-table "
                     f"capacity {ec.max_pages_per_seq * ec.page_size}")
-            n_req = paged.pages_for(ctx, ec.page_size)
+            n_req = paged.pages_for(ctx, ec.page_size) if self.paged_fam \
+                else 0
             if n_req > len(self._free_pages):
                 break                       # wait for an eviction
             self.pending.popleft()

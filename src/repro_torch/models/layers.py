@@ -23,6 +23,13 @@ from repro_torch.kernels import ops
 BIG_WINDOW = 1 << 30   # stands for "no window" in per-layer window lists
 
 
+def layer_params(layers: dict, i: int) -> dict:
+    """The params of layer ``i`` of a stack (views into the leaves, which
+    carry the layers on axis 0)."""
+    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
+            for k, v in layers.items()}
+
+
 # ---------------------------------------------------------------------------
 # init helpers
 

@@ -1,8 +1,9 @@
 """Model factory (port of ``repro.models.model``): config -> ModelBundle,
-dense family.
+for the dense, ssm (mamba2) and hybrid (hymba) families.
 
   bundle.init(gen)                                      -> params
   bundle.logits(params, batch)                          -> (logits, aux)
+  bundle.hidden(params, batch)                          -> (hidden, aux)
   bundle.lm_loss(params, batch)                         -> (loss, metrics)
   bundle.init_paged(n_slots, n_pages, page_size, device)-> pstate
   bundle.prefill_paged(params, batch, true_len)         -> (last, pack, kv_len)
@@ -21,7 +22,7 @@ from typing import Any, Callable, Dict, NamedTuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import paged, transformer
+from repro_torch.models import paged, ssm, transformer
 from repro_torch.models.layers import padded_vocab
 
 
@@ -35,6 +36,7 @@ class ModelBundle(NamedTuple):
     prefill_paged: Callable
     insert_paged: Callable
     decode_paged: Callable
+    hidden: Callable      # (params, batch) -> final-norm states (B, P+S, d)
 
 
 def _prefix(params, cfg: ModelConfig, batch: Dict[str, Any]):
@@ -52,16 +54,24 @@ def cross_entropy(logits, targets, mask, vocab_size: int):
 
 
 def build_model(cfg: ModelConfig) -> ModelBundle:
-    """The bundle for a dense-family config; other families raise."""
-    transformer.require_dense(cfg)
+    """The bundle for a dense, ssm or hybrid config; other families raise
+    ``NotImplementedError``."""
+    transformer.require_ported(cfg)
+    trunk = ssm if cfg.family == "ssm" else transformer
 
     def init(gen):
-        return transformer.init_params(gen, cfg)
+        return trunk.init_params(gen, cfg)
 
     def logits_fn(params, batch):
-        out, aux, _ = transformer.forward(params, cfg, batch["tokens"],
-                                          _prefix(params, cfg, batch))
+        out, aux, _ = trunk.forward(params, cfg, batch["tokens"],
+                                    _prefix(params, cfg, batch))
         return out, aux
+
+    def hidden_fn(params, batch):
+        h, aux, _ = trunk.forward(params, cfg, batch["tokens"],
+                                  _prefix(params, cfg, batch),
+                                  return_hidden=True)
+        return h, aux
 
     def lm_loss(params, batch):
         logits, aux = logits_fn(params, batch)
@@ -90,4 +100,4 @@ def build_model(cfg: ModelConfig) -> ModelBundle:
                        functools.partial(paged.init_paged, cfg),
                        prefill_paged_fn,
                        functools.partial(paged.insert_paged, cfg),
-                       decode_paged_fn)
+                       decode_paged_fn, hidden_fn)

@@ -26,6 +26,8 @@ from repro_torch.kernels.quantize import (dequantize_rows_cuda,
                                           dequantize_rows_plain,
                                           quantize_rows_cuda,
                                           quantize_rows_plain)
+from repro_torch.kernels.ref import ssd_recurrent_ref
+from repro_torch.kernels.ssd_scan import ssd_chunk_cuda, ssd_chunk_plain
 from repro_torch.models.layers import BIG_WINDOW
 
 pytestmark = pytest.mark.cuda
@@ -336,3 +338,93 @@ def test_quantize_kernels_reject_what_they_do_not_take(gen):
         dequantize_rows_cuda(torch.zeros((4, 8), dtype=torch.int8,
                                          device="cuda"),
                              torch.zeros((3,), device="cuda"))
+
+
+# ---------------------------------------------------------------------------
+# kernel G: the SSD chunk scan
+
+def _ssd_inputs(gen, B, S, H, P, G, N, dtype, dt_shift=0.0):
+    """Model-like inputs: A = -linspace(1, 16) as the SSM's init gives,
+    dt = softplus(N(0, 1) + dt_shift)."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    x = (0.5 * randn(B, S, H, P)).to(dtype)
+    dt = torch.nn.functional.softplus(randn(B, S, H) + dt_shift)
+    A = -torch.linspace(1.0, 16.0, H, device="cuda")
+    Bm = (0.5 * randn(B, S, G, N)).to(dtype)
+    Cm = (0.5 * randn(B, S, G, N)).to(dtype)
+    return x, dt, A, Bm, Cm
+
+
+def _chunk_cum(dt, A, chunk):
+    B, S, H = dt.shape
+    return torch.cumsum((dt * A).reshape(B, S // chunk, chunk, H),
+                        dim=2).reshape(B, S, H)
+
+
+# both sides compute in f32 on the same (bf16 or f32) values: f32 bounds
+SSD_TOL = dict(atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,P,G,N,L", [
+    (1, 256, 80, 64, 1, 128, 256),     # mamba2-2.7b, one chunk
+    (1, 512, 50, 64, 1, 16, 256),      # hymba-1.5b, two chunks
+    (2, 96, 8, 64, 2, 32, 32),         # G = 2, a batch of several chunks
+    (1, 16, 4, 16, 1, 8, 8),           # the CPU tests' toy sizes
+    (1, 200, 3, 24, 1, 20, 100),       # ragged tiles: L 100, P 24, N 20
+])
+def test_ssd_chunk_kernel_matches_plain(gen, dtype, B, S, H, P, G, N, L):
+    x, dt, A, Bm, Cm = _ssd_inputs(gen, B, S, H, P, G, N, dtype)
+    cum = _chunk_cum(dt, A, L)
+    n = ssd_chunk_cuda.launches
+    y, st = ssd_chunk_cuda(x, dt, cum, Bm, Cm, L)
+    assert ssd_chunk_cuda.launches == n + 1
+    py, pst = ssd_chunk_plain(x, dt, cum, Bm, Cm, L)
+    torch.cuda.synchronize()
+    assert y.dtype == st.dtype == torch.float32
+    torch.testing.assert_close(y, py, **SSD_TOL)
+    torch.testing.assert_close(st, pst, **SSD_TOL)
+
+
+@pytest.mark.parametrize("S", [200, 256, 300, 700])
+def test_ssd_chunked_on_the_card_matches_the_recurrence(gen, S):
+    """ops.ssd_chunked on CUDA tensors: one launch of G for all chunks,
+    padding, the final state; f32 at tests/test_kernels.py's bound."""
+    x, dt, A, Bm, Cm = _ssd_inputs(gen, 1, S, 8, 64, 1, 128, torch.float32)
+    A = A / 8.0                      # decays that reach across chunks
+    n = ssd_chunk_cuda.launches
+    y, h = ops.ssd_chunked(x, dt, A, Bm, Cm, 256, return_state=True)
+    assert ssd_chunk_cuda.launches == n + 1
+    ry, rh = ssd_recurrent_ref(x, dt, A, Bm, Cm, return_state=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, ry, atol=1e-4, rtol=1e-3)
+    torch.testing.assert_close(h, rh, atol=1e-4, rtol=1e-3)
+
+
+def test_ssd_chunk_kernel_large_decay_is_finite(gen):
+    """|A| dt up to ~16 * 6 per row: above the diagonal exp(cum_i - cum_j)
+    would be inf, and inf * 0 NaN; the kernel never evaluates it."""
+    x, dt, A, Bm, Cm = _ssd_inputs(gen, 1, 512, 8, 64, 1, 128,
+                                   torch.bfloat16, dt_shift=5.0)
+    cum = _chunk_cum(dt, A, 256)
+    y, st = ssd_chunk_cuda(x, dt, cum, Bm, Cm, 256)
+    py, pst = ssd_chunk_plain(x, dt, cum, Bm, Cm, 256)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    torch.testing.assert_close(y, py, **SSD_TOL)
+    torch.testing.assert_close(st, pst, **SSD_TOL)
+
+
+def test_ssd_chunk_kernel_rejects_what_it_does_not_take(gen):
+    x, dt, A, Bm, Cm = _ssd_inputs(gen, 1, 64, 4, 16, 1, 8, torch.float32)
+    cum = _chunk_cum(dt, A, 32)
+    with pytest.raises(ValueError, match="multiple"):
+        ssd_chunk_cuda(x, dt, cum, Bm, Cm, 48)
+    with pytest.raises(TypeError):
+        ssd_chunk_cuda(x.half(), dt, cum, Bm.half(), Cm.half(), 32)
+    with pytest.raises(ValueError, match="head dim"):
+        big = torch.zeros((1, 64, 4, 136), device="cuda")
+        ssd_chunk_cuda(big, dt, cum, Bm, Cm, 32)
+    with pytest.raises(NotImplementedError, match="backward"):
+        ssd_chunk_cuda(x.requires_grad_(True), dt, cum, Bm, Cm, 32)

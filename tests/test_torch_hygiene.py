@@ -78,3 +78,22 @@ def test_engine_rejects_params_on_another_device():
     params["final_norm"] = params["final_norm"].to("meta")
     with pytest.raises(ValueError, match="not on cpu"):
         ServingEngine(bundle, params, EngineConfig(device="cpu"))
+
+
+@pytest.mark.parametrize("family", ["ssm", "hybrid"])
+def test_recurrent_engines_without_device_raise_when_cuda_is_missing(
+        monkeypatch, family):
+    """The same for the ssm and hybrid families: the card by default, the
+    CPU only when asked."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = ModelConfig(name="t", family=family, n_layers=1, d_model=16,
+                      n_heads=2, n_kv_heads=2, head_dim=8, d_ff=32,
+                      vocab_size=32, ssm_state=4, ssm_head_dim=8,
+                      ssm_chunk=4, dtype="float32")
+    bundle = build_model(cfg)
+    params = bundle.init(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServingEngine(bundle, params)
+    engine = ServingEngine(bundle, params, EngineConfig(device="cpu"))
+    engine.submit(np.arange(3), max_new=2)
+    assert len(engine.run()) == 1

@@ -118,14 +118,17 @@ def _np(x):
 # configs, interop, connector, merge_lora, forward
 
 @pytest.mark.parametrize("arch", ["mlecs-slm-720m", "mlecs-llm-6b",
-                                  "gemma3-1b"])
+                                  "gemma3-1b", "mamba2-2.7b", "hymba-1.5b"])
 def test_config_copy_matches_reference(arch):
     from repro.configs.base import get_config
+    from repro_torch.configs import hymba_1p5b, mamba2_2p7b
     from repro_torch.configs.mlecs_paper import CONFIGS
+    copies = dict(CONFIGS, **{"mamba2-2.7b": mamba2_2p7b.CONFIG,
+                              "hymba-1.5b": hymba_1p5b.CONFIG})
     ref = get_config(arch)
     cfg = ModelConfig(**dataclasses.asdict(ref))
-    if arch in CONFIGS:
-        assert CONFIGS[arch] == cfg
+    if arch in copies:
+        assert copies[arch] == cfg
     assert cfg.n_params() == ref.n_params()
     assert dataclasses.asdict(cfg.reduced()) == dataclasses.asdict(ref.reduced())
     assert [cfg.window_for_layer(i) for i in range(cfg.n_layers)] == \
@@ -403,7 +406,8 @@ def test_engine_admission_overflow_raises():
 
 @pytest.mark.parametrize("family,kw", [
     ("moe", dict(n_experts=4, top_k=2, d_ff_expert=64)),
-    ("ssm", dict(ssm_state=8, ssm_head_dim=16)),
+    ("encdec", dict(n_enc_layers=2, frontend="audio", frontend_tokens=16,
+                    frontend_dim=24)),
     ("dense", dict(attn_impl="banded")),
 ])
 def test_unported_configs_raise(family, kw):
