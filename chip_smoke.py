@@ -15,14 +15,17 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    versions (the explicit backward formulas and the plain forward's
    autograd) at the round's shapes (batch 8, S = 136; the SLM's and the
    LLM's heads; bf16 and f32) and in a GQA case with a window, Sq < Sk and
-   a ragged S, each row of a gradient relative to its own size;
+   a ragged S, each row of a gradient relative to its own size (bf16 on
+   the backward's tensor-core route "mma", f32 on the FMA route);
 4. holds the wire codec's quantize / dequantize kernels (E, F) bit for bit
    against their plain versions on the card and on a CPU copy (the
    round's uplink and downlink tiles and ragged shapes, all-zero rows,
    half-way ties, qmax 127 and 7, f32 and bf16), then the fused LoRA
-   projection (C) against its plain version (the
-   SLM's and the LLM's projection shapes at M = 1088, ragged M/N/K, the
-   transposed-W mode; bf16 and f32; dx, dA, dB against autograd) and the
+   projection (C) against its plain version (the SLM's and the LLM's
+   projection shapes at M = 1088, ragged M/N/K, ranks 8 and 16, the
+   transposed-W mode; bf16 and f32; dx, dA, dB against autograd; each
+   case on the route it should take: the wgmma kernel for bf16 with K, N
+   and r multiples of 8, the FMA kernel otherwise and when forced) and the
    Gram log-volume (D), forward and backward (k in {4, 8}, d = 1280,
    masked and all-zero rows, a batch that is no multiple of the block),
    then the SSD chunk scan (G) at mamba2's and hymba's shapes, with two
@@ -42,14 +45,17 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    bf16, random weights from a seed), checks losses, the frozen backbone,
    the trained leaves, the MMA weights and the launch counters of B (with
    its backward), C and D against the counts the step structure gives,
-   and prints a ``{"training": ...}`` line; then profiles one CCL step and
-   one SE-CCL step into a ``{"training_profile": ...}`` line;
+   checks that every launch of C and of B's backward took the
+   tensor-core route, and prints a ``{"training": ...}`` line; then
+   profiles one CCL step and one SE-CCL step into a
+   ``{"training_profile": ...}`` line;
 8. runs two rounds of the same federation over the int8 wire (error
    feedback on, 1 CCL + 1 AMT + 1 SE-CCL step each, no evaluation) and
    checks the exact bytes on the wire, the residuals and the decoded
    uploads against their quantization steps, the devices' copies of the
-   decoded downlink and every launch counter, E and F included, into a
-   ``{"channel": ...}`` line;
+   decoded downlink and every launch counter, E and F included, and the
+   tensor-core routes of C and B's backward, into a ``{"channel": ...}``
+   line;
 9. serves 24 soft-prompted requests each on ``mamba2-2.7b`` (prompts of
    20-700 tokens, no pages) and ``hymba-1.5b`` (20-1200, the window
    bites) at full width, checks budgets, free lists and exact launch
@@ -61,7 +67,8 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    ...}`` and ``{"hybrid_serving": ...}`` lines;
 10. prints ``{"phase_seconds": ...}`` and a ``{"kernels": [...]}`` line
    (times from CUDA-graph replay, bounds from this run's inputs; rows
-   A-G, each with its launches on the main paths).
+   A-G, each with its launches on the main paths; C's and B's backward
+   rows also time their FMA route on the same inputs, ``ms_fma_route``).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero and prints no result; it also exits
@@ -664,13 +671,14 @@ def phase_flash_grad_check():
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import (
         flash_attention_backward_cuda, flash_attention_backward_plain,
-        flash_attention_cuda, flash_attention_plain)
+        flash_attention_backward_route, flash_attention_cuda,
+        flash_attention_plain)
     gen = torch.Generator(device="cuda").manual_seed(6)
     cases = {"slm": dict(B=8, Sq=136, Sk=136, H=20, K=20, D=64, window=0),
              "llm": dict(B=8, Sq=136, Sk=136, H=16, K=16, D=256, window=0),
              "gqa_window": dict(B=3, Sq=57, Sk=131, H=8, K=2, D=64,
                                 window=45)}
-    results = {}
+    results, routes = {}, {}
     for model, c in cases.items():
         B, Sq, Sk, H, K, D, w = (c[n] for n in
                                  ("B", "Sq", "Sk", "H", "K", "D", "window"))
@@ -704,7 +712,15 @@ def phase_flash_grad_check():
             _, plain_lse = flash_attention_plain(q, k, v, True, w,
                                                  with_lse=True)
             dov = do.reshape(B, Sq, H, D)
+            route = flash_attention_backward_route(q, k, v)
+            if route != ("mma" if dtype == torch.bfloat16 else "fma"):
+                raise AssertionError(f"flash bwd {tag}: route {route}")
+            before = flash_attention_backward_cuda.launches_by_route[route]
             got = flash_attention_backward_cuda(q, k, v, o, dov, lse, True, w)
+            if flash_attention_backward_cuda.launches_by_route[route] != \
+                    before + 1:
+                raise AssertionError(f"flash bwd {tag}: not on {route}")
+            routes[tag] = route
             want = flash_attention_backward_plain(q, k, v, o, dov, lse, True,
                                                   w)
             torch.cuda.synchronize()
@@ -720,7 +736,7 @@ def phase_flash_grad_check():
                     tol if dtype == torch.float32
                     else FLASH_BF16_AUTOGRAD_TOL)
     emit({"phase": "flash_attention_backward_vs_plain",
-          "shapes": cases, "max_abs_err": results,
+          "shapes": cases, "max_abs_err": results, "routes": routes,
           "tolerance": {"bfloat16": BF16_TOL, "float32": F32_TOL,
                         "lse": LSE_TOL,
                         "bfloat16_vs_autograd": FLASH_BF16_AUTOGRAD_TOL,
@@ -818,22 +834,42 @@ def lora_inputs(gen, M, K, N, r, dtype, trans_w=False):
 
 
 def phase_lora_checks():
-    """C against its plain version: the SLM's and the LLM's projections at
-    the training M = 8 x 136, ragged M/N/K, the transposed-W mode of the
-    backward, and the autograd gradients (dx, dA, dB)."""
+    """C against its plain version on both routes: the SLM's and the LLM's
+    projections at the training M = 8 x 136, ragged M/N/K (bf16 with K, N
+    multiples of 8 on the wgmma route; others on the FMA route), ranks 8
+    and 16, the transposed-W mode of the backward, the FMA route forced
+    at the LLM's shape, and the autograd gradients (dx, dA, dB).  Each
+    case checks the route it launched on."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.lora_matmul import (lora_matmul_cuda,
-                                                 lora_matmul_plain)
+                                                 lora_matmul_plain,
+                                                 lora_matmul_route)
     gen = torch.Generator(device="cuda").manual_seed(7)
-    cases = {"slm_proj": (1088, 1280, 1280), "llm_proj": (1088, 4096, 4096),
-             "ragged": (1001, 1283, 771)}
-    results = {}
+    cases = {"slm_proj": (1088, 1280, 1280, 8),
+             "llm_proj": (1088, 4096, 4096, 8),
+             "ragged_aligned": (1001, 1288, 776, 16),
+             "ragged": (1001, 1283, 771, 8)}
+    results, routes = {}, {}
+
+    def launch(tag, *args, **kw):
+        before = dict(lora_matmul_cuda.launches_by_route)
+        out = lora_matmul_cuda(*args, **kw)
+        moved = [r for r, n in lora_matmul_cuda.launches_by_route.items()
+                 if n != before[r]]
+        want = kw.get("route") or lora_matmul_route(
+            *args[:4], kw.get("trans_w", False))
+        if moved != [want]:
+            raise AssertionError(f"lora {tag}: launched on {moved}, "
+                                 f"expected {want}")
+        routes[tag] = want
+        return out
+
     for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
         dt = str(dtype)[6:]
-        for name, (M, K, N) in cases.items():
-            x, w, a, b = lora_inputs(gen, M, K, N, 8, dtype)
-            got = lora_matmul_cuda(x, w, a, b, 2.0)
+        for name, (M, K, N, r) in cases.items():
+            x, w, a, b = lora_inputs(gen, M, K, N, r, dtype)
+            got = launch(f"{name}/{dt}", x, w, a, b, 2.0)
             want = lora_matmul_plain(x, w, a, b, 2.0)
             torch.cuda.synchronize()
             results[f"{name}/{dt}"] = check_close(f"lora {name}/{dt}", got,
@@ -841,7 +877,7 @@ def phase_lora_checks():
         # transposed W: dx = dy @ W^T + s (dy @ B^T) @ A^T at the LLM shape
         dy, wt, bt, at = lora_inputs(gen, 1088, 4096, 4096, 8, dtype,
                                      trans_w=True)
-        got = lora_matmul_cuda(dy, wt, bt, at, 2.0, trans_w=True)
+        got = launch(f"transposed_w/{dt}", dy, wt, bt, at, 2.0, trans_w=True)
         want = lora_matmul_plain(dy, wt.t(), bt, at, 2.0)
         torch.cuda.synchronize()
         results[f"transposed_w/{dt}"] = check_close(
@@ -858,7 +894,19 @@ def phase_lora_checks():
         for n, got, want in zip(("dx", "dA", "dB"), *grads):
             results[f"grad_{n}/{dt}"] = rel_check(f"lora {n}/{dt}", got,
                                                   want, tol)
+    # the FMA route at the LLM's shape in bf16 (what every launch took
+    # before the wgmma route)
+    x, w, a, b = lora_inputs(gen, 1088, 4096, 4096, 8, torch.bfloat16)
+    got = launch("llm_proj/bfloat16/forced_fma", x, w, a, b, 2.0,
+                 route="fma")
+    torch.cuda.synchronize()
+    results["llm_proj/bfloat16/forced_fma"] = check_close(
+        "lora forced fma", got, lora_matmul_plain(x, w, a, b, 2.0), BF16_TOL)
+    if set(routes.values()) != {"wgmma", "fma"}:
+        raise AssertionError(f"lora checks did not cover both routes: "
+                             f"{routes}")
     emit({"phase": "lora_matmul_vs_plain", "max_abs_err": results,
+          "routes": routes,
           "tolerance": {"bfloat16": BF16_TOL, "float32": F32_TOL,
                         "gradients": "on each row divided by its largest "
                                      "|value| (scale: smallest, largest "
@@ -958,13 +1006,35 @@ def counters():
             "ssd_chunk": ssd_chunk_cuda}
 
 
+# the kernels with a tensor-core route and an FMA route, and the route
+# every bf16 launch of the main paths must take
+TENSOR_CORE_ROUTES = {"lora_matmul": "wgmma",
+                      "flash_attention_backward": "mma"}
+
+
 def zero_counters():
-    for fn in counters().values():
+    for name, fn in counters().items():
         fn.launches = 0
+        if name in TENSOR_CORE_ROUTES:
+            fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
 
 
 def read_counters():
     return {n: fn.launches for n, fn in counters().items()}
+
+
+def check_tensor_core_routes(tag):
+    """Every launch of C and B's backward since the last ``zero_counters``
+    took the tensor-core route; returns the per-route counts."""
+    fns = counters()
+    routes = {n: dict(fns[n].launches_by_route) for n in TENSOR_CORE_ROUTES}
+    for name, counts in routes.items():
+        off = {r: n for r, n in counts.items()
+               if r != TENSOR_CORE_ROUTES[name] and n}
+        if off:
+            raise AssertionError(f"{tag}: {name} launched off the "
+                                 f"tensor-core route: {counts}")
+    return routes
 
 
 def expected_round_launches(runner, evaluate=True):
@@ -1116,6 +1186,7 @@ def phase_training():
     torch.cuda.synchronize()
     round_s = time.perf_counter() - t0
     launches = read_counters()
+    routes = check_tensor_core_routes("training round")
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     post = out["summary"]
 
@@ -1171,6 +1242,7 @@ def phase_training():
         "post": {k: post[k] for k in ("avg_ce", "server_ce", "avg_acc")},
         "peak_mem_gb": peak_gb,
         "launches_per_round": launches,
+        "launches_by_route": routes,
         "uplink_bytes": runner.comm_stats["uplink_bytes"],
         "downlink_bytes": runner.comm_stats["downlink_bytes"],
         "first_step_metrics": metrics[0], "last_seccl_metrics": metrics[-1],
@@ -1239,17 +1311,26 @@ def training_kernel_rows():
         gram_log_volume_backward_cuda, gram_log_volume_cuda,
         gram_log_volume_plain)
     from repro_torch.kernels.lora_matmul import (lora_matmul_cuda,
-                                                 lora_matmul_plain)
+                                                 lora_matmul_plain,
+                                                 lora_matmul_route)
     gen = torch.Generator(device="cuda").manual_seed(9)
     dt = torch.bfloat16
     rows = []
 
     # C: the LLM's projections carry most of the round's C time; the
-    # SLM's forward and the LLM's dx (transposed W) are timed beside it
+    # SLM's forward and the LLM's dx (transposed W) are timed beside it.
+    # Each shape also times the FMA route (every launch's kernel before
+    # the wgmma route) on the same inputs.
     def c_case(M, K, N, r, trans_w):
         x, w, a, b = lora_inputs(gen, M, K, N, r, dt, trans_w=trans_w)
+        route = lora_matmul_route(x, w, a, b, trans_w)
+        if route != "wgmma":
+            raise AssertionError(f"lora row: route {route}")
         ms = graph_ms(lambda i: lora_matmul_cuda(x, w, a, b, 2.0,
                                                  trans_w=trans_w))
+        fma = graph_ms(lambda i: lora_matmul_cuda(x, w, a, b, 2.0,
+                                                  trans_w=trans_w,
+                                                  route="fma"))
         wt = w.t() if trans_w else w
         plain = graph_ms(lambda i: lora_matmul_plain(x, wt, a, b, 2.0))
         lib = graph_ms(lambda i: torch.matmul(x, wt))
@@ -1260,13 +1341,15 @@ def training_kernel_rows():
         bytes_ = (M * K + K * N + K * r + r * N + M * N) * es
         flops = 2 * M * K * N + 2 * M * K * r + 2 * M * r * N
         bound, by = _bound(bytes_, flops)
-        return {"ms": ms, "plain_ms": plain, "library_ms": lib,
-                "bound_ms": bound, "bound_by": by, "max_abs_err": err,
+        return {"ms": ms, "ms_fma_route": fma, "plain_ms": plain,
+                "library_ms": lib, "bound_ms": bound, "bound_by": by,
+                "max_abs_err": err, "kernel_route": route,
                 "shape": {"M": M, "K": K, "N": N, "r": r,
                           "trans_w": trans_w, "dtype": str(dt)}}
 
     main = c_case(1088, 4096, 4096, 8, False)
     others = {"slm_forward": c_case(1088, 1280, 1280, 8, False),
+              "slm_dx_transposed_w": c_case(1088, 1280, 1280, 8, True),
               "llm_dx_transposed_w": c_case(1088, 4096, 4096, 8, True)}
     rows.append({
         "name": "lora_matmul", "route": "cuda",
@@ -1275,8 +1358,10 @@ def training_kernel_rows():
         "max_abs_err": max([main["max_abs_err"]]
                            + [o["max_abs_err"] for o in others.values()]),
         "tolerance": BF16_TOL,
-        **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                "library_ms", "shape")},
+        **{k: main[k] for k in ("ms", "ms_fma_route", "plain_ms",
+                                "bound_ms", "bound_by", "library_ms",
+                                "kernel_route", "shape")},
+        "ms_fma_route_is": "the FMA route on the same inputs in this run",
         "library_call": "torch.matmul(x, W): the dense part alone (no "
                         "single PyTorch call computes the whole function)",
         "at_other_shapes": others,
@@ -1433,6 +1518,7 @@ def phase_channel():
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = read_counters()
+        routes = check_tensor_core_routes(f"channel round {r}")
         want = expected_round_launches(runner, evaluate=False)
         if launches != want:
             raise AssertionError(f"channel round {r}: launches {launches} "
@@ -1478,6 +1564,7 @@ def phase_channel():
             raise AssertionError(f"round {r}: the server SLM holds the "
                                  "decoded downlink")
         rounds.append({"wall_s": wall, "launches": launches,
+                       "launches_by_route": routes,
                        "max_residual_over_step": res_ratio,
                        "max_decode_err_over_step": dec_ratio,
                        "nonzero_residuals": nonzero})
@@ -1517,7 +1604,7 @@ def channel_kernel_rows():
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
         flash_attention_backward_cuda, flash_attention_backward_plain,
-        flash_attention_cuda)
+        flash_attention_backward_route, flash_attention_cuda)
     from repro_torch.kernels.quantize import (dequantize_rows_cuda,
                                               dequantize_rows_plain,
                                               quantize_rows_cuda,
@@ -1572,11 +1659,16 @@ def channel_kernel_rows():
         o, lse = flash_attention_cuda(q, k, v, True, BIG_WINDOW,
                                       with_lse=True)
         args = (q, k, v, o, do, lse, True, BIG_WINDOW)
+        route = flash_attention_backward_route(q, k, v)
+        if route != "mma":
+            raise AssertionError(f"flash bwd row: route {route}")
         got = flash_attention_backward_cuda(*args)
         want = flash_attention_backward_plain(*args)
         err = max((grad_rows("flash bwd row", g, w, BF16_TOL) for g, w in
                    zip(got, want)), key=lambda e: e["max_rel_err"])
         ms = graph_ms(lambda i: flash_attention_backward_cuda(*args))
+        fma = graph_ms(lambda i: flash_attention_backward_cuda(
+            *args, route="fma"))
         plain = graph_ms(lambda i: flash_attention_backward_plain(*args))
         # SDPA's backward: forward + backward less the forward alone
         qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
@@ -1594,7 +1686,8 @@ def channel_kernel_rows():
         bytes_ = 5 * n * es + B * H * S * 4 + 3 * n * es
         flops = 10 * D * B * H * S * (S + 1) // 2
         bound, by = _bound(bytes_, flops)
-        return {"ms": ms, "plain_ms": plain, "library_ms": both - fwd,
+        return {"ms": ms, "ms_fma_route": fma, "kernel_route": route,
+                "plain_ms": plain, "library_ms": both - fwd,
                 "library_fwd_bwd_ms": both, "library_fwd_ms": fwd,
                 "bound_ms": bound, "bound_by": by,
                 "max_abs_err": err["max_abs_err"],
@@ -1612,6 +1705,7 @@ def channel_kernel_rows():
                      "divided by the larger of its largest |gradient| and "
                      "0.1 x the tensor's",
         **main,
+        "ms_fma_route_is": "the FMA route on the same inputs in this run",
         "bound_counts": "5 products over the visible pairs (2 recomputed, "
                         "3 of the gradient)",
         "library_call": "scaled_dot_product_attention(enable_gqa=True): "

@@ -4,8 +4,10 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by its
 own ``nvcc`` process into ``build/kernels/<name>-<hash>.so`` at the root of
 the checkout (``.gitignore`` lists ``build/``); all the processes start
 together, so the build takes as long as the slowest source.  The hash
-covers the source and the flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is.  The libraries are loaded with
+covers the source, every ``csrc`` header it includes (``#include
+"name.cuh"``, followed into the headers' own includes) and the flags, so
+an edited source or header is rebuilt and an unchanged one is loaded as
+it is.  The libraries are loaded with
 ``ctypes``.  Nothing here runs at import time: the CPU tests import every
 module of the port on a machine without ``nvcc``.
 """
@@ -14,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -47,9 +50,28 @@ def sources() -> Dict[str, Path]:
     return {p.stem: p for p in sorted(CSRC.glob("*.cu"))}
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def local_includes(src: Path) -> list:
+    """The headers beside ``src`` that it includes with quotes, directly or
+    through other such headers, in first-seen order."""
+    seen, todo = [], [src]
+    while todo:
+        for name in _INCLUDE.findall(todo.pop(0).read_bytes()):
+            dep = src.parent / name.decode()
+            if dep.is_file() and dep not in seen:
+                seen.append(dep)
+                todo.append(dep)
+    return seen
+
+
 def library_path(src: Path) -> Path:
-    """Where the library built from ``src`` lives (content-addressed)."""
+    """Where the library built from ``src`` lives (content-addressed: the
+    source, the headers it includes and the flags)."""
     h = hashlib.sha256(src.read_bytes())
+    for dep in local_includes(src):
+        h.update(dep.name.encode() + b"\0" + dep.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
@@ -89,9 +111,20 @@ def build_all() -> Dict[str, ctypes.CDLL]:
         return _LIBS
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library built from ``csrc/<name>.cu`` (built on demand)."""
-    return build_all()[name]
+def library(name: str, functions: Dict[str, tuple] | None = None
+            ) -> ctypes.CDLL:
+    """The loaded library built from ``csrc/<name>.cu`` (built on demand).
+    ``functions`` maps C function names to (argument types, return type),
+    set on the library's functions at the first call (without argument
+    types ctypes passes every int as a 32-bit C int)."""
+    lib = build_all()[name]
+    if functions:
+        with _LOCK:
+            for fname, (args, res) in functions.items():
+                fn = getattr(lib, fname)
+                if fn.argtypes is None:
+                    fn.argtypes, fn.restype = args, res
+    return lib
 
 
 def build_log(name: str) -> str:

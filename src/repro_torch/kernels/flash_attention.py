@@ -8,8 +8,12 @@ flash_attention``.  Unlike the TPU wrapper it takes the model layout
 no padding.  The TPU kernel is forward only (JAX differentiates the
 attention of ``models/layers.py:mha``); here the backward is a kernel too,
 which recomputes the probabilities from the forward's per-row
-log-sum-exp.  :func:`flash_attention_cuda` and
-:func:`flash_attention_backward_cuda` count their launches in ``.launches``.
+log-sum-exp.  The backward has two routes: bf16 with D in {64, 128, 256}
+takes the ``"mma"`` kernels (tensor cores), every other input the
+``"fma"`` kernels (f32 FMAs); :func:`flash_attention_backward_route` picks
+one before the launch.  :func:`flash_attention_cuda` and
+:func:`flash_attention_backward_cuda` count their launches in
+``.launches``, the backward also per route in ``.launches_by_route``.
 """
 from __future__ import annotations
 
@@ -23,24 +27,32 @@ from repro_torch.kernels.ref import NEG_INF, attention_ref
 
 __all__ = ["flash_attention_cuda", "flash_attention_plain",
            "flash_attention_backward_cuda", "flash_attention_backward_plain",
-           "flash_attention_autograd", "SUPPORTED_HEAD_DIMS"]
+           "flash_attention_autograd", "flash_attention_backward_route",
+           "SUPPORTED_HEAD_DIMS", "MMA_HEAD_DIMS", "BACKWARD_ROUTES"]
 
 SUPPORTED_HEAD_DIMS = (32, 64, 128, 256)
+MMA_HEAD_DIMS = (64, 128, 256)
+BACKWARD_ROUTES = ("mma", "fma")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+# the C functions of csrc/flash_attention.cu: argument types, return type
+C_FUNCTIONS = {
+    "flash_attention_launch": (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+        ctypes.c_int),
+    "flash_attention_backward_launch": (
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+        ctypes.c_int),
+    "flash_attention_backward_mma_launch": (
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+        ctypes.c_int),
+    "flash_attention_error_string": ([ctypes.c_int], ctypes.c_char_p),
+}
+
+
 def _lib():
-    lib = _build.library("flash_attention")
-    fn = lib.flash_attention_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        bwd = lib.flash_attention_backward_launch
-        bwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-        bwd.restype = ctypes.c_int
-        lib.flash_attention_error_string.argtypes = [ctypes.c_int]
-        lib.flash_attention_error_string.restype = ctypes.c_char_p
-    return lib
+    return _build.library("flash_attention", C_FUNCTIONS)
 
 
 def _logits_and_mask(q, k, causal: bool, window: int):
@@ -113,7 +125,8 @@ def flash_attention_backward_plain(q, k, v, o, do, lse, causal: bool = True,
     return dq.reshape(B, Sq, H, D).to(dt), dk.to(dt), dv.to(dt)
 
 
-def _check_inputs(q, k, v):
+def _check_shapes(q, k, v):
+    """Raise on shapes or dtypes that no kernel takes (device unchecked)."""
     B, Sq, H, D = q.shape
     Bk, Sk, K, Dk = k.shape
     if Bk != B or Dk != D or tuple(v.shape) != (B, Sk, K, D):
@@ -127,6 +140,10 @@ def _check_inputs(q, k, v):
         raise ValueError(f"B*H={B * H} exceeds the grid's y limit 65535")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q/k/v must share one of {list(_DTYPES)}")
+
+
+def _check_inputs(q, k, v):
+    _check_shapes(q, k, v)
     if any(t.device != q.device for t in (k, v)) or q.device.type != "cuda":
         raise ValueError("all inputs must lie on one CUDA device")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
@@ -171,12 +188,35 @@ def flash_attention_cuda(q, k, v, causal: bool = True, window: int = 0,
 flash_attention_cuda.launches = 0
 
 
+def _aligned16(t) -> bool:
+    return t.storage_offset() * t.element_size() % 16 == 0
+
+
+def flash_attention_backward_route(q, k, v) -> str:
+    """The backward kernels that :func:`flash_attention_backward_cuda`
+    launches for these inputs: ``"mma"`` for bf16 with D in
+    ``MMA_HEAD_DIMS`` and q, k, v at 16-byte aligned offsets (16-byte
+    copies), else ``"fma"``.  Reads only dtypes, shapes and offsets (CPU
+    or meta tensors do); raises on inputs no route takes."""
+    _check_shapes(q, k, v)
+    if (q.dtype == torch.bfloat16 and q.shape[3] in MMA_HEAD_DIMS
+            and all(_aligned16(t) for t in (q, k, v))):
+        return "mma"
+    return "fma"
+
+
 def flash_attention_backward_cuda(q, k, v, o, do, lse, causal: bool = True,
-                                  window: int = 0):
-    """Launch the backward kernels (dQ with delta, then dK/dV; counted as
-    one call).  q, o, do: (B, Sq, H, D);  k, v: (B, Sk, K, D);  lse: the
+                                  window: int = 0, route: str | None = None):
+    """Launch the backward kernels of :func:`flash_attention_backward_route`'s
+    choice, or of ``route`` ("fma" takes every input; "mma" only those the
+    route function gives it): dQ with delta, then dK/dV, counted as one
+    call.  q, o, do: (B, Sq, H, D);  k, v: (B, Sk, K, D);  lse: the
     forward's (B, H, Sq) f32.  All contiguous on one CUDA device, q's dtype
     except lse.  Returns (dq, dk, dv) in q's dtype."""
+    chosen = flash_attention_backward_route(q, k, v)
+    if route not in (None, "fma", chosen):
+        raise ValueError(f"route {route!r} cannot take these inputs")
+    route = route or chosen
     _check_inputs(q, k, v)
     B, Sq, H, D = q.shape
     Sk, K = k.shape[1], k.shape[2]
@@ -192,20 +232,29 @@ def flash_attention_backward_cuda(q, k, v, o, do, lse, causal: bool = True,
     alloc = torch.zeros_like if empty else torch.empty_like
     dq, dk, dv = alloc(q), alloc(k), alloc(v)
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    if route == "mma":     # 16-byte copies need aligned rows
+        o, do = (t if _aligned16(t) else t.clone() for t in (o, do))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, H, K, Sq, Sk, D,
+            int(bool(causal)), int(window))
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.flash_attention_backward_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), B, H, K, Sq, Sk, D,
-            int(bool(causal)), int(window), _DTYPES[q.dtype], stream)
-    _raise_on(rc, lib, "flash_attention_backward")
+        if route == "mma":
+            rc = lib.flash_attention_backward_mma_launch(*args, stream)
+        else:
+            rc = lib.flash_attention_backward_launch(*args, _DTYPES[q.dtype],
+                                                     stream)
+    _raise_on(rc, lib, f"flash_attention_backward ({route})")
     flash_attention_backward_cuda.launches += 1
+    flash_attention_backward_cuda.launches_by_route[route] += 1
     return dq, dk, dv
 
 
 flash_attention_backward_cuda.launches = 0
+flash_attention_backward_cuda.launches_by_route = dict.fromkeys(
+    BACKWARD_ROUTES, 0)
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -7,6 +7,8 @@ a machine that has only PyTorch; from the root of a checkout:
     python -m pytest -q --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda.py
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -14,12 +16,14 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import (
     flash_attention_backward_cuda, flash_attention_backward_plain,
-    flash_attention_cuda, flash_attention_plain)
+    flash_attention_backward_route, flash_attention_cuda,
+    flash_attention_plain)
 from repro_torch.kernels.gram_volume import (gram_log_volume_backward_cuda,
                                              gram_log_volume_cuda,
                                              gram_log_volume_plain)
 from repro_torch.kernels.lora_matmul import (lora_matmul_cuda,
-                                             lora_matmul_plain)
+                                             lora_matmul_plain,
+                                             lora_matmul_route)
 from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                  paged_attention_plain)
 from repro_torch.kernels.quantize import (dequantize_rows_cuda,
@@ -160,6 +164,83 @@ def test_lora_kernel_gradients_match_plain_autograd(gen, dtype):
         torch.testing.assert_close(got, want, **tol)
 
 
+@contextlib.contextmanager
+def _routed(fn, route, n=1):
+    """Assert that the calls inside the ``with`` launched ``fn`` ``n`` times,
+    all on ``route``."""
+    before = dict(fn.launches_by_route)
+    yield
+    moved = {r: c - before[r] for r, c in fn.launches_by_route.items()}
+    assert moved == {r: (n if r == route else 0) for r in moved}
+
+
+@pytest.mark.parametrize("M,K,N,r,trans_w", [
+    (1088, 4096, 4096, 8, False),    # the LLM's projection
+    (1088, 4096, 4096, 8, True),     # the LLM's dx (W read K-major)
+    (1088, 1280, 1280, 8, False),    # the SLM's projection
+    (1088, 1280, 1280, 8, True),     # the SLM's dx
+    (1900, 136, 1800, 8, False),     # the 192 x 192 tile, ragged everywhere
+    (1900, 136, 1800, 8, True),
+    (1001, 264, 136, 16, False),     # M, K and N not multiples of a tile
+    (77, 200, 72, 32, True),         # the largest rank, ragged everywhere
+    (128, 64, 128, 24, False),       # one tile, one stage
+])
+def test_lora_wgmma_route_matches_plain(gen, M, K, N, r, trans_w):
+    """The wgmma route (bf16, K/N/r multiples of 8) against the plain
+    version: both W layouts, both tile shapes (192 x 192 where 99 or more
+    such tiles fill the card at r = 8, else 128 x 96), ranks 8-32, ragged
+    edges; one launch, on the wgmma route."""
+    dt = torch.bfloat16
+    x, w, a, b = _lora_inputs(gen, M, K, N, r, dt)
+    if trans_w:
+        w = (torch.randn((N, K), generator=gen, device="cuda") / K ** 0.5
+             ).to(dt)
+    assert lora_matmul_route(x, w, a, b, trans_w) == "wgmma"
+    with _routed(lora_matmul_cuda, "wgmma"):
+        got = lora_matmul_cuda(x, w, a, b, 2.0, trans_w=trans_w)
+    want = lora_matmul_plain(x, w.t() if trans_w else w, a, b, 2.0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dt])
+
+
+@pytest.mark.parametrize("M,K,N", [(1088, 1280, 1280), (300, 4096, 520)])
+def test_lora_wgmma_route_gradients(gen, M, K, N):
+    """Forward and dx on the wgmma route through autograd, against the
+    plain version's autograd; each row held relative to its own size."""
+    dt = torch.bfloat16
+    x, w, a, b = _lora_inputs(gen, M, K, N, 8, dt)
+    dy = torch.randn((M, N), generator=gen, device="cuda").to(dt)
+    grads = []
+    for fn in (ops.lora_matmul, lora_matmul_plain):
+        xx, aa, bb = (t.clone().requires_grad_(True) for t in (x, a, b))
+        if fn is ops.lora_matmul:
+            with _routed(lora_matmul_cuda, "wgmma", n=2):
+                fn(xx, w, aa, bb, 2.0).backward(dy)
+        else:
+            fn(xx, w, aa, bb, 2.0).backward(dy)
+        grads.append([t.grad.float() for t in (xx, aa, bb)])
+    torch.cuda.synchronize()
+    for got, want in zip(*grads):
+        scale = want.abs().amax(dim=1, keepdim=True).clamp(min=1e-30)
+        torch.testing.assert_close(got / scale, want / scale,
+                                   **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype,K,N,r,route", [
+    (torch.float32, 64, 64, 8, "fma"),
+    (torch.bfloat16, 70, 64, 8, "fma"),       # K not a multiple of 8
+    (torch.bfloat16, 64, 64, 4, "fma"),       # r not a multiple of 8
+])
+def test_lora_fma_route_matches_plain(gen, dtype, K, N, r, route):
+    x, w, a, b = _lora_inputs(gen, 50, K, N, r, dtype)
+    assert lora_matmul_route(x, w, a, b) == route
+    with _routed(lora_matmul_cuda, route):
+        got = lora_matmul_cuda(x, w, a, b, 2.0)
+    want = lora_matmul_plain(x, w, a, b, 2.0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
 # ---------------------------------------------------------------------------
 # kernel D: masked Gram log-volume, forward and backward
 
@@ -284,6 +365,49 @@ def test_flash_backward_kernel_matches_plain(gen, dtype, B, H, K, Sq, Sk, D,
     for g, w in zip(got, want):
         assert g.dtype == dtype
         torch.testing.assert_close(*_row_scaled(g, w), **tol)
+
+
+@pytest.mark.parametrize("B,H,K,Sq,Sk,D,window", [
+    (8, 20, 20, 136, 136, 64, 0),      # the SLM in the round
+    (8, 16, 16, 136, 136, 256, 0),     # the LLM in the round
+    (2, 8, 2, 45, 131, 256, 0),        # GQA, Sq < Sk, D 256
+    (2, 6, 2, 77, 200, 64, 37),        # GQA, a window, Sq < Sk
+    (1, 4, 1, 97, 97, 128, 50),        # MQA, a window, D 128
+    (1, 2, 2, 1, 9, 64, 0),            # one query row
+])
+def test_flash_backward_mma_route_matches_plain(gen, B, H, K, Sq, Sk, D,
+                                                window):
+    """The tensor-core backward (bf16, D 64/128/256) against the explicit
+    formulas on the kernel's own output and log-sum-exp, row-scaled; one
+    launch, on the mma route."""
+    dt = torch.bfloat16
+    q = torch.randn((B, Sq, H, D), generator=gen, device="cuda").to(dt)
+    k, v = (torch.randn((B, Sk, K, D), generator=gen, device="cuda").to(dt)
+            for _ in range(2))
+    do = torch.randn((B, Sq, H, D), generator=gen, device="cuda").to(dt)
+    o, lse = flash_attention_cuda(q, k, v, True, window, with_lse=True)
+    assert flash_attention_backward_route(q, k, v) == "mma"
+    with _routed(flash_attention_backward_cuda, "mma"):
+        got = flash_attention_backward_cuda(q, k, v, o, do, lse, True, window)
+    want = flash_attention_backward_plain(q, k, v, o, do, lse, True, window)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(*_row_scaled(g, w), **TOL[dt])
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 64), (torch.bfloat16, 32)])
+def test_flash_backward_fma_route(gen, dtype, D):
+    """f32, and bf16 at D 32, keep the FMA kernels."""
+    q, k, v, do = (torch.randn((2, 40, 4, D), generator=gen,
+                               device="cuda").to(dtype) for _ in range(4))
+    o, lse = flash_attention_cuda(q, k, v, True, 0, with_lse=True)
+    assert flash_attention_backward_route(q, k, v) == "fma"
+    with _routed(flash_attention_backward_cuda, "fma"):
+        got = flash_attention_backward_cuda(q, k, v, o, do, lse, True, 0)
+    want = flash_attention_backward_plain(q, k, v, o, do, lse, True, 0)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(*_row_scaled(g, w), **TOL[dtype])
 
 
 # ---------------------------------------------------------------------------
