@@ -10,7 +10,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    the card (SLM shapes, GQA, a window, scattered pages, an idle slot,
    lengths that end mid-page; bf16 and f32);
 3. holds the prefill attention kernel (B) against its plain version (SLM
-   shapes at S in {32, 131, 256}, GQA, a window, Sq < Sk, D = 256), and
+   shapes at S in {32, 131, 256}, GQA, a window, Sq < Sk, D = 256; bf16 on
+   both routes, the tensor-core "mma" and the FMA "fma", f32 on "fma";
+   the output and the log-sum-exp), and
    B's output, log-sum-exp and backward kernels against the plain
    versions (the explicit backward formulas and the plain forward's
    autograd) at the round's shapes (batch 8, S = 136; the SLM's and the
@@ -29,7 +31,8 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    Gram log-volume (D), forward and backward (k in {4, 8}, d = 1280,
    masked and all-zero rows, a batch that is no multiple of the block),
    then the SSD chunk scan (G) at mamba2's and hymba's shapes, with two
-   groups, over several chunks and at toy sizes (bf16 and f32), the whole
+   groups, over several chunks and at toy sizes (bf16 on both routes where
+   the "mma" route takes the shape, f32 on "fma"), the whole
    ``ops.ssd_chunked`` against the token-by-token recurrence at ragged S
    of 1, 2 and 3 chunks, and G's output at a large |A| dt;
 5. serves 48 soft-prompted requests through ``ServingEngine`` at the full
@@ -45,7 +48,7 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    bf16, random weights from a seed), checks losses, the frozen backbone,
    the trained leaves, the MMA weights and the launch counters of B (with
    its backward), C and D against the counts the step structure gives,
-   checks that every launch of C and of B's backward took the
+   checks that every launch of C and of B (forward and backward) took the
    tensor-core route, and prints a ``{"training": ...}`` line; then
    profiles one CCL step and one SE-CCL step into a
    ``{"training_profile": ...}`` line;
@@ -54,21 +57,23 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    checks the exact bytes on the wire, the residuals and the decoded
    uploads against their quantization steps, the devices' copies of the
    decoded downlink and every launch counter, E and F included, and the
-   tensor-core routes of C and B's backward, into a ``{"channel": ...}``
-   line;
+   tensor-core routes of C and B, into a ``{"channel": ...}`` line;
 9. serves 24 soft-prompted requests each on ``mamba2-2.7b`` (prompts of
    20-700 tokens, no pages) and ``hymba-1.5b`` (20-1200, the window
    bites) at full width, checks budgets, free lists and exact launch
    counts (G 64 per mamba2 admission; B and G 32 per hymba admission,
-   A 32 per decode step), holds prefill -> decode at exact length against
-   a full forward on the served weights upcast to f32 (and the bf16 run
-   inside the bf16 forward's own distance from f32), profiles an
+   A 32 per decode step), every B and G launch on the "mma" route (SLM
+   serving too), holds prefill -> decode at exact length against a full
+   forward on the served weights upcast to f32 (B and G on "fma") and the
+   bf16 run inside the bf16 forward's own distance from f32 (on "mma"),
+   profiles an
    admission tick and four decode steps, and prints ``{"ssm_serving":
    ...}`` and ``{"hybrid_serving": ...}`` lines;
 10. prints ``{"phase_seconds": ...}`` and a ``{"kernels": [...]}`` line
    (times from CUDA-graph replay, bounds from this run's inputs; rows
-   A-G, each with its launches on the main paths; C's and B's backward
-   rows also time their FMA route on the same inputs, ``ms_fma_route``).
+   A-G, each with its launches on the main paths; the rows of the four
+   two-route kernels, B, B's backward, C and G, also time their FMA route
+   on the same inputs, ``ms_fma_route``).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero and prints no result; it also exits
@@ -180,20 +185,45 @@ def phase_card():
           "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32})
 
 
+def tensor_core_kernels(log):
+    """{kernel<template argument>: {"registers", "spill_store_bytes"}} of
+    each tensor-core kernel (a name that holds "mma": mma.sync or wgmma)
+    in one source's ``-Xptxas=-v`` report."""
+    import re
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = re.search(r"\d+([a-z_]+_w?mma[a-z_]*)", m.group(1))
+            arg = re.search(r"mma[a-z_]*ILi(\d+)E", m.group(1))
+            cur = name and name.group(1) + (f"<{arg.group(1)}>" if arg
+                                            else "")
+            continue
+        if cur:
+            for key, pat in (("registers", r"Used (\d+) registers"),
+                             ("spill_store_bytes",
+                              r"(\d+) bytes spill stores")):
+                hit = re.search(pat, line)
+                if hit:
+                    out.setdefault(cur, {})[key] = int(hit.group(1))
+    return out
+
+
 def phase_build():
     import re
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     _build.build_all()
-    report = {}
+    report, tensor_core = {}, {}
     for name in _build.sources():
         log = _build.build_log(name)
         regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
         spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", log)]
         report[name] = {"max_registers": max(regs, default=None),
                         "max_spill_store_bytes": max(spills, default=None)}
+        tensor_core.update(tensor_core_kernels(log))
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
-          "ptxas": report})
+          "ptxas": report, "ptxas_tensor_core_kernels": tensor_core})
 
 
 # ---------------------------------------------------------------------------
@@ -242,10 +272,21 @@ def phase_paged_checks():
     emit({"phase": "paged_attention_vs_plain", "max_abs_err": results})
 
 
+def route_delta(fn, before):
+    """Launches of ``fn`` per route since the ``before`` snapshot of its
+    ``launches_by_route``, the routes that took none left out."""
+    return {r: n - before[r] for r, n in fn.launches_by_route.items()
+            if n != before[r]}
+
+
 def phase_flash_checks():
+    """B's forward against its plain version: bf16 on both routes (the
+    route function's "mma" and the forced "fma"), f32 on "fma"; the output
+    and the log-sum-exp."""
     import torch
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
-                                                     flash_attention_plain)
+                                                     flash_attention_plain,
+                                                     flash_attention_route)
     gen = torch.Generator(device="cuda").manual_seed(2)
     cases = {f"slm_s{s}": dict(H=20, K=20, D=64, Sq=s, Sk=s)
              for s in (32, 131, 256)}
@@ -264,12 +305,26 @@ def phase_flash_checks():
                             device="cuda").to(dtype)
             v = torch.randn(k.shape, generator=gen, device="cuda").to(dtype)
             w = kw.get("window", 0)
-            got = flash_attention_cuda(q, k, v, causal=True, window=w)
-            want = flash_attention_plain(q, k, v, causal=True, window=w)
-            torch.cuda.synchronize()
-            tag = f"{name}/{str(dtype)[6:]}"
-            results[tag] = check_close(f"flash {tag}", got, want, tol)
-    emit({"phase": "flash_attention_vs_plain", "max_abs_err": results})
+            want, want_lse = flash_attention_plain(q, k, v, causal=True,
+                                                   window=w, with_lse=True)
+            chosen = flash_attention_route(q, k, v)
+            if chosen != ("mma" if dtype == torch.bfloat16 else "fma"):
+                raise AssertionError(f"flash {name}: route {chosen}")
+            for route in dict.fromkeys((chosen, "fma")):
+                before = dict(flash_attention_cuda.launches_by_route)
+                got, lse = flash_attention_cuda(q, k, v, causal=True,
+                                                window=w, with_lse=True,
+                                                route=route)
+                if route_delta(flash_attention_cuda, before) != {route: 1}:
+                    raise AssertionError(f"flash {name}: not on {route}")
+                torch.cuda.synchronize()
+                tag = f"{name}/{str(dtype)[6:]}/{route}"
+                results[tag] = check_close(f"flash {tag}", got, want, tol)
+                results[f"lse/{tag}"] = check_close(f"flash lse {tag}", lse,
+                                                    want_lse, LSE_TOL)
+    emit({"phase": "flash_attention_vs_plain", "max_abs_err": results,
+          "tolerance": {"bfloat16": BF16_TOL, "float32": F32_TOL,
+                        "lse": LSE_TOL}})
 
 
 # ---------------------------------------------------------------------------
@@ -364,6 +419,7 @@ def phase_serving():
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counters()
+    routes = check_tensor_core_routes("serving")
     others = {n: v for n, v in launches.items()
               if v and n not in ("paged_attention", "flash_attention")}
     if others:
@@ -408,6 +464,8 @@ def phase_serving():
         "init_s": init_s,
         "launches_per_decode_step": launches["paged_attention"] / steps,
         "launches_per_prefill": launches["flash_attention"] / prefills,
+        "launches_by_route": {"flash_attention":
+                              routes["flash_attention"]},
     }
 
     e2e_err, _ = prefill_decode_consistency(bundle, merged, reqs[0][2])
@@ -540,7 +598,8 @@ def phase_numbers(engine, snap):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
-                                                     flash_attention_plain)
+                                                     flash_attention_plain,
+                                                     flash_attention_route)
     from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                      paged_attention_plain)
     from repro_torch.models.layers import BIG_WINDOW
@@ -588,32 +647,59 @@ def phase_numbers(engine, snap):
     })
 
     # B: one prefill of the largest bucket (8 soft tokens + 256), the most
-    # common prefill shape of the main run
-    S = cfg.n_soft_tokens + 256
-    q = torch.randn((1, S, H, D), generator=gen, device="cuda").to(kp.dtype)
-    k = torch.randn((1, S, K, D), generator=gen, device="cuda").to(kp.dtype)
-    v = torch.randn((1, S, K, D), generator=gen, device="cuda").to(kp.dtype)
-    got = flash_attention_cuda(q, k, v, causal=True, window=BIG_WINDOW)
-    want = flash_attention_plain(q, k, v, causal=True, window=BIG_WINDOW)
-    err_b = check_close("flash main-path", got, want, BF16_TOL)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    bytes_b = 4 * S * H * D * q.element_size()
-    flops_b = 4 * D * H * S * (S + 1) // 2
-    ms_b = graph_ms(lambda i: flash_attention_cuda(q, k, v, True, BIG_WINDOW))
-    plain_b = graph_ms(lambda i: flash_attention_plain(q, k, v, True, BIG_WINDOW))
-    lib_b = graph_ms(lambda i: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True))
-    bound_b, by_b = _bound(bytes_b, flops_b)
+    # common prefill shape of the main run; then the round's forwards (8
+    # sequences of 8 soft + 128 tokens) at the SLM's and the LLM's heads.
+    # Each shape also times the FMA route on the same inputs and SDPA.
+    def b_case(Bn, S, H, K, D):
+        dt = kp.dtype
+        q = torch.randn((Bn, S, H, D), generator=gen, device="cuda").to(dt)
+        k, v = (torch.randn((Bn, S, K, D), generator=gen,
+                            device="cuda").to(dt) for _ in range(2))
+        route = flash_attention_route(q, k, v)
+        if route != "mma":
+            raise AssertionError(f"flash row: route {route}")
+        got = flash_attention_cuda(q, k, v, causal=True, window=BIG_WINDOW)
+        want = flash_attention_plain(q, k, v, causal=True, window=BIG_WINDOW)
+        err = check_close("flash row", got, want, BF16_TOL)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        bytes_ = 4 * Bn * S * H * D * q.element_size()
+        flops = 4 * D * Bn * H * S * (S + 1) // 2
+        ms = graph_ms(lambda i: flash_attention_cuda(q, k, v, True,
+                                                     BIG_WINDOW))
+        fma = graph_ms(lambda i: flash_attention_cuda(q, k, v, True,
+                                                      BIG_WINDOW,
+                                                      route="fma"))
+        plain = graph_ms(lambda i: flash_attention_plain(q, k, v, True,
+                                                         BIG_WINDOW))
+        lib = graph_ms(lambda i: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True))
+        bound, by = _bound(bytes_, flops)
+        return {"ms": ms, "ms_fma_route": fma, "plain_ms": plain,
+                "library_ms": lib, "bound_ms": bound, "bound_by": by,
+                "max_abs_err": err, "kernel_route": route,
+                "shape": {"B": Bn, "S": S, "H": H, "K": K, "D": D,
+                          "dtype": str(dt)}}
+
+    llm = round_models()[1]
+    s_round = cfg.n_soft_tokens + CORPUS["seq_len"]
+    main = b_case(1, cfg.n_soft_tokens + 256, H, K, D)
+    others = {"round_slm": b_case(8, s_round, H, K, D),
+              "round_llm": b_case(8, s_round, llm.n_heads, llm.n_kv_heads,
+                                  llm.head_dim)}
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:105",
-        "max_abs_err": err_b,
-        "tolerance": BF16_TOL, "ms": ms_b, "plain_ms": plain_b,
-        "bound_ms": bound_b, "bound_by": by_b,
-        "library_ms": lib_b,
-        "shape": {"B": 1, "S": S, "H": H, "K": K, "D": D,
-                  "dtype": str(q.dtype)},
+        "max_abs_err": max([main["max_abs_err"]]
+                           + [o["max_abs_err"] for o in others.values()]),
+        "tolerance": BF16_TOL,
+        **{k: main[k] for k in ("ms", "ms_fma_route", "plain_ms",
+                                "bound_ms", "bound_by", "library_ms",
+                                "kernel_route", "shape")},
+        "ms_fma_route_is": "the FMA route on the same inputs in this run",
+        "library_call": "scaled_dot_product_attention(is_causal=True, "
+                        "enable_gqa=True) on (B, H, S, D) copies",
+        "at_other_shapes": others,
     })
     return kernels
 
@@ -1009,7 +1095,9 @@ def counters():
 # the kernels with a tensor-core route and an FMA route, and the route
 # every bf16 launch of the main paths must take
 TENSOR_CORE_ROUTES = {"lora_matmul": "wgmma",
-                      "flash_attention_backward": "mma"}
+                      "flash_attention": "mma",
+                      "flash_attention_backward": "mma",
+                      "ssd_chunk": "mma"}
 
 
 def zero_counters():
@@ -1024,8 +1112,9 @@ def read_counters():
 
 
 def check_tensor_core_routes(tag):
-    """Every launch of C and B's backward since the last ``zero_counters``
-    took the tensor-core route; returns the per-route counts."""
+    """Every launch of C, B (forward and backward) and G since the last
+    ``zero_counters`` took the tensor-core route; returns the per-route
+    counts."""
     fns = counters()
     routes = {n: dict(fns[n].launches_by_route) for n in TENSOR_CORE_ROUTES}
     for name, counts in routes.items():
@@ -1758,20 +1847,33 @@ def phase_ssd_checks():
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import ssd_recurrent_ref
-    from repro_torch.kernels.ssd_scan import ssd_chunk_cuda, ssd_chunk_plain
+    from repro_torch.kernels.ssd_scan import (ssd_chunk_cuda,
+                                              ssd_chunk_plain,
+                                              ssd_chunk_route)
     gen = torch.Generator(device="cuda").manual_seed(11)
-    results = {}
+    results, routes = {}, {}
     for name, (B, S, H, P, G, N, L) in SSD_SHAPES.items():
         for dtype in (torch.bfloat16, torch.float32):
             x, dt, A, Bm, Cm = ssd_inputs(gen, B, S, H, P, G, N, dtype)
             cum = chunk_cum(dt, A, L)
-            y, st = ssd_chunk_cuda(x, dt, cum, Bm, Cm, L)
             py, pst = ssd_chunk_plain(x, dt, cum, Bm, Cm, L)
-            torch.cuda.synchronize()
-            tag = f"{name}/{str(dtype)[6:]}"
-            results[tag] = max(check_close(f"ssd y {tag}", y, py, SSD_TOL),
-                               check_close(f"ssd state {tag}", st, pst,
-                                           SSD_TOL))
+            chosen = ssd_chunk_route(x, dt, cum, Bm, Cm, L)
+            routes[f"{name}/{str(dtype)[6:]}"] = chosen
+            for route in dict.fromkeys((chosen, "fma")):
+                before = dict(ssd_chunk_cuda.launches_by_route)
+                y, st = ssd_chunk_cuda(x, dt, cum, Bm, Cm, L, route=route)
+                if route_delta(ssd_chunk_cuda, before) != {route: 1}:
+                    raise AssertionError(f"ssd {name}: not on {route}")
+                torch.cuda.synchronize()
+                tag = f"{name}/{str(dtype)[6:]}/{route}"
+                results[tag] = max(
+                    check_close(f"ssd y {tag}", y, py, SSD_TOL),
+                    check_close(f"ssd state {tag}", st, pst, SSD_TOL))
+    want = {n: "mma" for n in ("mamba2", "hymba", "groups2",
+                               "mamba2_chunks3", "batch2_chunks4")}
+    if any(routes[f"{n}/bfloat16"] != r for n, r in want.items()) or \
+            any(r != "fma" for t, r in routes.items() if "float32" in t):
+        raise AssertionError(f"ssd routes {routes}")
     # the whole chunked SSD (one G launch, padding, the recurrence across
     # chunks, the final state) against the token-by-token recurrence, at
     # ragged S of 1, 2 and 3 chunks; decays that reach across chunks
@@ -1793,15 +1895,19 @@ def phase_ssd_checks():
     x, dt, A, Bm, Cm = ssd_inputs(gen, 1, 512, 80, 64, 1, 128,
                                   torch.bfloat16, dt_shift=5.0)
     cum = chunk_cum(dt, A, 256)
-    y, st = ssd_chunk_cuda(x, dt, cum, Bm, Cm, 256)
-    torch.cuda.synchronize()
-    if not (torch.isfinite(y).all() and torch.isfinite(st).all()):
-        raise AssertionError("ssd: non-finite output at large |A| dt")
     py, pst = ssd_chunk_plain(x, dt, cum, Bm, Cm, 256)
-    large = max(check_close("ssd large decay y", y, py, SSD_TOL),
-                check_close("ssd large decay state", st, pst, SSD_TOL))
+    large = {}
+    for route in ("mma", "fma"):
+        y, st = ssd_chunk_cuda(x, dt, cum, Bm, Cm, 256, route=route)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(y).all() and torch.isfinite(st).all()):
+            raise AssertionError(f"ssd {route}: non-finite output at large "
+                                 "|A| dt")
+        large[route] = max(
+            check_close(f"ssd large decay y {route}", y, py, SSD_TOL),
+            check_close(f"ssd large decay state {route}", st, pst, SSD_TOL))
     emit({"phase": "ssd_chunk_vs_plain", "max_abs_err": results,
-          "tolerance": SSD_TOL,
+          "routes": routes, "tolerance": SSD_TOL,
           "ssd_chunked_vs_recurrence_f32": chunked,
           "recurrence_tolerance": SSD_RECURRENCE_TOL,
           "large_decay_finite_max_abs_err": large,
@@ -1865,6 +1971,7 @@ def serve_recurrent(cfg, econf, lo, hi, fixed, expect, consistency_lens,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counters()
+    routes = check_tensor_core_routes(f"{tag} serving")
     steps = engine.n_steps - base["steps"]
     prefills = engine.n_prefills - base["prefills"]
     want = {n: 0 for n in launches}
@@ -1909,6 +2016,8 @@ def serve_recurrent(cfg, econf, lo, hi, fixed, expect, consistency_lens,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
         "init_s": init_s,
         "launches": {n: v for n, v in launches.items() if v},
+        "launches_by_route": {n: r for n, r in routes.items()
+                              if any(r.values())},
     }
     metrics["prefill_vs_decode"] = recurrent_consistency(
         cfg, engine.params, reqs[0][2], consistency_lens)
@@ -1924,25 +2033,43 @@ def recurrent_consistency(cfg, params, soft, lens):
     decay), while a wrong handoff moves the f32 logits by far more.  The
     bf16 run is measured and held only inside that noise: its decode may
     stray from its forward by no more than its forward strays from the
-    f32 forward on the same tokens."""
+    f32 forward on the same tokens.  Every B and G launch of the f32 run
+    takes the "fma" route, every one of the bf16 run "mma"."""
     from repro_torch.core.lora import flatten, unflatten
     from repro_torch.models.model import build_model
     bundle = build_model(cfg)
     b32 = build_model(dataclasses.replace(cfg, dtype="float32"))
     p32 = unflatten({k: v.float() for k, v in flatten(params).items()})
+    fns = {n: f for n, f in counters().items()
+           if n in ("flash_attention", "ssd_chunk")}
+
+    def on_route(route, run):
+        """run(), then check that every B and G launch it made took
+        ``route``; returns (run's result, launches per kernel and route)."""
+        before = {n: dict(f.launches_by_route) for n, f in fns.items()}
+        result = run()
+        moved = {n: route_delta(f, before[n]) for n, f in fns.items()}
+        off = {n: m for n, m in moved.items() if set(m) - {route}}
+        if off:
+            raise AssertionError(f"{cfg.name}: launches off {route}: {off}")
+        return result, {n: m for n, m in moved.items() if m}
+
     out = {}
     for S in lens:
-        err32, full32 = prefill_decode_consistency(b32, p32, soft.float(),
-                                                   S=S, pad=0)
-        err16, full16 = prefill_decode_consistency(bundle, params, soft,
-                                                   S=S, pad=0, tol=None)
+        (err32, full32), routes32 = on_route("fma", lambda: (
+            prefill_decode_consistency(b32, p32, soft.float(), S=S, pad=0)))
+        (err16, full16), routes16 = on_route("mma", lambda: (
+            prefill_decode_consistency(bundle, params, soft, S=S, pad=0,
+                                       tol=None)))
         noise = float((full16 - full32)[0, -9:].abs().max())
         if err16 > noise:
             raise AssertionError(f"{cfg.name} S={S}: bf16 decode strays "
                                  f"{err16:.3e} from its forward, more than "
                                  f"the forward's bf16 noise {noise:.3e}")
         out[f"S{S}"] = {"f32_max_abs_err": err32, "f32_tolerance": E2E_TOL,
+                        "f32_launches_by_route": routes32,
                         "bf16_max_abs_err": err16,
+                        "bf16_launches_by_route": routes16,
                         "bf16_forward_vs_f32_forward_max_abs": noise}
         del full16, full32
     del p32
@@ -1981,20 +2108,27 @@ def phase_hybrid_serving():
 
 
 def ssd_kernel_rows():
-    """Row G at mamba2's prefill shapes (bf16), from CUDA-graph replay;
-    bounds from these inputs."""
+    """Row G at mamba2's and hymba's prefill shapes (bf16), from CUDA-graph
+    replay; bounds from these inputs.  Each shape also times the FMA route
+    on the same inputs."""
     import torch
-    from repro_torch.kernels.ssd_scan import ssd_chunk_cuda, ssd_chunk_plain
+    from repro_torch.kernels.ssd_scan import (ssd_chunk_cuda, ssd_chunk_plain,
+                                              ssd_chunk_route)
     gen = torch.Generator(device="cuda").manual_seed(12)
 
     def case(B, S, H, P, G, N, L):
         x, dt, A, Bm, Cm = ssd_inputs(gen, B, S, H, P, G, N, torch.bfloat16)
         cum = chunk_cum(dt, A, L)
+        route = ssd_chunk_route(x, dt, cum, Bm, Cm, L)
+        if route != "mma":
+            raise AssertionError(f"ssd row: route {route}")
         got = ssd_chunk_cuda(x, dt, cum, Bm, Cm, L)
         want = ssd_chunk_plain(x, dt, cum, Bm, Cm, L)
         err = max(check_close("ssd row y", got[0], want[0], SSD_TOL),
                   check_close("ssd row state", got[1], want[1], SSD_TOL))
         ms = graph_ms(lambda i: ssd_chunk_cuda(x, dt, cum, Bm, Cm, L))
+        fma = graph_ms(lambda i: ssd_chunk_cuda(x, dt, cum, Bm, Cm, L,
+                                                route="fma"))
         plain = graph_ms(lambda i: ssd_chunk_plain(x, dt, cum, Bm, Cm, L))
         nc, es = S // L, x.element_size()
         bytes_ = (B * S * H * P * es + 2 * B * S * G * N * es
@@ -2005,7 +2139,8 @@ def ssd_kernel_rows():
         # and the end state
         flops = 2 * B * nc * (G * tri * N + H * tri * P + H * L * P * N)
         bound, by = _bound(bytes_, flops)
-        return {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+        return {"ms": ms, "ms_fma_route": fma, "kernel_route": route,
+                "plain_ms": plain, "bound_ms": bound,
                 "bound_by": by, "max_abs_err": err, "bytes": bytes_,
                 "flops": flops,
                 "shape": {"B": B, "S": S, "H": H, "P": P, "G": G, "N": N,
@@ -2021,8 +2156,10 @@ def ssd_kernel_rows():
         "max_abs_err": max([main["max_abs_err"]]
                            + [o["max_abs_err"] for o in others.values()]),
         "tolerance": SSD_TOL,
-        **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+        **{k: main[k] for k in ("ms", "ms_fma_route", "kernel_route",
+                                "plain_ms", "bound_ms", "bound_by",
                                 "shape", "bytes", "flops")},
+        "ms_fma_route_is": "the FMA route on the same inputs in this run",
         "library_ms": None,
         "library_call": "none: no single PyTorch call computes the SSD "
                         "chunk scan",

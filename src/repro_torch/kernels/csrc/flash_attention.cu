@@ -10,12 +10,33 @@
 // work is small either way; per (batch, head) it reads S*D values of each of
 // Q, K, V, writes S*D, and does ~2*S^2*D flops under the causal mask, so it
 // is bytes-bound below S ~ 150 and operations-bound above (at the tensor
-// cores' rate; the forward runs its products on f32 FMA units).  The
-// backward reads Q, K, V, O, dO and the row log-sum-exp, writes dQ, dK, dV,
-// and does ~5*S^2*D flops under the mask (two products recomputed, three of
-// the gradient): at the round's S = 136 it is bytes- and latency-bound.
+// cores' rate).  The backward reads Q, K, V, O, dO and the row log-sum-exp,
+// writes dQ, dK, dV, and does ~5*S^2*D flops under the mask (two products
+// recomputed, three of the gradient): at the round's S = 136 it is bytes-
+// and latency-bound.  Forward and backward each have two routes, chosen by
+// the wrapper before the launch (`flash_attention_route`,
+// `flash_attention_backward_route`): "mma" for bf16 with D in {64, 128,
+// 256}, "fma" for everything else (f32, D = 32).
 //
-// Forward design:
+// Forward, mma route, `flash_attention_kernel_mma` (FlashAttention-2):
+//   * grid (query tile of 64 rows, batch * head), 4 warps of 16 query rows.
+//     S = Q K^T and O += P V on mma.sync m16n8k16 (bf16 operands by
+//     ldmatrix from rows padded by 8 bf16, f32 accumulators); the online
+//     softmax runs in f32 on the accumulator fragments, in base 2 (one
+//     multiply by log2(e) / sqrt(D)); P is rounded to bf16 as the A
+//     fragment of P V.  K/V tiles (64 keys, 32 at D = 256) come in by
+//     cp.async, double-buffered; Q stays in shared memory and is read by
+//     ldmatrix at every k-step, so at D = 256 a thread holds O's 128 f32
+//     accumulators and a 16 x 32 score tile.
+//   * the same key range and masks as the FMA route; a warp skips the key
+//     tiles that none of its rows can see and masks only the tiles that
+//     cross a causal, window or length edge.  A row with no visible key
+//     writes zeros; the log-sum-exp is written in natural-log units.
+//   * shared memory (64 + 4 * keys per tile) * (D + 8) * 2 bytes: 46 KB at
+//     D = 64, 87 KB at D = 128, 101 KB at D = 256; the launcher raises the
+//     dynamic limit once (a static flag) and allocates nothing.
+//
+// Forward, fma route, `flash_attention_kernel` (f32 FMA units):
 //   * grid (query tile of BQ = 64 rows, batch * head).  The block loads its
 //     Q tile once into shared memory (f32) and loops over key tiles of
 //     BK = 32 rows, from the window's first key to the causal edge of its
@@ -959,6 +980,224 @@ cudaError_t launch_bwd_mma(const void* q, const void* k, const void* v, const vo
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- mma forward
+// The forward on tensor cores (bf16, D in {64, 128, 256}), FlashAttention-2
+// style: S = Q K^T and O += P V on mma.sync with f32 accumulators, the
+// online softmax in f32 on the accumulator fragments (base 2: the logits
+// are scaled by log2(e) / sqrt(D) once), P rounded to bf16 as the A
+// fragment of P V.
+
+template <int D>
+struct MmaFwd {
+  static constexpr int DS = D + 8;                // padded row: ldmatrix without bank conflicts
+  static constexpr int BQ = 64;                   // query rows (4 warps x 16)
+  static constexpr int BKT = D == 256 ? 32 : 64;  // keys per tile
+  static constexpr size_t smem = (size_t)(BQ + 4 * BKT) * DS * 2;
+};
+
+constexpr float LN2 = 0.6931471805599453f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Block: 64 query rows of one (batch, head); warp w owns rows 16w..16w+15
+// and skips the key tiles that none of its rows can see.
+template <int D>
+__global__ void __launch_bounds__(128)
+flash_attention_kernel_mma(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+                           float* __restrict__ lse, int H, int K, int Sq, int Sk, int causal,
+                           int window, float scale_log2) {
+  using C = MmaFwd<D>;
+  constexpr int DS = C::DS, BQ = C::BQ, BKT = C::BKT, NT8 = BKT / 8, ND8 = D / 8;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* Ks = Qs + BQ * DS;  // two buffers of BKT rows
+  __nv_bfloat16* Vs = Ks + 2 * BKT * DS;
+
+  const int q0 = blockIdx.x * BQ;
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int kvh = h / (H / K);
+  const int off = Sk - Sq;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, qd = lane % 4;
+  const size_t qstride = (size_t)H * D, kstride = (size_t)K * D;
+  const size_t qbase = ((size_t)b * Sq * H + h) * D, kbase = ((size_t)b * Sk * K + kvh) * D;
+
+  const int last_q = min(q0 + BQ, Sq) - 1;
+  const int kend = causal ? min(Sk, last_q + off + 1) : Sk;
+  const int kbeg = window > 0 ? (int)max(0LL, (long long)q0 + off - window + 1) : 0;
+  const int nt = kend > kbeg ? (kend - kbeg + BKT - 1) / BKT : 0;
+
+  load_rows<D, 128>(Qs, q + qbase, BQ, q0, Sq, qstride);
+  if (nt > 0) {
+    load_rows<D, 128>(Ks, k + kbase, BKT, kbeg, Sk, kstride);
+    load_rows<D, 128>(Vs, v + kbase, BKT, kbeg, Sk, kstride);
+  }
+  sm90::cp_async_commit();
+
+  const int w0 = q0 + warp * 16;  // the warp's first query row
+  const int qpos_lo = w0 + g + off, qpos_hi = qpos_lo + 8;
+  float m_lo = NEG_INF, m_hi = NEG_INF;  // running row max (base-2 logits)
+  float l_lo = 0.f, l_hi = 0.f;          // this thread's share of the row sums
+  float acc[ND8][4];
+#pragma unroll
+  for (int j = 0; j < ND8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int it = 0; it < nt; ++it) {
+    const int buf = it & 1;
+    const int kt = kbeg + it * BKT;
+    if (it + 1 < nt) {
+      load_rows<D, 128>(Ks + (buf ^ 1) * BKT * DS, k + kbase, BKT, kt + BKT, Sk, kstride);
+      load_rows<D, 128>(Vs + (buf ^ 1) * BKT * DS, v + kbase, BKT, kt + BKT, Sk, kstride);
+      sm90::cp_async_commit();
+      sm90::cp_async_wait<1>();
+    } else {
+      sm90::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const __nv_bfloat16* Kt = Ks + buf * BKT * DS;
+    const __nv_bfloat16* Vt = Vs + buf * BKT * DS;
+    const int klast = kt + BKT - 1;
+    const bool hidden = (causal && kt > w0 + 15 + off) ||
+                        (window > 0 && (long long)w0 + off - klast >= window);
+    if (!hidden) {
+      // S = Q K^T, 16 x BKT per warp
+      float s[NT8][4];
+#pragma unroll
+      for (int j = 0; j < NT8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+      for (int kd = 0; kd < D / 16; ++kd) {
+        uint32_t aq[4];
+        sm90::ldmatrix_x4(aq, Qs + (warp * 16 + lane % 16) * DS + kd * 16 + (lane / 16) * 8);
+#pragma unroll
+        for (int np = 0; np < NT8 / 2; ++np) {
+          uint32_t bk[4];
+          const int key = np * 16 + lane % 8 + 8 * (lane / 16);
+          sm90::ldmatrix_x4(bk, Kt + key * DS + kd * 16 + 8 * ((lane / 8) % 2));
+          sm90::mma_bf16_16816(s[2 * np], aq, bk[0], bk[1]);
+          sm90::mma_bf16_16816(s[2 * np + 1], aq, bk[2], bk[3]);
+        }
+      }
+      // the mask only where a key of the tile is hidden from a row of the warp
+      const bool full = klast < Sk && (!causal || klast <= w0 + off) &&
+                        (window <= 0 || (long long)w0 + 15 + off - kt < window);
+      float mt_lo = NEG_INF, mt_hi = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < NT8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[j][e] * scale_log2;
+          if (!full) {
+            const int kpos = kt + j * 8 + 2 * qd + (e & 1);
+            x = visible(kpos, e >= 2 ? qpos_hi : qpos_lo, Sk, causal, window) ? x : NEG_INF;
+          }
+          s[j][e] = x;
+          if (e < 2)
+            mt_lo = fmaxf(mt_lo, x);
+          else
+            mt_hi = fmaxf(mt_hi, x);
+        }
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {
+        mt_lo = fmaxf(mt_lo, __shfl_xor_sync(0xffffffffu, mt_lo, o));
+        mt_hi = fmaxf(mt_hi, __shfl_xor_sync(0xffffffffu, mt_hi, o));
+      }
+      const float mn_lo = fmaxf(m_lo, mt_lo), mn_hi = fmaxf(m_hi, mt_hi);
+      const float alpha_lo = exp2f(m_lo - mn_lo), alpha_hi = exp2f(m_hi - mn_hi);
+      // a row with nothing visible yet keeps p = exp2(NEG_INF - 0) = 0
+      const float ref_lo = mn_lo == NEG_INF ? 0.f : mn_lo;
+      const float ref_hi = mn_hi == NEG_INF ? 0.f : mn_hi;
+      m_lo = mn_lo;
+      m_hi = mn_hi;
+      float ls_lo = 0.f, ls_hi = 0.f;
+#pragma unroll
+      for (int j = 0; j < NT8; ++j) {
+        s[j][0] = exp2f(s[j][0] - ref_lo);
+        s[j][1] = exp2f(s[j][1] - ref_lo);
+        s[j][2] = exp2f(s[j][2] - ref_hi);
+        s[j][3] = exp2f(s[j][3] - ref_hi);
+        ls_lo += s[j][0] + s[j][1];
+        ls_hi += s[j][2] + s[j][3];
+      }
+      l_lo = l_lo * alpha_lo + ls_lo;
+      l_hi = l_hi * alpha_hi + ls_hi;
+#pragma unroll
+      for (int j = 0; j < ND8; ++j) {
+        acc[j][0] *= alpha_lo;
+        acc[j][1] *= alpha_lo;
+        acc[j][2] *= alpha_hi;
+        acc[j][3] *= alpha_hi;
+      }
+      // O += P V
+#pragma unroll
+      for (int kb = 0; kb < BKT / 16; ++kb) {
+        uint32_t a[4];
+        frag_a_from_acc(a, s[2 * kb], s[2 * kb + 1]);
+#pragma unroll
+        for (int dp2 = 0; dp2 < D / 16; ++dp2) {
+          uint32_t bv[4];
+          const int key = kb * 16 + lane % 8 + 8 * ((lane / 8) % 2);
+          sm90::ldmatrix_x4_trans(bv, Vt + key * DS + dp2 * 16 + 8 * (lane / 16));
+          sm90::mma_bf16_16816(acc[2 * dp2], a, bv[0], bv[1]);
+          sm90::mma_bf16_16816(acc[2 * dp2 + 1], a, bv[2], bv[3]);
+        }
+      }
+    }
+    __syncthreads();  // the buffer is consumed before the next tile lands in it
+  }
+  sm90::cp_async_wait<0>();
+
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, o);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, o);
+  }
+  const float den_lo = fmaxf(l_lo, 1e-30f), den_hi = fmaxf(l_hi, 1e-30f);
+  const float inv_lo = 1.f / den_lo, inv_hi = 1.f / den_hi;
+  const int r_lo = w0 + g, r_hi = r_lo + 8;
+#pragma unroll
+  for (int j = 0; j < ND8; ++j) {
+    const int d = j * 8 + 2 * qd;
+    if (r_lo < Sq)
+      *reinterpret_cast<__nv_bfloat162*>(out + qbase + (size_t)r_lo * qstride + d) =
+          __floats2bfloat162_rn(acc[j][0] * inv_lo, acc[j][1] * inv_lo);
+    if (r_hi < Sq)
+      *reinterpret_cast<__nv_bfloat162*>(out + qbase + (size_t)r_hi * qstride + d) =
+          __floats2bfloat162_rn(acc[j][2] * inv_hi, acc[j][3] * inv_hi);
+  }
+  if (lse != nullptr && qd == 0) {
+    // natural-log units, as the FMA route writes them
+    const size_t row = ((size_t)b * H + h) * Sq;
+    if (r_lo < Sq) lse[row + r_lo] = (m_lo == NEG_INF ? NEG_INF : m_lo * LN2) + logf(den_lo);
+    if (r_hi < Sq) lse[row + r_hi] = (m_hi == NEG_INF ? NEG_INF : m_hi * LN2) + logf(den_hi);
+  }
+}
+
+template <int D>
+cudaError_t launch_fwd_mma(const void* q, const void* k, const void* v, void* out, float* lse,
+                           int B, int H, int K, int Sq, int Sk, int causal, int window,
+                           cudaStream_t stream) {
+  using C = MmaFwd<D>;
+  using T = __nv_bfloat16;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_attention_kernel_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::smem);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  dim3 grid((Sq + C::BQ - 1) / C::BQ, B * H);
+  flash_attention_kernel_mma<D><<<grid, 128, C::smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(out), lse, H, K, Sq, Sk, causal, window, LOG2E / sqrtf((float)D));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // q (B,Sq,H,D), k/v (B,Sk,K,D), out (B,Sq,H,D); contiguous, one dtype
@@ -977,6 +1216,24 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
                             : launch_t<float>(D, q, k, v, out, l, B, H, K, Sq, Sk, causal,
                                               window, s);
   return (int)err;
+}
+
+// The forward's mma route: bf16 only, D in {64, 128, 256}, rows at 16-byte
+// aligned addresses; the same arguments as flash_attention_launch less the
+// dtype flag.
+extern "C" int flash_attention_mma_launch(const void* q, const void* k, const void* v, void* out,
+                                          void* lse, int B, int H, int K, int Sq, int Sk, int D,
+                                          int causal, int window, void* stream) {
+  if (B == 0 || Sq == 0) return 0;
+  if (K <= 0 || H % K != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  switch (D) {
+    case 64: return (int)launch_fwd_mma<64>(q, k, v, out, l, B, H, K, Sq, Sk, causal, window, s);
+    case 128: return (int)launch_fwd_mma<128>(q, k, v, out, l, B, H, K, Sq, Sk, causal, window, s);
+    case 256: return (int)launch_fwd_mma<256>(q, k, v, out, l, B, H, K, Sq, Sk, causal, window, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // The backward: q, o, dout, dq (B,Sq,H,D); k, v, dk, dv (B,Sk,K,D); lse

@@ -1,6 +1,6 @@
 // PTX wrappers for Hopper (sm_90a) shared by the tensor-core kernels:
 // cp.async, ldmatrix and mma.sync (m16n8k16, bf16 in, f32 accumulate) for
-// the attention backward; mbarriers, TMA tile loads and wgmma (bf16 in,
+// prefill attention and the SSD chunk scan; mbarriers, TMA tile loads and wgmma (bf16 in,
 // f32 accumulate, operands in shared memory behind 64-bit descriptors)
 // for the LoRA projection.
 #pragma once
@@ -26,6 +26,11 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
                "l"(src), "r"(src_bytes)
+               : "memory");
+}
+// 4 bytes global -> shared (one f32; through L1)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {

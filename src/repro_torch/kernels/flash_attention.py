@@ -8,12 +8,13 @@ flash_attention``.  Unlike the TPU wrapper it takes the model layout
 no padding.  The TPU kernel is forward only (JAX differentiates the
 attention of ``models/layers.py:mha``); here the backward is a kernel too,
 which recomputes the probabilities from the forward's per-row
-log-sum-exp.  The backward has two routes: bf16 with D in {64, 128, 256}
-takes the ``"mma"`` kernels (tensor cores), every other input the
-``"fma"`` kernels (f32 FMAs); :func:`flash_attention_backward_route` picks
-one before the launch.  :func:`flash_attention_cuda` and
+log-sum-exp.  Forward and backward each have two routes: bf16 with D in
+{64, 128, 256} takes the ``"mma"`` kernels (tensor cores), every other
+input the ``"fma"`` kernels (f32 FMAs); :func:`flash_attention_route` and
+:func:`flash_attention_backward_route` pick one before the launch, and
+``route="fma"`` forces the FMA kernels.  :func:`flash_attention_cuda` and
 :func:`flash_attention_backward_cuda` count their launches in
-``.launches``, the backward also per route in ``.launches_by_route``.
+``.launches`` and per route in ``.launches_by_route``.
 """
 from __future__ import annotations
 
@@ -22,17 +23,18 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _route
 from repro_torch.kernels.ref import NEG_INF, attention_ref
 
 __all__ = ["flash_attention_cuda", "flash_attention_plain",
            "flash_attention_backward_cuda", "flash_attention_backward_plain",
-           "flash_attention_autograd", "flash_attention_backward_route",
-           "SUPPORTED_HEAD_DIMS", "MMA_HEAD_DIMS", "BACKWARD_ROUTES"]
+           "flash_attention_autograd", "flash_attention_route",
+           "flash_attention_backward_route", "SUPPORTED_HEAD_DIMS",
+           "MMA_HEAD_DIMS", "ROUTES"]
 
 SUPPORTED_HEAD_DIMS = (32, 64, 128, 256)
 MMA_HEAD_DIMS = (64, 128, 256)
-BACKWARD_ROUTES = ("mma", "fma")
+ROUTES = ("mma", "fma")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -40,6 +42,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 C_FUNCTIONS = {
     "flash_attention_launch": (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+        ctypes.c_int),
+    "flash_attention_mma_launch": (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
         ctypes.c_int),
     "flash_attention_backward_launch": (
         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
@@ -156,9 +161,30 @@ def _raise_on(rc: int, lib, what: str) -> None:
                            + lib.flash_attention_error_string(rc).decode())
 
 
+def flash_attention_route(q, k, v) -> str:
+    """The forward kernel that :func:`flash_attention_cuda` launches for
+    these inputs: ``"mma"`` for bf16 with D in ``MMA_HEAD_DIMS`` and q, k,
+    v at 16-byte aligned offsets (16-byte copies), else ``"fma"``.  Reads
+    only dtypes, shapes and offsets (CPU or meta tensors do); raises on
+    inputs no route takes."""
+    _check_shapes(q, k, v)
+    if (q.dtype == torch.bfloat16 and q.shape[3] in MMA_HEAD_DIMS
+            and all(_route.aligned16(t) for t in (q, k, v))):
+        return "mma"
+    return "fma"
+
+
+def flash_attention_backward_route(q, k, v) -> str:
+    """The backward kernels that :func:`flash_attention_backward_cuda`
+    launches for these inputs: the forward's rule
+    (:func:`flash_attention_route`)."""
+    return flash_attention_route(q, k, v)
+
+
 def flash_attention_cuda(q, k, v, causal: bool = True, window: int = 0,
-                         with_lse: bool = False):
-    """Launch the prefill attention kernel.
+                         with_lse: bool = False, route: str | None = None):
+    """Launch the prefill attention kernel of :func:`flash_attention_route`'s
+    choice, or of ``route``.
 
     q: (B, Sq, H, D);  k, v: (B, Sk, K, D) with H a multiple of K, all
     contiguous on one CUDA device in float32 or bfloat16.  Queries are
@@ -166,43 +192,31 @@ def flash_attention_cuda(q, k, v, causal: bool = True, window: int = 0,
     Returns (B, Sq, H, D) in q's dtype, and with ``with_lse`` also each
     row's log-sum-exp (B, H, Sq) f32 (the backward's input).
     """
+    route = _route.pick(flash_attention_route(q, k, v), route)
     _check_inputs(q, k, v)
     B, Sq, H, D = q.shape
     Sk, K = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if with_lse else None,
+            B, H, K, Sq, Sk, D, int(bool(causal)), int(window))
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr() if with_lse else None,
-            B, H, K, Sq, Sk, D, int(bool(causal)), int(window),
-            _DTYPES[q.dtype], stream)
-    _raise_on(rc, lib, "flash_attention")
+        if route == "mma":
+            rc = lib.flash_attention_mma_launch(*args, stream)
+        else:
+            rc = lib.flash_attention_launch(*args, _DTYPES[q.dtype], stream)
+    _raise_on(rc, lib, f"flash_attention ({route})")
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.launches_by_route[route] += 1
     return (out, lse) if with_lse else out
 
 
 flash_attention_cuda.launches = 0
-
-
-def _aligned16(t) -> bool:
-    return t.storage_offset() * t.element_size() % 16 == 0
-
-
-def flash_attention_backward_route(q, k, v) -> str:
-    """The backward kernels that :func:`flash_attention_backward_cuda`
-    launches for these inputs: ``"mma"`` for bf16 with D in
-    ``MMA_HEAD_DIMS`` and q, k, v at 16-byte aligned offsets (16-byte
-    copies), else ``"fma"``.  Reads only dtypes, shapes and offsets (CPU
-    or meta tensors do); raises on inputs no route takes."""
-    _check_shapes(q, k, v)
-    if (q.dtype == torch.bfloat16 and q.shape[3] in MMA_HEAD_DIMS
-            and all(_aligned16(t) for t in (q, k, v))):
-        return "mma"
-    return "fma"
+flash_attention_cuda.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 def flash_attention_backward_cuda(q, k, v, o, do, lse, causal: bool = True,
@@ -213,10 +227,7 @@ def flash_attention_backward_cuda(q, k, v, o, do, lse, causal: bool = True,
     call.  q, o, do: (B, Sq, H, D);  k, v: (B, Sk, K, D);  lse: the
     forward's (B, H, Sq) f32.  All contiguous on one CUDA device, q's dtype
     except lse.  Returns (dq, dk, dv) in q's dtype."""
-    chosen = flash_attention_backward_route(q, k, v)
-    if route not in (None, "fma", chosen):
-        raise ValueError(f"route {route!r} cannot take these inputs")
-    route = route or chosen
+    route = _route.pick(flash_attention_backward_route(q, k, v), route)
     _check_inputs(q, k, v)
     B, Sq, H, D = q.shape
     Sk, K = k.shape[1], k.shape[2]
@@ -233,7 +244,7 @@ def flash_attention_backward_cuda(q, k, v, o, do, lse, causal: bool = True,
     dq, dk, dv = alloc(q), alloc(k), alloc(v)
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     if route == "mma":     # 16-byte copies need aligned rows
-        o, do = (t if _aligned16(t) else t.clone() for t in (o, do))
+        o, do = (t if _route.aligned16(t) else t.clone() for t in (o, do))
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), B, H, K, Sq, Sk, D,
@@ -253,8 +264,7 @@ def flash_attention_backward_cuda(q, k, v, o, do, lse, causal: bool = True,
 
 
 flash_attention_backward_cuda.launches = 0
-flash_attention_backward_cuda.launches_by_route = dict.fromkeys(
-    BACKWARD_ROUTES, 0)
+flash_attention_backward_cuda.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 class _FlashAttention(torch.autograd.Function):

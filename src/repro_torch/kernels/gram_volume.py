@@ -25,20 +25,20 @@ MAX_K = 8
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+# the C functions of csrc/gram_volume.cu: argument types, return type
+C_FUNCTIONS = {
+    "gram_log_volume_launch": (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
+    "gram_log_volume_bwd_launch": (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
+    "gram_log_volume_error_string": ([ctypes.c_int], ctypes.c_char_p),
+}
+
+
 def _lib():
-    lib = _build.library("gram_volume")
-    if lib.gram_log_volume_launch.argtypes is None:
-        lib.gram_log_volume_launch.argtypes = (
-            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        lib.gram_log_volume_launch.restype = ctypes.c_int
-        lib.gram_log_volume_bwd_launch.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        lib.gram_log_volume_bwd_launch.restype = ctypes.c_int
-        lib.gram_log_volume_error_string.argtypes = [ctypes.c_int]
-        lib.gram_log_volume_error_string.restype = ctypes.c_char_p
-    return lib
+    return _build.library("gram_volume", C_FUNCTIONS)
 
 
 def gram_log_volume_plain(vs, mask, eps: float = 1e-5):

@@ -22,7 +22,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _route
 
 __all__ = ["lora_matmul_cuda", "lora_matmul_plain", "lora_matmul_autograd",
            "lora_matmul_route", "MAX_RANK", "ROUTES"]
@@ -57,10 +57,6 @@ def lora_matmul_plain(x, w, a, b, scale: float):
     return y.to(x.dtype)
 
 
-def _aligned16(t) -> bool:
-    return t.storage_offset() * t.element_size() % 16 == 0
-
-
 def lora_matmul_route(x, w, a, b, trans_w: bool = False) -> str:
     """The kernel that :func:`lora_matmul_cuda` launches for these inputs:
     ``"wgmma"`` for bf16 x, W, A, B with K, N and r multiples of 8 and x, W
@@ -80,7 +76,7 @@ def lora_matmul_route(x, w, a, b, trans_w: bool = False) -> str:
     if x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in (w, a, b)):
         raise TypeError(f"x/w/a/b must share one of {list(_DTYPES)}")
     if (x.dtype == torch.bfloat16 and K > 0 and K % 8 == 0 and N % 8 == 0
-            and r % 8 == 0 and _aligned16(x) and _aligned16(w)):
+            and r % 8 == 0 and _route.aligned16(x) and _route.aligned16(w)):
         return "wgmma"
     return "fma"
 
@@ -97,10 +93,7 @@ def lora_matmul_cuda(x, w, a, b, scale: float, trans_w: bool = False,
     backward passes transposes).  Returns y (M, N) in x's dtype, summed in
     f32 and rounded once.
     """
-    chosen = lora_matmul_route(x, w, a, b, trans_w)
-    if route not in (None, "fma", chosen):
-        raise ValueError(f"route {route!r} cannot take these inputs")
-    route = route or chosen
+    route = _route.pick(lora_matmul_route(x, w, a, b, trans_w), route)
     M, K = x.shape
     N = b.shape[1]
     r = a.shape[1]
@@ -118,7 +111,7 @@ def lora_matmul_cuda(x, w, a, b, scale: float, trans_w: bool = False,
             # A^T (r, K) row-major is the K-major operand of t = x @ A;
             # the transpose of the backward's A view is contiguous already
             at = a.t().contiguous()
-            if not _aligned16(at):
+            if not _route.aligned16(at):
                 at = at.clone()
             rc = lib.lora_matmul_wgmma_launch(
                 x.data_ptr(), w.data_ptr(), at.data_ptr(), b.data_ptr(),

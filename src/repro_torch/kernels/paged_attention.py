@@ -22,15 +22,17 @@ SUPPORTED_HEAD_DIMS = (32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+# the C functions of csrc/paged_attention.cu: argument types, return type
+C_FUNCTIONS = {
+    "paged_attention_launch": (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+        ctypes.c_int),
+    "paged_attention_error_string": ([ctypes.c_int], ctypes.c_char_p),
+}
+
+
 def _lib():
-    lib = _build.library("paged_attention")
-    fn = lib.paged_attention_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.paged_attention_error_string.argtypes = [ctypes.c_int]
-        lib.paged_attention_error_string.restype = ctypes.c_char_p
-    return lib
+    return _build.library("paged_attention", C_FUNCTIONS)
 
 
 def _check_aligned(name, t):

@@ -29,18 +29,20 @@ __all__ = ["quantize_rows_cuda", "quantize_rows_plain",
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+# the C functions of csrc/quantize.cu: argument types, return type
+C_FUNCTIONS = {
+    "quantize_rows_launch": (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+        ctypes.c_int),
+    "dequantize_rows_launch": (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+        ctypes.c_int),
+    "quantize_error_string": ([ctypes.c_int], ctypes.c_char_p),
+}
+
+
 def _lib():
-    lib = _build.library("quantize")
-    if lib.quantize_rows_launch.argtypes is None:
-        lib.quantize_rows_launch.argtypes = (
-            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-        lib.quantize_rows_launch.restype = ctypes.c_int
-        lib.dequantize_rows_launch.argtypes = (
-            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-        lib.dequantize_rows_launch.restype = ctypes.c_int
-        lib.quantize_error_string.argtypes = [ctypes.c_int]
-        lib.quantize_error_string.restype = ctypes.c_char_p
-    return lib
+    return _build.library("quantize", C_FUNCTIONS)
 
 
 def _check_qmax(qmax: int) -> int:

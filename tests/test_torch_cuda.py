@@ -17,7 +17,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import (
     flash_attention_backward_cuda, flash_attention_backward_plain,
     flash_attention_backward_route, flash_attention_cuda,
-    flash_attention_plain)
+    flash_attention_plain, flash_attention_route)
 from repro_torch.kernels.gram_volume import (gram_log_volume_backward_cuda,
                                              gram_log_volume_cuda,
                                              gram_log_volume_plain)
@@ -31,7 +31,8 @@ from repro_torch.kernels.quantize import (dequantize_rows_cuda,
                                           quantize_rows_cuda,
                                           quantize_rows_plain)
 from repro_torch.kernels.ref import ssd_recurrent_ref
-from repro_torch.kernels.ssd_scan import ssd_chunk_cuda, ssd_chunk_plain
+from repro_torch.kernels.ssd_scan import (ssd_chunk_cuda, ssd_chunk_plain,
+                                          ssd_chunk_route)
 from repro_torch.models.layers import BIG_WINDOW
 
 pytestmark = pytest.mark.cuda
@@ -91,6 +92,66 @@ def test_flash_kernel_matches_plain(gen, dtype, B, H, K, Sq, Sk, D, window):
     want = flash_attention_plain(q, k, v, True, window).reshape(got.shape)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+# log-sum-exp: both sides in f32 from the same inputs, summed in other orders
+LSE_TOL = dict(atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("route", ["mma", "fma"])
+@pytest.mark.parametrize("B,H,K,Sq,Sk,D,window", [
+    (1, 6, 3, 65, 65, 64, 0),
+    (2, 2, 1, 17, 100, 128, 9),
+    (1, 2, 2, 97, 97, 256, 40),
+    (1, 20, 20, 264, 264, 64, 0),      # the SLM's serving prefill
+    (8, 16, 16, 136, 136, 256, 0),     # the LLM in the round
+])
+def test_flash_forward_routes_match_plain(gen, route, B, H, K, Sq, Sk, D,
+                                          window):
+    """Both routes of B's forward (bf16) against the plain version: the
+    output at the bf16 bound, the log-sum-exp at f32's; one launch, on the
+    route asked for (``"mma"`` is the route function's own choice)."""
+    dt = torch.bfloat16
+    q = torch.randn((B, Sq, H, D), generator=gen, device="cuda").to(dt)
+    k, v = (torch.randn((B, Sk, K, D), generator=gen, device="cuda").to(dt)
+            for _ in range(2))
+    assert flash_attention_route(q, k, v) == "mma"
+    with _routed(flash_attention_cuda, route):
+        got, lse = flash_attention_cuda(q, k, v, True, window, with_lse=True,
+                                        route=route)
+    want, want_lse = flash_attention_plain(q, k, v, True, window,
+                                           with_lse=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dt])
+    torch.testing.assert_close(lse, want_lse, **LSE_TOL)
+
+
+@pytest.mark.parametrize("route", ["mma", "fma"])
+def test_flash_forward_rows_without_keys_write_zeros(gen, route):
+    """Sq > Sk: the first Sq - Sk queries (end-aligned) see no key and
+    write zeros, never NaN; the others match the plain version."""
+    dt, Sq, Sk = torch.bfloat16, 70, 40
+    q = torch.randn((2, Sq, 4, 64), generator=gen, device="cuda").to(dt)
+    k, v = (torch.randn((2, Sk, 2, 64), generator=gen, device="cuda").to(dt)
+            for _ in range(2))
+    got = flash_attention_cuda(q, k, v, True, 0, route=route)
+    want = flash_attention_plain(q, k, v, True, 0)
+    torch.cuda.synchronize()
+    assert torch.all(got[:, :Sq - Sk] == 0)
+    torch.testing.assert_close(got[:, Sq - Sk:].float(),
+                               want[:, Sq - Sk:].float(), **TOL[dt])
+
+
+def test_flash_forward_fma_route_takes_f32_and_d32(gen):
+    for dtype, D in ((torch.float32, 64), (torch.bfloat16, 32)):
+        q, k, v = (torch.randn((2, 40, 4, D), generator=gen,
+                               device="cuda").to(dtype) for _ in range(3))
+        assert flash_attention_route(q, k, v) == "fma"
+        with _routed(flash_attention_cuda, "fma"):
+            got = ops.attention(q, k, v, causal=True, window=0)
+        want = flash_attention_plain(q, k, v, True, 0).reshape(got.shape)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
 
 def test_kernels_reject_what_they_do_not_take(gen):
@@ -395,6 +456,41 @@ def test_flash_backward_mma_route_matches_plain(gen, B, H, K, Sq, Sk, D,
         torch.testing.assert_close(*_row_scaled(g, w), **TOL[dt])
 
 
+@pytest.mark.parametrize("B,H,K,S,D,window", [
+    (2, 20, 20, 136, 64, 0),           # the SLM in the round
+    (2, 8, 2, 131, 128, 45),           # GQA, a window, ragged S
+])
+def test_flash_autograd_runs_both_passes_on_mma(gen, B, H, K, S, D, window):
+    """Through ``flash_attention_autograd`` (``ops.attention``) bf16 takes
+    the tensor-core forward and backward; output and gradients against
+    the plain version's autograd, each row held relative to its size."""
+    dt = torch.bfloat16
+    q = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dt)
+    k, v = (torch.randn((B, S, K, D), generator=gen, device="cuda").to(dt)
+            for _ in range(2))
+    do = torch.randn((B, S, H * D), generator=gen, device="cuda").to(dt)
+    outs, grads = [], []
+    for kernel in (True, False):
+        ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        if kernel:
+            with _routed(flash_attention_cuda, "mma"), \
+                    _routed(flash_attention_backward_cuda, "mma"):
+                out = ops.attention(*ins, causal=True, window=window)
+                out.backward(do)
+        else:
+            out = flash_attention_plain(*ins, True, window).reshape(B, S, -1)
+            out.backward(do)
+        outs.append(out.detach().float())
+        grads.append([t.grad.float() for t in ins])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(*outs, **TOL[dt])
+    # the kernel forms delta = rowsum(dO * O) from the bf16 output, the
+    # plain autograd from the f32 one
+    for got, want in zip(*grads):
+        torch.testing.assert_close(*_row_scaled(got, want), atol=5e-2,
+                                   rtol=2e-2)
+
+
 @pytest.mark.parametrize("dtype,D", [(torch.float32, 64), (torch.bfloat16, 32)])
 def test_flash_backward_fma_route(gen, dtype, D):
     """f32, and bf16 at D 32, keep the FMA kernels."""
@@ -533,6 +629,55 @@ def test_ssd_chunk_kernel_large_decay_is_finite(gen):
                                    torch.bfloat16, dt_shift=5.0)
     cum = _chunk_cum(dt, A, 256)
     y, st = ssd_chunk_cuda(x, dt, cum, Bm, Cm, 256)
+    py, pst = ssd_chunk_plain(x, dt, cum, Bm, Cm, 256)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    torch.testing.assert_close(y, py, **SSD_TOL)
+    torch.testing.assert_close(st, pst, **SSD_TOL)
+
+
+SSD_ROUTE_SHAPES = [                   # (B, S, H, P, G, N, L)
+    (1, 256, 80, 64, 1, 128, 256),     # mamba2-2.7b, one chunk
+    (1, 512, 50, 64, 1, 16, 256),      # hymba-1.5b, two chunks
+    (2, 96, 8, 64, 2, 32, 32),         # chunk 32: FMA only
+    (1, 16, 4, 16, 1, 8, 8),           # the toy sizes: FMA only
+    (1, 200, 3, 24, 1, 20, 100),       # ragged tiles: FMA only
+    (2, 256, 8, 64, 2, 64, 128),       # two groups, chunk 128
+    (1, 192, 3, 128, 1, 32, 64),       # P 128 (one head a block), 3 heads
+    (1, 128, 5, 48, 1, 16, 64),        # P 48: a half state block, 5 heads
+]
+
+
+@pytest.mark.parametrize("route", ["mma", "fma"])
+@pytest.mark.parametrize("B,S,H,P,G,N,L", SSD_ROUTE_SHAPES)
+def test_ssd_chunk_routes_match_plain(gen, route, B, S, H, P, G, N, L):
+    """Both routes of G (bf16) against the plain version at the f32 bound;
+    one launch, on the route asked for.  Where the route function refuses
+    the mma route, asking for it raises before any launch."""
+    x, dt, A, Bm, Cm = _ssd_inputs(gen, B, S, H, P, G, N, torch.bfloat16)
+    cum = _chunk_cum(dt, A, L)
+    if route == "mma" and ssd_chunk_route(x, dt, cum, Bm, Cm, L) != "mma":
+        with _routed(ssd_chunk_cuda, route, n=0), \
+                pytest.raises(ValueError, match="route 'mma'"):
+            ssd_chunk_cuda(x, dt, cum, Bm, Cm, L, route=route)
+        return
+    with _routed(ssd_chunk_cuda, route):
+        y, st = ssd_chunk_cuda(x, dt, cum, Bm, Cm, L, route=route)
+    py, pst = ssd_chunk_plain(x, dt, cum, Bm, Cm, L)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, py, **SSD_TOL)
+    torch.testing.assert_close(st, pst, **SSD_TOL)
+
+
+@pytest.mark.parametrize("route", ["mma", "fma"])
+def test_ssd_chunk_routes_large_decay_are_finite(gen, route):
+    """The large-|A| dt case of the test above on each route: the mask
+    comes before exp on the mma route's diagonal tiles too."""
+    x, dt, A, Bm, Cm = _ssd_inputs(gen, 1, 512, 80, 64, 1, 128,
+                                   torch.bfloat16, dt_shift=5.0)
+    cum = _chunk_cum(dt, A, 256)
+    with _routed(ssd_chunk_cuda, route):
+        y, st = ssd_chunk_cuda(x, dt, cum, Bm, Cm, 256, route=route)
     py, pst = ssd_chunk_plain(x, dt, cum, Bm, Cm, 256)
     torch.cuda.synchronize()
     assert torch.isfinite(y).all() and torch.isfinite(st).all()
