@@ -7,8 +7,10 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
 
 1. prints the card (``nvidia-smi`` name and power limit) and turns TF32 off;
 2. holds the paged decode kernel (A) against its plain PyTorch version on
-   the card (SLM shapes, GQA, a window, scattered pages, an idle slot,
-   lengths that end mid-page; bf16 and f32);
+   the card (SLM and hymba shapes, GQA, a window, scattered pages, an idle
+   slot, lengths that end mid-page, one slot of 4,096 keys; bf16 and f32),
+   at the chosen cluster size and at every forced one (1, 2, 4, 8), bf16
+   on both walks (the tensor-core "mma" and the FMA "fma");
 3. holds the prefill attention kernel (B) against its plain version (SLM
    shapes at S in {32, 131, 256}, GQA, a window, Sq < Sk, D = 256; bf16 on
    both routes, the tensor-core "mma" and the FMA "fma", f32 on "fma";
@@ -62,8 +64,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    20-700 tokens, no pages) and ``hymba-1.5b`` (20-1200, the window
    bites) at full width, checks budgets, free lists and exact launch
    counts (G 64 per mamba2 admission; B and G 32 per hymba admission,
-   A 32 per decode step), every B and G launch on the "mma" route (SLM
-   serving too), holds prefill -> decode at exact length against a full
+   A 32 per decode step), every A, B and G launch on the "mma" route (SLM
+   serving too), records hymba's fullest decode step for row A, holds
+   prefill -> decode at exact length against a full
    forward on the served weights upcast to f32 (B and G on "fma") and the
    bf16 run inside the bf16 forward's own distance from f32 (on "mma"),
    profiles an
@@ -71,9 +74,11 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    ...}`` and ``{"hybrid_serving": ...}`` lines;
 10. prints ``{"phase_seconds": ...}`` and a ``{"kernels": [...]}`` line
    (times from CUDA-graph replay, bounds from this run's inputs; rows
-   A-G, each with its launches on the main paths; the rows of the four
-   two-route kernels, B, B's backward, C and G, also time their FMA route
-   on the same inputs, ``ms_fma_route``).
+   A-G, each with its launches on the main paths; the rows of the five
+   two-route kernels, A, B, B's backward, C and G, also time their FMA
+   route on the same inputs, ``ms_fma_route``; row A, at the SLM's and
+   (``at_other_shapes.hybrid``) hymba's fullest decode step, also times
+   every forced cluster size, ``ms_by_splits`` and ``ms_splits1``).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero and prints no result; it also exits
@@ -131,30 +136,41 @@ def graph_ms(fn, n_calls=20, reps=5):
     """Median device ms per call: ``n_calls`` calls captured in one CUDA
     graph, replayed ``reps`` times between CUDA events (no host launch
     cost in the number)."""
+    return graphs_ms({"": fn}, n_calls, reps)[""]
+
+
+def graphs_ms(fns, n_calls=20, reps=5):
+    """``graph_ms`` of each of ``fns`` (name -> fn), the replays taken in
+    turn (one of each per rep), so that a drift of the card's clocks
+    falls on every version alike: {name: median ms per call}."""
     import torch
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn(0)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for i in range(n_calls):
-            fn(i)
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+    graphs = {}
+    for name, fn in fns.items():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fn(0)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for i in range(n_calls):
+                fn(i)
         graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / n_calls)
-    del graph
-    return statistics.median(times)
+        graphs[name] = graph
+    torch.cuda.synchronize()
+    times = {name: [] for name in fns}
+    for _ in range(reps):
+        for name, graph in graphs.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            graph.replay()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end) / n_calls)
+    del graphs
+    return {name: statistics.median(t) for name, t in times.items()}
 
 
 def _bound(bytes_, flops, flop_rate=BF16_FLOP_PER_S):
@@ -185,19 +201,17 @@ def phase_card():
           "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32})
 
 
-def tensor_core_kernels(log):
-    """{kernel<template argument>: {"registers", "spill_store_bytes"}} of
-    each tensor-core kernel (a name that holds "mma": mma.sync or wgmma)
-    in one source's ``-Xptxas=-v`` report."""
+def ptxas_report(log, key_of):
+    """{key: {"registers", "spill_store_bytes"}} from one source's
+    ``-Xptxas=-v`` report: ``key_of(mangled entry name)`` names the
+    kernel's key (None: not reported), and a key that several instances
+    share keeps their largest numbers."""
     import re
     out, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            name = re.search(r"\d+([a-z_]+_w?mma[a-z_]*)", m.group(1))
-            arg = re.search(r"mma[a-z_]*ILi(\d+)E", m.group(1))
-            cur = name and name.group(1) + (f"<{arg.group(1)}>" if arg
-                                            else "")
+            cur = key_of(m.group(1))
             continue
         if cur:
             for key, pat in (("registers", r"Used (\d+) registers"),
@@ -205,8 +219,33 @@ def tensor_core_kernels(log):
                               r"(\d+) bytes spill stores")):
                 hit = re.search(pat, line)
                 if hit:
-                    out.setdefault(cur, {})[key] = int(hit.group(1))
+                    slot = out.setdefault(cur, {})
+                    slot[key] = max(slot.get(key, 0), int(hit.group(1)))
     return out
+
+
+def tensor_core_kernels(log):
+    """``ptxas_report`` of each tensor-core kernel (a name that holds
+    "mma": mma.sync or wgmma), keyed kernel<template argument>."""
+    import re
+
+    def key_of(fn):
+        name = re.search(r"\d+([a-z_]+_w?mma[a-z_]*)", fn)
+        arg = re.search(r"mma[a-z_]*ILi(\d+)E", fn)
+        return name and name.group(1) + (f"<{arg.group(1)}>" if arg else "")
+    return ptxas_report(log, key_of)
+
+
+def paged_kernels(log):
+    """``ptxas_report`` of A at the served models' dtype and head size,
+    keyed "<walk> bf16 D64" over its head-chunk instances."""
+    import re
+
+    def key_of(fn):
+        m = re.search(r"paged_attention_kernelI13__nv_bfloat16Li64ELi\d+"
+                      r"ELb([01])E", fn)
+        return m and ("mma" if m.group(1) == "1" else "fma") + " bf16 D64"
+    return ptxas_report(log, key_of)
 
 
 def phase_build():
@@ -222,15 +261,21 @@ def phase_build():
         report[name] = {"max_registers": max(regs, default=None),
                         "max_spill_store_bytes": max(spills, default=None)}
         tensor_core.update(tensor_core_kernels(log))
+    paged = paged_kernels(_build.build_log("paged_attention"))
+    if not paged or any(v.get("spill_store_bytes") for v in paged.values()):
+        raise AssertionError(f"paged_attention spills at D 64 bf16: {paged}")
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
-          "ptxas": report, "ptxas_tensor_core_kernels": tensor_core})
+          "ptxas": report, "ptxas_tensor_core_kernels": tensor_core,
+          "ptxas_paged_attention": paged})
 
 
 # ---------------------------------------------------------------------------
 # phase 2 / 3: kernels against their plain versions
 
-def paged_case(gen, B, H, K, D, ps, M, dtype, window=0, idle=True):
-    """Scattered, non-monotone page ids; lens ending mid-page; one idle slot."""
+def paged_case(gen, B, H, K, D, ps, M, dtype, window=0, idle=True,
+               lens=None):
+    """Scattered, non-monotone page ids; lens ending mid-page; one idle
+    slot (or the given ``lens``)."""
     import torch
     dev = "cuda"
     P = B * M + 1
@@ -239,37 +284,63 @@ def paged_case(gen, B, H, K, D, ps, M, dtype, window=0, idle=True):
     vp = torch.randn((P, ps, K, D), generator=gen, device=dev).to(dtype)
     perm = torch.randperm(P - 1, generator=gen, device=dev) + 1
     bt = perm[:B * M].reshape(B, M).int().contiguous()
-    lens = torch.randint(1, M * ps + 1, (B,), generator=gen, device=dev)
-    lens[1] = M * ps - ps // 2          # ends mid-page
-    lens[2] = ps + 1                    # one entry into the second page
-    if idle:
-        lens[0] = 0                     # idle slot: zeros, not NaN
+    if lens is not None:
+        lens = torch.tensor(lens, device=dev)
+    else:
+        lens = torch.randint(1, M * ps + 1, (B,), generator=gen, device=dev)
+        lens[1] = M * ps - ps // 2          # ends mid-page
+        lens[2] = ps + 1                    # one entry into the second page
+        if idle:
+            lens[0] = 0                     # idle slot: zeros, not NaN
     return q, kp, vp, bt, lens.int().contiguous(), window
 
 
+# A's cases: the SLM's and hymba's decode (hymba: H 25 in 5 KV groups, the
+# local layers' 1024 window and the global layers' none, lens up to 1280),
+# one slot of 4,096 keys, GQA with a window, D 256
+PAGED_CASES = {
+    "slm": dict(B=16, H=20, K=20, D=64, ps=16, M=32),
+    "slm_window": dict(B=16, H=20, K=20, D=64, ps=16, M=32, window=100),
+    "gqa_window": dict(B=8, H=8, K=2, D=64, ps=16, M=12, window=37),
+    "gqa_d256": dict(B=4, H=16, K=4, D=256, ps=8, M=6),
+    "hymba_local": dict(B=16, H=25, K=5, D=64, ps=16, M=80, window=1024),
+    "hymba_global": dict(B=16, H=25, K=5, D=64, ps=16, M=80),
+    "one_slot_4096": dict(B=1, H=20, K=20, D=64, ps=16, M=256,
+                          lens=[4096]),
+}
+
+
 def phase_paged_checks():
+    """A against its plain version in every case, at the chosen cluster
+    size and at every forced one, on the walk the route function picks
+    and (bf16) on the forced FMA walk; idle slots exact zeros."""
     import torch
-    from repro_torch.kernels.paged_attention import (paged_attention_cuda,
+    from repro_torch.kernels.paged_attention import (SPLITS,
+                                                     paged_attention_cuda,
                                                      paged_attention_plain)
     gen = torch.Generator(device="cuda").manual_seed(1)
-    cases = {
-        "slm": dict(B=16, H=20, K=20, D=64, ps=16, M=32),
-        "slm_window": dict(B=16, H=20, K=20, D=64, ps=16, M=32, window=100),
-        "gqa_window": dict(B=8, H=8, K=2, D=64, ps=16, M=12, window=37),
-        "gqa_d256": dict(B=4, H=16, K=4, D=256, ps=8, M=6),
-    }
     results = {}
-    for name, kw in cases.items():
+    for name, kw in PAGED_CASES.items():
         for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
             args = paged_case(gen, dtype=dtype, **kw)
-            got = paged_attention_cuda(*args)
             want = paged_attention_plain(*args)
-            torch.cuda.synchronize()
-            tag = f"{name}/{str(dtype)[6:]}"
-            results[tag] = check_close(f"paged {tag}", got, want, tol)
-            if float(got[0].float().abs().max()) != 0.0:
-                raise AssertionError(f"paged {tag}: idle slot not zero")
-    emit({"phase": "paged_attention_vs_plain", "max_abs_err": results})
+            idle = args[4] == 0
+            routes = (None, "fma") if dtype == torch.bfloat16 else (None,)
+            for splits in (None, *SPLITS):
+                for route in routes:
+                    got = paged_attention_cuda(*args, splits=splits,
+                                               route=route)
+                    torch.cuda.synchronize()
+                    tag = (f"{name}/{str(dtype)[6:]}/S{splits or 'auto'}"
+                           f"/{route or 'auto'}")
+                    results[tag] = check_close(f"paged {tag}", got, want,
+                                               tol)
+                    if bool(idle.any()) and \
+                            float(got[idle].float().abs().max()) != 0.0:
+                        raise AssertionError(f"paged {tag}: idle slot not "
+                                             "zero")
+    emit({"phase": "paged_attention_vs_plain", "cases": len(results),
+          "max_abs_err": max(results.values()), "by_case": results})
 
 
 def route_delta(fn, before):
@@ -464,8 +535,8 @@ def phase_serving():
         "init_s": init_s,
         "launches_per_decode_step": launches["paged_attention"] / steps,
         "launches_per_prefill": launches["flash_attention"] / prefills,
-        "launches_by_route": {"flash_attention":
-                              routes["flash_attention"]},
+        "launches_by_route": {n: routes[n] for n in
+                              ("paged_attention", "flash_attention")},
     }
 
     e2e_err, _ = prefill_decode_consistency(bundle, merged, reqs[0][2])
@@ -594,56 +665,94 @@ def phase_profile(engine, reqs, tag=""):
 # ---------------------------------------------------------------------------
 # phase 6: numbers
 
+def paged_row(engine, snap, windows, gen):
+    """Row A at a serving run's fullest decode step (the step with the most
+    cached tokens): the L launches of one decode step, each over its own
+    layer's pool with its own window, from CUDA-graph replay (L x the
+    working set >> 50 MB L2, so the pages come from HBM as in a decode
+    step).  The chosen cluster size against every forced one and against
+    the FMA walk, on the same inputs, their replays taken in turn; the
+    bound from the bytes each layer's window keeps."""
+    import torch
+    from repro_torch.kernels.paged_attention import (
+        SPLITS, paged_attention_cuda, paged_attention_plain,
+        paged_attention_route, paged_attention_splits)
+    cfg = engine.cfg
+    H, K, D, L = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.n_layers
+    bt, seq_lens, active = snap
+    lens = torch.where(active, seq_lens + 1, 0).int().contiguous()
+    B, M = bt.shape
+    kp, vp = engine.pstate["k_pages"], engine.pstate["v_pages"]
+    ps = kp.shape[2]
+    qs = torch.randn((L, B, 1, H, D), generator=gen,
+                     device="cuda").to(kp.dtype)
+
+    def call(**kw):
+        return lambda i: paged_attention_cuda(
+            qs[i % L], kp[i % L], vp[i % L], bt, lens, windows[i % L], **kw)
+
+    err = 0.0
+    for i in range(L):
+        got = paged_attention_cuda(qs[i], kp[i], vp[i], bt, lens, windows[i])
+        want = paged_attention_plain(qs[i], kp[i], vp[i], bt, lens,
+                                     windows[i])
+        err = max(err, check_close(f"paged main-path layer {i}", got, want,
+                                   BF16_TOL))
+    lens_l = lens.long()
+    keys = [int(torch.clamp(lens_l, max=w).sum()) for w in windows]
+    esz = kp.element_size()
+    bytes_ = sum(2 * n * K * D * esz for n in keys) \
+        + L * (2 * B * H * D * esz + bt.numel() * 4 + lens.numel() * 4)
+    flops = sum(4 * n * H * D for n in keys)
+    bound, by = _bound(bytes_ / L, flops / L)
+    splits = paged_attention_splits(B, K, H // K, M, ps)
+    t = graphs_ms({"chosen": call(), "fma": call(route="fma"),
+                   **{str(sp): call(splits=sp) for sp in SPLITS}},
+                  n_calls=L, reps=7)
+    by_splits = {str(sp): t[str(sp)] for sp in SPLITS}
+    return {
+        "max_abs_err": err, "ms": t["chosen"], "ms_splits1": by_splits["1"],
+        "ms_fma_route": t["fma"],
+        "plain_ms": graph_ms(lambda i: paged_attention_plain(
+            qs[i % L], kp[i % L], vp[i % L], bt, lens, windows[i % L]),
+            n_calls=L),
+        "bound_ms": bound, "bound_by": by, "bytes_per_launch": bytes_ / L,
+        "splits": splits, "ms_by_splits": by_splits,
+        "kernel_route": paged_attention_route(qs[0], kp[0], vp[0]),
+        "launches_per_decode_step": L,
+        "shape": {"slots": B, "active": int(active.sum()),
+                  "cached_keys": int(lens.sum()),
+                  "kept_keys_per_layer": sorted(set(keys)),
+                  "windows": sorted(set(windows)), "H": H, "K": K, "D": D,
+                  "page_size": ps, "max_pages_per_seq": M,
+                  "dtype": str(kp.dtype)}}
+
+
 def phase_numbers(engine, snap):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      flash_attention_plain,
                                                      flash_attention_route)
-    from repro_torch.kernels.paged_attention import (paged_attention_cuda,
-                                                     paged_attention_plain)
     from repro_torch.models.layers import BIG_WINDOW
     cfg = engine.cfg
     H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     gen = torch.Generator(device="cuda").manual_seed(4)
     kernels = []
-
-    # A: the decode step with the most cached tokens in the main run, over
-    # each layer's real pool in turn (36 x its working set >> 50 MB L2, so
-    # the pages come from HBM as they do in a decode step)
-    bt, seq_lens, active = snap
-    lens = torch.where(active, seq_lens + 1, 0).int().contiguous()
-    B = bt.shape[0]
-    kp, vp = engine.pstate["k_pages"], engine.pstate["v_pages"]
-    qs = torch.randn((cfg.n_layers, B, 1, H, D), generator=gen,
-                     device="cuda").to(kp.dtype)
-
-    def call_a(fn):
-        return lambda i: fn(qs[i % cfg.n_layers], kp[i % cfg.n_layers],
-                            vp[i % cfg.n_layers], bt, lens, BIG_WINDOW)
-
-    got = paged_attention_cuda(qs[0], kp[0], vp[0], bt, lens, BIG_WINDOW)
-    want = paged_attention_plain(qs[0], kp[0], vp[0], bt, lens, BIG_WINDOW)
-    err_a = check_close("paged main-path", got, want, BF16_TOL)
-    n_keys = int(lens.sum())
-    esz = kp.element_size()
-    bytes_a = (2 * n_keys * K * D * esz + 2 * B * H * D * esz
-               + bt.numel() * 4 + lens.numel() * 4)
-    flops_a = 4 * n_keys * H * D
-    ms_a = graph_ms(call_a(paged_attention_cuda), n_calls=cfg.n_layers)
-    plain_a = graph_ms(call_a(paged_attention_plain), n_calls=cfg.n_layers)
-    bound_a, by_a = _bound(bytes_a, flops_a)
+    kp = engine.pstate["k_pages"]
     kernels.append({
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention.py:113",
-        "max_abs_err": err_a,
-        "tolerance": BF16_TOL, "ms": ms_a, "plain_ms": plain_a,
-        "bound_ms": bound_a, "bound_by": by_a,
+        "tolerance": BF16_TOL,
+        **paged_row(engine, snap, [BIG_WINDOW] * cfg.n_layers, gen),
         "library_ms": None,
-        "shape": {"slots": B, "active": int(active.sum()), "cached_keys": n_keys,
-                  "H": H, "K": K, "D": D, "page_size": kp.shape[2],
-                  "max_pages_per_seq": bt.shape[1], "dtype": str(kp.dtype)},
+        "library_call": "none: no single PyTorch call attends over a paged "
+                        "cache",
+        "ms_splits1_is": "the same kernel forced to one block a walk "
+                        "(splits=1) on the same inputs in this run",
+        "ms_fma_route_is": "the FMA walk (route='fma') on the same inputs "
+                           "in this run",
     })
 
     # B: one prefill of the largest bucket (8 soft tokens + 256), the most
@@ -1094,7 +1203,8 @@ def counters():
 
 # the kernels with a tensor-core route and an FMA route, and the route
 # every bf16 launch of the main paths must take
-TENSOR_CORE_ROUTES = {"lora_matmul": "wgmma",
+TENSOR_CORE_ROUTES = {"paged_attention": "mma",
+                      "lora_matmul": "wgmma",
                       "flash_attention": "mma",
                       "flash_attention_backward": "mma",
                       "ssd_chunk": "mma"}
@@ -1112,7 +1222,7 @@ def read_counters():
 
 
 def check_tensor_core_routes(tag):
-    """Every launch of C, B (forward and backward) and G since the last
+    """Every launch of A, C, B (forward and backward) and G since the last
     ``zero_counters`` took the tensor-core route; returns the per-route
     counts."""
     fns = counters()
@@ -1921,7 +2031,7 @@ N_RECURRENT_REQUESTS = 24
 
 
 def serve_recurrent(cfg, econf, lo, hi, fixed, expect, consistency_lens,
-                    tag):
+                    tag, at_fullest=None):
     """Serve 24 soft-prompted requests (prompts lo-hi tokens, the first
     ones ``fixed``, budgets 16-64) through ``ServingEngine`` at full width
     (bf16, random weights from a seed).  Checks every budget, the free
@@ -1929,7 +2039,9 @@ def serve_recurrent(cfg, econf, lo, hi, fixed, expect, consistency_lens,
     prefill -> decode consistency at exact length for each S of
     ``consistency_lens``; then profiles an admission tick and four decode
     steps.  Returns (the {"..._serving": ...} metrics, the counted
-    launches)."""
+    launches, ``at_fullest(engine, snap)`` or None): ``snap`` is the block
+    tables, lengths and active slots of the main run's decode step with
+    the most cached tokens, as ``phase_serving`` records it."""
     import numpy as np
     import torch
     from repro_torch.core.connector import init_unified
@@ -1967,7 +2079,17 @@ def serve_recurrent(cfg, econf, lo, hi, fixed, expect, consistency_lens,
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     rids = [engine.submit(t, max_new=m, prefix_embeds=s) for t, m, s in reqs]
-    engine.run()
+    snap, best = None, -1
+    while engine.busy:
+        engine.tick()
+        if at_fullest is not None:
+            sd = engine.sched
+            total = int(torch.where(sd["active"], sd["seq_lens"] + 1,
+                                    0).sum())
+            if total > best:        # the step with the most cached tokens
+                best = total
+                snap = (sd["block_tables"].clone(), sd["seq_lens"].clone(),
+                        sd["active"].clone())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counters()
@@ -2022,7 +2144,8 @@ def serve_recurrent(cfg, econf, lo, hi, fixed, expect, consistency_lens,
     metrics["prefill_vs_decode"] = recurrent_consistency(
         cfg, engine.params, reqs[0][2], consistency_lens)
     metrics["profile"] = phase_profile(engine, reqs, tag=f"{tag}_")
-    return metrics, launches
+    extra = at_fullest(engine, snap) if at_fullest is not None else None
+    return metrics, launches, extra
 
 
 def recurrent_consistency(cfg, params, soft, lens):
@@ -2084,27 +2207,34 @@ def phase_ssm_serving():
     econf = EngineConfig(n_slots=16, page_size=16, n_pages=2,
                          max_pages_per_seq=64, max_out=64)
     L = CONFIG.n_layers
-    return serve_recurrent(
+    metrics, launches, _ = serve_recurrent(
         CONFIG, econf, 20, 700, (20, 300, 700),
         lambda prefills, steps: {"ssd_chunk": L * prefills},
         (300,), "ssm")
+    return metrics, launches
 
 
 def phase_hybrid_serving():
     """hymba-1.5b: prompts 20-1200, so the 1024 window bites in prefill (B)
     and decode (A) on the local layers; B and G 32 per admission, A 32 per
-    decode step."""
+    decode step.  Returns (metrics, launches, row A at the run's fullest
+    decode step: its 32 layers, each with its own window)."""
+    import torch
     from repro_torch.configs.hymba_1p5b import CONFIG
     from repro_torch.launch.serve_engine import EngineConfig
+    from repro_torch.models.transformer import window_array
     econf = EngineConfig(n_slots=16, page_size=16, n_pages=16 * 80 + 1,
                          max_pages_per_seq=80, max_out=64)
     L = CONFIG.n_layers
+    gen = torch.Generator(device="cuda").manual_seed(5)
     return serve_recurrent(
         CONFIG, econf, 20, 1200, (20, 600, 1200),
         lambda prefills, steps: {"ssd_chunk": L * prefills,
                                  "flash_attention": L * prefills,
                                  "paged_attention": L * steps},
-        (300, 1100), "hybrid")
+        (300, 1100), "hybrid",
+        at_fullest=lambda engine, snap: paged_row(
+            engine, snap, window_array(engine.cfg), gen))
 
 
 def ssd_kernel_rows():
@@ -2223,8 +2353,12 @@ def main() -> int:
     emit({"ssm_serving": ssm_serving})
     release()
     lap("ssm_serving")
-    hybrid_serving, hybrid_launches = phase_hybrid_serving()
+    hybrid_serving, hybrid_launches, paged_hybrid = phase_hybrid_serving()
     emit({"hybrid_serving": hybrid_serving})
+    row_a = kernels[0]
+    row_a["at_other_shapes"] = {"hybrid": paged_hybrid}
+    row_a["max_abs_err"] = max(row_a["max_abs_err"],
+                               paged_hybrid["max_abs_err"])
     release()
     lap("hybrid_serving")
     kernels += training_kernel_rows()

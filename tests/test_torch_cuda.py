@@ -25,7 +25,9 @@ from repro_torch.kernels.lora_matmul import (lora_matmul_cuda,
                                              lora_matmul_plain,
                                              lora_matmul_route)
 from repro_torch.kernels.paged_attention import (paged_attention_cuda,
-                                                 paged_attention_plain)
+                                                 paged_attention_key_tile,
+                                                 paged_attention_plain,
+                                                 paged_attention_splits)
 from repro_torch.kernels.quantize import (dequantize_rows_cuda,
                                           dequantize_rows_plain,
                                           quantize_rows_cuda,
@@ -73,6 +75,104 @@ def test_paged_kernel_matches_plain(gen, dtype, B, H, K, D, ps, M, window):
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
     assert torch.all(got[0] == 0)
+
+
+def _paged_inputs(gen, H, K, D, ps, M, dtype, lens):
+    """q, scattered pages and a block table for the given slot lengths."""
+    B = len(lens)
+    P = B * M + 1
+    q = torch.randn((B, 1, H, D), generator=gen, device="cuda").to(dtype)
+    kp = torch.randn((P, ps, K, D), generator=gen, device="cuda").to(dtype)
+    vp = torch.randn((P, ps, K, D), generator=gen, device="cuda").to(dtype)
+    bt = (torch.randperm(P - 1, generator=gen, device="cuda")[:B * M] + 1
+          ).reshape(B, M).int()
+    return q, kp, vp, bt, torch.tensor(lens, dtype=torch.int32, device="cuda")
+
+
+def _paged_check(args, window, dtype, splits=None, route=None):
+    got = paged_attention_cuda(*args, window, splits=splits, route=route)
+    want = paged_attention_plain(*args, window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    assert torch.all(got[args[-1] == 0] == 0)      # idle slots: exact zeros
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [1024, BIG_WINDOW])
+def test_paged_kernel_at_hymba_shape(gen, dtype, window):
+    """hymba-1.5b's decode: H 25 in 5 KV groups, D 64, ps 16, M 80, the
+    local layers' window 1024 and the global layers' none; lens 1-1280."""
+    lens = [0, 1, 15, 16, 17, 300, 1023, 1024, 1025, 1100, 1279, 1280,
+            640, 2, 999, 1200]
+    args = _paged_inputs(gen, 25, 5, 64, 16, 80, dtype, lens)
+    assert paged_attention_splits(16, 5, 5, 80, 16) == 4
+    _paged_check(args, window, dtype)
+    _paged_check(args, window, dtype, route="fma")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_one_long_slot(gen, dtype):
+    """A single slot with 4,096 keys."""
+    args = _paged_inputs(gen, 8, 2, 64, 16, 256, dtype, [4096])
+    for splits in (None, 1, 8):
+        _paged_check(args, BIG_WINDOW, dtype, splits)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype,route", [(torch.float32, None),
+                                         (torch.bfloat16, None),
+                                         (torch.bfloat16, "fma")])
+@pytest.mark.parametrize("window", [0, 5, 100])
+def test_paged_kernel_every_split(gen, splits, dtype, route, window):
+    """Every cluster size on both walks, with ranks that get no key: len 1,
+    an idle slot, a window shorter than a tile, lens ending mid-page and on
+    a tile's end."""
+    tile = paged_attention_key_tile(64, dtype, route)
+    lens = [1, 0, 2 * tile, 3 * tile + 5, 16 * 12 - 3, 7]
+    args = _paged_inputs(gen, 20, 20, 64, 16, 12, dtype, lens)
+    want_route = route or ("mma" if dtype == torch.bfloat16 else "fma")
+    n = paged_attention_cuda.launches_by_route[want_route]
+    _paged_check(args, window or BIG_WINDOW, dtype, splits, route)
+    assert paged_attention_cuda.launches_by_route[want_route] == n + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 128, 256])
+@pytest.mark.parametrize("ps", [4, 8, 16])
+def test_paged_kernel_head_dims_and_pages(gen, dtype, D, ps):
+    """len 1, lens on a tile's end, ps 4 / 8 / 16, G = 3 (one chunk of 4)."""
+    tile = paged_attention_key_tile(D, dtype)
+    M = max(-(-4 * tile // ps), 3)
+    lens = [1, tile, 4 * tile, 0, M * ps - 1, ps + 1]
+    args = _paged_inputs(gen, 6, 2, D, ps, M, dtype, lens)
+    for splits in (None, 4):
+        _paged_check(args, BIG_WINDOW, dtype, splits)
+    _paged_check(args, tile + 3, dtype)
+
+
+def test_paged_kernel_in_a_cuda_graph(gen):
+    """The launch reads no length on the host: a CUDA graph captures it,
+    and a replay after the lengths change equals an eager launch."""
+    q, kp, vp, bt, ln = _paged_inputs(gen, 20, 20, 64, 16, 32,
+                                      torch.bfloat16, [0, 40, 300, 511])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        paged_attention_cuda(q, kp, vp, bt, ln, BIG_WINDOW)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = paged_attention_cuda(q, kp, vp, bt, ln, BIG_WINDOW)
+    for new in ([0, 40, 300, 511], [17, 0, 512, 1]):
+        ln.copy_(torch.tensor(new, dtype=torch.int32))
+        graph.replay()
+        eager = paged_attention_cuda(q, kp, vp, bt, ln, BIG_WINDOW)
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+        torch.testing.assert_close(
+            out.float(), paged_attention_plain(q, kp, vp, bt, ln,
+                                               BIG_WINDOW).float(),
+            **TOL[torch.bfloat16])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -5,6 +5,8 @@ On the CPU the port's ``ops`` wrappers take the plain versions (a CUDA
 tensor would launch the hand-written kernel; see test_torch_cuda.py).
 Tolerances are tests/test_kernels.py's: 2e-4 at float32, 5e-2 at bf16.
 """
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -97,6 +99,53 @@ def test_paged_attention_ref_matches_reference_ref():
                                       _t(lens, torch.int32), window)
         want = jref.paged_attention_ref(q, kp, vp, bt, lens, window=window)
         np.testing.assert_allclose(_np(got), np.asarray(want), **F32_TOL)
+
+
+@functools.lru_cache(maxsize=None)
+def _split_case(ps, window):
+    """Inputs with ranks that see no key (len 1, an idle slot, a window
+    shorter than a tile), lens ending mid-page and on a tile's end, and
+    the JAX oracle's and the Pallas kernel's (interpret mode) outputs."""
+    B, H, K, D, M = 6, 6, 2, 16, 6
+    P = B * M + 1
+    rng = np.random.RandomState(ps + window)
+    q = rng.randn(B, 1, H, D).astype(np.float32)
+    kp = rng.randn(P, ps, K, D).astype(np.float32)
+    vp = rng.randn(P, ps, K, D).astype(np.float32)
+    bt = rng.permutation(np.arange(1, P))[:B * M].reshape(B, M).astype(np.int32)
+    lens = np.array([1, 0, M * ps - ps // 2, 8, M * ps, ps + 1], np.int32)
+    w = window or BIG_WINDOW
+    want = np.asarray(jref.paged_attention_ref(q, kp, vp, bt, lens,
+                                               window=window or None))
+    pallas = np.asarray(jpaged(jnp.asarray(q), jnp.asarray(kp),
+                               jnp.asarray(vp), jnp.asarray(bt),
+                               jnp.asarray(lens), w, interpret=True))
+    return (q, kp, vp, bt, lens, w), want, pallas
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+@pytest.mark.parametrize("ps", [4, 8, 16])
+@pytest.mark.parametrize("window", [0, 3])
+@pytest.mark.parametrize("tile", [4, 32])
+def test_paged_attention_split_partials_merge_to_the_reference(
+        splits, ps, window, tile):
+    """The kernel's split arithmetic in plain PyTorch: each rank's partial
+    softmax state over its share of whole key tiles, merged as the
+    cluster merges them, equals the reference and the Pallas kernel."""
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_merge_plain, paged_attention_partials_plain)
+    (q, kp, vp, bt, lens, w), want, pallas = _split_case(ps, window)
+    args = [_t(q), _t(kp), _t(vp), _t(bt, torch.int32), _t(lens, torch.int32)]
+    m, l, acc = paged_attention_partials_plain(*args, w, splits, tile)
+    assert m.shape == (splits, 6, 6) and acc.shape == (splits, 6, 6, 16)
+    empty = l == 0                  # ranks that saw no key
+    assert torch.all(m[empty] == -1e30) and torch.all(acc[empty] == 0)
+    if splits == 8:
+        assert int(empty[:, 0, 0].sum()) == 7       # len 1: one rank works
+    got = _np(paged_attention_merge_plain(m, l, acc, torch.float32))
+    np.testing.assert_allclose(got, want, **F32_TOL)
+    np.testing.assert_allclose(got, pallas, **F32_TOL)
+    assert np.all(got[1] == 0.0)               # idle slot: zeros, not NaN
 
 
 # ---------------------------------------------------------------------------

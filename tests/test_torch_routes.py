@@ -1,8 +1,9 @@
 """Which kernel route the port's wrappers pick, and the build cache's key.
 
-Kernels C (``lora_matmul``), B (forward and backward) and G
-(``ssd_chunk``) each have a tensor-core route and an f32 FMA route; a pure
-function of dtypes, shapes and offsets picks one before the launch.  These
+Kernels C (``lora_matmul``), B (forward and backward), G (``ssd_chunk``)
+and A (``paged_attention``) each have a tensor-core route and an f32 FMA
+route; a pure function of dtypes, shapes and offsets picks one before the
+launch, and A's cluster size is a pure function of shapes.  These
 tests read only metadata (meta tensors), so they run without a card.  The
 CUDA libraries are content-addressed by the source, the headers it
 includes and the flags, and every C function is bound with its exact
@@ -17,6 +18,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import (
     flash_attention_backward_route, flash_attention_route)
 from repro_torch.kernels.lora_matmul import lora_matmul_route
+from repro_torch.kernels.paged_attention import (SPLITS, paged_attention_route,
+                                                 paged_attention_splits)
 from repro_torch.kernels.ssd_scan import ssd_chunk_route
 
 BF16, F32 = torch.bfloat16, torch.float32
@@ -214,6 +217,85 @@ def test_ssd_route_raises_on_bad_inputs(args, err):
         ssd_chunk_route(*args())
 
 
+def paged_args(B, H, K, D, ps=16, M=32, dtype=BF16):
+    P = B * M + 1
+    return meta(B, 1, H, D, dtype=dtype), meta(P, ps, K, D, dtype=dtype), \
+        meta(P, ps, K, D, dtype=dtype)
+
+
+@pytest.mark.parametrize("B,H,K,D", [
+    (16, 20, 20, 64),      # the SLM's decode
+    (16, 25, 5, 64),       # hymba's decode, G = 5
+    (4, 16, 1, 128),       # MQA, D 128
+])
+def test_paged_bf16_takes_mma(B, H, K, D):
+    assert paged_attention_route(*paged_args(B, H, K, D)) == "mma"
+
+
+@pytest.mark.parametrize("D,dtype", [(64, F32), (128, F32), (32, BF16),
+                                     (256, BF16)])
+def test_paged_other_inputs_take_fma(D, dtype):
+    assert paged_attention_route(*paged_args(4, 4, 2, D, dtype=dtype)) \
+        == "fma"
+
+
+@pytest.mark.parametrize("args,err", [
+    (lambda: paged_args(2, 4, 2, 48), ValueError),          # head dim
+    (lambda: (meta(2, 1, 4, 64), meta(9, 16, 2, 64, dtype=F32),
+              meta(9, 16, 2, 64)), TypeError),             # mixed dtypes
+    (lambda: paged_args(2, 4, 2, 64, dtype=torch.float16),
+     TypeError),                                           # no fp16
+])
+def test_paged_route_raises_on_bad_inputs(args, err):
+    with pytest.raises(err):
+        paged_attention_route(*args())
+
+
+@pytest.mark.parametrize("B,K,G,M,ps", [
+    (16, 20, 1, 32, 16), (16, 5, 5, 80, 16), (1, 1, 1, 256, 16),
+    (64, 32, 4, 128, 16), (2, 8, 16, 6, 4), (3, 2, 3, 7, 8),
+])
+def test_paged_splits_is_a_power_of_two_up_to_8(B, K, G, M, ps):
+    s = paged_attention_splits(B, K, G, M, ps)
+    assert s in SPLITS
+    assert paged_attention_splits(B, K, G, M, ps) == s      # shapes only
+
+
+@pytest.mark.parametrize("M,ps", [(1, 16), (3, 16), (7, 8), (15, 4)])
+def test_paged_splits_one_where_the_table_is_short(M, ps):
+    """Fewer than two 32-key tiles (M * ps < 64): one block a walk, however
+    few blocks the grid has."""
+    assert M * ps < 64
+    assert paged_attention_splits(1, 1, 1, M, ps) == 1
+
+
+def test_paged_splits_at_the_engine_shapes():
+    """The chosen cluster sizes, tuned on an H100 (fastest of {1, 2, 4, 8}
+    at both shapes): the SLM's decode (16 slots x 20 KV heads = 320 blocks)
+    takes 1, hymba's (16 x 5 = 80) 4, a lone slot of the SLM 8."""
+    assert paged_attention_splits(16, 20, 1, 32, 16) == 1
+    assert paged_attention_splits(16, 5, 5, 80, 16) == 4
+    assert paged_attention_splits(1, 20, 1, 32, 16) == 8
+
+
+def test_paged_forced_split_and_route_must_take_the_inputs():
+    """``splits`` outside {1, 2, 4, 8} and ``route="mma"`` on inputs the
+    mma walk does not take raise before any launch."""
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    q, kp, vp = paged_args(2, 4, 2, 64)
+    bt, lens = meta(2, 32, dtype=torch.int32), meta(2, dtype=torch.int32)
+    n = (paged_attention_cuda.launches,
+         dict(paged_attention_cuda.launches_by_route))
+    for splits in (0, 3, 16):
+        with pytest.raises(ValueError, match="splits"):
+            paged_attention_cuda(q, kp, vp, bt, lens, 0, splits=splits)
+    for args in (paged_args(2, 4, 2, 64, dtype=F32), paged_args(2, 4, 2, 32)):
+        with pytest.raises(ValueError, match="route 'mma'"):
+            paged_attention_cuda(*args, bt, lens, 0, route="mma")
+    assert (paged_attention_cuda.launches,
+            paged_attention_cuda.launches_by_route) == n
+
+
 def test_library_path_follows_included_headers(tmp_path):
     """An edit to a header that a source includes, directly or through
     another header, changes the library's path (so it is rebuilt); an
@@ -236,9 +318,10 @@ def test_library_path_follows_included_headers(tmp_path):
 
 
 def test_port_sources_hash_their_shared_header():
-    """The three tensor-core sources include ``sm90.cuh``."""
+    """The four tensor-core sources include ``sm90.cuh``."""
     srcs = _build.sources()
-    for name in ("lora_matmul", "flash_attention", "ssd_chunk"):
+    for name in ("lora_matmul", "flash_attention", "ssd_chunk",
+                 "paged_attention"):
         assert "sm90.cuh" in [p.name for p in
                               _build.local_includes(srcs[name])]
 
