@@ -5,28 +5,54 @@
 // src/repro/kernels/quantize.py:49) and `dequantize_rows` / `_dequant_kernel`
 // (pallas_call at line 71).
 //
-// What bounds them on the H100: bytes.  Quantize reads each value once (f32
-// or bf16) and writes one int8 code and one f32 scale per row; dequantize
-// reads the codes and scales and writes f32.  Both do a few operations per
-// byte, far below the card's ~300 operations per byte of device memory.
+// What bounds them on the H100: bytes, and at the wire's sizes the launch.
+// Quantize reads each value once (f32 or bf16) and writes one int8 code and
+// one f32 scale per row; dequantize reads the codes and scales and writes
+// f32.  Both do a few operations per byte, far below the card's ~300
+// operations per byte of device memory, and neither has a product for the
+// tensor cores to take.  An uplink leaf (8,640 rows of 128 f32) is 4.4 MB
+// in and 1.1 MB out, 1.7 us at 3.35 TB/s.
 //
-// Design:
-//   * one warp per row, 8 rows per block of 256 threads; a row is a wire
-//     tile (128 wide on the main path), so a warp reads it with one 16-byte
-//     load per lane (4 f32 or 8 bf16), reduces the abs-max with shuffles,
-//     and stores 4 (or 8) codes per lane as one 32-bit (or 64-bit) word.
-//     The second pass over the row re-reads it from L1.
-//   * rows of any length: where the length is no multiple of the vector or
-//     a pointer is not 16-byte aligned, lanes stride over single elements.
-//     The TPU kernel asserts R % 128 == 0 and its wrapper pads rows; here
-//     every row is independent and nothing is padded.
-//   * the arithmetic is the reference's, bit for bit
-//     (src/repro/kernels/ref.py:quantize_ref): scale = absmax * f32(1/qmax)
-//     (one multiply, never a divide), code = clamp(rint(x / safe), +-qmax)
-//     with safe = scale > 0 ? scale : 1, the division IEEE round-to-nearest
-//     (__fdiv_rn) and rint rounding half to even.  An all-zero row gets
-//     scale 0 and codes 0.  Do not build with --use_fast_math.
-//   * dequantize is code * scale in f32, one multiply per element.
+// Quantize has two routes, picked by the wrapper (quantize.py):
+//   * "wave" (the one every call takes unless the caller forces another):
+//     a grid-stride loop over rows with a grid of at most one wave of
+//     resident blocks (WAVE_WARPS warps each, launch-bounded so that the
+//     SM's 64 warps fit; the wrapper sizes it from
+//     quantize_rows_wave_plan, which asks the occupancy API: one row per
+//     warp where the rows fit one wave, else the fewest rows per warp, up
+//     to 4, that fit it).  Where a row is a whole number of 16-byte
+//     vectors and at most 32 of them (the wire's tile of 128 f32 is 32),
+//     a warp takes its RPW rows of a step (rows w, w + n, ... of the
+//     grid's n warps, so that every SM gets an even share) with all their
+//     16-byte loads issued at once (up to 4 per lane in flight), keeps
+//     them in registers through the abs-max reduction (the rows' shuffles
+//     interleaved), and codes them from those registers.  Longer
+//     rows, and rows that are no whole number of vectors or not 16-byte
+//     aligned, go one row per warp through the warp route's row body
+//     (which reads the row twice, the second time from L1).  The launch
+//     allows programmatic dependent launch (cudaLaunchKernelEx,
+//     programmatic stream serialization): it may start during the previous
+//     kernel's tail, and griddepcontrol.wait holds every read and write
+//     until that kernel has finished.
+//   * "warp" (the kernel before the redesign, kept for comparison and
+//     reachable only when forced): one warp per row, 8 rows per block of
+//     256 threads, one 16-byte load per lane (4 f32 or 8 bf16), the
+//     abs-max by shuffles, 4 (or 8) codes stored per lane as one 32-bit
+//     (or 64-bit) word; the second pass re-reads the row from L1.
+// Both take rows of any length and count: where the length is no multiple
+// of the vector or a pointer is not 16-byte aligned, lanes stride over
+// single elements.  The TPU kernel asserts R % 128 == 0 and its wrapper
+// pads rows; here every row is independent and nothing is padded.
+//
+// The arithmetic is the reference's, bit for bit, on both routes
+// (src/repro/kernels/ref.py:quantize_ref): scale = absmax * f32(1/qmax)
+// (one multiply, never a divide), code = clamp(rint(x / safe), +-qmax) with
+// safe = scale > 0 ? scale : 1, the division IEEE round-to-nearest
+// (__fdiv_rn) and rint rounding half to even.  An all-zero row gets scale 0
+// and codes 0.  Do not build with --use_fast_math.
+//
+// Dequantize (one route) is code * scale in f32, one multiply per element,
+// one warp per row.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -36,6 +62,10 @@ namespace {
 
 constexpr int WARPS = 8;
 constexpr int NT = 32 * WARPS;
+constexpr int WAVE_WARPS = 8;                  // wave route: warps a block
+constexpr int WAVE_NT = 32 * WAVE_WARPS;
+constexpr int WAVE_BLOCKS = 64 / WAVE_WARPS;   // blocks an SM holds: its 64 warps
+constexpr int WAVE_LOADS = 4;                  // 16-byte loads in flight per lane
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -75,18 +105,25 @@ __device__ __forceinline__ uint32_t pack4(const float* f, float safe, float qmax
          (uint32_t)(uint8_t)code(f[3], safe, qmax) << 24;
 }
 
+// the codes of one 16-byte vector of input, stored as one word (f32) or two
+template <typename T>
+__device__ __forceinline__ void store_codes(int8_t* qr, int i, const float* f, float safe,
+                                            float qmax) {
+  if constexpr (Vec<T>::N == 4) {
+    reinterpret_cast<uint32_t*>(qr)[i] = pack4(f, safe, qmax);
+  } else {
+    reinterpret_cast<uint2*>(qr)[i] = make_uint2(pack4(f, safe, qmax), pack4(f + 4, safe, qmax));
+  }
+}
+
+// One row by one warp: the abs-max by shuffles, then the codes (the row
+// read twice; vectors where VEC, single elements otherwise).
 template <typename T, bool VEC>
-__global__ void __launch_bounds__(NT)
-quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
-                     float* __restrict__ scale, int R, int L, float qmax, float inv_qmax) {
-  const int lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (row >= R) return;  // the whole warp leaves together
-  const T* xr = x + row * L;
-  int8_t* qr = q + row * L;
+__device__ __forceinline__ void quantize_row(const T* __restrict__ xr, int8_t* __restrict__ qr,
+                                             float* __restrict__ scale, int L, float qmax,
+                                             float inv_qmax, int lane) {
   constexpr int N = Vec<T>::N;
   const int nv = L / N;
-
   float amax = 0.f;
   if constexpr (VEC) {
     for (int i = lane; i < nv; i += 32) {
@@ -102,21 +139,85 @@ quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
   for (int o = 16; o; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
   const float s = amax * inv_qmax;
   const float safe = s > 0.f ? s : 1.f;
-  if (lane == 0) scale[row] = s;
+  if (lane == 0) *scale = s;
 
   if constexpr (VEC) {
     for (int i = lane; i < nv; i += 32) {
       float f[N];
       Vec<T>::unpack(reinterpret_cast<const uint4*>(xr)[i], f);
-      if constexpr (N == 4) {
-        reinterpret_cast<uint32_t*>(qr)[i] = pack4(f, safe, qmax);
-      } else {
-        reinterpret_cast<uint2*>(qr)[i] = make_uint2(pack4(f, safe, qmax),
-                                                     pack4(f + 4, safe, qmax));
-      }
+      store_codes<T>(qr, i, f, safe, qmax);
     }
   } else {
     for (int i = lane; i < L; i += 32) qr[i] = code(to_f(xr[i]), safe, qmax);
+  }
+}
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(NT)
+quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
+                     float* __restrict__ scale, int R, int L, float qmax, float inv_qmax) {
+  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (row >= R) return;  // the whole warp leaves together
+  quantize_row<T, VEC>(x + row * L, q + row * L, scale + row, L, qmax, inv_qmax, lane);
+}
+
+// The wave route.  VEC_ROWS: a warp holds RPW rows of at most 32 16-byte
+// vectors in registers per step (one vector a lane), rows w, w + n, ...,
+// w + (RPW - 1) n of the grid's n warps, so that every warp of the grid
+// has work; else one row per warp per step through quantize_row (VEC: as
+// vectors).
+template <typename T, int RPW, bool VEC_ROWS, bool VEC>
+__global__ void __launch_bounds__(WAVE_NT, WAVE_BLOCKS)
+quantize_rows_wave_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
+                          float* __restrict__ scale, int R, int L, float qmax, float inv_qmax) {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const int lane = threadIdx.x & 31;
+  const long long warp = (long long)blockIdx.x * WAVE_WARPS + (threadIdx.x >> 5);
+  const long long n_warps = (long long)gridDim.x * WAVE_WARPS;
+  if constexpr (!VEC_ROWS) {
+    for (long long row = warp; row < R; row += n_warps)
+      quantize_row<T, VEC>(x + row * L, q + row * L, scale + row, L, qmax, inv_qmax, lane);
+  } else {
+    constexpr int N = Vec<T>::N;
+    const bool mine = lane < L / N;  // this lane's vector lies in the row
+    for (long long r0 = warp; r0 < R; r0 += n_warps * RPW) {
+      uint4 raw[RPW];
+#pragma unroll
+      for (int r = 0; r < RPW; ++r) {
+        const long long row = r0 + r * n_warps;
+        raw[r] = (row < R && mine) ? __ldg(reinterpret_cast<const uint4*>(x + row * L) + lane)
+                                   : make_uint4(0u, 0u, 0u, 0u);
+      }
+      float amax[RPW];
+#pragma unroll
+      for (int r = 0; r < RPW; ++r) {
+        float f[N];
+        Vec<T>::unpack(raw[r], f);
+        amax[r] = 0.f;
+#pragma unroll
+        for (int e = 0; e < N; ++e) amax[r] = fmaxf(amax[r], fabsf(f[e]));
+      }
+#pragma unroll
+      for (int o = 16; o; o >>= 1)
+#pragma unroll
+        for (int r = 0; r < RPW; ++r)
+          amax[r] = fmaxf(amax[r], __shfl_xor_sync(0xffffffffu, amax[r], o));
+#pragma unroll
+      for (int r = 0; r < RPW; ++r) {
+        const long long row = r0 + r * n_warps;
+        if (row >= R) break;  // the whole warp together
+        const float s = amax[r] * inv_qmax;
+        const float safe = s > 0.f ? s : 1.f;
+        if (lane == 0) scale[row] = s;
+        if (mine) {
+          float f[N];
+          Vec<T>::unpack(raw[r], f);
+          store_codes<T>(q + row * L, lane, f, safe, qmax);
+        }
+      }
+    }
   }
 }
 
@@ -145,31 +246,102 @@ dequantize_rows_kernel(const int8_t* __restrict__ q, const float* __restrict__ s
   }
 }
 
+__global__ void empty_kernel(int) {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
 bool aligned(const void* p, uintptr_t n) { return reinterpret_cast<uintptr_t>(p) % n == 0; }
+
+// f32(1/qmax): the double quotient rounded once, as numpy's float32(1.0 / qmax)
+float inverse(int qmax) { return (float)(1.0 / (double)qmax); }
+
+template <typename T>
+bool takes_vectors(const void* x, const void* q, int L) {
+  constexpr int N = Vec<T>::N;
+  return L % N == 0 && aligned(x, 16) && aligned(q, N);
+}
 
 template <typename T>
 cudaError_t launch_quant(const void* x, void* q, void* scale, int R, int L, int qmax,
                          cudaStream_t stream) {
-  constexpr int N = Vec<T>::N;
-  // f32(1/qmax): the double quotient rounded once, as numpy's float32(1.0 / qmax)
-  const float inv = (float)(1.0 / (double)qmax);
-  const bool vec = L % N == 0 && aligned(x, 16) && aligned(q, N);
   const dim3 grid((R + WARPS - 1) / WARPS);
   const T* xt = static_cast<const T*>(x);
   int8_t* qt = static_cast<int8_t*>(q);
   float* st = static_cast<float*>(scale);
-  if (vec) {
-    quantize_rows_kernel<T, true><<<grid, NT, 0, stream>>>(xt, qt, st, R, L, (float)qmax, inv);
+  if (takes_vectors<T>(x, q, L)) {
+    quantize_rows_kernel<T, true><<<grid, NT, 0, stream>>>(xt, qt, st, R, L, (float)qmax,
+                                                           inverse(qmax));
   } else {
-    quantize_rows_kernel<T, false><<<grid, NT, 0, stream>>>(xt, qt, st, R, L, (float)qmax, inv);
+    quantize_rows_kernel<T, false><<<grid, NT, 0, stream>>>(xt, qt, st, R, L, (float)qmax,
+                                                            inverse(qmax));
   }
   return cudaGetLastError();
 }
 
+// whether the wave route holds rows of L values in registers: a whole
+// number of 16-byte vectors, at most one a lane
+template <typename T>
+bool wave_rows_in_registers(int L, bool vec) {
+  return vec && L / Vec<T>::N <= 32;
+}
+
+// the rows a warp may hold at once: WAVE_LOADS in registers, else 1
+int max_rows_per_warp(bool in_registers) { return in_registers ? WAVE_LOADS : 1; }
+
+// the wave route's instance for rows held in registers (RPW of them) or
+// not (and then, as vectors or not); nullptr for a pair it has no instance of
+template <typename T>
+auto wave_kernel(bool in_registers, int rpw, bool vec) {
+  decltype(&quantize_rows_wave_kernel<T, 1, true, true>) k = nullptr;
+  if (in_registers && rpw == 1) k = quantize_rows_wave_kernel<T, 1, true, true>;
+  if (in_registers && rpw == 2) k = quantize_rows_wave_kernel<T, 2, true, true>;
+  if (in_registers && rpw == 4) k = quantize_rows_wave_kernel<T, 4, true, true>;
+  if (!in_registers && rpw == 1)
+    k = vec ? quantize_rows_wave_kernel<T, 1, false, true>
+            : quantize_rows_wave_kernel<T, 1, false, false>;
+  return k;
+}
+
+template <typename T>
+cudaError_t launch_wave(const void* x, void* q, void* scale, int R, int L, int qmax, int grid,
+                        int rows_per_warp, cudaStream_t stream) {
+  const bool vec = takes_vectors<T>(x, q, L);
+  const auto kernel = wave_kernel<T>(wave_rows_in_registers<T>(L, vec), rows_per_warp, vec);
+  if (kernel == nullptr) return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(WAVE_NT);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(x), static_cast<int8_t*>(q),
+                         static_cast<float*>(scale), R, L, (float)qmax, inverse(qmax));
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// plan[0] = the rows a warp may hold at once, plan[1] = the blocks of that
+// instance (the one with the most registers) resident on one SM, plan[2] =
+// the warps of a block
+template <typename T>
+cudaError_t wave_plan(int L, bool vec, int* plan) {
+  const bool in_registers = wave_rows_in_registers<T>(L, vec);
+  plan[0] = max_rows_per_warp(in_registers);
+  plan[2] = WAVE_WARPS;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &plan[1], wave_kernel<T>(in_registers, plan[0], vec), WAVE_NT, 0);
+}
+
 }  // namespace
 
-// x (R, L) f32 or bf16, q (R, L) int8, scale (R,) f32; contiguous.
-// qmax in [1, 127].  Returns the cudaError_t of the launch (0 = launched).
+// Warp route.  x (R, L) f32 or bf16, q (R, L) int8, scale (R,) f32;
+// contiguous.  qmax in [1, 127].  Returns the cudaError_t of the launch
+// (0 = launched).
 extern "C" int quantize_rows_launch(const void* x, void* q, void* scale, int R, int L, int qmax,
                                     int is_bf16, void* stream) {
   if (R == 0) return 0;
@@ -177,6 +349,32 @@ extern "C" int quantize_rows_launch(const void* x, void* q, void* scale, int R, 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(is_bf16 ? launch_quant<__nv_bfloat16>(x, q, scale, R, L, qmax, s)
                        : launch_quant<float>(x, q, scale, R, L, qmax, s));
+}
+
+// Wave route: as the warp route, on `grid` blocks of WAVE_NT threads (>= 1;
+// any grid is correct, one wave of resident blocks is what it is sized
+// for), each warp holding `rows_per_warp` rows at a step (1, 2 or 4, at
+// most plan[0] of quantize_rows_wave_plan; else cudaErrorInvalidValue).
+extern "C" int quantize_rows_wave_launch(const void* x, void* q, void* scale, int R, int L,
+                                         int qmax, int is_bf16, int grid, int rows_per_warp,
+                                         void* stream) {
+  if (R == 0) return 0;
+  if (qmax < 1 || qmax > 127 || L < 0 || grid < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(is_bf16 ? launch_wave<__nv_bfloat16>(x, q, scale, R, L, qmax, grid,
+                                                    rows_per_warp, s)
+                       : launch_wave<float>(x, q, scale, R, L, qmax, grid, rows_per_warp, s));
+}
+
+// The wave route's plan for rows of L values (vec: the row is read as
+// 16-byte vectors): plan[0] = the rows a warp may hold at once, plan[1] =
+// the blocks resident on one SM (the occupancy API, for the instance that
+// holds plan[0] rows), plan[2] = the warps of a block.  Returns the
+// cudaError_t.
+extern "C" int quantize_rows_wave_plan(int L, int is_bf16, int vec, void* plan) {
+  int* p = static_cast<int*>(plan);
+  return (int)(is_bf16 ? wave_plan<__nv_bfloat16>(L, vec != 0, p)
+                       : wave_plan<float>(L, vec != 0, p));
 }
 
 // q (R, L) int8, scale (R,) f32, out (R, L) f32; contiguous.
@@ -195,6 +393,22 @@ extern "C" int dequantize_rows_launch(const void* q, const void* scale, void* ou
     dequantize_rows_kernel<false><<<grid, NT, 0, s>>>(qt, st, ot, R, L);
   }
   return (int)cudaGetLastError();
+}
+
+// An empty kernel launched as the wave route launches (`blocks` of
+// `threads`, programmatic dependent launch): the launch's own cost.
+extern "C" int quantize_empty_launch(int blocks, int threads, void* stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, empty_kernel, 0);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 extern "C" const char* quantize_error_string(int code) {

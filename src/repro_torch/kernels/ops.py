@@ -47,7 +47,9 @@ def lora_matmul(x, w, a, b, scale: float):
 
 def gram_log_volume(vs, mask, eps: float = 1e-5):
     """Masked log-volumes (B,) f32 of vs (B, k, d) under mask (B, k) bool
-    (``repro.core.gram.log_volume``)."""
+    (``repro.core.gram.log_volume``).  On the card the forward keeps the
+    raw dot products, and the backward kernel reads them instead of the
+    rows a second time."""
     fn = gram_log_volume_autograd if vs.is_cuda else gram_log_volume_plain
     return fn(vs, mask, eps)
 

@@ -18,9 +18,10 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_backward_cuda, flash_attention_backward_plain,
     flash_attention_backward_route, flash_attention_cuda,
     flash_attention_plain, flash_attention_route)
-from repro_torch.kernels.gram_volume import (gram_log_volume_backward_cuda,
-                                             gram_log_volume_cuda,
-                                             gram_log_volume_plain)
+from repro_torch.kernels.gram_volume import (
+    SPLITS as GRAM_SPLITS, gram_dots_plain, gram_log_volume_backward_cuda,
+    gram_log_volume_backward_from_dots_plain, gram_log_volume_cuda,
+    gram_log_volume_plain, gram_log_volume_splits)
 from repro_torch.kernels.lora_matmul import (lora_matmul_cuda,
                                              lora_matmul_plain,
                                              lora_matmul_route)
@@ -31,7 +32,9 @@ from repro_torch.kernels.paged_attention import (paged_attention_cuda,
 from repro_torch.kernels.quantize import (dequantize_rows_cuda,
                                           dequantize_rows_plain,
                                           quantize_rows_cuda,
-                                          quantize_rows_plain)
+                                          quantize_rows_grid,
+                                          quantize_rows_plain,
+                                          quantize_rows_plan)
 from repro_torch.kernels.ref import ssd_recurrent_ref
 from repro_torch.kernels.ssd_scan import (ssd_chunk_cuda, ssd_chunk_plain,
                                           ssd_chunk_route)
@@ -427,6 +430,44 @@ def test_gram_kernel_matches_plain(gen, dtype, B, k, d):
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
 
 
+def _gram_grads_close(got, want, dtype, floor=None):
+    """Gradients differ by orders of magnitude between samples: divide
+    each sample by its own largest |gradient|, so that a kernel that
+    writes zeros fails, but by no less than a tenth of the batch's
+    largest.  Where a sample's rows are nearly orthogonal its gradient is
+    small, while f32 leaves noise of about 1e-6 of the batch's scale (the
+    normalization projects out the Gram's diagonal term by cancellation).
+    ``floor`` (B,): a further lower bound of each sample's divisor (see
+    ``_gram_cancelled_scale``)."""
+    got, want = got.float(), want.float()
+    scale = torch.maximum(want.abs().amax(dim=(1, 2)),
+                          0.1 * want.abs().max())
+    if floor is not None:
+        scale = torch.maximum(scale, floor.float())
+    scale = scale.clamp(min=1e-30)[:, None, None]
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got / scale, want / scale, atol=tol, rtol=tol)
+
+
+def _gram_cancelled_scale(vs, mask, gout):
+    """A tenth of the size of the terms each sample's gradient cancels:
+    |gout| max_i (r_i (G~^-1)_ii) max_i (G~^-1)_ii (in f64).  The gradient
+    through the normalization subtracts terms of that size; what is left
+    can be smaller by the rows' cosine (k = 2, wide d) or by G~'s
+    condition (k = d = 8), while the two sides' dot products differ by
+    their summation order (~sqrt(d) 2^-24 relative), which that
+    cancellation leaves at the size of these terms, not of the result."""
+    dots = gram_dots_plain(vs).double()
+    k = vs.shape[1]
+    rr = torch.rsqrt(torch.diagonal(dots, dim1=-2, dim2=-1) + 1e-12)
+    eye = torch.eye(k, dtype=torch.float64, device=vs.device)
+    pair = mask[..., :, None] & mask[..., None, :]
+    g = torch.where(pair, dots * rr[..., :, None] * rr[..., None, :], eye)
+    gi = torch.diagonal(torch.linalg.inv(g + 1e-5 * eye), dim1=-2, dim2=-1)
+    return 0.1 * gout.abs().double() * (rr * gi * mask).amax(-1) \
+        * gi.amax(-1)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,k,d", [(7, 4, 1280), (130, 8, 1280)])
 def test_gram_kernel_backward_matches_plain_autograd(gen, dtype, B, k, d):
@@ -441,19 +482,176 @@ def test_gram_kernel_backward_matches_plain_autograd(gen, dtype, B, k, d):
             assert gram_log_volume_backward_cuda.launches == n + 1
         grads.append(v.grad.float())
     torch.cuda.synchronize()
-    # gradients differ by orders of magnitude between samples: divide each
-    # sample by its own largest |gradient|, so that a kernel that writes
-    # zeros fails, but by no less than a tenth of the batch's largest.
-    # Where a sample's rows are nearly orthogonal its gradient is small,
-    # while f32 leaves noise of about 1e-6 of the batch's scale (the
-    # normalization projects out the Gram's diagonal term by cancellation).
-    scale = torch.maximum(grads[1].abs().amax(dim=(1, 2), keepdim=True),
-                          0.1 * grads[1].abs().max()).clamp(min=1e-30)
-    tol = 1e-4 if dtype == torch.float32 else 2e-2
-    torch.testing.assert_close(grads[0] / scale, grads[1] / scale,
-                               atol=tol, rtol=tol)
+    _gram_grads_close(grads[0], grads[1], dtype)
     masked = ~mask
     assert torch.all(grads[0][masked] == 0)
+
+
+# (B, d): one sample over the widest d (every rank of S = 8), the CCL
+# loss's 80 candidate sets, a batch past two waves, d of one 16-byte step,
+# d no multiple of a vector
+GRAM_ROUTE_SHAPES = [(1, 4096), (80, 1280), (257, 1000), (80, 8), (3, 33)]
+
+
+def _gram_dots_close(got, vs):
+    want = gram_dots_plain(vs)
+    torch.testing.assert_close(got, want, rtol=1e-4,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("route", ["block", "warp"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", range(1, 9))
+@pytest.mark.parametrize("B,d", GRAM_ROUTE_SHAPES)
+def test_gram_routes_match_plain(gen, route, dtype, k, B, d):
+    """Both routes, forward and backward (the block route's from the
+    forward's saved dots), against the plain versions; masked rows get an
+    exactly zero gradient."""
+    vs, mask = _gram_inputs(gen, B, k, d, dtype) if B > 1 \
+        else (torch.randn((B, k, d), generator=gen, device="cuda").to(dtype),
+              torch.ones((B, k), dtype=torch.bool, device="cuda"))
+    gout = torch.randn((B,), generator=gen, device="cuda")
+    with _routed(gram_log_volume_cuda, route), \
+            _routed(gram_log_volume_backward_cuda, route):
+        if route == "block":
+            y, dots = gram_log_volume_cuda(vs, mask, return_dots=True)
+            dvs = gram_log_volume_backward_cuda(vs, mask, gout, dots=dots)
+        else:
+            y = gram_log_volume_cuda(vs, mask, route="warp")
+            dvs = gram_log_volume_backward_cuda(vs, mask, gout, route="warp")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, gram_log_volume_plain(vs, mask),
+                               atol=1e-4, rtol=1e-4)
+    v = vs.clone().requires_grad_(True)
+    want = torch.autograd.grad(gram_log_volume_plain(v, mask), v, gout)[0]
+    if route == "block":
+        _gram_dots_close(dots, vs)
+    if k == 1:
+        # one normalized row: y = log sqrt(1 + eps) whatever the row, so the
+        # gradient is zero up to f32 noise (~1e-7 / |v|) on both sides
+        assert float(dvs.float().abs().max()) < 1e-5
+        assert float(want.float().abs().max()) < 1e-5
+        return
+    floor = _gram_cancelled_scale(vs, mask, gout)
+    _gram_grads_close(dvs, want, dtype, floor)
+    assert torch.all(dvs[~mask] == 0)
+    if route == "block":
+        # the closed form from the kernel's own dots (C's diagonal is a
+        # difference of the same cancelled terms, rounded in another order)
+        _gram_grads_close(dvs, gram_log_volume_backward_from_dots_plain(
+            vs, dots, mask, gout), dtype, floor)
+
+
+@pytest.mark.parametrize("splits", GRAM_SPLITS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,k,d", [(80, 4, 1280), (5, 8, 4096), (9, 3, 33)])
+def test_gram_block_route_every_split(gen, splits, dtype, B, k, d):
+    vs, mask = _gram_inputs(gen, B, k, d, dtype)
+    gout = torch.randn((B,), generator=gen, device="cuda")
+    y, dots = gram_log_volume_cuda(vs, mask, splits=splits, return_dots=True)
+    dvs = gram_log_volume_backward_cuda(vs, mask, gout, dots=dots,
+                                        splits=splits)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, gram_log_volume_plain(vs, mask),
+                               atol=1e-4, rtol=1e-4)
+    _gram_dots_close(dots, vs)
+    v = vs.clone().requires_grad_(True)
+    want = torch.autograd.grad(gram_log_volume_plain(v, mask), v, gout)[0]
+    _gram_grads_close(dvs, want, dtype, _gram_cancelled_scale(vs, mask, gout))
+    assert torch.all(dvs[~mask] == 0)
+
+
+def test_gram_block_route_misaligned_rows(gen):
+    """A batch that starts 4 bytes into its storage takes single-element
+    loads (no 16-byte vector) and still matches."""
+    B, k, d = 6, 4, 1280
+    vs, mask = _gram_inputs(gen, B, k, d, torch.float32)
+    flat = torch.empty(B * k * d + 1, device="cuda")
+    off = flat[1:].view(B, k, d)
+    off.copy_(vs)
+    gout = torch.randn((B,), generator=gen, device="cuda")
+    y, dots = gram_log_volume_cuda(off, mask, return_dots=True)
+    dvs = gram_log_volume_backward_cuda(off, mask, gout, dots=dots)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, gram_log_volume_plain(vs, mask),
+                               atol=1e-4, rtol=1e-4)
+    v = vs.clone().requires_grad_(True)
+    want = torch.autograd.grad(gram_log_volume_plain(v, mask), v, gout)[0]
+    _gram_grads_close(dvs, want, torch.float32,
+                      _gram_cancelled_scale(vs, mask, gout))
+
+
+def test_gram_autograd_takes_the_block_route(gen):
+    """``ops.gram_log_volume`` launches the block route's forward and, from
+    its saved dots, the block route's backward: once each."""
+    vs, mask = _gram_inputs(gen, 80, 4, 1280, torch.bfloat16)
+    v = vs.clone().requires_grad_(True)
+    with _routed(gram_log_volume_cuda, "block"), \
+            _routed(gram_log_volume_backward_cuda, "block"):
+        ops.gram_log_volume(v, mask).sum().backward()
+    assert gram_log_volume_splits(80, 4, 1280, 2) == 1
+    assert gram_log_volume_splits(80, 4, 1280, 2, backward=True) == 2
+
+
+def test_gram_routes_reject_what_they_do_not_take(gen):
+    vs, mask = _gram_inputs(gen, 4, 4, 64, torch.float32)
+    gout = torch.ones((4,), device="cuda")
+    n = (gram_log_volume_cuda.launches, gram_log_volume_backward_cuda.launches)
+    with pytest.raises(ValueError, match="dots"):
+        gram_log_volume_backward_cuda(vs, mask, gout)
+    with pytest.raises(ValueError, match="dots"):
+        gram_log_volume_cuda(vs, mask, route="warp", return_dots=True)
+    with pytest.raises(ValueError, match="splits"):
+        gram_log_volume_cuda(vs, mask, splits=3)
+    with pytest.raises(ValueError, match="splits"):
+        gram_log_volume_cuda(vs, mask, route="warp", splits=2)
+    with pytest.raises(ValueError, match="route 'mma'"):
+        gram_log_volume_cuda(vs, mask, route="mma")
+    with pytest.raises(ValueError, match="k=9"):
+        gram_log_volume_cuda(torch.zeros((2, 9, 8), device="cuda"),
+                             torch.ones((2, 9), dtype=torch.bool,
+                                        device="cuda"))
+    assert (gram_log_volume_cuda.launches,
+            gram_log_volume_backward_cuda.launches) == n
+
+
+def test_gram_and_quantize_in_a_cuda_graph(gen):
+    """The block route's forward and backward and the wave route's quantize
+    (all launched with programmatic dependent launch) capture into one
+    CUDA graph; a replay after the inputs change equals eager launches."""
+    vs, mask = _gram_inputs(gen, 80, 4, 1280, torch.bfloat16)
+    gout = torch.randn((80,), generator=gen, device="cuda")
+    x = torch.randn((8640, 128), generator=gen, device="cuda")
+
+    def run():
+        y, dots = gram_log_volume_cuda(vs, mask, return_dots=True)
+        dvs = gram_log_volume_backward_cuda(vs, mask, gout, dots=dots)
+        q, s = quantize_rows_cuda(x)
+        return y, dots, dvs, q, s
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = run()
+    for _ in range(2):
+        vs.copy_(torch.randn(vs.shape, generator=gen, device="cuda")
+                 * mask[..., None])
+        gout.copy_(torch.randn((80,), generator=gen, device="cuda"))
+        x.copy_(torch.randn(x.shape, generator=gen, device="cuda"))
+        graph.replay()
+        eager = run()
+        torch.cuda.synchronize()
+        for a, b in zip(outs, eager):
+            assert torch.equal(a, b)
+        pq, ps = quantize_rows_plain(x)
+        assert torch.equal(outs[3], pq) and torch.equal(_bits(outs[4]),
+                                                        _bits(ps))
+        torch.testing.assert_close(outs[0], gram_log_volume_plain(vs, mask),
+                                   atol=1e-4, rtol=1e-4)
 
 
 def _row_scaled(got, want):
@@ -658,6 +856,73 @@ def test_quantize_kernels_reject_what_they_do_not_take(gen):
         dequantize_rows_cuda(torch.zeros((4, 8), dtype=torch.int8,
                                          device="cuda"),
                              torch.zeros((3,), device="cuda"))
+
+
+# (R, L): the uplink and downlink leaves (rows in registers), ragged rows,
+# rows past 32 vectors (one row per warp, read twice), tiny shapes
+QUANT_ROUTE_SHAPES = [(8640, 128), (2880, 128), (129, 131), (7, 3), (1, 257),
+                      (300, 256), (1000, 512), (50, 2048), (33, 1024)]
+
+
+@pytest.mark.parametrize("route", ["wave", "warp"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qmax", [127, 7])
+@pytest.mark.parametrize("R,L", QUANT_ROUTE_SHAPES)
+def test_quantize_routes_equal_plain_bitwise(gen, route, dtype, qmax, R, L):
+    x = _tile_rows(R, L, qmax, R + L + qmax).to(dtype).cuda()
+    with _routed(quantize_rows_cuda, route):
+        q, s = quantize_rows_cuda(x, qmax, route=route)
+    pq, ps = quantize_rows_plain(x, qmax)
+    torch.cuda.synchronize()
+    assert torch.equal(q, pq)
+    assert torch.equal(_bits(s), _bits(ps))
+    assert s[0].item() == 0.0 and bool((q[0] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_wave_route_around_one_wave(gen, dtype):
+    """R on either side of the wave route's one-wave boundary (where the
+    grid stops growing and the grid-stride loop takes the rest), bit for
+    bit."""
+    L = 128
+    max_rpw, per_sm, warps = quantize_rows_plan(L, dtype, True)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    wave = warps * per_sm * n_sm      # warps of one wave: a row each
+    for R in (wave - 1, wave, wave + 1, max_rpw * wave + 3):
+        grid, rpw = quantize_rows_grid(R, max_rpw, per_sm, warps, n_sm)
+        assert grid == min(-(-R // warps), per_sm * n_sm)
+        assert rpw == (1 if R <= wave else 2 if R <= 2 * wave else max_rpw)
+        x = _tile_rows(R, L, 127, R).to(dtype).cuda()
+        q, s = quantize_rows_cuda(x, route="wave")
+        pq, ps = quantize_rows_plain(x)
+        torch.cuda.synchronize()
+        assert torch.equal(q, pq), R
+        assert torch.equal(_bits(s), _bits(ps)), R
+
+
+def test_quantize_wave_route_misaligned_rows(gen):
+    """Rows that start 4 bytes into their storage take single-element
+    loads and stay bit for bit."""
+    R, L = 515, 128
+    x = _tile_rows(R, L, 127, 3).cuda()
+    off = torch.empty(R * L + 1, device="cuda")[1:].view(R, L)
+    off.copy_(x)
+    q, s = quantize_rows_cuda(off, route="wave")
+    pq, ps = quantize_rows_plain(x)
+    torch.cuda.synchronize()
+    assert torch.equal(q, pq) and torch.equal(_bits(s), _bits(ps))
+
+
+def test_quantize_routes_count_and_reject(gen):
+    x = torch.randn((64, 128), generator=gen, device="cuda")
+    with _routed(quantize_rows_cuda, "wave"):
+        ops.quantize(x)
+    with _routed(quantize_rows_cuda, "warp"):
+        quantize_rows_cuda(x, route="warp")
+    n = quantize_rows_cuda.launches
+    with pytest.raises(ValueError, match="route 'mma'"):
+        quantize_rows_cuda(x, route="mma")
+    assert quantize_rows_cuda.launches == n
 
 
 # ---------------------------------------------------------------------------

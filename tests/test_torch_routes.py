@@ -2,8 +2,11 @@
 
 Kernels C (``lora_matmul``), B (forward and backward), G (``ssd_chunk``)
 and A (``paged_attention``) each have a tensor-core route and an f32 FMA
-route; a pure function of dtypes, shapes and offsets picks one before the
-launch, and A's cluster size is a pure function of shapes.  These
+route; D (``gram_log_volume``) and E (``quantize_rows``) a redesigned
+route ("block", "wave") beside the kernel it replaced ("warp", only when
+forced).  A pure function of dtypes, shapes and offsets picks one before
+the launch; A's and D's splits and E's grid are pure functions of shapes.
+These
 tests read only metadata (meta tensors), so they run without a card.  The
 CUDA libraries are content-addressed by the source, the headers it
 includes and the flags, and every C function is bound with its exact
@@ -14,12 +17,16 @@ import ctypes
 import pytest
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _route
 from repro_torch.kernels.flash_attention import (
     flash_attention_backward_route, flash_attention_route)
 from repro_torch.kernels.lora_matmul import lora_matmul_route
 from repro_torch.kernels.paged_attention import (SPLITS, paged_attention_route,
                                                  paged_attention_splits)
+from repro_torch.kernels.gram_volume import (SPLITS as GRAM_SPLITS,
+                                             gram_log_volume_route,
+                                             gram_log_volume_splits)
+from repro_torch.kernels.quantize import quantize_route, quantize_rows_grid
 from repro_torch.kernels.ssd_scan import ssd_chunk_route
 
 BF16, F32 = torch.bfloat16, torch.float32
@@ -294,6 +301,142 @@ def test_paged_forced_split_and_route_must_take_the_inputs():
             paged_attention_cuda(*args, bt, lens, 0, route="mma")
     assert (paged_attention_cuda.launches,
             paged_attention_cuda.launches_by_route) == n
+
+
+@pytest.mark.parametrize("k", range(1, 9))
+@pytest.mark.parametrize("dtype", [BF16, F32])
+def test_gram_takes_the_block_route(k, dtype):
+    vs, mask = meta(80, k, 1280, dtype=dtype), meta(80, k, dtype=torch.bool)
+    assert gram_log_volume_route(vs, mask) == "block"
+
+
+@pytest.mark.parametrize("args,err", [
+    (lambda: (meta(4, 9, 64), meta(4, 9, dtype=torch.bool)), ValueError),
+    (lambda: (meta(4, 0, 64), meta(4, 0, dtype=torch.bool)), ValueError),
+    (lambda: (meta(4, 4, 64), meta(4, 3, dtype=torch.bool)), ValueError),
+    (lambda: (meta(4, 4, 64), meta(4, 4, dtype=torch.uint8)), ValueError),
+    (lambda: (meta(4, 64), meta(4, dtype=torch.bool)), ValueError),
+    (lambda: (meta(4, 4, 64, dtype=torch.float16),
+              meta(4, 4, dtype=torch.bool)), TypeError),
+])
+def test_gram_route_raises_on_bad_inputs(args, err):
+    with pytest.raises(err):
+        gram_log_volume_route(*args())
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("B,k,d,itemsize", [
+    (80, 4, 1280, 2), (1, 8, 4096, 2), (1, 1, 4096, 4), (257, 4, 1280, 2),
+    (1, 4, 8, 4), (3, 2, 33, 4), (132, 8, 65536, 2), (16, 3, 1000, 2),
+    (0, 4, 1280, 2), (2, 4, 10 ** 6, 4),
+])
+def test_gram_splits_is_a_power_of_two_up_to_8(B, k, d, itemsize, backward):
+    s = gram_log_volume_splits(B, k, d, itemsize, backward)
+    assert s in GRAM_SPLITS
+    assert gram_log_volume_splits(B, k, d, itemsize, backward) == s
+    if s > 1:   # split only while the SMs are not covered, and never below
+        # the least share: two 16-byte steps a thread of each row (forward),
+        # 4 KB of the sample's rows (backward)
+        share = (k if backward else 1) * d * itemsize // s
+        assert B * s // 2 < 132 and share >= 2 * 128 * 16
+
+
+def test_gram_splits_at_the_main_shapes():
+    """The round's CCL loss (80 candidate sets of 4 bf16 rows of 1280)
+    takes one block a sample forward (a row is 2560 bytes, under one
+    block's two steps in flight) and two backward (160 blocks cover the
+    132 SMs); one wide sample splits until a rank holds its least share; a
+    batch that covers the card never splits."""
+    splits = gram_log_volume_splits
+    assert splits(80, 4, 1280, 2) == 1
+    assert splits(80, 4, 1280, 2, backward=True) == 2
+    assert splits(80, 4, 1280, 4) == 1
+    assert splits(1, 8, 4096, 2) == 2
+    assert splits(1, 8, 4096, 2, backward=True) == 8
+    assert splits(1, 8, 4096, 4) == 4
+    assert splits(1, 8, 16384, 2) == 8
+    assert splits(132, 8, 16384, 2) == 1
+    assert splits(132, 8, 16384, 2, backward=True) == 1
+    for backward in (False, True):
+        assert {splits(1, 1, d, 2, backward) for d in (8, 4096, 8192,
+                                                       16384)} \
+            == set(GRAM_SPLITS)
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32])
+def test_quantize_takes_the_wave_route(dtype):
+    assert quantize_route(meta(8640, 128, dtype=dtype)) == "wave"
+    assert quantize_route(meta(7, 3, dtype=dtype), 7) == "wave"
+
+
+@pytest.mark.parametrize("args,err", [
+    (lambda: (meta(2, 4, 8), 127), ValueError),                 # not 2-D
+    (lambda: (meta(4, 8, dtype=torch.float16), 127), TypeError),
+    (lambda: (meta(4, 8), 0), ValueError),                      # qmax
+    (lambda: (meta(4, 8), 128), ValueError),
+])
+def test_quantize_route_raises_on_bad_inputs(args, err):
+    with pytest.raises(err):
+        quantize_route(*args())
+
+
+@pytest.mark.parametrize("R,max_rpw,per_sm,warps,want", [
+    (8640, 4, 8, 8, (1056, 2)),     # the uplink leaf: a row a warp overflows
+    (8640, 4, 5, 8, (660, 2)),      # ... a wave of 5 blocks an SM too
+    (8640, 4, 4, 16, (528, 2)),     # blocks of 16 warps
+    (2880, 4, 8, 8, (360, 1)),      # the downlink leaf: a row a warp
+    (8448, 4, 8, 8, (1056, 1)),     # exactly one wave of one row a warp
+    (8449, 4, 8, 8, (1056, 2)),     # one row past it
+    (10 ** 6, 4, 4, 8, (528, 4)),   # past 4 rows a warp: grid-stride steps
+    (10 ** 5, 1, 8, 8, (1056, 1)),  # long rows: one row a warp, always
+    (1, 4, 8, 8, (1, 1)), (0, 4, 8, 8, (1, 1)),   # tiny and empty
+])
+def test_quantize_grid_is_at_most_one_wave(R, max_rpw, per_sm, warps, want):
+    grid, rpw = quantize_rows_grid(R, max_rpw, per_sm, warps, 132)
+    assert (grid, rpw) == want
+    assert 1 <= grid <= per_sm * 132 and rpw in (1, 2, 4) and rpw <= max_rpw
+    # one step of the grid covers R, unless the grid is a full wave of
+    # warps that hold all the rows they may
+    assert grid * warps * rpw >= R \
+        or (grid == per_sm * 132 and rpw == max_rpw)
+    # no smaller power of two would cover R with this grid
+    assert rpw == 1 or grid * warps * (rpw // 2) < R
+
+
+@pytest.mark.parametrize("bad", [(0, 8, 8), (4, 0, 8), (4, 8, 0)])
+def test_quantize_grid_raises_on_an_empty_plan(bad):
+    with pytest.raises(ValueError):
+        quantize_rows_grid(100, *bad)
+
+
+def test_pick_takes_the_universal_route_it_is_given():
+    assert _route.pick("block", None, universal="warp") == "block"
+    assert _route.pick("block", "warp", universal="warp") == "warp"
+    assert _route.pick("mma", "fma") == "fma"
+    for route in ("fma", "mma", "wave"):
+        with pytest.raises(ValueError, match=f"route {route!r}"):
+            _route.pick("block", route, universal="warp")
+
+
+def test_gram_and_quantize_forced_routes_must_take_the_inputs():
+    """A route neither kernel has raises before any launch (D and E on
+    meta tensors never reach the card)."""
+    from repro_torch.kernels.gram_volume import (
+        gram_log_volume_backward_cuda, gram_log_volume_cuda)
+    from repro_torch.kernels.quantize import quantize_rows_cuda
+    vs, mask = meta(8, 4, 64), meta(8, 4, dtype=torch.bool)
+    n = (gram_log_volume_cuda.launches, gram_log_volume_backward_cuda.launches,
+         quantize_rows_cuda.launches)
+    with pytest.raises(ValueError, match="route 'fma'"):
+        gram_log_volume_cuda(vs, mask, route="fma")
+    with pytest.raises(ValueError, match="route 'wave'"):
+        gram_log_volume_backward_cuda(vs, mask, meta(8, dtype=F32),
+                                      route="wave")
+    with pytest.raises(ValueError, match="route 'block'"):
+        quantize_rows_cuda(meta(8, 128), route="block")
+    assert (gram_log_volume_cuda.launches,
+            gram_log_volume_backward_cuda.launches,
+            quantize_rows_cuda.launches) == n
 
 
 def test_library_path_follows_included_headers(tmp_path):

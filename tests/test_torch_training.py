@@ -528,7 +528,8 @@ def test_attention_gradient_matches_jax(window):
 
 def test_kernel_autograd_wrappers_with_plain_launches(monkeypatch):
     """The autograd Functions the card runs (forward and dx through kernel
-    C with W read transposed, f32 dA/dB; D's backward entry; B's forward
+    C with W read transposed, f32 dA/dB; D's forward with its dots and its
+    backward from them, by the closed form; B's forward
     with its log-sum-exp and B's backward entry), driven on the CPU with
     every launch replaced by the plain version: their gradients equal the
     plain versions' autograd (f32, 1e-5), and a frozen W that asks for a
@@ -540,13 +541,15 @@ def test_kernel_autograd_wrappers_with_plain_launches(monkeypatch):
     def lora_launch(x, w, a, b, scale, trans_w=False):
         return lm.lora_matmul_plain(x, w.t() if trans_w else w, a, b, scale)
 
-    def gram_bwd_launch(vs, mask, gout, eps=1e-5):
-        with torch.enable_grad():
-            v = vs.detach().requires_grad_(True)
-            return torch.autograd.grad(gv.gram_log_volume_plain(v, mask, eps),
-                                       v, gout)[0]
+    def gram_launch(vs, mask, eps=1e-5, return_dots=False):
+        y = gv.gram_log_volume_plain(vs, mask, eps)
+        return (y, gv.gram_dots_plain(vs)) if return_dots else y
+
+    def gram_bwd_launch(vs, mask, gout, eps=1e-5, dots=None):
+        return gv.gram_log_volume_backward_from_dots_plain(vs, dots, mask,
+                                                           gout, eps)
     monkeypatch.setattr(lm, "lora_matmul_cuda", lora_launch)
-    monkeypatch.setattr(gv, "gram_log_volume_cuda", gv.gram_log_volume_plain)
+    monkeypatch.setattr(gv, "gram_log_volume_cuda", gram_launch)
     monkeypatch.setattr(gv, "gram_log_volume_backward_cuda", gram_bwd_launch)
     monkeypatch.setattr(fa, "flash_attention_cuda", fa.flash_attention_plain)
     monkeypatch.setattr(fa, "flash_attention_backward_cuda",
