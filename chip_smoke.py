@@ -24,18 +24,16 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
 4. holds the wire codec's quantize / dequantize kernels (E, F) bit for bit
    against their plain versions on the card and on a CPU copy (the
    round's uplink and downlink tiles and ragged shapes, all-zero rows,
-   half-way ties, qmax 127 and 7, f32 and bf16; E on both routes, the
-   one-wave "wave" and the forced "warp"), then the fused LoRA
+   half-way ties, qmax 127 and 7, f32 and bf16), then the fused LoRA
    projection (C) against its plain version (the SLM's and the LLM's
    projection shapes at M = 1088, ragged M/N/K, ranks 8 and 16, the
    transposed-W mode; bf16 and f32; dx, dA, dB against autograd; each
    case on the route it should take: the wgmma kernel for bf16 with K, N
    and r multiples of 8, the FMA kernel otherwise and when forced) and the
    Gram log-volume (D), forward and backward (k in {4, 8}, d = 1280,
-   masked and all-zero rows, batches of 80, 81 and 130) on both routes:
-   the autograd wrapper on the "block" route (a cluster per sample; the
-   backward from the forward's saved dots, which are held against the
-   plain dots) and the forced "warp" route,
+   masked and all-zero rows, batches of 80, 81 and 130) through the
+   autograd wrapper (the backward from the forward's saved dots, which
+   are held against the plain dots),
    then the SSD chunk scan (G) at mamba2's and hymba's shapes, with two
    groups, over several chunks and at toy sizes (bf16 on both routes where
    the "mma" route takes the shape, f32 on "fma"), the whole
@@ -55,17 +53,15 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    the trained leaves, the MMA weights and the launch counters of B (with
    its backward), C and D against the counts the step structure gives,
    checks that every launch of C and of B (forward and backward) took the
-   tensor-core route and every launch of D (forward and backward) the
-   "block" route, and prints a ``{"training": ...}`` line; then
+   tensor-core route, and prints a ``{"training": ...}`` line; then
    profiles one CCL step and one SE-CCL step into a
    ``{"training_profile": ...}`` line;
 8. runs two rounds of the same federation over the int8 wire (error
    feedback on, 1 CCL + 1 AMT + 1 SE-CCL step each, no evaluation) and
    checks the exact bytes on the wire, the residuals and the decoded
    uploads against their quantization steps, the devices' copies of the
-   decoded downlink and every launch counter, E and F included, the
-   tensor-core routes of C and B, D's "block" route and E's "wave" route,
-   into a ``{"channel": ...}`` line;
+   decoded downlink and every launch counter, E and F included, and the
+   tensor-core routes of C and B, into a ``{"channel": ...}`` line;
 9. serves 24 soft-prompted requests each on ``mamba2-2.7b`` (prompts of
    20-700 tokens, no pages) and ``hymba-1.5b`` (20-1200, the window
    bites) at full width, checks budgets, free lists and exact launch
@@ -83,10 +79,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    A-G, each with its launches on the main paths; the rows of the five
    two-route kernels, A, B, B's backward, C and G, also time their FMA
    route on the same inputs, ``ms_fma_route``; the rows of D (forward and
-   backward) and E time their "warp" route, the kernel before the
-   redesign, ``ms_warp_route``, and an empty kernel launched as the
-   redesigned route launches, ``launch_floor_ms``, replayed in turn (D's
-   rows also every forced split, ``ms_by_splits``); row A, at the SLM's and
+   backward) and E time an empty kernel launched as the kernel launches,
+   ``launch_floor_ms``, replayed in turn with it (D's rows also one wide
+   sample, at the split the rule picks for it); row A, at the SLM's and
    (``at_other_shapes.hybrid``) hymba's fullest decode step, also times
    every forced cluster size, ``ms_by_splits`` and ``ms_splits1``).
 
@@ -500,7 +495,7 @@ def phase_serving():
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counters()
-    routes = check_main_path_routes("serving")
+    routes = check_tensor_core_routes("serving")
     others = {n: v for n, v in launches.items()
               if v and n not in ("paged_attention", "flash_attention")}
     if others:
@@ -988,9 +983,8 @@ QUANT_SHAPES = {"uplink": (8640, 128), "downlink": (2880, 128),
 
 
 def phase_quantize_checks():
-    """E (on both routes, "wave" and the forced "warp") and F bit for bit
-    against their plain versions, on the card and on a CPU copy of the
-    same inputs."""
+    """E and F bit for bit against their plain versions, on the card and
+    on a CPU copy of the same inputs."""
     import torch
     from repro_torch.kernels.quantize import (dequantize_rows_cuda,
                                               dequantize_rows_plain,
@@ -1000,35 +994,28 @@ def phase_quantize_checks():
     for name, (R, L) in QUANT_SHAPES.items():
         for qmax in (127, 7):
             for dtype in (torch.float32, torch.bfloat16):
+                tag = f"{name}/q{qmax}/{str(dtype)[6:]}"
                 x = tile_rows(R, L, qmax, R + L + qmax).to(dtype)
                 xc = x.cuda()
-                for route in ("wave", "warp"):
-                    tag = f"{name}/q{qmax}/{str(dtype)[6:]}/{route}"
-                    before = dict(quantize_rows_cuda.launches_by_route)
-                    q, s = quantize_rows_cuda(xc, qmax, route=route)
-                    if route_delta(quantize_rows_cuda, before) != {route: 1}:
-                        raise AssertionError(f"quantize {tag}: not one "
-                                             f"launch on {route}")
-                    out = dequantize_rows_cuda(q, s)
-                    for where, xr in (("card", xc), ("cpu", x)):
-                        pq, ps = quantize_rows_plain(xr, qmax)
-                        pout = dequantize_rows_plain(pq, ps)
-                        torch.cuda.synchronize()
-                        for what, a, b in (("codes", q, pq),
-                                           ("scales", s, ps),
-                                           ("dequantized", out, pout)):
-                            if not bits_equal(a, b):
-                                raise AssertionError(
-                                    f"quantize {tag}: {what} differ from "
-                                    f"the plain version on the {where}")
-                    if float(s[0]) != 0.0 or bool((q[0] != 0).any()):
-                        raise AssertionError(f"quantize {tag}: zero row")
-                    ties = (x[1].float() / s[1].cpu()) if R > 1 else None
-                    if ties is not None and not bool(
-                            (ties - ties.floor() == 0.5).any()):
-                        raise AssertionError(f"quantize {tag}: no tie was "
-                                             "hit")
-                    checked[tag] = True
+                q, s = quantize_rows_cuda(xc, qmax)
+                out = dequantize_rows_cuda(q, s)
+                for where, xr in (("card", xc), ("cpu", x)):
+                    pq, ps = quantize_rows_plain(xr, qmax)
+                    pout = dequantize_rows_plain(pq, ps)
+                    torch.cuda.synchronize()
+                    for what, a, b in (("codes", q, pq), ("scales", s, ps),
+                                       ("dequantized", out, pout)):
+                        if not bits_equal(a, b):
+                            raise AssertionError(
+                                f"quantize {tag}: {what} differ from the "
+                                f"plain version on the {where}")
+                if float(s[0]) != 0.0 or bool((q[0] != 0).any()):
+                    raise AssertionError(f"quantize {tag}: zero row")
+                ties = (x[1].float() / s[1].cpu()) if R > 1 else None
+                if ties is not None and not bool(
+                        (ties - ties.floor() == 0.5).any()):
+                    raise AssertionError(f"quantize {tag}: no tie was hit")
+                checked[tag] = True
     emit({"phase": "quantize_vs_plain", "equal_bit_for_bit": checked,
           "against": ["plain on the card", "plain on a CPU copy"]})
 
@@ -1148,12 +1135,11 @@ GRAM_GRAD_FLOOR = 0.1
 
 
 def phase_gram_checks():
-    """D against its plain version, forward and backward, on both routes:
-    the autograd wrapper (the "block" route; its backward reads the
-    forward's saved dots, which are held against the plain dots too) and
-    the forced "warp" route; k in {4, 8}, d = 1280, masked rows, all-zero
-    rows, batches of 80 (the CCL loss's 2 x (1 + 4) x 8 candidate sets),
-    81 and 130."""
+    """D against its plain version, forward and backward, through the
+    autograd wrapper (its backward reads the forward's saved dots, which
+    are held against the plain dots too); k in {4, 8}, d = 1280, masked
+    rows, all-zero rows, batches of 80 (the CCL loss's 2 x (1 + 4) x 8
+    candidate sets), 81 and 130."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.gram_volume import (
@@ -1161,11 +1147,6 @@ def phase_gram_checks():
         gram_log_volume_plain)
     gen = torch.Generator(device="cuda").manual_seed(8)
     results = {}
-
-    def warp(v, mask, gout):
-        y = gram_log_volume_cuda(v, mask, route="warp")
-        return y, gram_log_volume_backward_cuda(v, mask, gout, route="warp")
-
     for dtype in (torch.bfloat16, torch.float32):
         dt = str(dtype)[6:]
         for B, k in ((80, 4), (81, 4), (130, 8)):
@@ -1175,35 +1156,30 @@ def phase_gram_checks():
             yp = gram_log_volume_plain(v, mask)
             gp = torch.autograd.grad(yp, v, gout)[0]
             fns = [gram_log_volume_cuda, gram_log_volume_backward_cuda]
-            before = [dict(f.launches_by_route) for f in fns]
+            before = [f.launches for f in fns]
             v = vs.clone().requires_grad_(True)
-            yb = ops.gram_log_volume(v, mask)
-            yb.backward(gout)
-            if [route_delta(f, b) for f, b in zip(fns, before)] != \
-                    [{"block": 1}] * 2:
-                raise AssertionError("gram: the autograd wrapper left the "
-                                     "block route")
+            y = ops.gram_log_volume(v, mask)
+            y.backward(gout)
+            if [f.launches - n for f, n in zip(fns, before)] != [1, 1]:
+                raise AssertionError("gram: the autograd wrapper did not "
+                                     "launch each kernel once")
             _, dots = gram_log_volume_cuda(vs, mask, return_dots=True)
-            runs = {"block": (yb.detach(), v.grad),
-                    "warp": warp(vs, mask, gout)}
             torch.cuda.synchronize()
+            tag = f"B{B}_k{k}/{dt}"
             want = gram_dots_plain(vs)
-            results[f"dots/B{B}_k{k}/{dt}"] = check_close(
+            results[f"dots/{tag}"] = check_close(
                 "gram dots", dots, want,
                 dict(atol=1e-5 * float(want.abs().max()), rtol=1e-4))
+            results[f"fwd/{tag}"] = check_close(f"gram fwd {tag}",
+                                                y.detach(), yp.detach(),
+                                                GRAM_TOL)
             tol = GRAM_TOL if dtype == torch.float32 else BF16_TOL
-            for route, (y, g) in runs.items():
-                tag = f"B{B}_k{k}/{dt}/{route}"
-                results[f"fwd/{tag}"] = check_close(f"gram fwd {tag}", y,
-                                                    yp.detach(), GRAM_TOL)
-                results[f"bwd/{tag}"] = rel_check(
-                    f"gram bwd {tag}", g, gp, tol, floor=GRAM_GRAD_FLOOR)
-                if bool((g[~mask] != 0).any()):
-                    raise AssertionError(f"gram bwd {tag}: masked rows got "
-                                         "a gradient")
+            results[f"bwd/{tag}"] = rel_check(
+                f"gram bwd {tag}", v.grad, gp, tol, floor=GRAM_GRAD_FLOOR)
+            if bool((v.grad[~mask] != 0).any()):
+                raise AssertionError(f"gram bwd {tag}: masked rows got a "
+                                     "gradient")
     emit({"phase": "gram_log_volume_vs_plain", "max_abs_err": results,
-          "routes": ["block (ops.gram_log_volume, autograd)",
-                     "warp (forced)"],
           "tolerance": {"forward": GRAM_TOL, "backward_float32": GRAM_TOL,
                         "backward_bfloat16": BF16_TOL,
                         "dots": "1e-4 relative, 1e-5 of the largest",
@@ -1243,24 +1219,19 @@ def counters():
             "ssd_chunk": ssd_chunk_cuda}
 
 
-# the route every launch of the main paths must take: the tensor-core route
-# of the kernels that have one beside an FMA route (every bf16 launch of A,
-# C, B and G is bf16), and the redesigned route of D ("block") and E
-# ("wave") beside the kernels they replaced ("warp")
-MAIN_PATH_ROUTES = {"paged_attention": "mma",
-                    "lora_matmul": "wgmma",
-                    "flash_attention": "mma",
-                    "flash_attention_backward": "mma",
-                    "ssd_chunk": "mma",
-                    "gram_log_volume": "block",
-                    "gram_log_volume_backward": "block",
-                    "quantize_rows": "wave"}
+# the kernels with a tensor-core route and an FMA route, and the route
+# every bf16 launch of the main paths must take
+TENSOR_CORE_ROUTES = {"paged_attention": "mma",
+                      "lora_matmul": "wgmma",
+                      "flash_attention": "mma",
+                      "flash_attention_backward": "mma",
+                      "ssd_chunk": "mma"}
 
 
 def zero_counters():
-    for fn in counters().values():
+    for name, fn in counters().items():
         fn.launches = 0
-        if hasattr(fn, "launches_by_route"):
+        if name in TENSOR_CORE_ROUTES:
             fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
 
 
@@ -1268,19 +1239,18 @@ def read_counters():
     return {n: fn.launches for n, fn in counters().items()}
 
 
-def check_main_path_routes(tag):
-    """Every launch of A, C, B (forward and backward), G, D (forward and
-    backward) and E since the last ``zero_counters`` took its route in
-    ``MAIN_PATH_ROUTES``; returns the per-route counts."""
+def check_tensor_core_routes(tag):
+    """Every launch of A, C, B (forward and backward) and G since the last
+    ``zero_counters`` took the tensor-core route; returns the per-route
+    counts."""
     fns = counters()
-    routes = {n: dict(fns[n].launches_by_route) for n in MAIN_PATH_ROUTES}
+    routes = {n: dict(fns[n].launches_by_route) for n in TENSOR_CORE_ROUTES}
     for name, counts in routes.items():
         off = {r: n for r, n in counts.items()
-               if r != MAIN_PATH_ROUTES[name] and n}
+               if r != TENSOR_CORE_ROUTES[name] and n}
         if off:
             raise AssertionError(f"{tag}: {name} launched off the "
-                                 f"{MAIN_PATH_ROUTES[name]!r} route: "
-                                 f"{counts}")
+                                 f"tensor-core route: {counts}")
     return routes
 
 
@@ -1433,7 +1403,7 @@ def phase_training():
     torch.cuda.synchronize()
     round_s = time.perf_counter() - t0
     launches = read_counters()
-    routes = check_main_path_routes("training round")
+    routes = check_tensor_core_routes("training round")
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     post = out["summary"]
 
@@ -1555,9 +1525,9 @@ def training_kernel_rows():
     replay; bounds from these inputs."""
     import torch
     from repro_torch.kernels.gram_volume import (
-        SPLITS as GRAM_SPLITS, gram_log_volume_backward_cuda,
-        gram_log_volume_cuda, gram_log_volume_empty_cuda,
-        gram_log_volume_plain, gram_log_volume_splits)
+        gram_log_volume_backward_cuda, gram_log_volume_cuda,
+        gram_log_volume_empty_cuda, gram_log_volume_plain,
+        gram_log_volume_splits)
     from repro_torch.kernels.lora_matmul import (lora_matmul_cuda,
                                                  lora_matmul_plain,
                                                  lora_matmul_route)
@@ -1616,28 +1586,21 @@ def training_kernel_rows():
     })
 
     # D: the CCL loss's 2 x (1 + 4) x 8 = 80 candidate sets of 1 + 3 rows.
-    # Each pass times the block route (every main-path launch), the warp
-    # route (the kernel before the redesign) and an empty kernel launched as
-    # the block route launches (the launch floor), their replays in turn.
+    # Each pass times the kernel (every main-path launch) and an empty
+    # kernel launched as it launches (the launch floor), replays in turn.
     B, k, d = 80, 4, 1280
     S = gram_log_volume_splits(B, k, d, dt.itemsize)
     S_bwd = gram_log_volume_splits(B, k, d, dt.itemsize, backward=True)
     vs, mask = gram_inputs(gen, B, k, d, dt)
     gout = torch.randn((B,), generator=gen, device="cuda")
     got, dots = gram_log_volume_cuda(vs, mask, return_dots=True)
-    want = gram_log_volume_plain(vs, mask)
-    err = max(check_close("gram row", got, want, GRAM_TOL),
-              check_close("gram row (warp)",
-                          gram_log_volume_cuda(vs, mask, route="warp"),
-                          want, GRAM_TOL))
+    err = check_close("gram row", got, gram_log_volume_plain(vs, mask),
+                      GRAM_TOL)
     t = graphs_ms({
-        "block": lambda i: gram_log_volume_cuda(vs, mask),
-        "warp": lambda i: gram_log_volume_cuda(vs, mask, route="warp"),
-        "floor": lambda i: gram_log_volume_empty_cuda(B, S),
-        **{f"S{n}": (lambda n: lambda i: gram_log_volume_cuda(
-            vs, mask, splits=n))(n) for n in GRAM_SPLITS}})
+        "kernel": lambda i: gram_log_volume_cuda(vs, mask),
+        "floor": lambda i: gram_log_volume_empty_cuda(B * S, S)})
     plain = graph_ms(lambda i: gram_log_volume_plain(vs, mask))
-    wide = gram_wide_splits(gen, dt)
+    wide = gram_wide_sample(gen, dt)
     bytes_ = B * k * d * vs.element_size() + B * k + B * 4
     flops = B * (k * (k + 1) // 2 * 2 * d + k ** 3)
     bound, by = _bound(bytes_, flops, F32_FLOP_PER_S)
@@ -1646,38 +1609,26 @@ def training_kernel_rows():
         "name": "gram_log_volume", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/gram_volume.cu",
         "replaces": "src/repro/kernels/gram_volume.py:56",
-        "max_abs_err": err, "tolerance": GRAM_TOL,
-        "kernel_route": "block", "ms": t["block"],
-        "ms_warp_route": t["warp"], "launch_floor_ms": t["floor"],
-        "ms_by_splits": {n: t[f"S{n}"] for n in GRAM_SPLITS},
-        "ms_warp_route_is": "the warp route (the kernel before the "
-                            "redesign) on the same inputs in this run",
-        "launch_floor_is": "an empty kernel launched as the block route "
+        "max_abs_err": err, "tolerance": GRAM_TOL, "ms": t["kernel"],
+        "launch_floor_ms": t["floor"],
+        "launch_floor_is": "an empty kernel launched as the kernel "
                            "launches (grid, cluster, PDL)",
         "plain_ms": plain, "bound_ms": bound, "bound_by": by,
         "bound_counts": "the function's bytes: vs and the mask read once, "
-                        "y written once (not the dots the block route "
-                        "also writes, B k k f32)",
+                        "y written once (not the dots the kernel also "
+                        "writes, B k k f32)",
         "library_ms": None, "shape": shape,
         "at_other_shapes": {"one_wide_sample": wide["forward"]}})
 
     vg = vs.clone().requires_grad_(True)
     want = torch.autograd.grad(gram_log_volume_plain(vg, mask), vg, gout)[0]
-    errs = [rel_check(f"gram bwd row ({r})", g, want, BF16_TOL,
-                      floor=GRAM_GRAD_FLOOR) for r, g in (
-        ("block", gram_log_volume_backward_cuda(vs, mask, gout, dots=dots)),
-        ("warp", gram_log_volume_backward_cuda(vs, mask, gout,
-                                               route="warp")))]
-    err = max(errs, key=lambda e: e["max_rel_err"])
+    err = rel_check("gram bwd row",
+                    gram_log_volume_backward_cuda(vs, mask, gout, dots),
+                    want, BF16_TOL, floor=GRAM_GRAD_FLOOR)
     t = graphs_ms({
-        "block": lambda i: gram_log_volume_backward_cuda(vs, mask, gout,
-                                                         dots=dots),
-        "warp": lambda i: gram_log_volume_backward_cuda(vs, mask, gout,
-                                                        route="warp"),
-        "floor": lambda i: gram_log_volume_empty_cuda(B, S_bwd,
-                                                      cluster=False),
-        **{f"S{n}": (lambda n: lambda i: gram_log_volume_backward_cuda(
-            vs, mask, gout, dots=dots, splits=n))(n) for n in GRAM_SPLITS}})
+        "kernel": lambda i: gram_log_volume_backward_cuda(vs, mask, gout,
+                                                          dots),
+        "floor": lambda i: gram_log_volume_empty_cuda(B * S_bwd)})
 
     def plain_bwd(i):
         v = vs.detach().requires_grad_(True)
@@ -1695,14 +1646,9 @@ def training_kernel_rows():
         "grad_scale": err["scale"],
         "tolerance": "2e-2 + 1e-2 |x| on each sample divided by the larger "
         "of its largest |gradient| and 0.1 x the batch's",
-        "kernel_route": "block", "ms": t["block"],
-        "ms_warp_route": t["warp"], "launch_floor_ms": t["floor"],
-        "ms_by_splits": {n: t[f"S{n}"] for n in GRAM_SPLITS},
-        "ms_warp_route_is": "the warp route (the kernel before the "
-                            "redesign, which recomputes the dots from the "
-                            "rows) on the same inputs in this run",
-        "launch_floor_is": "an empty kernel launched as the block route's "
-                           "backward launches (grid, PDL)",
+        "ms": t["kernel"], "launch_floor_ms": t["floor"],
+        "launch_floor_is": "an empty kernel launched as the backward "
+                           "launches (grid, PDL)",
         "plain_ms": plain, "plain_is": "autograd of the plain forward "
         "(forward included)", "bound_ms": bound, "bound_by": by,
         "bound_counts": "one read of vs and one write of dvs (the mask and "
@@ -1712,31 +1658,27 @@ def training_kernel_rows():
     return rows
 
 
-def gram_wide_splits(gen, dt):
-    """D's block route on one wide sample (B 1, k 8, d 4096), where the
-    split rule splits: ms per launch at every forced split, forward and
-    backward, replays in turn."""
+def gram_wide_sample(gen, dt):
+    """D on one wide sample (B 1, k 8, d 4096), where the split rule
+    splits: ms per launch, forward and backward, at the splits the rule
+    picks, replays in turn."""
     import torch
     from repro_torch.kernels.gram_volume import (
-        SPLITS, gram_log_volume_backward_cuda, gram_log_volume_cuda,
+        gram_log_volume_backward_cuda, gram_log_volume_cuda,
         gram_log_volume_splits)
     B, k, d = 1, 8, 4096
     vs = torch.randn((B, k, d), generator=gen, device="cuda").to(dt)
     mask = torch.ones((B, k), dtype=torch.bool, device="cuda")
     gout = torch.ones((B,), device="cuda")
     _, dots = gram_log_volume_cuda(vs, mask, return_dots=True)
-    fns = {}
-    for n in SPLITS:
-        fns[f"fwd{n}"] = (lambda n: lambda i: gram_log_volume_cuda(
-            vs, mask, splits=n))(n)
-        fns[f"bwd{n}"] = (lambda n: lambda i: gram_log_volume_backward_cuda(
-            vs, mask, gout, dots=dots, splits=n))(n)
-    t = graphs_ms(fns)
+    t = graphs_ms({"forward": lambda i: gram_log_volume_cuda(vs, mask),
+                   "backward": lambda i: gram_log_volume_backward_cuda(
+                       vs, mask, gout, dots)})
     return {p: {"shape": {"B": B, "k": k, "d": d, "dtype": str(dt),
                           "splits": gram_log_volume_splits(
                               B, k, d, vs.element_size(), p == "backward")},
-                "ms_by_splits": {n: t[f"{tag}{n}"] for n in SPLITS}}
-            for p, tag in (("forward", "fwd"), ("backward", "bwd"))}
+                "ms": t[p]}
+            for p in ("forward", "backward")}
 
 
 # ---------------------------------------------------------------------------
@@ -1839,7 +1781,7 @@ def phase_channel():
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = read_counters()
-        routes = check_main_path_routes(f"channel round {r}")
+        routes = check_tensor_core_routes(f"channel round {r}")
         want = expected_round_launches(runner, evaluate=False)
         if launches != want:
             raise AssertionError(f"channel round {r}: launches {launches} "
@@ -1927,52 +1869,43 @@ def channel_kernel_rows():
         flash_attention_backward_cuda, flash_attention_backward_plain,
         flash_attention_backward_route, flash_attention_cuda)
     from repro_torch.kernels.quantize import (
-        dequantize_rows_cuda, dequantize_rows_plain, quantize_empty_cuda,
-        quantize_rows_cuda, quantize_rows_grid, quantize_rows_plain,
-        quantize_rows_plan)
+        WARPS_PER_BLOCK, dequantize_rows_cuda, dequantize_rows_plain,
+        quantize_empty_cuda, quantize_rows_cuda, quantize_rows_grid,
+        quantize_rows_plain)
     from repro_torch.models.layers import BIG_WINDOW
     gen = torch.Generator(device="cuda").manual_seed(10)
     rows = []
 
     # E and F: one LoRA leaf of the uplink, 3 clients x 2,880 tiles of 128
-    # f32 values (the leaf plus its residual)
-    # (E also times the warp route, the kernel before the redesign, and an
-    # empty kernel launched as the wave route launches, replays in turn)
+    # f32 values (the leaf plus its residual); E also times an empty kernel
+    # launched as it launches (the launch floor), replays in turn
     R, L = QUANT_SHAPES["uplink"]
     x = torch.randn((R, L), generator=gen, device="cuda") * 0.02
+    q, s = quantize_rows_cuda(x, 127)
     pq, ps = quantize_rows_plain(x, 127)
-    for route in ("wave", "warp"):
-        q, s = quantize_rows_cuda(x, 127, route=route)
-        if not (bits_equal(q, pq) and bits_equal(s, ps)):
-            raise AssertionError(f"quantize row ({route}): differs from the "
-                                 "plain version")
-    plan = quantize_rows_plan(L, x.dtype, True)
+    if not (bits_equal(q, pq) and bits_equal(s, ps)):
+        raise AssertionError("quantize row: differs from the plain version")
     grid, rpw = quantize_rows_grid(
-        R, *plan, torch.cuda.get_device_properties(0).multi_processor_count)
-    t = graphs_ms({"wave": lambda i: quantize_rows_cuda(x, 127),
-                   "warp": lambda i: quantize_rows_cuda(x, 127, route="warp"),
-                   "floor": lambda i: quantize_empty_cuda(grid, 32 * plan[2])})
+        R, True, torch.cuda.get_device_properties(0).multi_processor_count)
+    t = graphs_ms({"kernel": lambda i: quantize_rows_cuda(x, 127),
+                   "floor": lambda i: quantize_empty_cuda(
+                       grid, 32 * WARPS_PER_BLOCK)})
     plain = graph_ms(lambda i: quantize_rows_plain(x, 127))
     bound, by = _bound(R * L * 4 + R * L + 4 * R, 5 * R * L, F32_FLOP_PER_S)
     rows.append({
         "name": "quantize_rows", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/quantize.cu",
         "replaces": "src/repro/kernels/quantize.py:49",
-        "max_abs_err": 0.0, "tolerance": "bit for bit",
-        "kernel_route": "wave", "ms": t["wave"],
-        "ms_warp_route": t["warp"], "launch_floor_ms": t["floor"],
-        "ms_warp_route_is": "the warp route (the kernel before the "
-                            "redesign) on the same inputs in this run",
-        "launch_floor_is": "an empty kernel launched as the wave route "
+        "max_abs_err": 0.0, "tolerance": "bit for bit", "ms": t["kernel"],
+        "launch_floor_ms": t["floor"],
+        "launch_floor_is": "an empty kernel launched as the kernel "
                            "launches (grid, PDL)",
         "plain_ms": plain, "bound_ms": bound, "bound_by": by,
         "library_ms": None,
         "library_call": "none: no single PyTorch call computes per-row "
                         "abs-max codes and scales",
         "shape": {"R": R, "L": L, "qmax": 127, "dtype": str(x.dtype),
-                  "grid": grid, "rows_per_warp": rpw,
-                  "max_rows_per_warp": plan[0], "blocks_per_sm": plan[1],
-                  "warps_per_block": plan[2]}})
+                  "grid": grid, "rows_per_warp": rpw}})
 
     out = dequantize_rows_cuda(q, s)
     if not bits_equal(out, dequantize_rows_plain(q, s)):
@@ -2233,7 +2166,7 @@ def serve_recurrent(cfg, econf, lo, hi, fixed, expect, consistency_lens,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counters()
-    routes = check_main_path_routes(f"{tag} serving")
+    routes = check_tensor_core_routes(f"{tag} serving")
     steps = engine.n_steps - base["steps"]
     prefills = engine.n_prefills - base["prefills"]
     want = {n: 0 for n in launches}

@@ -1,6 +1,6 @@
-"""What the kernels with two routes share: the 16-byte alignment their
-tensor-core copies need, and the rule for a route asked for by the
-caller."""
+"""What the kernels with a tensor-core route and an FMA route share: the
+16-byte alignment their tensor-core copies need, and the rule for a
+route asked for by the caller."""
 from __future__ import annotations
 
 
@@ -10,12 +10,10 @@ def aligned16(t) -> bool:
     return t.storage_offset() * t.element_size() % 16 == 0
 
 
-def pick(chosen: str, route: str | None, universal: str = "fma") -> str:
+def pick(chosen: str, route: str | None) -> str:
     """``route`` if given, else the route function's ``chosen`` one.
-    ``universal`` (the FMA kernels of A, B, C and G; the kernels D and E
-    had before their redesign, "warp") takes every input; the other route
-    only the inputs its route function gives it: anything else raises
-    before any launch."""
-    if route not in (None, universal, chosen):
+    "fma" takes every input; a tensor-core route only the inputs its
+    route function gives it: anything else raises before any launch."""
+    if route not in (None, "fma", chosen):
         raise ValueError(f"route {route!r} cannot take these inputs")
     return route or chosen

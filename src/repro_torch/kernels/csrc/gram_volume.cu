@@ -23,33 +23,29 @@
 // what one launch costs; so the design keeps every SM busy for that short
 // time and hides the launch.
 //
-// Two routes, picked by the wrapper (gram_volume.py):
-//   * "block" (the one every call takes unless the caller forces another):
-//     the forward runs a sample on a thread-block cluster of S blocks (S in
-//     {1, 2, 4, 8}, from shapes alone: gram_log_volume_splits), grid
-//     (S, B).  Rank r takes a contiguous share of d; its 128 threads
-//     stride over that share with 16-byte loads (8 bf16 or 4 f32 of each
-//     of the k rows; single elements where d is no multiple of 8 (4) or a
-//     row is not 16-byte aligned), two column steps in flight per thread,
-//     and sum the k(k+1)/2 raw dot products in registers.  Shuffles and shared memory reduce them once per block;
-//     each rank stores its partial into its slot in rank 0's shared memory
-//     (distributed shared memory), and after one cluster.sync() rank 0
-//     sums the S slots in rank order, writes the raw dots (B, k, k) f32 and
-//     runs the unrolled Cholesky on one thread for y (B,) f32.  No atomics,
-//     no scratch: the result does not change from run to run.
-//     The backward reads the saved dots, not the rows: each block of a
-//     (S, B) grid builds C from its sample's dots, mask, eps and dL/dy (one
-//     warp, into shared memory, while the block's first loads are in
-//     flight), then streams dv = C v over its share of d with 16-byte loads
-//     and stores: one read of vs and one write of dvs in all.
-//   * "warp" (the kernels before the redesign, kept for comparison and
-//     reachable only when forced): one warp per sample, 4 warps a block;
-//     lanes stride over d with scalar loads; every lane runs the Cholesky;
-//     the backward recomputes the dots from the rows, so it reads them twice.
-// The block route's launches allow programmatic dependent launch
-// (cudaLaunchKernelEx, programmatic stream serialization): a launch may
-// start during the previous kernel's tail, and griddepcontrol.wait holds
-// every read and write until that kernel has finished.
+// Design.  The forward runs a sample on a thread-block cluster of S blocks
+// (S in {1, 2, 4, 8}, from shapes alone: gram_volume.py's
+// gram_log_volume_splits), a grid of S * B blocks along x (b = block / S),
+// so that any batch the host can index launches.  Rank r takes a
+// contiguous share of d; its 128 threads stride over that share with
+// 16-byte loads (8 bf16 or 4 f32 of each of the k rows; single elements
+// where d is no multiple of 8 (4) or a row is not 16-byte aligned), two
+// column steps in flight per thread, and sum the k(k+1)/2 raw dot products
+// in registers.  Shuffles and shared memory reduce them once per block;
+// each rank stores its partial into its slot in rank 0's shared memory
+// (distributed shared memory), and after one cluster.sync() rank 0 sums
+// the S slots in rank order, writes the raw dots (B, k, k) f32 and runs the
+// unrolled Cholesky on one thread for y (B,) f32.  No atomics, no scratch:
+// the result does not change from run to run.
+// The backward reads the saved dots, not the rows: each block of an S * B
+// grid builds C from its sample's dots, mask, eps and dL/dy (one warp, into
+// shared memory, while the block's first loads are in flight), then
+// streams dv = C v over its share of d with 16-byte loads and stores: one
+// read of vs and one write of dvs in all.
+// Both launches allow programmatic dependent launch (cudaLaunchKernelEx,
+// programmatic stream serialization): a launch may start during the
+// previous kernel's tail, and griddepcontrol.wait holds every read and
+// write until that kernel has finished.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,9 +57,7 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int WARPS = 4;  // warp route: samples per block
-constexpr int NT = 32 * WARPS;
-constexpr int BNT = 128;  // block route: threads per block
+constexpr int BNT = 128;  // threads per block
 constexpr int BNW = BNT / 32;
 constexpr int MAX_SPLITS = 8;
 
@@ -111,42 +105,11 @@ template <> struct Vec<__nv_bfloat16> {
   }
 };
 
-// Raw dot products D (symmetric, full k x k) of one sample's rows, summed
-// over the warp so that every lane holds the totals.
-template <typename T, int KK>
-__device__ __forceinline__ void warp_dots(const T* __restrict__ v, int d, int lane,
-                                          float (&D)[KK][KK]) {
-#pragma unroll
-  for (int i = 0; i < KK; ++i)
-#pragma unroll
-    for (int j = 0; j < KK; ++j) D[i][j] = 0.f;
-  for (int c = lane; c < d; c += 32) {
-    float x[KK];
-#pragma unroll
-    for (int i = 0; i < KK; ++i) x[i] = to_f(v[(size_t)i * d + c]);
-#pragma unroll
-    for (int i = 0; i < KK; ++i)
-#pragma unroll
-      for (int j = 0; j <= i; ++j) D[i][j] = fmaf(x[i], x[j], D[i][j]);
-  }
-#pragma unroll
-  for (int i = 0; i < KK; ++i)
-#pragma unroll
-    for (int j = 0; j <= i; ++j) {
-      float s = D[i][j];
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-      D[i][j] = s;
-      D[j][i] = s;
-    }
-}
-
 // The masked, shifted Gram of the normalized rows, and its Cholesky factor.
-// Returns sum_i log L_ii.  FAST (the block route): each diagonal from one
-// rsqrt, inv[i] = 1 / L_ii, and the column divides as multiplies by it,
-// which shortens the dependent chain; else (the warp route, as before the
-// redesign) IEEE sqrt and divides.
-template <int KK, bool FAST>
+// Returns sum_i log L_ii.  Each diagonal comes from one rsqrt, inv[i] =
+// 1 / L_ii, and the column divides are multiplies by it, which shortens the
+// dependent chain.
+template <int KK>
 __device__ __forceinline__ float gram_cholesky(const float (&D)[KK][KK], const bool (&m)[KK],
                                                float eps, float (&rr)[KK], float (&L)[KK][KK],
                                                float (&inv)[KK]) {
@@ -164,16 +127,11 @@ __device__ __forceinline__ float gram_cholesky(const float (&D)[KK][KK], const b
       for (int t = 0; t < j; ++t) s -= L[i][t] * L[j][t];
       if (i == j) {
         const float c = fmaxf(s, 1e-20f);
-        if constexpr (FAST) {
-          inv[i] = rsqrtf(c);
-          L[i][i] = c * inv[i];
-        } else {
-          L[i][i] = sqrtf(c);
-          inv[i] = 1.f / L[i][i];
-        }
+        inv[i] = rsqrtf(c);
+        L[i][i] = c * inv[i];
         logdet += logf(L[i][i]);
       } else {
-        L[i][j] = FAST ? s * inv[j] : s / L[j][j];
+        L[i][j] = s * inv[j];
       }
     }
 #pragma unroll
@@ -184,11 +142,11 @@ __device__ __forceinline__ float gram_cholesky(const float (&D)[KK][KK], const b
 
 // The backward's k x k matrix C (dL/dv_i = sum_j C_ij v_j) from the raw
 // dots D, the mask, eps and gy = dL/dy.
-template <int KK, bool FAST>
+template <int KK>
 __device__ __forceinline__ void grad_matrix(const float (&D)[KK][KK], const bool (&m)[KK],
                                             float eps, float gy, float (&C)[KK][KK]) {
   float rr[KK], L[KK][KK], invd[KK];
-  gram_cholesky<KK, FAST>(D, m, eps, rr, L, invd);
+  gram_cholesky<KK>(D, m, eps, rr, L, invd);
 
   // Li = L^-1 (lower), then G~^-1 = Li^T Li
   float Li[KK][KK];
@@ -232,59 +190,7 @@ __device__ __forceinline__ void grad_matrix(const float (&D)[KK][KK], const bool
 }
 
 // ---------------------------------------------------------------------------
-// warp route: one warp per sample
-
-template <typename T, int KK>
-__global__ void __launch_bounds__(NT)
-gram_log_volume_kernel(const T* __restrict__ vs, const uint8_t* __restrict__ mask,
-                       float* __restrict__ out, int B, int d, float eps) {
-  const int lane = threadIdx.x & 31;
-  const int s = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (s >= B) return;
-  float D[KK][KK];
-  warp_dots<T, KK>(vs + (size_t)s * KK * d, d, lane, D);
-  bool m[KK];
-#pragma unroll
-  for (int i = 0; i < KK; ++i) m[i] = mask[(size_t)s * KK + i] != 0;
-  float rr[KK], L[KK][KK], inv[KK];
-  const float y = gram_cholesky<KK, false>(D, m, eps, rr, L, inv);
-  if (lane == 0) out[s] = y;
-}
-
-template <typename T, int KK>
-__global__ void __launch_bounds__(NT)
-gram_log_volume_bwd_kernel(const T* __restrict__ vs, const uint8_t* __restrict__ mask,
-                           const float* __restrict__ gout, T* __restrict__ dvs, int B, int d,
-                           float eps) {
-  const int lane = threadIdx.x & 31;
-  const int s = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (s >= B) return;
-  const T* v = vs + (size_t)s * KK * d;
-  float D[KK][KK];
-  warp_dots<T, KK>(v, d, lane, D);
-  bool m[KK];
-#pragma unroll
-  for (int i = 0; i < KK; ++i) m[i] = mask[(size_t)s * KK + i] != 0;
-  float C[KK][KK];
-  grad_matrix<KK, false>(D, m, eps, gout[s], C);
-  T* dv = dvs + (size_t)s * KK * d;
-  for (int c = lane; c < d; c += 32) {
-    float x[KK];
-#pragma unroll
-    for (int j = 0; j < KK; ++j) x[j] = to_f(v[(size_t)j * d + c]);
-#pragma unroll
-    for (int i = 0; i < KK; ++i) {
-      float acc = 0.f;
-#pragma unroll
-      for (int j = 0; j < KK; ++j) acc = fmaf(C[i][j], x[j], acc);
-      dv[(size_t)i * d + c] = from_f<T>(acc);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// block route: a sample per cluster of S blocks (forward), per S blocks
-// (backward)
+// a sample per cluster of S blocks (forward), per S blocks (backward)
 
 // W values of a row at column step c: one 16-byte vector (VEC) or one
 // element, loaded raw (so that the loads of two steps can be in flight in
@@ -336,8 +242,8 @@ __device__ __forceinline__ void share(int n, int rank, int S, int& c0, int& c1) 
 
 template <typename T, int KK, bool VEC>
 __global__ void __launch_bounds__(BNT)
-gram_block_kernel(const T* __restrict__ vs, const uint8_t* __restrict__ mask,
-                  float* __restrict__ out, float* __restrict__ dots, int d, float eps) {
+gram_kernel(const T* __restrict__ vs, const uint8_t* __restrict__ mask, float* __restrict__ out,
+            float* __restrict__ dots, int d, float eps) {
   constexpr int P = KK * (KK + 1) / 2;
   using St = Step<T, VEC>;
   constexpr int W = St::W;
@@ -353,7 +259,7 @@ gram_block_kernel(const T* __restrict__ vs, const uint8_t* __restrict__ mask,
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   const int rank = (int)cluster.block_rank();
-  const int b = blockIdx.y;
+  const int b = blockIdx.x / S;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const T* v = vs + (size_t)b * KK * d;
   int c0, c1;
@@ -433,28 +339,28 @@ gram_block_kernel(const T* __restrict__ vs, const uint8_t* __restrict__ mask,
 #pragma unroll
         for (int j = 0; j <= i; ++j) D[i][j] = D[j][i] = tot[pair_index(i, j)];
       float rr[KK], L[KK][KK], inv[KK];
-      out[b] = gram_cholesky<KK, true>(D, m, eps, rr, L, inv);
+      out[b] = gram_cholesky<KK>(D, m, eps, rr, L, inv);
     }
   }
 }
 
 template <typename T, int KK, bool VEC>
 __global__ void __launch_bounds__(BNT)
-gram_block_bwd_kernel(const T* __restrict__ vs, const uint8_t* __restrict__ mask,
-                      const float* __restrict__ dots, const float* __restrict__ gout,
-                      T* __restrict__ dvs, int d, float eps) {
+gram_bwd_kernel(const T* __restrict__ vs, const uint8_t* __restrict__ mask,
+                const float* __restrict__ dots, const float* __restrict__ gout,
+                T* __restrict__ dvs, int d, int S, float eps) {
   using St = Step<T, VEC>;
   constexpr int W = St::W;
   __shared__ float Cs[KK][KK];
 
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-  const int b = blockIdx.y;
+  const int b = blockIdx.x / S;
   const int tid = threadIdx.x;
   const T* v = vs + (size_t)b * KK * d;
   T* dv = dvs + (size_t)b * KK * d;
   int c0, c1;
-  share(d / W, blockIdx.x, gridDim.x, c0, c1);
+  share(d / W, blockIdx.x % S, S, c0, c1);
 
   // the first two steps' rows go out before the k x k work; then two
   // steps stay in flight: step c's products run while c + BNT loads
@@ -472,7 +378,7 @@ gram_block_bwd_kernel(const T* __restrict__ vs, const uint8_t* __restrict__ mask
 #pragma unroll
       for (int j = 0; j < KK; ++j) D[i][j] = db[i * KK + j];
     }
-    grad_matrix<KK, true>(D, m, eps, gout[b], C);
+    grad_matrix<KK>(D, m, eps, gout[b], C);
     if (tid == 0) {
 #pragma unroll
       for (int i = 0; i < KK; ++i)
@@ -510,13 +416,14 @@ __global__ void empty_kernel(int) {
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
-// A launch that allows programmatic dependent launch, as a cluster of
-// `cluster` blocks along x when cluster > 0.  Returns the launch's error.
+// A launch of `grid` blocks along x that allows programmatic dependent
+// launch, as clusters of `cluster` blocks when cluster > 0.  Returns the
+// launch's error.
 template <typename... KArgs, typename... Args>
-cudaError_t launch_pdl(void (*kernel)(KArgs...), dim3 grid, int threads, int cluster,
+cudaError_t launch_pdl(void (*kernel)(KArgs...), int grid, int threads, int cluster,
                        cudaStream_t stream, Args... args) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
+  cfg.gridDim = dim3(grid);
   cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = stream;
@@ -541,45 +448,26 @@ cudaError_t launch_pdl(void (*kernel)(KArgs...), dim3 grid, int threads, int clu
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 template <typename T, int KK>
-cudaError_t launch_fwd(const void* vs, const uint8_t* mask, float* out, int B, int d, float eps,
-                       cudaStream_t st) {
-  gram_log_volume_kernel<T, KK><<<(B + WARPS - 1) / WARPS, NT, 0, st>>>(
-      static_cast<const T*>(vs), mask, out, B, d, eps);
-  return cudaGetLastError();
-}
-
-template <typename T, int KK>
-cudaError_t launch_bwd(const void* vs, const uint8_t* mask, const float* gout, void* dvs, int B,
-                       int d, float eps, cudaStream_t st) {
-  gram_log_volume_bwd_kernel<T, KK><<<(B + WARPS - 1) / WARPS, NT, 0, st>>>(
-      static_cast<const T*>(vs), mask, gout, static_cast<T*>(dvs), B, d, eps);
-  return cudaGetLastError();
-}
-
-template <typename T, int KK>
-cudaError_t launch_block_fwd(const void* vs, const uint8_t* mask, float* out, float* dots, int B,
-                             int d, int splits, float eps, cudaStream_t st) {
+cudaError_t launch_fwd(const void* vs, const uint8_t* mask, float* out, float* dots, int B, int d,
+                       int splits, float eps, cudaStream_t st) {
   const T* v = static_cast<const T*>(vs);
-  const dim3 grid(splits, B);
+  const int grid = splits * B;
   if (d % Vec<T>::N == 0 && aligned16(vs))
-    return launch_pdl(gram_block_kernel<T, KK, true>, grid, BNT, splits, st, v, mask, out, dots,
-                      d, eps);
-  return launch_pdl(gram_block_kernel<T, KK, false>, grid, BNT, splits, st, v, mask, out, dots, d,
-                    eps);
+    return launch_pdl(gram_kernel<T, KK, true>, grid, BNT, splits, st, v, mask, out, dots, d, eps);
+  return launch_pdl(gram_kernel<T, KK, false>, grid, BNT, splits, st, v, mask, out, dots, d, eps);
 }
 
 template <typename T, int KK>
-cudaError_t launch_block_bwd(const void* vs, const uint8_t* mask, const float* dots,
-                             const float* gout, void* dvs, int B, int d, int splits, float eps,
-                             cudaStream_t st) {
+cudaError_t launch_bwd(const void* vs, const uint8_t* mask, const float* dots, const float* gout,
+                       void* dvs, int B, int d, int splits, float eps, cudaStream_t st) {
   const T* v = static_cast<const T*>(vs);
   T* dv = static_cast<T*>(dvs);
-  const dim3 grid(splits, B);
+  const int grid = splits * B;
   if (d % Vec<T>::N == 0 && aligned16(vs) && aligned16(dvs))
-    return launch_pdl(gram_block_bwd_kernel<T, KK, true>, grid, BNT, 0, st, v, mask, dots, gout,
-                      dv, d, eps);
-  return launch_pdl(gram_block_bwd_kernel<T, KK, false>, grid, BNT, 0, st, v, mask, dots, gout, dv,
-                    d, eps);
+    return launch_pdl(gram_bwd_kernel<T, KK, true>, grid, BNT, 0, st, v, mask, dots, gout,
+                      dv, d, splits, eps);
+  return launch_pdl(gram_bwd_kernel<T, KK, false>, grid, BNT, 0, st, v, mask, dots, gout, dv,
+                    d, splits, eps);
 }
 
 #define GRAM_SWITCH_K(k, CALL)                   \
@@ -596,108 +484,67 @@ cudaError_t launch_block_bwd(const void* vs, const uint8_t* mask, const float* d
   }
 
 template <typename T>
-cudaError_t fwd_t(int k, const void* vs, const uint8_t* mask, float* out, int B, int d, float eps,
-                  cudaStream_t st) {
-#define CALL(K) launch_fwd<T, K>(vs, mask, out, B, d, eps, st)
+cudaError_t fwd_t(int k, const void* vs, const uint8_t* mask, float* out, float* dots, int B,
+                  int d, int splits, float eps, cudaStream_t st) {
+#define CALL(K) launch_fwd<T, K>(vs, mask, out, dots, B, d, splits, eps, st)
   GRAM_SWITCH_K(k, CALL)
 #undef CALL
 }
 
 template <typename T>
-cudaError_t bwd_t(int k, const void* vs, const uint8_t* mask, const float* gout, void* dvs, int B,
-                  int d, float eps, cudaStream_t st) {
-#define CALL(K) launch_bwd<T, K>(vs, mask, gout, dvs, B, d, eps, st)
+cudaError_t bwd_t(int k, const void* vs, const uint8_t* mask, const float* dots, const float* gout,
+                  void* dvs, int B, int d, int splits, float eps, cudaStream_t st) {
+#define CALL(K) launch_bwd<T, K>(vs, mask, dots, gout, dvs, B, d, splits, eps, st)
   GRAM_SWITCH_K(k, CALL)
 #undef CALL
 }
 
-template <typename T>
-cudaError_t block_fwd_t(int k, const void* vs, const uint8_t* mask, float* out, float* dots,
-                        int B, int d, int splits, float eps, cudaStream_t st) {
-#define CALL(K) launch_block_fwd<T, K>(vs, mask, out, dots, B, d, splits, eps, st)
-  GRAM_SWITCH_K(k, CALL)
-#undef CALL
+// splits (the cluster size) is 1, 2, 4 or 8, and the S * B blocks fit a
+// grid's x (2^31 - 1)
+bool shape_ok(int B, int d, int s) {
+  return (s == 1 || s == 2 || s == 4 || s == 8) && d >= 0 && B <= 0x7fffffff / s;
 }
-
-template <typename T>
-cudaError_t block_bwd_t(int k, const void* vs, const uint8_t* mask, const float* dots,
-                        const float* gout, void* dvs, int B, int d, int splits, float eps,
-                        cudaStream_t st) {
-#define CALL(K) launch_block_bwd<T, K>(vs, mask, dots, gout, dvs, B, d, splits, eps, st)
-  GRAM_SWITCH_K(k, CALL)
-#undef CALL
-}
-
-bool splits_ok(int s) { return s == 1 || s == 2 || s == 4 || s == 8; }
 
 }  // namespace
 
-// Warp route.  vs (B, k, d) f32 or bf16, mask (B, k) bool (one byte each),
-// out (B,) f32; contiguous; 1 <= k <= 8.  Returns the cudaError_t of the
-// launch.
-extern "C" int gram_log_volume_launch(const void* vs, const void* mask, void* out, int B, int k,
-                                      int d, float eps, int is_bf16, void* stream) {
+// Forward.  vs (B, k, d) f32 or bf16, mask (B, k) bool (one byte each),
+// out (B,) f32, dots (B, k, k) f32 (the raw dot products v_i . v_j);
+// contiguous; 1 <= k <= 8; splits blocks (1, 2, 4 or 8) a sample, as one
+// cluster.  Returns the cudaError_t of the launch.
+extern "C" int gram_log_volume_launch(const void* vs, const void* mask, void* out, void* dots,
+                                      int B, int k, int d, int splits, float eps, int is_bf16,
+                                      void* stream) {
   if (B == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const uint8_t* m = static_cast<const uint8_t*>(mask);
-  float* o = static_cast<float*>(out);
-  return (int)(is_bf16 ? fwd_t<__nv_bfloat16>(k, vs, m, o, B, d, eps, st)
-                       : fwd_t<float>(k, vs, m, o, B, d, eps, st));
-}
-
-// Warp route: gout (B,) f32 is dL/dy; dvs (B, k, d) in vs's dtype receives
-// dL/dvs.
-extern "C" int gram_log_volume_bwd_launch(const void* vs, const void* mask, const void* gout,
-                                          void* dvs, int B, int k, int d, float eps, int is_bf16,
-                                          void* stream) {
-  if (B == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const uint8_t* m = static_cast<const uint8_t*>(mask);
-  const float* g = static_cast<const float*>(gout);
-  return (int)(is_bf16 ? bwd_t<__nv_bfloat16>(k, vs, m, g, dvs, B, d, eps, st)
-                       : bwd_t<float>(k, vs, m, g, dvs, B, d, eps, st));
-}
-
-// Block route, forward: as the warp route's, and dots (B, k, k) f32
-// receives the raw dot products v_i . v_j.  splits (the cluster size) is
-// 1, 2, 4 or 8.
-extern "C" int gram_log_volume_block_launch(const void* vs, const void* mask, void* out,
-                                            void* dots, int B, int k, int d, int splits,
-                                            float eps, int is_bf16, void* stream) {
-  if (B == 0) return 0;
-  if (!splits_ok(splits) || d < 0) return (int)cudaErrorInvalidValue;
+  if (!shape_ok(B, d, splits)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   float* o = static_cast<float*>(out);
   float* dt = static_cast<float*>(dots);
-  return (int)(is_bf16 ? block_fwd_t<__nv_bfloat16>(k, vs, m, o, dt, B, d, splits, eps, st)
-                       : block_fwd_t<float>(k, vs, m, o, dt, B, d, splits, eps, st));
+  return (int)(is_bf16 ? fwd_t<__nv_bfloat16>(k, vs, m, o, dt, B, d, splits, eps, st)
+                       : fwd_t<float>(k, vs, m, o, dt, B, d, splits, eps, st));
 }
 
-// Block route, backward from the forward's dots (B, k, k) f32: gout (B,)
-// f32 is dL/dy; dvs (B, k, d) in vs's dtype receives dL/dvs.  splits
-// blocks (1, 2, 4 or 8) share each sample's d.
-extern "C" int gram_log_volume_block_bwd_launch(const void* vs, const void* mask,
-                                                const void* dots, const void* gout, void* dvs,
-                                                int B, int k, int d, int splits, float eps,
-                                                int is_bf16, void* stream) {
+// Backward from the forward's dots (B, k, k) f32: gout (B,) f32 is dL/dy;
+// dvs (B, k, d) in vs's dtype receives dL/dvs.  splits blocks (1, 2, 4 or
+// 8) share each sample's d.
+extern "C" int gram_log_volume_bwd_launch(const void* vs, const void* mask, const void* dots,
+                                          const void* gout, void* dvs, int B, int k, int d,
+                                          int splits, float eps, int is_bf16, void* stream) {
   if (B == 0) return 0;
-  if (!splits_ok(splits) || d < 0) return (int)cudaErrorInvalidValue;
+  if (!shape_ok(B, d, splits)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   const float* dt = static_cast<const float*>(dots);
   const float* g = static_cast<const float*>(gout);
-  return (int)(is_bf16
-                   ? block_bwd_t<__nv_bfloat16>(k, vs, m, dt, g, dvs, B, d, splits, eps, st)
-                   : block_bwd_t<float>(k, vs, m, dt, g, dvs, B, d, splits, eps, st));
+  return (int)(is_bf16 ? bwd_t<__nv_bfloat16>(k, vs, m, dt, g, dvs, B, d, splits, eps, st)
+                       : bwd_t<float>(k, vs, m, dt, g, dvs, B, d, splits, eps, st));
 }
 
-// An empty kernel launched as the block route launches (grid (gx, gy) of
-// `threads`, clusters of `cluster` along x when cluster > 0, programmatic
+// An empty kernel launched as the kernels launch (`blocks` blocks of
+// `threads` along x, clusters of `cluster` when cluster > 0, programmatic
 // dependent launch): the launch's own cost.
-extern "C" int gram_log_volume_empty_launch(int gx, int gy, int threads, int cluster,
-                                            void* stream) {
-  return (int)launch_pdl(empty_kernel, dim3(gx, gy), threads, cluster,
+extern "C" int gram_log_volume_empty_launch(int blocks, int threads, int cluster, void* stream) {
+  return (int)launch_pdl(empty_kernel, blocks, threads, cluster,
                          static_cast<cudaStream_t>(stream), 0);
 }
 

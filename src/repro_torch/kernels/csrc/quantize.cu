@@ -13,46 +13,36 @@
 // tensor cores to take.  An uplink leaf (8,640 rows of 128 f32) is 4.4 MB
 // in and 1.1 MB out, 1.7 us at 3.35 TB/s.
 //
-// Quantize has two routes, picked by the wrapper (quantize.py):
-//   * "wave" (the one every call takes unless the caller forces another):
-//     a grid-stride loop over rows with a grid of at most one wave of
-//     resident blocks (WAVE_WARPS warps each, launch-bounded so that the
-//     SM's 64 warps fit; the wrapper sizes it from
-//     quantize_rows_wave_plan, which asks the occupancy API: one row per
-//     warp where the rows fit one wave, else the fewest rows per warp, up
-//     to 4, that fit it).  Where a row is a whole number of 16-byte
-//     vectors and at most 32 of them (the wire's tile of 128 f32 is 32),
-//     a warp takes its RPW rows of a step (rows w, w + n, ... of the
-//     grid's n warps, so that every SM gets an even share) with all their
-//     16-byte loads issued at once (up to 4 per lane in flight), keeps
-//     them in registers through the abs-max reduction (the rows' shuffles
-//     interleaved), and codes them from those registers.  Longer
-//     rows, and rows that are no whole number of vectors or not 16-byte
-//     aligned, go one row per warp through the warp route's row body
-//     (which reads the row twice, the second time from L1).  The launch
-//     allows programmatic dependent launch (cudaLaunchKernelEx,
-//     programmatic stream serialization): it may start during the previous
-//     kernel's tail, and griddepcontrol.wait holds every read and write
-//     until that kernel has finished.
-//   * "warp" (the kernel before the redesign, kept for comparison and
-//     reachable only when forced): one warp per row, 8 rows per block of
-//     256 threads, one 16-byte load per lane (4 f32 or 8 bf16), the
-//     abs-max by shuffles, 4 (or 8) codes stored per lane as one 32-bit
-//     (or 64-bit) word; the second pass re-reads the row from L1.
-// Both take rows of any length and count: where the length is no multiple
-// of the vector or a pointer is not 16-byte aligned, lanes stride over
-// single elements.  The TPU kernel asserts R % 128 == 0 and its wrapper
-// pads rows; here every row is independent and nothing is padded.
+// Quantize is a grid-stride loop over rows on at most one wave of resident
+// blocks: WAVE_WARPS warps each, launch-bounded to WAVE_BLOCKS blocks an SM
+// (the SM's 64 warps, so at most 32 registers a thread); the wrapper sizes
+// the grid from that constant (quantize.py:quantize_rows_grid): one row
+// per warp where the rows fit one wave, else two.  Where a row is a whole
+// number of 16-byte vectors and at most 32 of them (the wire's tile of 128
+// f32 is 32), a warp takes its RPW rows of a step (rows w and w + n of the
+// grid's n warps, so that every SM gets an even share) with their 16-byte
+// loads issued at once, keeps them in registers through the abs-max
+// reduction (the rows' shuffles interleaved), and codes them from those
+// registers.  Longer rows, and rows that are no whole number of vectors or
+// not 16-byte aligned, go one row per warp through quantize_row, which
+// reads the row twice (the second time from L1); there lanes stride over
+// single elements where the row is no whole number of vectors or a pointer
+// is not 16-byte aligned.  The TPU kernel asserts R % 128 == 0 and its
+// wrapper pads rows; here every row is independent and nothing is padded.
+// The launch allows programmatic dependent launch (cudaLaunchKernelEx,
+// programmatic stream serialization): it may start during the previous
+// kernel's tail, and griddepcontrol.wait holds every read and write until
+// that kernel has finished.
 //
-// The arithmetic is the reference's, bit for bit, on both routes
+// The arithmetic is the reference's, bit for bit
 // (src/repro/kernels/ref.py:quantize_ref): scale = absmax * f32(1/qmax)
 // (one multiply, never a divide), code = clamp(rint(x / safe), +-qmax) with
 // safe = scale > 0 ? scale : 1, the division IEEE round-to-nearest
 // (__fdiv_rn) and rint rounding half to even.  An all-zero row gets scale 0
 // and codes 0.  Do not build with --use_fast_math.
 //
-// Dequantize (one route) is code * scale in f32, one multiply per element,
-// one warp per row.
+// Dequantize is code * scale in f32, one multiply per element, one warp
+// per row.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -60,12 +50,12 @@
 
 namespace {
 
-constexpr int WARPS = 8;
+constexpr int WARPS = 8;                       // dequantize: rows a block
 constexpr int NT = 32 * WARPS;
-constexpr int WAVE_WARPS = 8;                  // wave route: warps a block
+constexpr int WAVE_WARPS = 8;                  // quantize: warps a block
 constexpr int WAVE_NT = 32 * WAVE_WARPS;
 constexpr int WAVE_BLOCKS = 64 / WAVE_WARPS;   // blocks an SM holds: its 64 warps
-constexpr int WAVE_LOADS = 4;                  // 16-byte loads in flight per lane
+constexpr int WAVE_ROWS = 2;                   // rows a warp holds at most
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -152,25 +142,15 @@ __device__ __forceinline__ void quantize_row(const T* __restrict__ xr, int8_t* _
   }
 }
 
-template <typename T, bool VEC>
-__global__ void __launch_bounds__(NT)
-quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
-                     float* __restrict__ scale, int R, int L, float qmax, float inv_qmax) {
-  const int lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (row >= R) return;  // the whole warp leaves together
-  quantize_row<T, VEC>(x + row * L, q + row * L, scale + row, L, qmax, inv_qmax, lane);
-}
-
-// The wave route.  VEC_ROWS: a warp holds RPW rows of at most 32 16-byte
+// Quantize.  VEC_ROWS: a warp holds RPW rows of at most 32 16-byte
 // vectors in registers per step (one vector a lane), rows w, w + n, ...,
 // w + (RPW - 1) n of the grid's n warps, so that every warp of the grid
 // has work; else one row per warp per step through quantize_row (VEC: as
 // vectors).
 template <typename T, int RPW, bool VEC_ROWS, bool VEC>
 __global__ void __launch_bounds__(WAVE_NT, WAVE_BLOCKS)
-quantize_rows_wave_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
-                          float* __restrict__ scale, int R, int L, float qmax, float inv_qmax) {
+quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ q, float* __restrict__ scale,
+                     int R, int L, float qmax, float inv_qmax) {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   const int lane = threadIdx.x & 31;
@@ -262,52 +242,25 @@ bool takes_vectors(const void* x, const void* q, int L) {
   return L % N == 0 && aligned(x, 16) && aligned(q, N);
 }
 
+// the instance for rows held in registers (a whole number of 16-byte
+// vectors, at most one a lane; RPW of them) or not (and then, as vectors or
+// not); nullptr for a pair it has no instance of
 template <typename T>
-cudaError_t launch_quant(const void* x, void* q, void* scale, int R, int L, int qmax,
-                         cudaStream_t stream) {
-  const dim3 grid((R + WARPS - 1) / WARPS);
-  const T* xt = static_cast<const T*>(x);
-  int8_t* qt = static_cast<int8_t*>(q);
-  float* st = static_cast<float*>(scale);
-  if (takes_vectors<T>(x, q, L)) {
-    quantize_rows_kernel<T, true><<<grid, NT, 0, stream>>>(xt, qt, st, R, L, (float)qmax,
-                                                           inverse(qmax));
-  } else {
-    quantize_rows_kernel<T, false><<<grid, NT, 0, stream>>>(xt, qt, st, R, L, (float)qmax,
-                                                            inverse(qmax));
-  }
-  return cudaGetLastError();
-}
-
-// whether the wave route holds rows of L values in registers: a whole
-// number of 16-byte vectors, at most one a lane
-template <typename T>
-bool wave_rows_in_registers(int L, bool vec) {
-  return vec && L / Vec<T>::N <= 32;
-}
-
-// the rows a warp may hold at once: WAVE_LOADS in registers, else 1
-int max_rows_per_warp(bool in_registers) { return in_registers ? WAVE_LOADS : 1; }
-
-// the wave route's instance for rows held in registers (RPW of them) or
-// not (and then, as vectors or not); nullptr for a pair it has no instance of
-template <typename T>
-auto wave_kernel(bool in_registers, int rpw, bool vec) {
-  decltype(&quantize_rows_wave_kernel<T, 1, true, true>) k = nullptr;
-  if (in_registers && rpw == 1) k = quantize_rows_wave_kernel<T, 1, true, true>;
-  if (in_registers && rpw == 2) k = quantize_rows_wave_kernel<T, 2, true, true>;
-  if (in_registers && rpw == 4) k = quantize_rows_wave_kernel<T, 4, true, true>;
+auto quant_kernel(int L, bool vec, int rpw) {
+  decltype(&quantize_rows_kernel<T, 1, true, true>) k = nullptr;
+  const bool in_registers = vec && L / Vec<T>::N <= 32;
+  if (in_registers && rpw == 1) k = quantize_rows_kernel<T, 1, true, true>;
+  if (in_registers && rpw == WAVE_ROWS) k = quantize_rows_kernel<T, WAVE_ROWS, true, true>;
   if (!in_registers && rpw == 1)
-    k = vec ? quantize_rows_wave_kernel<T, 1, false, true>
-            : quantize_rows_wave_kernel<T, 1, false, false>;
+    k = vec ? quantize_rows_kernel<T, 1, false, true>
+            : quantize_rows_kernel<T, 1, false, false>;
   return k;
 }
 
 template <typename T>
-cudaError_t launch_wave(const void* x, void* q, void* scale, int R, int L, int qmax, int grid,
-                        int rows_per_warp, cudaStream_t stream) {
-  const bool vec = takes_vectors<T>(x, q, L);
-  const auto kernel = wave_kernel<T>(wave_rows_in_registers<T>(L, vec), rows_per_warp, vec);
+cudaError_t launch_quant(const void* x, void* q, void* scale, int R, int L, int qmax, int grid,
+                         int rows_per_warp, cudaStream_t stream) {
+  const auto kernel = quant_kernel<T>(L, takes_vectors<T>(x, q, L), rows_per_warp);
   if (kernel == nullptr) return cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(grid);
@@ -325,56 +278,22 @@ cudaError_t launch_wave(const void* x, void* q, void* scale, int R, int L, int q
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-// plan[0] = the rows a warp may hold at once, plan[1] = the blocks of that
-// instance (the one with the most registers) resident on one SM, plan[2] =
-// the warps of a block
-template <typename T>
-cudaError_t wave_plan(int L, bool vec, int* plan) {
-  const bool in_registers = wave_rows_in_registers<T>(L, vec);
-  plan[0] = max_rows_per_warp(in_registers);
-  plan[2] = WAVE_WARPS;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &plan[1], wave_kernel<T>(in_registers, plan[0], vec), WAVE_NT, 0);
-}
-
 }  // namespace
 
-// Warp route.  x (R, L) f32 or bf16, q (R, L) int8, scale (R,) f32;
-// contiguous.  qmax in [1, 127].  Returns the cudaError_t of the launch
-// (0 = launched).
+// x (R, L) f32 or bf16, q (R, L) int8, scale (R,) f32; contiguous.  qmax
+// in [1, 127].  `grid` blocks of WAVE_NT threads (>= 1; any grid is
+// correct, one wave of resident blocks is what it is sized for), each warp
+// holding `rows_per_warp` rows at a step: 1, or 2 where a row is at most 32
+// 16-byte vectors read as vectors (else cudaErrorInvalidValue).  Returns
+// the cudaError_t of the launch (0 = launched).
 extern "C" int quantize_rows_launch(const void* x, void* q, void* scale, int R, int L, int qmax,
-                                    int is_bf16, void* stream) {
-  if (R == 0) return 0;
-  if (qmax < 1 || qmax > 127 || L < 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(is_bf16 ? launch_quant<__nv_bfloat16>(x, q, scale, R, L, qmax, s)
-                       : launch_quant<float>(x, q, scale, R, L, qmax, s));
-}
-
-// Wave route: as the warp route, on `grid` blocks of WAVE_NT threads (>= 1;
-// any grid is correct, one wave of resident blocks is what it is sized
-// for), each warp holding `rows_per_warp` rows at a step (1, 2 or 4, at
-// most plan[0] of quantize_rows_wave_plan; else cudaErrorInvalidValue).
-extern "C" int quantize_rows_wave_launch(const void* x, void* q, void* scale, int R, int L,
-                                         int qmax, int is_bf16, int grid, int rows_per_warp,
-                                         void* stream) {
+                                    int is_bf16, int grid, int rows_per_warp, void* stream) {
   if (R == 0) return 0;
   if (qmax < 1 || qmax > 127 || L < 0 || grid < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(is_bf16 ? launch_wave<__nv_bfloat16>(x, q, scale, R, L, qmax, grid,
-                                                    rows_per_warp, s)
-                       : launch_wave<float>(x, q, scale, R, L, qmax, grid, rows_per_warp, s));
-}
-
-// The wave route's plan for rows of L values (vec: the row is read as
-// 16-byte vectors): plan[0] = the rows a warp may hold at once, plan[1] =
-// the blocks resident on one SM (the occupancy API, for the instance that
-// holds plan[0] rows), plan[2] = the warps of a block.  Returns the
-// cudaError_t.
-extern "C" int quantize_rows_wave_plan(int L, int is_bf16, int vec, void* plan) {
-  int* p = static_cast<int*>(plan);
-  return (int)(is_bf16 ? wave_plan<__nv_bfloat16>(L, vec != 0, p)
-                       : wave_plan<float>(L, vec != 0, p));
+  return (int)(is_bf16 ? launch_quant<__nv_bfloat16>(x, q, scale, R, L, qmax, grid,
+                                                     rows_per_warp, s)
+                       : launch_quant<float>(x, q, scale, R, L, qmax, grid, rows_per_warp, s));
 }
 
 // q (R, L) int8, scale (R,) f32, out (R, L) f32; contiguous.
@@ -395,8 +314,8 @@ extern "C" int dequantize_rows_launch(const void* q, const void* scale, void* ou
   return (int)cudaGetLastError();
 }
 
-// An empty kernel launched as the wave route launches (`blocks` of
-// `threads`, programmatic dependent launch): the launch's own cost.
+// An empty kernel launched as quantize launches (`blocks` of `threads`,
+// programmatic dependent launch): the launch's own cost.
 extern "C" int quantize_empty_launch(int blocks, int threads, void* stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(blocks);

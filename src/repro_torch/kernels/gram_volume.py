@@ -8,18 +8,14 @@ model path) computes: rows normalized by ``rsqrt(|v|^2 + 1e-12)``, masked
 rows and columns replaced by identity, ``+ eps I``, Cholesky, sum of log
 diagonal.
 
-Two routes (:func:`gram_log_volume_route` picks one; the wrappers take
-``route=`` to force one): ``"block"`` runs a sample's forward on a
-thread-block cluster of ``splits`` blocks (:func:`gram_log_volume_splits`
-picks it from shapes alone; one block at the round's shape), each summing
-the raw dot products over its share of d; rank 0 merges them, writes them
-(B, k, k) f32 beside y and runs the Cholesky.  Its backward reads those saved dots, builds the k x k
+The forward runs a sample on a thread-block cluster of ``splits``
+blocks (:func:`gram_log_volume_splits` picks it from shapes alone; one
+block at the round's shape), each summing the raw dot products over its
+share of d; rank 0 merges them, writes them (B, k, k) f32 beside y and
+runs the Cholesky.  The backward reads those saved dots, builds the k x k
 matrix C of dL/dv = C v, and streams C v over (sample, share) blocks.
-``"warp"`` is the pair of kernels before that design (one warp per sample,
-the backward recomputing the dots from the rows), reachable only when
-forced.  :func:`gram_log_volume_cuda` and
-:func:`gram_log_volume_backward_cuda` count their launches in
-``.launches`` and per route in ``.launches_by_route``.
+:func:`gram_log_volume_cuda` and :func:`gram_log_volume_backward_cuda`
+count their launches in ``.launches``.
 
 The plain versions: :func:`gram_log_volume_plain` (the formula, and by
 autograd its gradient); :func:`gram_dots_plain`,
@@ -34,20 +30,18 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build, _route
+from repro_torch.kernels import _build
 
 __all__ = ["gram_log_volume_cuda", "gram_log_volume_backward_cuda",
            "gram_log_volume_plain", "gram_log_volume_autograd",
-           "gram_log_volume_route", "gram_log_volume_splits",
-           "gram_log_volume_empty_cuda", "gram_dots_plain",
-           "gram_dots_split_plain", "gram_log_volume_from_dots_plain",
-           "gram_log_volume_backward_from_dots_plain", "MAX_K", "SPLITS",
-           "ROUTES"]
+           "gram_log_volume_splits", "gram_log_volume_empty_cuda",
+           "gram_dots_plain", "gram_dots_split_plain",
+           "gram_log_volume_from_dots_plain",
+           "gram_log_volume_backward_from_dots_plain", "MAX_K", "SPLITS"]
 
 MAX_K = 8
-ROUTES = ("block", "warp")
 SPLITS = (1, 2, 4, 8)           # cluster sizes (8 is the portable limit)
-BLOCK_THREADS = 128             # threads of a block-route block
+BLOCK_THREADS = 128             # threads of a block
 # the split rules' least share of a rank: the forward's, of each row, the
 # bytes its threads hold in flight at once (two 16-byte column steps each);
 # the backward's, of the whole sample (k rows), the same number of bytes
@@ -59,19 +53,13 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the C functions of csrc/gram_volume.cu: argument types, return type
 C_FUNCTIONS = {
     "gram_log_volume_launch": (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
-    "gram_log_volume_bwd_launch": (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
-    "gram_log_volume_block_launch": (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
-    "gram_log_volume_block_bwd_launch": (
+    "gram_log_volume_bwd_launch": (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
     "gram_log_volume_empty_launch": (
-        [ctypes.c_int] * 4 + [ctypes.c_void_p], ctypes.c_int),
+        [ctypes.c_int] * 3 + [ctypes.c_void_p], ctypes.c_int),
     "gram_log_volume_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 
@@ -109,7 +97,7 @@ def _shares(d: int, splits: int, width: int):
 
 
 def gram_dots_split_plain(vs, splits: int):
-    """The block route's split arithmetic: the raw dots over each of
+    """The forward kernel's split arithmetic: the raw dots over each of
     ``splits`` shares of d (16-byte steps where d holds a whole number of
     them, single values otherwise), summed in rank order."""
     d = vs.shape[-1]
@@ -136,7 +124,7 @@ def _masked_gram(dots, mask, eps: float):
 
 def gram_log_volume_from_dots_plain(dots, mask, eps: float = 1e-5):
     """The log-volumes (B,) f32 from the raw dots (B, k, k) f32: what rank
-    0 of the block route computes after the merge."""
+    0 of the forward's cluster computes after the merge."""
     _, g = _masked_gram(dots, mask, eps)
     chol = torch.linalg.cholesky_ex(g).L
     return torch.sum(torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)), dim=-1)
@@ -161,18 +149,15 @@ def gram_log_volume_backward_from_dots_plain(vs, dots, mask, gout,
 
 def gram_log_volume_splits(B: int, k: int, d: int, itemsize: int = 2,
                            backward: bool = False, n_sm: int = 132) -> int:
-    """The blocks S that share each sample's d on the block route, from
-    static shapes alone: the smallest power of two <= 8 at which B * S
-    blocks cover the SMs, or at which halving a rank's share once more
-    would leave it under its least share.  The forward (a cluster that
-    merges its ranks' dots) keeps ``SPLIT_ROW_BYTES`` of each row: a split
-    that does not shorten the threads' two-step load pipeline only adds the
-    merge.  The backward (no merge) keeps ``SPLIT_SAMPLE_BYTES`` of the
-    sample's k rows.  Measured on an H100 (chip_smoke.py's D rows): at the
-    round's 80 x 4 x 1280 bf16 the forward is fastest at S = 1 (S = 2 adds
-    about 0.5 us of merge) and the backward at S = 2; on one 8 x 4096
-    sample the backward gains up to 1.6x from S = 8 while the forward is
-    flat across S."""
+    """The blocks S that share each sample's d, from static shapes alone:
+    the smallest power of two <= 8 at which B * S blocks cover the SMs,
+    or at which halving a rank's share once more would leave it under its
+    least share.  The forward (a cluster that merges its ranks' dots)
+    keeps ``SPLIT_ROW_BYTES`` of each row: a split that does not shorten
+    the threads' two-step load pipeline only adds the merge.  The backward
+    (no merge) keeps ``SPLIT_SAMPLE_BYTES`` of the sample's k rows.  On an
+    H100 this puts the round's 80 x 4 x 1280 bf16 at S = 1 forward and
+    S = 2 backward, the fastest of the four (PERF.md, kernel D)."""
     least = k * d * itemsize if backward else d * itemsize
     floor = SPLIT_SAMPLE_BYTES if backward else SPLIT_ROW_BYTES
     s = 1
@@ -181,15 +166,13 @@ def gram_log_volume_splits(B: int, k: int, d: int, itemsize: int = 2,
     return s
 
 
-def gram_log_volume_route(vs, mask) -> str:
-    """The route :func:`gram_log_volume_cuda` and
-    :func:`gram_log_volume_backward_cuda` launch for these inputs:
-    ``"block"`` for every input the kernels take (the warp route only when
-    forced).  Reads only dtypes and shapes (CPU or meta tensors do);
-    raises on inputs neither route takes."""
+def _check(vs, mask, backward):
+    """(splits, B, k, d) for these inputs; raises on inputs the kernels do
+    not take, checking dtypes and shapes before devices (so meta tensors
+    reach only the first checks)."""
     if vs.dim() != 3:
         raise ValueError(f"vs must be (B, k, d); got {tuple(vs.shape)}")
-    B, k, _ = vs.shape
+    B, k, d = vs.shape
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k={k} outside [1, {MAX_K}]")
     if tuple(mask.shape) != (B, k) or mask.dtype != torch.bool:
@@ -197,25 +180,12 @@ def gram_log_volume_route(vs, mask) -> str:
                          f"{mask.dtype} {tuple(mask.shape)}")
     if vs.dtype not in _DTYPES:
         raise TypeError(f"vs must be one of {list(_DTYPES)}")
-    return "block"
-
-
-def _check(vs, mask, route, splits, backward):
-    route = _route.pick(gram_log_volume_route(vs, mask), route,
-                        universal="warp")
     if vs.device.type != "cuda" or mask.device != vs.device:
         raise ValueError("vs and mask must lie on one CUDA device")
     if not (vs.is_contiguous() and mask.is_contiguous()):
         raise ValueError("vs and mask must be contiguous")
-    B, k, d = vs.shape
-    if route == "warp":
-        if splits is not None:
-            raise ValueError("the warp route takes no splits")
-    elif splits is None:
-        splits = gram_log_volume_splits(B, k, d, vs.element_size(), backward)
-    elif splits not in SPLITS:
-        raise ValueError(f"splits {splits!r} not in {SPLITS}")
-    return route, splits, B, k, d
+    splits = gram_log_volume_splits(B, k, d, vs.element_size(), backward)
+    return splits, B, k, d
 
 
 def _raise(lib, rc, what):
@@ -224,96 +194,63 @@ def _raise(lib, rc, what):
                            + lib.gram_log_volume_error_string(rc).decode())
 
 
-def _count(fn, route):
-    fn.launches += 1
-    fn.launches_by_route[route] += 1
-
-
-def gram_log_volume_cuda(vs, mask, eps: float = 1e-5, route: str | None = None,
-                         splits: int | None = None, return_dots: bool = False):
+def gram_log_volume_cuda(vs, mask, eps: float = 1e-5,
+                         return_dots: bool = False):
     """Launch the forward kernel.  vs (B, k, d) f32/bf16, mask (B, k) bool,
     1 <= k <= 8, contiguous on one CUDA device -> log-volumes (B,) f32;
-    with ``return_dots`` also the raw dots (B, k, k) f32 (block route
-    only).  ``route``: "block" or "warp" (None: the route function's);
-    ``splits``: the block route's cluster size, one of ``SPLITS`` (None:
-    :func:`gram_log_volume_splits`'s)."""
-    route, splits, B, k, d = _check(vs, mask, route, splits, False)
-    if return_dots and route == "warp":
-        raise ValueError("the warp route writes no dots")
+    with ``return_dots`` also the raw dots (B, k, k) f32, which the
+    backward reads."""
+    splits, B, k, d = _check(vs, mask, False)
     out = torch.empty((B,), dtype=torch.float32, device=vs.device)
+    dots = torch.empty((B, k, k), dtype=torch.float32, device=vs.device)
     lib = _lib()
     with torch.cuda.device(vs.device):
-        stream = torch.cuda.current_stream(vs.device).cuda_stream
-        if route == "block":
-            dots = torch.empty((B, k, k), dtype=torch.float32,
-                               device=vs.device)
-            rc = lib.gram_log_volume_block_launch(
-                vs.data_ptr(), mask.data_ptr(), out.data_ptr(),
-                dots.data_ptr(), B, k, d, splits, float(eps),
-                _DTYPES[vs.dtype], stream)
-        else:
-            rc = lib.gram_log_volume_launch(
-                vs.data_ptr(), mask.data_ptr(), out.data_ptr(), B, k, d,
-                float(eps), _DTYPES[vs.dtype], stream)
+        rc = lib.gram_log_volume_launch(
+            vs.data_ptr(), mask.data_ptr(), out.data_ptr(), dots.data_ptr(),
+            B, k, d, splits, float(eps), _DTYPES[vs.dtype],
+            torch.cuda.current_stream(vs.device).cuda_stream)
     _raise(lib, rc, "gram_log_volume")
-    _count(gram_log_volume_cuda, route)
+    gram_log_volume_cuda.launches += 1
     return (out, dots) if return_dots else out
 
 
-def gram_log_volume_backward_cuda(vs, mask, gout, eps: float = 1e-5,
-                                  dots=None, route: str | None = None,
-                                  splits: int | None = None):
+def gram_log_volume_backward_cuda(vs, mask, gout, dots, eps: float = 1e-5):
     """Launch the backward kernel: dL/dvs (B, k, d) in vs's dtype from
-    gout = dL/dy (B,).  The block route needs the forward's ``dots`` (B, k,
-    k) f32 and raises without them; the warp route recomputes them from
-    the rows.  ``route`` as for :func:`gram_log_volume_cuda`; ``splits``:
-    blocks per sample (None: :func:`gram_log_volume_splits`'s backward
-    rule)."""
-    route, splits, B, k, d = _check(vs, mask, route, splits, True)
+    gout = dL/dy (B,) and the forward's raw dots (B, k, k) f32; a sample's
+    d is shared by :func:`gram_log_volume_splits`'s backward rule of
+    blocks."""
+    splits, B, k, d = _check(vs, mask, True)
     gout = gout.float().contiguous()
     if tuple(gout.shape) != (B,) or gout.device != vs.device:
         raise ValueError(f"gout must be ({B},) on {vs.device}")
-    if route == "block":
-        if dots is None:
-            raise ValueError("the block route's backward needs the "
-                             "forward's dots")
-        if tuple(dots.shape) != (B, k, k) or dots.dtype != torch.float32 \
-                or dots.device != vs.device or not dots.is_contiguous():
-            raise ValueError(f"dots must be contiguous f32 ({B}, {k}, {k}) "
-                             f"on {vs.device}")
+    if tuple(dots.shape) != (B, k, k) or dots.dtype != torch.float32 \
+            or dots.device != vs.device or not dots.is_contiguous():
+        raise ValueError(f"dots must be contiguous f32 ({B}, {k}, {k}) "
+                         f"on {vs.device}")
     dvs = torch.empty_like(vs)
     lib = _lib()
     with torch.cuda.device(vs.device):
-        stream = torch.cuda.current_stream(vs.device).cuda_stream
-        if route == "block":
-            rc = lib.gram_log_volume_block_bwd_launch(
-                vs.data_ptr(), mask.data_ptr(), dots.data_ptr(),
-                gout.data_ptr(), dvs.data_ptr(), B, k, d, splits,
-                float(eps), _DTYPES[vs.dtype], stream)
-        else:
-            rc = lib.gram_log_volume_bwd_launch(
-                vs.data_ptr(), mask.data_ptr(), gout.data_ptr(),
-                dvs.data_ptr(), B, k, d, float(eps), _DTYPES[vs.dtype],
-                stream)
+        rc = lib.gram_log_volume_bwd_launch(
+            vs.data_ptr(), mask.data_ptr(), dots.data_ptr(), gout.data_ptr(),
+            dvs.data_ptr(), B, k, d, splits, float(eps), _DTYPES[vs.dtype],
+            torch.cuda.current_stream(vs.device).cuda_stream)
     _raise(lib, rc, "gram_log_volume backward")
-    _count(gram_log_volume_backward_cuda, route)
+    gram_log_volume_backward_cuda.launches += 1
     return dvs
 
 
-for _fn in (gram_log_volume_cuda, gram_log_volume_backward_cuda):
-    _fn.launches = 0
-    _fn.launches_by_route = dict.fromkeys(ROUTES, 0)
+gram_log_volume_cuda.launches = 0
+gram_log_volume_backward_cuda.launches = 0
 
 
-def gram_log_volume_empty_cuda(B: int, splits: int, cluster: bool = True):
-    """Launch an empty kernel on the current device as the block route
-    launches for B samples (grid (splits, B) of ``BLOCK_THREADS``, as
-    clusters of ``splits`` with ``cluster``, programmatic dependent
-    launch): the launch's own cost.  Not a launch of the kernel: no
-    counter moves."""
+def gram_log_volume_empty_cuda(blocks: int, cluster: int = 0):
+    """Launch an empty kernel on the current device as the kernels launch
+    (``blocks`` of ``BLOCK_THREADS``, as clusters of ``cluster`` when it is
+    > 0, programmatic dependent launch): the launch's own cost.  Not a
+    launch of the kernels: no counter moves."""
     lib = _lib()
     rc = lib.gram_log_volume_empty_launch(
-        splits, B, BLOCK_THREADS, splits if cluster else 0,
+        blocks, BLOCK_THREADS, cluster,
         torch.cuda.current_stream().cuda_stream)
     _raise(lib, rc, "empty")
 
@@ -331,12 +268,12 @@ class _GramLogVolume(torch.autograd.Function):
         vs, mask, dots = ctx.saved_tensors
         dvs = None
         if ctx.needs_input_grad[0]:
-            dvs = gram_log_volume_backward_cuda(vs, mask, gout, ctx.eps,
-                                                dots=dots)
+            dvs = gram_log_volume_backward_cuda(vs, mask, gout, dots,
+                                                ctx.eps)
         return dvs, None, None
 
 
 def gram_log_volume_autograd(vs, mask, eps: float = 1e-5):
-    """The kernels with the gradient for vs (the block route: the backward
-    reads the forward's saved dots)."""
+    """The kernels with the gradient for vs (the backward reads the
+    forward's saved dots)."""
     return _GramLogVolume.apply(vs, mask, eps)

@@ -12,15 +12,11 @@ and codes 0; dequantize is ``q * scale`` in f32.  Kernel and plain
 version agree bit for bit.  Unlike the TPU wrapper nothing is padded:
 any row count and row length is taken as it is.
 
-Quantize has two routes (:func:`quantize_route` picks one;
-``route=`` forces one): ``"wave"`` is a grid-stride loop over rows with
-at most one wave of resident blocks (:func:`quantize_rows_grid`), a warp
-holding 1-4 rows (of at most 32 16-byte vectors) in registers between the
-abs-max and the codes;
-``"warp"`` is the kernel before that design (one warp per row, one load
-per lane), reachable only when forced.  :func:`quantize_rows_cuda` counts
-its launches in ``.launches`` and per route in ``.launches_by_route``;
-:func:`dequantize_rows_cuda` (one route) in ``.launches``.
+Quantize is a grid-stride loop over rows on at most one wave of
+resident blocks (:func:`quantize_rows_grid`), a warp holding 1 or 2 rows
+(of at most 32 16-byte vectors) in registers between the abs-max and the
+codes.  :func:`quantize_rows_cuda` and :func:`dequantize_rows_cuda` count
+their launches in ``.launches``.
 """
 from __future__ import annotations
 
@@ -29,27 +25,25 @@ import ctypes
 import numpy as np
 import torch
 
-from repro_torch.kernels import _build, _route
+from repro_torch.kernels import _build
 
 __all__ = ["quantize_rows_cuda", "quantize_rows_plain",
            "dequantize_rows_cuda", "dequantize_rows_plain",
-           "quantize_route", "quantize_rows_grid", "quantize_rows_plan",
-           "quantize_empty_cuda", "ROUTES"]
+           "quantize_rows_grid", "quantize_empty_cuda", "WARPS_PER_BLOCK",
+           "BLOCKS_PER_SM"]
 
-ROUTES = ("wave", "warp")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the quantize kernel's blocks: csrc/quantize.cu's WAVE_WARPS, and the
+# blocks an SM holds by its launch bounds (WAVE_BLOCKS: the SM's 64 warps)
+WARPS_PER_BLOCK = 8
+BLOCKS_PER_SM = 8
 
 
 # the C functions of csrc/quantize.cu: argument types, return type
 C_FUNCTIONS = {
     "quantize_rows_launch": (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
-        ctypes.c_int),
-    "quantize_rows_wave_launch": (
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
         ctypes.c_int),
-    "quantize_rows_wave_plan": (
-        [ctypes.c_int] * 3 + [ctypes.c_void_p], ctypes.c_int),
     "dequantize_rows_launch": (
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
         ctypes.c_int),
@@ -87,70 +81,18 @@ def dequantize_rows_plain(q, scale):
     return q.float() * scale[:, None]
 
 
-def quantize_route(x, qmax: int = 127) -> str:
-    """The route :func:`quantize_rows_cuda` launches for these inputs:
-    ``"wave"`` for every input the kernels take (the warp route only when
-    forced).  Reads only metadata (CPU or meta tensors do); raises on
-    inputs neither route takes."""
-    _check_qmax(qmax)
-    if x.dim() != 2:
-        raise ValueError(f"x must be (R, L); got {tuple(x.shape)}")
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"x must be one of {list(_DTYPES)}; got {x.dtype}")
-    return "wave"
-
-
-def quantize_rows_grid(R: int, max_rows_per_warp: int, blocks_per_sm: int,
-                       warps_per_block: int, n_sm: int = 132):
-    """The wave route's launch: (blocks, rows a warp holds per step).  The
+def quantize_rows_grid(R: int, in_registers: bool, n_sm: int = 132):
+    """The quantize launch: (blocks, rows a warp holds per step).  The
     blocks are enough for one row per warp, but at most one wave of
-    resident blocks (``blocks_per_sm`` on each of ``n_sm`` SMs); a warp
-    then holds the fewest rows (a power of two up to
-    ``max_rows_per_warp``) that cover R in one step, and the kernel's
-    grid-stride loop takes what one step of a full wave cannot."""
-    if min(max_rows_per_warp, blocks_per_sm, warps_per_block, n_sm) < 1:
-        raise ValueError("max_rows_per_warp, blocks_per_sm, warps_per_block "
-                         "and n_sm must be >= 1")
-    grid = max(1, min(blocks_per_sm * n_sm, -(-R // warps_per_block)))
-    rpw = 1
-    while 2 * rpw <= max_rows_per_warp and rpw * grid * warps_per_block < R:
-        rpw *= 2
+    resident blocks (``BLOCKS_PER_SM`` on each of ``n_sm`` SMs); where the
+    rows are held ``in_registers`` and one row per warp leaves some over, a
+    warp holds 2, and the kernel's grid-stride loop takes what one step of
+    the grid cannot."""
+    if n_sm < 1:
+        raise ValueError(f"n_sm must be >= 1; got {n_sm}")
+    grid = max(1, min(BLOCKS_PER_SM * n_sm, -(-R // WARPS_PER_BLOCK)))
+    rpw = 2 if in_registers and grid * WARPS_PER_BLOCK < R else 1
     return grid, rpw
-
-
-_PLANS: dict = {}
-_SMS: dict = {}
-
-
-def quantize_rows_plan(L: int, dtype, vec: bool, device=None):
-    """(rows a warp may hold per step, blocks resident on one SM, warps a
-    block) of the wave route for rows of L values (``vec``: read as
-    16-byte vectors), from the kernel source and the occupancy API (for
-    the instance that holds the most rows, the one with the most
-    registers); asked once per instance and device, so a CUDA graph may
-    capture the launches that follow."""
-    dev = torch.device("cuda") if device is None else torch.device(device)
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    key = (idx, L, dtype, bool(vec))
-    if key not in _PLANS:
-        lib = _lib()
-        plan = (ctypes.c_int * 3)()
-        with torch.cuda.device(idx):
-            rc = lib.quantize_rows_wave_plan(L, _DTYPES[dtype], int(vec),
-                                             ctypes.addressof(plan))
-        _raise(lib, rc, "quantize_rows plan")
-        if plan[1] < 1:
-            raise RuntimeError("quantize_rows: the wave kernel fits no SM")
-        _PLANS[key] = tuple(plan)
-    return _PLANS[key]
-
-
-def _n_sm(device) -> int:
-    idx = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    if idx not in _SMS:
-        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return _SMS[idx]
 
 
 def _raise(lib, rc, what):
@@ -159,49 +101,43 @@ def _raise(lib, rc, what):
                            + lib.quantize_error_string(rc).decode())
 
 
-def quantize_rows_cuda(x, qmax: int = 127, route: str | None = None):
+def quantize_rows_cuda(x, qmax: int = 127):
     """Launch the quantize kernel.  x: (R, L) contiguous float32 or
-    bfloat16 on a CUDA device; ``route``: "wave" or "warp" (None: the
-    route function's).  Returns (int8 (R, L), f32 scales (R,))."""
+    bfloat16 on a CUDA device.  Returns (int8 (R, L), f32 scales (R,))."""
     qmax = _check_qmax(qmax)
-    route = _route.pick(quantize_route(x, qmax), route, universal="warp")
+    if x.dim() != 2:
+        raise ValueError(f"x must be (R, L); got {tuple(x.shape)}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"x must be one of {list(_DTYPES)}; got {x.dtype}")
     if x.device.type != "cuda" or not x.is_contiguous():
         raise ValueError("x must be a contiguous CUDA tensor")
     R, L = x.shape
     q = torch.empty((R, L), dtype=torch.int8, device=x.device)
     scale = torch.empty((R,), dtype=torch.float32, device=x.device)
+    n = 16 // x.element_size()
+    in_registers = L % n == 0 and L // n <= 32 and x.data_ptr() % 16 == 0 \
+        and q.data_ptr() % n == 0
+    grid, rpw = quantize_rows_grid(
+        R, in_registers,
+        torch.cuda.get_device_properties(x.device).multi_processor_count)
     lib = _lib()
-    if route == "wave":
-        n = 16 // x.element_size()
-        vec = L % n == 0 and x.data_ptr() % 16 == 0 and q.data_ptr() % n == 0
-        grid, rpw = quantize_rows_grid(
-            R, *quantize_rows_plan(L, x.dtype, vec, x.device),
-            _n_sm(x.device))
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        if route == "wave":
-            rc = lib.quantize_rows_wave_launch(
-                x.data_ptr(), q.data_ptr(), scale.data_ptr(), R, L, qmax,
-                _DTYPES[x.dtype], grid, rpw, stream)
-        else:
-            rc = lib.quantize_rows_launch(x.data_ptr(), q.data_ptr(),
-                                          scale.data_ptr(), R, L, qmax,
-                                          _DTYPES[x.dtype], stream)
+        rc = lib.quantize_rows_launch(
+            x.data_ptr(), q.data_ptr(), scale.data_ptr(), R, L, qmax,
+            _DTYPES[x.dtype], grid, rpw,
+            torch.cuda.current_stream(x.device).cuda_stream)
     _raise(lib, rc, "quantize_rows launch")
     quantize_rows_cuda.launches += 1
-    quantize_rows_cuda.launches_by_route[route] += 1
     return q, scale
 
 
 quantize_rows_cuda.launches = 0
-quantize_rows_cuda.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 def quantize_empty_cuda(blocks: int, threads: int):
-    """Launch an empty kernel on the current device as the wave route
-    launches (``blocks`` of ``threads``, programmatic dependent launch):
-    the launch's own cost.  Not a launch of the kernel: no counter
-    moves."""
+    """Launch an empty kernel on the current device as quantize launches
+    (``blocks`` of ``threads``, programmatic dependent launch): the
+    launch's own cost.  Not a launch of the kernel: no counter moves."""
     lib = _lib()
     rc = lib.quantize_empty_launch(blocks, threads,
                                    torch.cuda.current_stream().cuda_stream)

@@ -13,13 +13,13 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import _build, ops
 from repro_torch.kernels.flash_attention import (
     flash_attention_backward_cuda, flash_attention_backward_plain,
     flash_attention_backward_route, flash_attention_cuda,
     flash_attention_plain, flash_attention_route)
 from repro_torch.kernels.gram_volume import (
-    SPLITS as GRAM_SPLITS, gram_dots_plain, gram_log_volume_backward_cuda,
+    gram_dots_plain, gram_log_volume_backward_cuda,
     gram_log_volume_backward_from_dots_plain, gram_log_volume_cuda,
     gram_log_volume_plain, gram_log_volume_splits)
 from repro_torch.kernels.lora_matmul import (lora_matmul_cuda,
@@ -29,12 +29,12 @@ from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                  paged_attention_key_tile,
                                                  paged_attention_plain,
                                                  paged_attention_splits)
-from repro_torch.kernels.quantize import (dequantize_rows_cuda,
+from repro_torch.kernels.quantize import (BLOCKS_PER_SM, WARPS_PER_BLOCK,
+                                          dequantize_rows_cuda,
                                           dequantize_rows_plain,
                                           quantize_rows_cuda,
                                           quantize_rows_grid,
-                                          quantize_rows_plain,
-                                          quantize_rows_plan)
+                                          quantize_rows_plain)
 from repro_torch.kernels.ref import ssd_recurrent_ref
 from repro_torch.kernels.ssd_scan import (ssd_chunk_cuda, ssd_chunk_plain,
                                           ssd_chunk_route)
@@ -450,22 +450,33 @@ def _gram_grads_close(got, want, dtype, floor=None):
 
 
 def _gram_cancelled_scale(vs, mask, gout):
-    """A tenth of the size of the terms each sample's gradient cancels:
-    |gout| max_i (r_i (G~^-1)_ii) max_i (G~^-1)_ii (in f64).  The gradient
-    through the normalization subtracts terms of that size; what is left
-    can be smaller by the rows' cosine (k = 2, wide d) or by G~'s
-    condition (k = d = 8), while the two sides' dot products differ by
-    their summation order (~sqrt(d) 2^-24 relative), which that
+    """A tenth of the size, per element, of the terms each sample's
+    gradient cancels: |gout| max_i (r_i (G~^-1)_ii) max_i (G~^-1)_ii /
+    sqrt(d) (in f64; a row's elements are about |v| / sqrt(d)).  The
+    gradient through the normalization subtracts terms of that size; what
+    is left can be smaller by the rows' cosine (k = 2, wide d) or by G~'s
+    condition (k = d = 8), while in f32 the two sides' dot products differ
+    by their summation order (~sqrt(d) 2^-24 relative), which that
     cancellation leaves at the size of these terms, not of the result."""
     dots = gram_dots_plain(vs).double()
-    k = vs.shape[1]
+    k, d = vs.shape[1], vs.shape[2]
     rr = torch.rsqrt(torch.diagonal(dots, dim1=-2, dim2=-1) + 1e-12)
     eye = torch.eye(k, dtype=torch.float64, device=vs.device)
     pair = mask[..., :, None] & mask[..., None, :]
     g = torch.where(pair, dots * rr[..., :, None] * rr[..., None, :], eye)
     gi = torch.diagonal(torch.linalg.inv(g + 1e-5 * eye), dim1=-2, dim2=-1)
     return 0.1 * gout.abs().double() * (rr * gi * mask).amax(-1) \
-        * gi.amax(-1)
+        * gi.amax(-1) / d ** 0.5
+
+
+def _gram_floor(vs, mask, gout):
+    """The cancellation floor where f32 showed that noise (k = 2 over a
+    wide d, and k = d), else None: bf16, and every other shape, keep the
+    per-sample scaling alone."""
+    k, d = vs.shape[1], vs.shape[2]
+    if vs.dtype != torch.float32 or not ((k == 2 and d >= 1000) or k == d):
+        return None
+    return _gram_cancelled_scale(vs, mask, gout)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -487,10 +498,9 @@ def test_gram_kernel_backward_matches_plain_autograd(gen, dtype, B, k, d):
     assert torch.all(grads[0][masked] == 0)
 
 
-# (B, d): one sample over the widest d (every rank of S = 8), the CCL
-# loss's 80 candidate sets, a batch past two waves, d of one 16-byte step,
-# d no multiple of a vector
-GRAM_ROUTE_SHAPES = [(1, 4096), (80, 1280), (257, 1000), (80, 8), (3, 33)]
+# (B, d): one sample over the widest d, the CCL loss's 80 candidate sets, a
+# batch past two waves, d of one 16-byte step, d no multiple of a vector
+GRAM_SHAPES = [(1, 4096), (80, 1280), (257, 1000), (80, 8), (3, 33)]
 
 
 def _gram_dots_close(got, vs):
@@ -499,69 +509,102 @@ def _gram_dots_close(got, vs):
                                atol=1e-5 * float(want.abs().max()))
 
 
-@pytest.mark.parametrize("route", ["block", "warp"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("k", range(1, 9))
-@pytest.mark.parametrize("B,d", GRAM_ROUTE_SHAPES)
-def test_gram_routes_match_plain(gen, route, dtype, k, B, d):
-    """Both routes, forward and backward (the block route's from the
-    forward's saved dots), against the plain versions; masked rows get an
-    exactly zero gradient."""
+def _gram_case(gen, B, k, d, dtype):
+    """Inputs, the kernels' y, dots and dL/dvs (one launch each), and the
+    plain forward and autograd gradient on the same inputs."""
     vs, mask = _gram_inputs(gen, B, k, d, dtype) if B > 1 \
         else (torch.randn((B, k, d), generator=gen, device="cuda").to(dtype),
               torch.ones((B, k), dtype=torch.bool, device="cuda"))
     gout = torch.randn((B,), generator=gen, device="cuda")
-    with _routed(gram_log_volume_cuda, route), \
-            _routed(gram_log_volume_backward_cuda, route):
-        if route == "block":
-            y, dots = gram_log_volume_cuda(vs, mask, return_dots=True)
-            dvs = gram_log_volume_backward_cuda(vs, mask, gout, dots=dots)
-        else:
-            y = gram_log_volume_cuda(vs, mask, route="warp")
-            dvs = gram_log_volume_backward_cuda(vs, mask, gout, route="warp")
+    n = (gram_log_volume_cuda.launches, gram_log_volume_backward_cuda.launches)
+    y, dots = gram_log_volume_cuda(vs, mask, return_dots=True)
+    dvs = gram_log_volume_backward_cuda(vs, mask, gout, dots)
+    assert (gram_log_volume_cuda.launches,
+            gram_log_volume_backward_cuda.launches) == (n[0] + 1, n[1] + 1)
     torch.cuda.synchronize()
-    torch.testing.assert_close(y, gram_log_volume_plain(vs, mask),
-                               atol=1e-4, rtol=1e-4)
     v = vs.clone().requires_grad_(True)
     want = torch.autograd.grad(gram_log_volume_plain(v, mask), v, gout)[0]
-    if route == "block":
-        _gram_dots_close(dots, vs)
+    return vs, mask, gout, y, dots, dvs, gram_log_volume_plain(vs, mask), want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", range(1, 9))
+@pytest.mark.parametrize("B,d", GRAM_SHAPES)
+def test_gram_kernels_match_plain(gen, dtype, k, B, d):
+    """Forward and backward (from the forward's saved dots) against the
+    plain versions; masked rows get an exactly zero gradient."""
+    vs, mask, gout, y, dots, dvs, y_want, want = _gram_case(gen, B, k, d,
+                                                            dtype)
+    torch.testing.assert_close(y, y_want, atol=1e-4, rtol=1e-4)
+    _gram_dots_close(dots, vs)
     if k == 1:
         # one normalized row: y = log sqrt(1 + eps) whatever the row, so the
         # gradient is zero up to f32 noise (~1e-7 / |v|) on both sides
         assert float(dvs.float().abs().max()) < 1e-5
         assert float(want.float().abs().max()) < 1e-5
         return
-    floor = _gram_cancelled_scale(vs, mask, gout)
+    floor = _gram_floor(vs, mask, gout)
     _gram_grads_close(dvs, want, dtype, floor)
     assert torch.all(dvs[~mask] == 0)
-    if route == "block":
-        # the closed form from the kernel's own dots (C's diagonal is a
-        # difference of the same cancelled terms, rounded in another order)
-        _gram_grads_close(dvs, gram_log_volume_backward_from_dots_plain(
-            vs, dots, mask, gout), dtype, floor)
+    # the closed form from the kernel's own dots (C's diagonal is a
+    # difference of the same cancelled terms, rounded in another order)
+    _gram_grads_close(dvs, gram_log_volume_backward_from_dots_plain(
+        vs, dots, mask, gout), dtype, floor)
 
 
-@pytest.mark.parametrize("splits", GRAM_SPLITS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,k,d", [(80, 4, 1280), (5, 8, 4096), (9, 3, 33)])
-def test_gram_block_route_every_split(gen, splits, dtype, B, k, d):
-    vs, mask = _gram_inputs(gen, B, k, d, dtype)
-    gout = torch.randn((B,), generator=gen, device="cuda")
-    y, dots = gram_log_volume_cuda(vs, mask, splits=splits, return_dots=True)
-    dvs = gram_log_volume_backward_cuda(vs, mask, gout, dots=dots,
-                                        splits=splits)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(y, gram_log_volume_plain(vs, mask),
-                               atol=1e-4, rtol=1e-4)
+@pytest.mark.parametrize("k", [2, 4, 8])
+@pytest.mark.parametrize("B,d", GRAM_SHAPES)
+def test_gram_gradient_check_fails_a_planted_fault(gen, dtype, k, B, d):
+    """The gradient check of ``test_gram_kernels_match_plain``, floor
+    included, rejects the kernel's gradient scaled by 0.8."""
+    vs, mask, gout, _, _, dvs, _, want = _gram_case(gen, B, k, d, dtype)
+    with pytest.raises(AssertionError):
+        _gram_grads_close(dvs * 0.8, want, dtype,
+                          _gram_floor(vs, mask, gout))
+
+
+# (B, k, d, dtype, S forward, S backward): shapes at which
+# gram_log_volume_splits reaches every S of each pass (columns 4 and 5 each
+# hold 1, 2, 4 and 8), with 16-byte steps and single values (d = 4099),
+# even and uneven shares
+GRAM_SPLIT_SHAPES = [
+    (80, 4, 1280, torch.bfloat16, 1, 2),   # the round's CCL loss
+    (9, 3, 33, torch.float32, 1, 1),
+    (2, 4, 2048, torch.float32, 2, 8),
+    (3, 2, 2048, torch.float32, 2, 4),
+    (5, 8, 4096, torch.float32, 4, 8),
+    (1, 3, 4099, torch.float32, 4, 8),
+    (1, 2, 8192, torch.float32, 8, 8),
+    (1, 8, 16384, torch.bfloat16, 8, 8),
+]
+
+
+@pytest.mark.parametrize("B,k,d,dtype,s_fwd,s_bwd", GRAM_SPLIT_SHAPES)
+def test_gram_every_split(gen, B, k, d, dtype, s_fwd, s_bwd):
+    isz = torch.finfo(dtype).bits // 8
+    assert gram_log_volume_splits(B, k, d, isz) == s_fwd
+    assert gram_log_volume_splits(B, k, d, isz, backward=True) == s_bwd
+    vs, mask, gout, y, dots, dvs, y_want, want = _gram_case(gen, B, k, d,
+                                                            dtype)
+    torch.testing.assert_close(y, y_want, atol=1e-4, rtol=1e-4)
     _gram_dots_close(dots, vs)
-    v = vs.clone().requires_grad_(True)
-    want = torch.autograd.grad(gram_log_volume_plain(v, mask), v, gout)[0]
-    _gram_grads_close(dvs, want, dtype, _gram_cancelled_scale(vs, mask, gout))
+    _gram_grads_close(dvs, want, dtype, _gram_floor(vs, mask, gout))
     assert torch.all(dvs[~mask] == 0)
 
 
-def test_gram_block_route_misaligned_rows(gen):
+def test_gram_takes_a_batch_past_65535_blocks(gen):
+    """70,000 samples launch 70,000 blocks (more than a grid's y holds)
+    and match the plain versions."""
+    vs, mask, gout, y, dots, dvs, y_want, want = _gram_case(
+        gen, 70000, 4, 64, torch.float32)
+    assert gram_log_volume_splits(70000, 4, 64, 4) == 1
+    torch.testing.assert_close(y, y_want, atol=1e-4, rtol=1e-4)
+    _gram_dots_close(dots, vs)
+    _gram_grads_close(dvs, want, torch.float32)
+
+
+def test_gram_misaligned_rows(gen):
     """A batch that starts 4 bytes into its storage takes single-element
     loads (no 16-byte vector) and still matches."""
     B, k, d = 6, 4, 1280
@@ -571,42 +614,37 @@ def test_gram_block_route_misaligned_rows(gen):
     off.copy_(vs)
     gout = torch.randn((B,), generator=gen, device="cuda")
     y, dots = gram_log_volume_cuda(off, mask, return_dots=True)
-    dvs = gram_log_volume_backward_cuda(off, mask, gout, dots=dots)
+    dvs = gram_log_volume_backward_cuda(off, mask, gout, dots)
     torch.cuda.synchronize()
     torch.testing.assert_close(y, gram_log_volume_plain(vs, mask),
                                atol=1e-4, rtol=1e-4)
     v = vs.clone().requires_grad_(True)
     want = torch.autograd.grad(gram_log_volume_plain(v, mask), v, gout)[0]
-    _gram_grads_close(dvs, want, torch.float32,
-                      _gram_cancelled_scale(vs, mask, gout))
+    _gram_grads_close(dvs, want, torch.float32)
 
 
-def test_gram_autograd_takes_the_block_route(gen):
-    """``ops.gram_log_volume`` launches the block route's forward and, from
-    its saved dots, the block route's backward: once each."""
+def test_gram_autograd_launches_each_kernel_once(gen):
+    """``ops.gram_log_volume`` launches the forward and, from its saved
+    dots, the backward: once each."""
     vs, mask = _gram_inputs(gen, 80, 4, 1280, torch.bfloat16)
     v = vs.clone().requires_grad_(True)
-    with _routed(gram_log_volume_cuda, "block"), \
-            _routed(gram_log_volume_backward_cuda, "block"):
-        ops.gram_log_volume(v, mask).sum().backward()
-    assert gram_log_volume_splits(80, 4, 1280, 2) == 1
-    assert gram_log_volume_splits(80, 4, 1280, 2, backward=True) == 2
+    n = (gram_log_volume_cuda.launches, gram_log_volume_backward_cuda.launches)
+    ops.gram_log_volume(v, mask).sum().backward()
+    assert (gram_log_volume_cuda.launches,
+            gram_log_volume_backward_cuda.launches) == (n[0] + 1, n[1] + 1)
 
 
-def test_gram_routes_reject_what_they_do_not_take(gen):
+def test_gram_rejects_what_it_does_not_take(gen):
     vs, mask = _gram_inputs(gen, 4, 4, 64, torch.float32)
     gout = torch.ones((4,), device="cuda")
     n = (gram_log_volume_cuda.launches, gram_log_volume_backward_cuda.launches)
     with pytest.raises(ValueError, match="dots"):
-        gram_log_volume_backward_cuda(vs, mask, gout)
+        gram_log_volume_backward_cuda(vs, mask, gout,
+                                      torch.zeros((4, 4, 3), device="cuda"))
     with pytest.raises(ValueError, match="dots"):
-        gram_log_volume_cuda(vs, mask, route="warp", return_dots=True)
-    with pytest.raises(ValueError, match="splits"):
-        gram_log_volume_cuda(vs, mask, splits=3)
-    with pytest.raises(ValueError, match="splits"):
-        gram_log_volume_cuda(vs, mask, route="warp", splits=2)
-    with pytest.raises(ValueError, match="route 'mma'"):
-        gram_log_volume_cuda(vs, mask, route="mma")
+        gram_log_volume_backward_cuda(vs, mask, gout,
+                                      torch.zeros((4, 4, 4), device="cuda",
+                                                  dtype=torch.float64))
     with pytest.raises(ValueError, match="k=9"):
         gram_log_volume_cuda(torch.zeros((2, 9, 8), device="cuda"),
                              torch.ones((2, 9), dtype=torch.bool,
@@ -616,16 +654,16 @@ def test_gram_routes_reject_what_they_do_not_take(gen):
 
 
 def test_gram_and_quantize_in_a_cuda_graph(gen):
-    """The block route's forward and backward and the wave route's quantize
-    (all launched with programmatic dependent launch) capture into one
-    CUDA graph; a replay after the inputs change equals eager launches."""
+    """D's forward and backward and E (all launched with programmatic
+    dependent launch) capture into one CUDA graph; a replay after the
+    inputs change equals eager launches."""
     vs, mask = _gram_inputs(gen, 80, 4, 1280, torch.bfloat16)
     gout = torch.randn((80,), generator=gen, device="cuda")
     x = torch.randn((8640, 128), generator=gen, device="cuda")
 
     def run():
         y, dots = gram_log_volume_cuda(vs, mask, return_dots=True)
-        dvs = gram_log_volume_backward_cuda(vs, mask, gout, dots=dots)
+        dvs = gram_log_volume_backward_cuda(vs, mask, gout, dots)
         q, s = quantize_rows_cuda(x)
         return y, dots, dvs, q, s
 
@@ -860,18 +898,18 @@ def test_quantize_kernels_reject_what_they_do_not_take(gen):
 
 # (R, L): the uplink and downlink leaves (rows in registers), ragged rows,
 # rows past 32 vectors (one row per warp, read twice), tiny shapes
-QUANT_ROUTE_SHAPES = [(8640, 128), (2880, 128), (129, 131), (7, 3), (1, 257),
-                      (300, 256), (1000, 512), (50, 2048), (33, 1024)]
+QUANT_SHAPES = [(8640, 128), (2880, 128), (129, 131), (7, 3), (1, 257),
+                (300, 256), (1000, 512), (50, 2048), (33, 1024)]
 
 
-@pytest.mark.parametrize("route", ["wave", "warp"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("qmax", [127, 7])
-@pytest.mark.parametrize("R,L", QUANT_ROUTE_SHAPES)
-def test_quantize_routes_equal_plain_bitwise(gen, route, dtype, qmax, R, L):
+@pytest.mark.parametrize("R,L", QUANT_SHAPES)
+def test_quantize_equals_plain_bitwise(gen, dtype, qmax, R, L):
     x = _tile_rows(R, L, qmax, R + L + qmax).to(dtype).cuda()
-    with _routed(quantize_rows_cuda, route):
-        q, s = quantize_rows_cuda(x, qmax, route=route)
+    n = quantize_rows_cuda.launches
+    q, s = quantize_rows_cuda(x, qmax)
+    assert quantize_rows_cuda.launches == n + 1
     pq, ps = quantize_rows_plain(x, qmax)
     torch.cuda.synchronize()
     assert torch.equal(q, pq)
@@ -880,49 +918,68 @@ def test_quantize_routes_equal_plain_bitwise(gen, route, dtype, qmax, R, L):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_quantize_wave_route_around_one_wave(gen, dtype):
-    """R on either side of the wave route's one-wave boundary (where the
-    grid stops growing and the grid-stride loop takes the rest), bit for
-    bit."""
+def test_quantize_around_one_wave(gen, dtype):
+    """R on either side of the one-wave boundary (where the grid stops
+    growing and a warp holds 2 rows) and past two rows a warp (where the
+    grid-stride loop takes the rest), bit for bit."""
     L = 128
-    max_rpw, per_sm, warps = quantize_rows_plan(L, dtype, True)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    wave = warps * per_sm * n_sm      # warps of one wave: a row each
-    for R in (wave - 1, wave, wave + 1, max_rpw * wave + 3):
-        grid, rpw = quantize_rows_grid(R, max_rpw, per_sm, warps, n_sm)
-        assert grid == min(-(-R // warps), per_sm * n_sm)
-        assert rpw == (1 if R <= wave else 2 if R <= 2 * wave else max_rpw)
+    wave = WARPS_PER_BLOCK * BLOCKS_PER_SM * n_sm    # warps of one wave
+    for R in (wave - 1, wave, wave + 1, 2 * wave + 3):
+        grid, rpw = quantize_rows_grid(R, True, n_sm)
+        assert grid == min(-(-R // WARPS_PER_BLOCK), BLOCKS_PER_SM * n_sm)
+        assert rpw == (1 if R <= wave else 2)
         x = _tile_rows(R, L, 127, R).to(dtype).cuda()
-        q, s = quantize_rows_cuda(x, route="wave")
+        q, s = quantize_rows_cuda(x)
         pq, ps = quantize_rows_plain(x)
         torch.cuda.synchronize()
         assert torch.equal(q, pq), R
         assert torch.equal(_bits(s), _bits(ps)), R
 
 
-def test_quantize_wave_route_misaligned_rows(gen):
+def test_quantize_kernel_fits_its_blocks_an_sm(gen):
+    """Every instance of the quantize kernel compiles to at most the
+    registers that let ``BLOCKS_PER_SM`` blocks of ``WARPS_PER_BLOCK``
+    warps share an SM's 65,536 (its launch bounds), so the grid rule's
+    one wave is resident at once.  (Under that cap ptxas may spill a few
+    bytes around the IEEE division's slow path; chip_smoke.py reports
+    them.)"""
+    import re
+    quantize_rows_cuda(torch.zeros((8, 128), device="cuda"))
+    log, entry, seen = _build.build_log("quantize"), None, {}
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            # (not dequantize_rows_kernel: its length prefix differs)
+            entry = m.group(1) if re.search(r"\dquantize_rows_kernelI",
+                                            m.group(1)) else None
+            continue
+        hit = entry and re.search(r"Used (\d+) registers", line)
+        if hit:
+            seen[entry] = int(hit.group(1))
+    assert len(seen) == 8       # 2 dtypes x (1, 2 rows in registers, 2 not)
+    cap = 65536 // (BLOCKS_PER_SM * WARPS_PER_BLOCK * 32)
+    assert max(seen.values()) <= cap, seen
+
+
+def test_quantize_misaligned_rows(gen):
     """Rows that start 4 bytes into their storage take single-element
     loads and stay bit for bit."""
     R, L = 515, 128
     x = _tile_rows(R, L, 127, 3).cuda()
     off = torch.empty(R * L + 1, device="cuda")[1:].view(R, L)
     off.copy_(x)
-    q, s = quantize_rows_cuda(off, route="wave")
+    q, s = quantize_rows_cuda(off)
     pq, ps = quantize_rows_plain(x)
     torch.cuda.synchronize()
     assert torch.equal(q, pq) and torch.equal(_bits(s), _bits(ps))
 
 
-def test_quantize_routes_count_and_reject(gen):
+def test_quantize_counts_its_launches(gen):
     x = torch.randn((64, 128), generator=gen, device="cuda")
-    with _routed(quantize_rows_cuda, "wave"):
-        ops.quantize(x)
-    with _routed(quantize_rows_cuda, "warp"):
-        quantize_rows_cuda(x, route="warp")
     n = quantize_rows_cuda.launches
-    with pytest.raises(ValueError, match="route 'mma'"):
-        quantize_rows_cuda(x, route="mma")
-    assert quantize_rows_cuda.launches == n
+    ops.quantize(x)
+    assert quantize_rows_cuda.launches == n + 1
 
 
 # ---------------------------------------------------------------------------

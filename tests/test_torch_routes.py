@@ -2,11 +2,10 @@
 
 Kernels C (``lora_matmul``), B (forward and backward), G (``ssd_chunk``)
 and A (``paged_attention``) each have a tensor-core route and an f32 FMA
-route; D (``gram_log_volume``) and E (``quantize_rows``) a redesigned
-route ("block", "wave") beside the kernel it replaced ("warp", only when
-forced).  A pure function of dtypes, shapes and offsets picks one before
-the launch; A's and D's splits and E's grid are pure functions of shapes.
-These
+route.  A pure function of dtypes, shapes and offsets picks one before
+the launch; A's and D's (``gram_log_volume``) splits and E's
+(``quantize_rows``) grid are pure functions of shapes, and D and E check
+their inputs before anything else.  These
 tests read only metadata (meta tensors), so they run without a card.  The
 CUDA libraries are content-addressed by the source, the headers it
 includes and the flags, and every C function is bound with its exact
@@ -17,16 +16,19 @@ import ctypes
 import pytest
 import torch
 
-from repro_torch.kernels import _build, _route
+from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import (
     flash_attention_backward_route, flash_attention_route)
 from repro_torch.kernels.lora_matmul import lora_matmul_route
 from repro_torch.kernels.paged_attention import (SPLITS, paged_attention_route,
                                                  paged_attention_splits)
 from repro_torch.kernels.gram_volume import (SPLITS as GRAM_SPLITS,
-                                             gram_log_volume_route,
+                                             gram_log_volume_backward_cuda,
+                                             gram_log_volume_cuda,
                                              gram_log_volume_splits)
-from repro_torch.kernels.quantize import quantize_route, quantize_rows_grid
+from repro_torch.kernels.quantize import (BLOCKS_PER_SM, WARPS_PER_BLOCK,
+                                          quantize_rows_cuda,
+                                          quantize_rows_grid)
 from repro_torch.kernels.ssd_scan import ssd_chunk_route
 
 BF16, F32 = torch.bfloat16, torch.float32
@@ -305,9 +307,14 @@ def test_paged_forced_split_and_route_must_take_the_inputs():
 
 @pytest.mark.parametrize("k", range(1, 9))
 @pytest.mark.parametrize("dtype", [BF16, F32])
-def test_gram_takes_the_block_route(k, dtype):
+def test_gram_takes_every_k_and_dtype_up_to_the_device(k, dtype):
+    """Inputs the kernels take pass every check but the device's."""
     vs, mask = meta(80, k, 1280, dtype=dtype), meta(80, k, dtype=torch.bool)
-    assert gram_log_volume_route(vs, mask) == "block"
+    with pytest.raises(ValueError, match="CUDA device"):
+        gram_log_volume_cuda(vs, mask)
+    with pytest.raises(ValueError, match="CUDA device"):
+        gram_log_volume_backward_cuda(vs, mask, meta(80, dtype=F32),
+                                      meta(80, k, k, dtype=F32))
 
 
 @pytest.mark.parametrize("args,err", [
@@ -319,9 +326,15 @@ def test_gram_takes_the_block_route(k, dtype):
     (lambda: (meta(4, 4, 64, dtype=torch.float16),
               meta(4, 4, dtype=torch.bool)), TypeError),
 ])
-def test_gram_route_raises_on_bad_inputs(args, err):
-    with pytest.raises(err):
-        gram_log_volume_route(*args())
+def test_gram_raises_on_bad_inputs(args, err):
+    n = (gram_log_volume_cuda.launches, gram_log_volume_backward_cuda.launches)
+    with pytest.raises(err, match="^(?!.*CUDA device)"):
+        gram_log_volume_cuda(*args())
+    with pytest.raises(err, match="^(?!.*CUDA device)"):
+        gram_log_volume_backward_cuda(*args(), meta(4, dtype=F32),
+                                      meta(4, 4, 4, dtype=F32))
+    assert (gram_log_volume_cuda.launches,
+            gram_log_volume_backward_cuda.launches) == n
 
 
 @pytest.mark.parametrize("backward", [False, True])
@@ -364,9 +377,12 @@ def test_gram_splits_at_the_main_shapes():
 
 
 @pytest.mark.parametrize("dtype", [BF16, F32])
-def test_quantize_takes_the_wave_route(dtype):
-    assert quantize_route(meta(8640, 128, dtype=dtype)) == "wave"
-    assert quantize_route(meta(7, 3, dtype=dtype), 7) == "wave"
+def test_quantize_takes_both_dtypes_up_to_the_device(dtype):
+    """Inputs the kernel takes pass every check but the device's."""
+    for x, qmax in ((meta(8640, 128, dtype=dtype), 127),
+                    (meta(7, 3, dtype=dtype), 7)):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            quantize_rows_cuda(x, qmax)
 
 
 @pytest.mark.parametrize("args,err", [
@@ -375,68 +391,40 @@ def test_quantize_takes_the_wave_route(dtype):
     (lambda: (meta(4, 8), 0), ValueError),                      # qmax
     (lambda: (meta(4, 8), 128), ValueError),
 ])
-def test_quantize_route_raises_on_bad_inputs(args, err):
-    with pytest.raises(err):
-        quantize_route(*args())
+def test_quantize_raises_on_bad_inputs(args, err):
+    n = quantize_rows_cuda.launches
+    with pytest.raises(err, match="^(?!.*CUDA tensor)"):
+        quantize_rows_cuda(*args())
+    assert quantize_rows_cuda.launches == n
 
 
-@pytest.mark.parametrize("R,max_rpw,per_sm,warps,want", [
-    (8640, 4, 8, 8, (1056, 2)),     # the uplink leaf: a row a warp overflows
-    (8640, 4, 5, 8, (660, 2)),      # ... a wave of 5 blocks an SM too
-    (8640, 4, 4, 16, (528, 2)),     # blocks of 16 warps
-    (2880, 4, 8, 8, (360, 1)),      # the downlink leaf: a row a warp
-    (8448, 4, 8, 8, (1056, 1)),     # exactly one wave of one row a warp
-    (8449, 4, 8, 8, (1056, 2)),     # one row past it
-    (10 ** 6, 4, 4, 8, (528, 4)),   # past 4 rows a warp: grid-stride steps
-    (10 ** 5, 1, 8, 8, (1056, 1)),  # long rows: one row a warp, always
-    (1, 4, 8, 8, (1, 1)), (0, 4, 8, 8, (1, 1)),   # tiny and empty
+@pytest.mark.parametrize("R,in_registers,n_sm,want", [
+    (8640, True, 132, (1056, 2)),   # the uplink leaf: a row a warp overflows
+    (8640, True, 78, (624, 2)),     # ... on a card with fewer SMs
+    (2880, True, 132, (360, 1)),    # the downlink leaf: a row a warp
+    (8448, True, 132, (1056, 1)),   # exactly one wave of one row a warp
+    (8449, True, 132, (1056, 2)),   # one row past it
+    (10 ** 6, True, 132, (1056, 2)),   # past 2 rows a warp: grid-stride
+    (10 ** 5, False, 132, (1056, 1)),  # long rows: one row a warp, always
+    (1, True, 132, (1, 1)), (0, True, 132, (1, 1)),   # tiny and empty
 ])
-def test_quantize_grid_is_at_most_one_wave(R, max_rpw, per_sm, warps, want):
-    grid, rpw = quantize_rows_grid(R, max_rpw, per_sm, warps, 132)
+def test_quantize_grid_is_at_most_one_wave(R, in_registers, n_sm, want):
+    grid, rpw = quantize_rows_grid(R, in_registers, n_sm)
     assert (grid, rpw) == want
-    assert 1 <= grid <= per_sm * 132 and rpw in (1, 2, 4) and rpw <= max_rpw
+    assert 1 <= grid <= BLOCKS_PER_SM * n_sm and rpw in (1, 2)
+    assert rpw == 1 or in_registers
     # one step of the grid covers R, unless the grid is a full wave of
     # warps that hold all the rows they may
-    assert grid * warps * rpw >= R \
-        or (grid == per_sm * 132 and rpw == max_rpw)
-    # no smaller power of two would cover R with this grid
-    assert rpw == 1 or grid * warps * (rpw // 2) < R
+    assert grid * WARPS_PER_BLOCK * rpw >= R \
+        or (grid == BLOCKS_PER_SM * n_sm and rpw == (2 if in_registers
+                                                    else 1))
+    # one row a warp where that covers R
+    assert rpw == 1 or grid * WARPS_PER_BLOCK < R
 
 
-@pytest.mark.parametrize("bad", [(0, 8, 8), (4, 0, 8), (4, 8, 0)])
-def test_quantize_grid_raises_on_an_empty_plan(bad):
+def test_quantize_grid_raises_without_sms():
     with pytest.raises(ValueError):
-        quantize_rows_grid(100, *bad)
-
-
-def test_pick_takes_the_universal_route_it_is_given():
-    assert _route.pick("block", None, universal="warp") == "block"
-    assert _route.pick("block", "warp", universal="warp") == "warp"
-    assert _route.pick("mma", "fma") == "fma"
-    for route in ("fma", "mma", "wave"):
-        with pytest.raises(ValueError, match=f"route {route!r}"):
-            _route.pick("block", route, universal="warp")
-
-
-def test_gram_and_quantize_forced_routes_must_take_the_inputs():
-    """A route neither kernel has raises before any launch (D and E on
-    meta tensors never reach the card)."""
-    from repro_torch.kernels.gram_volume import (
-        gram_log_volume_backward_cuda, gram_log_volume_cuda)
-    from repro_torch.kernels.quantize import quantize_rows_cuda
-    vs, mask = meta(8, 4, 64), meta(8, 4, dtype=torch.bool)
-    n = (gram_log_volume_cuda.launches, gram_log_volume_backward_cuda.launches,
-         quantize_rows_cuda.launches)
-    with pytest.raises(ValueError, match="route 'fma'"):
-        gram_log_volume_cuda(vs, mask, route="fma")
-    with pytest.raises(ValueError, match="route 'wave'"):
-        gram_log_volume_backward_cuda(vs, mask, meta(8, dtype=F32),
-                                      route="wave")
-    with pytest.raises(ValueError, match="route 'block'"):
-        quantize_rows_cuda(meta(8, 128), route="block")
-    assert (gram_log_volume_cuda.launches,
-            gram_log_volume_backward_cuda.launches,
-            quantize_rows_cuda.launches) == n
+        quantize_rows_grid(100, True, 0)
 
 
 def test_library_path_follows_included_headers(tmp_path):

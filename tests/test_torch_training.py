@@ -545,7 +545,7 @@ def test_kernel_autograd_wrappers_with_plain_launches(monkeypatch):
         y = gv.gram_log_volume_plain(vs, mask, eps)
         return (y, gv.gram_dots_plain(vs)) if return_dots else y
 
-    def gram_bwd_launch(vs, mask, gout, eps=1e-5, dots=None):
+    def gram_bwd_launch(vs, mask, gout, dots, eps=1e-5):
         return gv.gram_log_volume_backward_from_dots_plain(vs, dots, mask,
                                                            gout, eps)
     monkeypatch.setattr(lm, "lora_matmul_cuda", lora_launch)
