@@ -62,7 +62,25 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    uploads against their quantization steps, the devices' copies of the
    decoded downlink and every launch counter, E and F included, and the
    tensor-core routes of C and B, into a ``{"channel": ...}`` line;
-9. serves 24 soft-prompted requests each on ``mamba2-2.7b`` (prompts of
+9. runs two rounds (evaluation on the second) of a heterogeneous
+   federation through ``FederatedRunner(FederationSpec(...))`` on the loop
+   engine at full width: 3 + 2 clients on ``mlecs-slm-720m`` (modalities
+   0-1; modality 2 at rho 0.9 and batch 4) and 2 on ``qwen3-1.7b`` (28
+   layers, 16 heads over 8 KV heads of 128), ``mlecs-llm-6b`` on the
+   server, every model with a 1280-wide connector latent; trimmed-mean
+   MMA under dropout, stragglers and one Byzantine client scaling its
+   upload by 10.  Checks finite metrics, offline clients untouched and
+   present ones moved, the frozen backbones shared and unwritten, the
+   server SLM's aggregate against a float64 host recomputation of the
+   trimmed cross-cohort combine of the same uploads (to bf16 rounding),
+   the bytes on the wire per present client and cohort, exact launch
+   counts from the step structure and the tensor-core routes; then
+   ``CohortServer`` serves 8 soft-prompted requests a cohort from the
+   trained parameters (merged), checks budgets, free lists and the A / B
+   launch counts, holds qwen3's prefill -> decode logits against a full
+   forward, and times A at qwen3's fullest decode step; prints a
+   ``{"heterogeneous_round": ...}`` line;
+10. serves 24 soft-prompted requests each on ``mamba2-2.7b`` (prompts of
    20-700 tokens, no pages) and ``hymba-1.5b`` (20-1200, the window
    bites) at full width, checks budgets, free lists and exact launch
    counts (G 64 per mamba2 admission; B and G 32 per hymba admission,
@@ -74,16 +92,17 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    profiles an
    admission tick and four decode steps, and prints ``{"ssm_serving":
    ...}`` and ``{"hybrid_serving": ...}`` lines;
-10. prints ``{"phase_seconds": ...}`` and a ``{"kernels": [...]}`` line
+11. prints ``{"phase_seconds": ...}`` and a ``{"kernels": [...]}`` line
    (times from CUDA-graph replay, bounds from this run's inputs; rows
    A-G, each with its launches on the main paths; the rows of the five
    two-route kernels, A, B, B's backward, C and G, also time their FMA
    route on the same inputs, ``ms_fma_route``; the rows of D (forward and
    backward) and E time an empty kernel launched as the kernel launches,
    ``launch_floor_ms``, replayed in turn with it (D's rows also one wide
-   sample, at the split the rule picks for it); row A, at the SLM's and
-   (``at_other_shapes.hybrid``) hymba's fullest decode step, also times
-   every forced cluster size, ``ms_by_splits`` and ``ms_splits1``).
+   sample, at the split the rule picks for it); row A, at the SLM's,
+   hymba's and qwen3's fullest decode step (``at_other_shapes``), also
+   times every forced cluster size, ``ms_by_splits`` and ``ms_splits1``;
+   rows B, B's backward and C also at qwen3's training shapes).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero and prints no result; it also exits
@@ -302,7 +321,8 @@ def paged_case(gen, B, H, K, D, ps, M, dtype, window=0, idle=True,
 
 # A's cases: the SLM's and hymba's decode (hymba: H 25 in 5 KV groups, the
 # local layers' 1024 window and the global layers' none, lens up to 1280),
-# one slot of 4,096 keys, GQA with a window, D 256
+# one slot of 4,096 keys, GQA with a window, D 256, and qwen3's cohort
+# serving (16 heads over 8 KV groups of D 128, 8 slots of up to 21 pages)
 PAGED_CASES = {
     "slm": dict(B=16, H=20, K=20, D=64, ps=16, M=32),
     "slm_window": dict(B=16, H=20, K=20, D=64, ps=16, M=32, window=100),
@@ -312,6 +332,7 @@ PAGED_CASES = {
     "hymba_global": dict(B=16, H=25, K=5, D=64, ps=16, M=80),
     "one_slot_4096": dict(B=1, H=20, K=20, D=64, ps=16, M=256,
                           lens=[4096]),
+    "qwen3": dict(B=8, H=16, K=8, D=128, ps=16, M=21),
 }
 
 
@@ -797,9 +818,12 @@ def phase_numbers(engine, snap):
     llm = round_models()[1]
     s_round = cfg.n_soft_tokens + CORPUS["seq_len"]
     main = b_case(1, cfg.n_soft_tokens + 256, H, K, D)
+    qwen = het_models()[1]
     others = {"round_slm": b_case(8, s_round, H, K, D),
               "round_llm": b_case(8, s_round, llm.n_heads, llm.n_kv_heads,
-                                  llm.head_dim)}
+                                  llm.head_dim),
+              "round_qwen3": b_case(8, s_round, qwen.n_heads,
+                                    qwen.n_kv_heads, qwen.head_dim)}
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -863,10 +887,10 @@ def grad_rows(name, got, want, tol):
 def phase_flash_grad_check():
     """B's forward, log-sum-exp and backward kernels against the plain
     versions: the explicit backward formulas on the kernel's own output
-    and log-sum-exp, and the plain forward's autograd.  The round's
-    shapes (batch 8, 8 soft + 128 tokens, the SLM's 20 heads of 64 and the
-    LLM's 16 of 256) and a GQA case with a window, Sq < Sk and a ragged S;
-    bf16 and f32."""
+    and log-sum-exp, and the plain forward's autograd.  The rounds' shapes
+    (batch 8, 8 soft + 128 tokens: the SLM's 20 heads of 64, the LLM's 16
+    of 256 and qwen3's 16 over 8 KV heads of 128) and a GQA case with a
+    window, Sq < Sk and a ragged S; bf16 and f32."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import (
@@ -876,6 +900,7 @@ def phase_flash_grad_check():
     gen = torch.Generator(device="cuda").manual_seed(6)
     cases = {"slm": dict(B=8, Sq=136, Sk=136, H=20, K=20, D=64, window=0),
              "llm": dict(B=8, Sq=136, Sk=136, H=16, K=16, D=256, window=0),
+             "qwen3": dict(B=8, Sq=136, Sk=136, H=16, K=8, D=128, window=0),
              "gqa_window": dict(B=3, Sq=57, Sk=131, H=8, K=2, D=64,
                                 window=45)}
     results, routes = {}, {}
@@ -1034,8 +1059,9 @@ def lora_inputs(gen, M, K, N, r, dtype, trans_w=False):
 
 
 def phase_lora_checks():
-    """C against its plain version on both routes: the SLM's and the LLM's
-    projections at the training M = 8 x 136, ragged M/N/K (bf16 with K, N
+    """C against its plain version on both routes: the SLM's, the LLM's and
+    qwen3's projections (and qwen3's dx) at the training M = 8 x 136,
+    ragged M/N/K (bf16 with K, N
     multiples of 8 on the wgmma route; others on the FMA route), ranks 8
     and 16, the transposed-W mode of the backward, the FMA route forced
     at the LLM's shape, and the autograd gradients (dx, dA, dB).  Each
@@ -1048,6 +1074,8 @@ def phase_lora_checks():
     gen = torch.Generator(device="cuda").manual_seed(7)
     cases = {"slm_proj": (1088, 1280, 1280, 8),
              "llm_proj": (1088, 4096, 4096, 8),
+             "qwen3_q_o": (1088, 2048, 2048, 8),
+             "qwen3_k_v": (1088, 2048, 1024, 8),
              "ragged_aligned": (1001, 1288, 776, 16),
              "ragged": (1001, 1283, 771, 8)}
     results, routes = {}, {}
@@ -1082,6 +1110,16 @@ def phase_lora_checks():
         torch.cuda.synchronize()
         results[f"transposed_w/{dt}"] = check_close(
             f"lora transposed/{dt}", got, want, tol)
+        # qwen3's dx: wq / wo (2048 -> 2048) and wk / wv (1024 -> 2048)
+        for name, (K, N) in {"qwen3_dx_q_o": (2048, 2048),
+                             "qwen3_dx_k_v": (1024, 2048)}.items():
+            dy, wt, bt, at = lora_inputs(gen, 1088, K, N, 8, dtype,
+                                         trans_w=True)
+            got = launch(f"{name}/{dt}", dy, wt, bt, at, 2.0, trans_w=True)
+            want = lora_matmul_plain(dy, wt.t(), bt, at, 2.0)
+            torch.cuda.synchronize()
+            results[f"{name}/{dt}"] = check_close(f"lora {name}/{dt}", got,
+                                                  want, tol)
         # gradients through autograd at the SLM shape
         x, w, a, b = lora_inputs(gen, 1088, 1280, 1280, 8, dtype)
         g = torch.randn((1088, 1280), generator=gen, device="cuda").to(dtype)
@@ -1256,38 +1294,49 @@ def check_tensor_core_routes(tag):
 
 def expected_round_launches(runner, evaluate=True):
     """Launches of every kernel in one round (evaluated or not), from the
-    step structure.  A trained pass of an L-layer model launches C 4L
-    times forward, 4L more when ``remat`` recomputes the layers in the
-    backward, and 4L for dx (3 fewer on a raw batch: layer 0's wq/wk/wv
-    inputs are the frozen embedding, which needs no gradient); B L times
-    forward, L more under remat, and its backward L times.  Each CCL loss
-    launches D once forward and once backward.  An eval batch is one
-    forward without autograd: 4L C and L B.  A quantized channel encodes
-    each of the K LoRA leaves once on the uplink and once on the downlink
-    (E 2K) and decodes each of them on both (F 2K), plus once more for
-    the uplink's error feedback (F 3K)."""
-    cfg, s, l = runner.cfg, runner.slm.cfg, runner.llm.cfg
+    step structure, cohort by cohort (each cohort's model, batch size and
+    step counts; only the round's present clients train).  A trained pass
+    of an L-layer model launches C 4L times forward, 4L more when
+    ``remat`` recomputes the layers in the backward, and 4L for dx (3
+    fewer on a raw batch: layer 0's wq/wk/wv inputs are the frozen
+    embedding, which needs no gradient); B L times forward, L more under
+    remat, and its backward L times.  Each CCL loss launches D once
+    forward and once backward.  The server's passes run the LLM and the
+    server SLM.  An eval batch is one forward without autograd: 4L C and
+    L B.  A quantized channel encodes each of a cohort's K LoRA leaves
+    once on the uplink and once on the downlink (E 2K) and decodes each
+    of them on both (F 2K), plus once more for the uplink's error
+    feedback (F 3K)."""
+    cfg, spec, l = runner.cfg, runner.spec, runner.llm.cfg
+    s = runner._srv_slm_bundle.cfg
+    pres = runner._rnd_present
 
     def trained(mc, prefix):
         rem = 2 if mc.remat else 1
         L = mc.n_layers
         return 4 * L * rem + 4 * L - (0 if prefix else 3), L * rem
 
-    bs = cfg.batch_size
-    client_batches = sum(-(-t["tokens"].shape[0] // bs)
-                         for t in runner.priv_test)
-    server_batches = -(-runner.public_test["tokens"].shape[0] // bs)
-    device_steps = cfg.n_devices * (cfg.local_steps_ccl + cfg.local_steps_amt)
-    passes = [(s, True)] * device_steps + cfg.server_steps * [
-        (l, True), (l, False), (s, True), (s, False)]
+    passes, d, k, evals = [], cfg.server_steps, 0, []
+    for rt in runner.cohorts:
+        m = rt.bundle.cfg
+        n = rt.n if pres is None else int(pres[rt.slice].sum())
+        k_ccl = spec.cohort_steps_ccl(rt.idx)
+        passes += [(m, True)] * n * (k_ccl + spec.cohort_steps_amt(rt.idx))
+        d += n * k_ccl
+        bs = spec.cohort_batch_size(rt.idx)
+        evals.append((m, sum(-(-runner.priv_test[j]["tokens"].shape[0] // bs)
+                             for j in range(rt.offset, rt.offset + rt.n))))
+        k += len(rt.up_like) if not runner.channel.is_identity else 0
+    evals.append((l, -(-runner.public_test["tokens"].shape[0]
+                      // cfg.batch_size)))
+    passes += cfg.server_steps * [(l, True), (l, False), (s, True),
+                                  (s, False)]
     c = sum(trained(m, p)[0] for m, p in passes)
     b = sum(trained(m, p)[1] for m, p in passes)
     b_bwd = sum(m.n_layers for m, _ in passes)
     if evaluate:
-        c += 4 * (s.n_layers * client_batches + l.n_layers * server_batches)
-        b += s.n_layers * client_batches + l.n_layers * server_batches
-    d = cfg.n_devices * cfg.local_steps_ccl + cfg.server_steps
-    k = len(runner.up_like) if not runner.channel.is_identity else 0
+        c += sum(4 * m.n_layers * n for m, n in evals)
+        b += sum(m.n_layers * n for m, n in evals)
     return {"paged_attention": 0, "flash_attention": b,
             "flash_attention_backward": b_bwd, "lora_matmul": c,
             "gram_log_volume": d, "gram_log_volume_backward": d,
@@ -1568,7 +1617,11 @@ def training_kernel_rows():
     main = c_case(1088, 4096, 4096, 8, False)
     others = {"slm_forward": c_case(1088, 1280, 1280, 8, False),
               "slm_dx_transposed_w": c_case(1088, 1280, 1280, 8, True),
-              "llm_dx_transposed_w": c_case(1088, 4096, 4096, 8, True)}
+              "llm_dx_transposed_w": c_case(1088, 4096, 4096, 8, True),
+              "qwen3_q_o_forward": c_case(1088, 2048, 2048, 8, False),
+              "qwen3_k_v_forward": c_case(1088, 2048, 1024, 8, False),
+              "qwen3_q_o_dx": c_case(1088, 2048, 2048, 8, True),
+              "qwen3_k_v_dx": c_case(1088, 1024, 2048, 8, True)}
     rows.append({
         "name": "lora_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/lora_matmul.cu",
@@ -1923,11 +1976,15 @@ def channel_kernel_rows():
         "library_ms": lib, "library_call": "torch.mul(q, scale[:, None])",
         "shape": {"R": R, "L": L, "dtype": "int8 -> float32"}})
 
-    # B's backward at the LLM's and the SLM's training shapes (bf16)
-    def b_case(B, S, H, D):
+    # B's backward at the LLM's, the SLM's and qwen3's training shapes
+    # (bf16; qwen3's 16 query heads over 8 KV heads)
+    def b_case(B, S, H, D, K=None):
         dt = torch.bfloat16
-        q, k, v, do = (torch.randn((B, S, H, D), generator=gen,
-                                   device="cuda").to(dt) for _ in range(4))
+        K = K or H
+        q, do = (torch.randn((B, S, H, D), generator=gen,
+                             device="cuda").to(dt) for _ in range(2))
+        k, v = (torch.randn((B, S, K, D), generator=gen,
+                            device="cuda").to(dt) for _ in range(2))
         o, lse = flash_attention_cuda(q, k, v, True, BIG_WINDOW,
                                       with_lse=True)
         args = (q, k, v, o, do, lse, True, BIG_WINDOW)
@@ -1954,8 +2011,9 @@ def channel_kernel_rows():
                                                       dot))
         fwd = graph_ms(sdpa)
         es = q.element_size()
-        n = B * S * H * D
-        bytes_ = 5 * n * es + B * H * S * 4 + 3 * n * es
+        n, nk = B * S * H * D, B * S * K * D
+        # read q, k, v, o, do and lse; write dq, dk, dv
+        bytes_ = (3 * n + 2 * nk) * es + B * H * S * 4 + (n + 2 * nk) * es
         flops = 10 * D * B * H * S * (S + 1) // 2
         bound, by = _bound(bytes_, flops)
         return {"ms": ms, "ms_fma_route": fma, "kernel_route": route,
@@ -1964,7 +2022,7 @@ def channel_kernel_rows():
                 "bound_ms": bound, "bound_by": by,
                 "max_abs_err": err["max_abs_err"],
                 "max_rel_err": err["max_rel_err"],
-                "shape": {"B": B, "S": S, "H": H, "K": H, "D": D,
+                "shape": {"B": B, "S": S, "H": H, "K": K, "D": D,
                           "dtype": str(dt)}}
 
     main = b_case(8, 136, 16, 256)
@@ -1982,8 +2040,437 @@ def channel_kernel_rows():
                         "3 of the gradient)",
         "library_call": "scaled_dot_product_attention(enable_gqa=True): "
                         "forward + backward less the forward",
-        "at_other_shapes": {"slm": b_case(8, 136, 20, 64)}})
+        "at_other_shapes": {"slm": b_case(8, 136, 20, 64),
+                            "qwen3": b_case(8, 136, 16, 128, K=8)}})
     return rows
+
+# ---------------------------------------------------------------------------
+# phase 8b: heterogeneous cohorts under client faults, then CohortServer
+
+HET_ROUNDS = 2
+HET_FAULTS = dict(dropout=0.2, straggler=0.2, max_delay=2, byzantine=0.15,
+                  attack="scaled_update", attack_scale=10.0, seed=3)
+HET_TRIM = 0.2
+HET_SERVE_REQUESTS = 8
+
+
+def het_models():
+    """SLM', QWEN' and LLM': the paper's SLM, qwen3-1.7b and the paper's
+    LLM at their published widths and depths, each with the one 1280-wide
+    connector latent the reference demands of every model of a federation
+    (qwen3 also with the SLM's modality width, soft tokens and LoRA rank;
+    its backbone is unchanged)."""
+    from repro_torch.configs.qwen3_1p7b import CONFIG as QWEN
+    slm, llm = round_models()
+    qwen = dataclasses.replace(QWEN, connector_dim=1280, modality_dim=256,
+                               n_soft_tokens=8, lora_rank=8)
+    return slm, qwen, llm
+
+
+def het_spec():
+    """Three cohorts: 3 SLM' clients on modalities 0-1, 2 SLM' clients on
+    modality 2 (rho 0.9, batch 4), 2 QWEN' clients; LLM' on the server.
+    Trimmed-mean MMA under dropout, stragglers and one Byzantine client
+    that scales its upload by 10."""
+    from repro_torch.core.spec import ClientCohort, FaultSpec, FederationSpec
+    slm, qwen, llm = het_models()
+    return FederationSpec(
+        cohorts=(ClientCohort(slm, 3, "av-edge", modalities=(0, 1)),
+                 ClientCohort(slm, 2, "sub-edge", modalities=(2,), rho=0.9,
+                              batch_size=4),
+                 ClientCohort(qwen, 2, "qwen-edge")),
+        server_llm=llm, rounds=HET_ROUNDS, local_steps_ccl=1,
+        local_steps_amt=1, server_steps=1, engine="loop", seed=0,
+        robust="trimmed_mean", trim_frac=HET_TRIM,
+        faults=FaultSpec(**HET_FAULTS))
+
+
+def trimmed_combine_f64(payloads, weights, contrib, shared, trim_frac):
+    """The cross-cohort trimmed mean of the shared keys, recomputed on the
+    host in float64 from the uploads the server received: per key, the
+    sharing cohorts' clients in cohort order, the absent and late ones
+    out, k = min(floor(trim_frac m), floor((m - 1) / 2)) values dropped
+    from each end per coordinate (stable ranks: ties keep client order),
+    the kept values averaged under their weights.  Returns {key: (ref,
+    scale, k)}, scale the weighted mean of |kept values|."""
+    import numpy as np
+    parts = {}
+    for c, ks in enumerate(shared):
+        for k in ks:
+            parts.setdefault(k, []).append(c)
+    out = {}
+    for k, cs in sorted(parts.items()):
+        x = np.concatenate([payloads[c][k].float().cpu().numpy()
+                            for c in cs]).astype(np.float64)
+        w = np.concatenate([weights[c] for c in cs]).astype(np.float64)
+        p = np.concatenate([contrib[c] for c in cs]).astype(bool)
+        if not (w * p).sum() > 0.0:
+            continue
+        m = int(p.sum())
+        kk = min(math.floor(trim_frac * m), (m - 1) // 2)
+        pb = p.reshape((-1,) + (1,) * (x.ndim - 1))
+        order = np.argsort(np.where(pb, x, np.inf), axis=0, kind="stable")
+        ranks = np.argsort(order, axis=0, kind="stable")
+        wk = w.reshape(pb.shape) * ((ranks >= kk) & (ranks < m - kk) & pb)
+        out[k] = ((x * wk).sum(0) / wk.sum(0),
+                  (np.abs(x) * wk).sum(0) / wk.sum(0), kk)
+    return out
+
+
+def aggregate_err(agg, ref, what):
+    """The largest error of the device aggregate ``agg`` against the host's
+    ``ref`` (from :func:`trimmed_combine_f64`) over bf16 rounding: half an
+    ulp of the value plus one of the kept values' scale in f32 sums.
+    Fails above 1."""
+    import numpy as np
+    if sorted(ref) != sorted(agg) or not ref:
+        raise AssertionError(f"{what}: aggregated keys differ")
+    worst = 0.0
+    for k, (want, scale, _) in ref.items():
+        got = agg[k].float().cpu().numpy().astype(np.float64)
+        bound = 2.0 ** -8 * np.abs(want) + 2.0 ** -20 * scale + 1e-30
+        ratio = float((np.abs(got - want) / bound).max())
+        if ratio > 1.0:
+            raise AssertionError(f"{what} {k}: aggregate off the host's by "
+                                 f"{ratio} x bf16 rounding")
+        worst = max(worst, ratio)
+    return worst
+
+
+def biting_trim_check(runner, payloads):
+    """The port's cross-cohort trimmed mean at a trim that bites, on the
+    round's decoded device uploads: every upload of the cohorts that share
+    keys with the server counted present (the offline and late ones too),
+    under the base weights, so k = 1 of the 5 SLM uploads per coordinate
+    at trim_frac 0.2.  Holds ``mma.robust_combine_cohorts`` against the
+    host's float64 recomputation, requires k > 0 on every key and the
+    trimmed result to differ from the untrimmed weighted mean by more than
+    the tolerance somewhere (else a wrong trim band could pass)."""
+    import numpy as np
+    from repro_torch.core import mma
+    rts = [rt for rt in runner.cohorts if rt.shared]
+    w = runner.agg_weights.float().cpu().numpy()
+    ws = [w[rt.slice] for rt in rts]
+    ups = [payloads[rt.idx] for rt in rts]
+    shared = [rt.shared for rt in rts]
+    ones = [np.ones(rt.n, np.float32) for rt in rts]
+    agg = mma.robust_combine_cohorts(
+        ups, ws, shared, runner._server_lora_dtypes, "trimmed_mean",
+        present=ones, trim_frac=HET_TRIM)
+    ref = trimmed_combine_f64(ups, ws, ones, shared, HET_TRIM)
+    ks = sorted({kk for _, _, kk in ref.values()})
+    if not ks or ks[0] < 1:
+        raise AssertionError(f"the biting trim drops k = {ks}")
+    err = aggregate_err(agg, ref, "biting trim")
+    plain = trimmed_combine_f64(ups, ws, ones, shared, 0.0)
+    effect = 0.0
+    for k, (want, scale, _) in ref.items():
+        bound = 2.0 ** -8 * np.abs(want) + 2.0 ** -20 * scale + 1e-30
+        effect = max(effect, float((np.abs(plain[k][0] - want)
+                                    / bound).max()))
+    if not effect > 1.0:
+        raise AssertionError(f"the biting trim moves the mean by only "
+                             f"{effect} x bf16 rounding")
+    return {"uploads": sum(rt.n for rt in rts), "trim_k": ks,
+            "keys": len(ref), "max_err_over_bf16_rounding": err,
+            "trim_effect_over_bf16_rounding": effect}
+
+
+def phase_heterogeneous_round():
+    """Two rounds of the heterogeneous federation on the loop engine
+    (evaluation on the second only), every check of the round, then
+    CohortServer on the trained cohort parameters."""
+    import numpy as np
+    import torch
+    from repro_torch.core.federated import FederatedRunner
+    from repro_torch.core.lora import default_trainable, flatten, \
+        is_lora_leaf, partition
+
+    spec = het_spec()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner = FederatedRunner(spec, round_corpus(), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    names = [c.name for c in spec.cohorts]
+
+    # per-cohort step timers and metric sinks
+    seconds, metrics = {}, []
+
+    def timed(fn, key):
+        def run(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            seconds.setdefault(key, []).append(time.perf_counter() - t)
+            metrics.append({k: float(v) for k, v in out[-1].items()})
+            return out
+        return run
+    for rt, name in zip(runner.cohorts, names):
+        rt.ccl_step = timed(rt.ccl_step, f"{name}/ccl")
+        rt.amt_step = timed(rt.amt_step, f"{name}/amt")
+    runner.se_step = timed(runner.se_step, "server/seccl")
+
+    # what the robust combine saw and gave, each round
+    combines = []
+    robust_combine = runner._robust_combine
+
+    def recording(payloads):
+        agg, own = robust_combine(payloads)
+        combines.append({"payloads": payloads, "agg": agg,
+                         "w": runner._active_weights().copy(),
+                         "contrib": runner._rnd_contrib.copy()})
+        return agg, own
+    runner._robust_combine = recording
+
+    trees = {f"base/{n}": b for n, b in zip(names, runner.cohort_bases)}
+    trees.update(server_slm=runner.server_slm, server_llm=runner.server_llm)
+    frozen0 = {n: frozen_fingerprint(t) for n, t in trees.items()}
+    lora_bytes = [sum(v.numel() * v.element_size() for v in partition(
+        rt.device_params[0], is_lora_leaf).values()) for rt in runner.cohorts]
+
+    rounds, total, out = [], {}, None
+    servers0 = {n: t for n, t in snapshot_trainable(runner).items()
+                if n.startswith("server")}
+    torch.cuda.reset_peak_memory_stats()
+    for r in range(HET_ROUNDS):
+        before = snapshot_trainable(runner)
+        evaluate = r == HET_ROUNDS - 1
+        zero_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = runner.run_round(evaluate=evaluate)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counters()
+        routes = check_tensor_core_routes(f"heterogeneous round {r}")
+        want = expected_round_launches(runner, evaluate=evaluate)
+        if launches != want:
+            raise AssertionError(f"heterogeneous round {r}: launches "
+                                 f"{launches} != expected {want}")
+        total = {n: total.get(n, 0) + v for n, v in launches.items()}
+        pres = runner._rnd_present.copy()
+        contrib = runner._rnd_contrib.copy()
+        if abs(float(runner._rnd_weights.sum()) - 1.0) > 1e-6:
+            raise AssertionError(f"round {r}: weights sum to "
+                                 f"{runner._rnd_weights.sum()}")
+
+        # offline clients untouched, present clients' leaves moved
+        for j, p in enumerate(runner.device_params):
+            leaves, cur = before[f"device{j}"], flatten(p)
+            same = [k for k, v in leaves.items() if torch.equal(cur[k], v)]
+            if not pres[j] and len(same) != len(leaves):
+                raise AssertionError(f"round {r}: offline client {j} "
+                                     "changed")
+            if pres[j] and same:
+                raise AssertionError(f"round {r}: client {j}: {len(same)} "
+                                     f"leaves did not move, e.g. {same[:3]}")
+
+        # the server SLM's aggregate against the host's float64 trimmed,
+        # renormalized cross-cohort combine of the same decoded uploads
+        rec = combines[-1]
+        w, cb = rec["w"], rec["contrib"]
+        ref = trimmed_combine_f64(
+            rec["payloads"], [w[rt.slice] for rt in runner.cohorts],
+            [cb[rt.slice] for rt in runner.cohorts],
+            [rt.shared for rt in runner.cohorts], HET_TRIM)
+        worst = aggregate_err(rec["agg"], ref, f"round {r}")
+        # k dropped from each end per key: the shared keys' (from the
+        # host recomputation) and each cohort's own keys'
+        trim_k = {"shared": {}}
+        for _, _, kk in ref.values():
+            trim_k["shared"][kk] = trim_k["shared"].get(kk, 0) + 1
+        for rt, name in zip(runner.cohorts, names):
+            if rt.own:
+                m = int(cb[rt.slice].sum())
+                trim_k[f"own/{name}"] = {
+                    min(math.floor(HET_TRIM * m), (m - 1) // 2)
+                    if m else 0: len(rt.own)}
+        bite = biting_trim_check(runner, rec["payloads"])
+
+        # bytes: present clients x each cohort's LoRA bytes up, each
+        # cohort's leaves once down
+        n_pres = [int(pres[rt.slice].sum()) for rt in runner.cohorts]
+        want_up = sum(n * b for n, b in zip(n_pres, lora_bytes))
+        if runner.comm_log[-1] != {"round": r, "uplink": want_up,
+                                   "downlink": sum(lora_bytes)}:
+            raise AssertionError(f"round {r}: comm_log {runner.comm_log[-1]}"
+                                 f" != {want_up} up, {sum(lora_bytes)} down")
+        rounds.append({
+            "wall_s": wall, "evaluate": evaluate,
+            "present": pres.astype(int).tolist(),
+            "on_time": contrib.astype(int).tolist(),
+            "weights": [float(x) for x in runner._rnd_weights],
+            "launches": launches, "launches_by_route": routes,
+            "aggregate_keys": len(ref),
+            "max_aggregate_err_over_bf16_rounding": worst,
+            "trim_k": trim_k, "biting_trim": bite})
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    del combines
+
+    # the servers' leaves moved over the rounds (a LoRA A leaf gets no
+    # gradient while its B is still zero: in the first SE-CCL step)
+    unmoved = [n for n in unmoved_leaves(servers0, runner)
+               if n.startswith("server")]
+    if unmoved:
+        raise AssertionError(f"{len(unmoved)} server leaves did not move, "
+                             f"e.g. {unmoved[:3]}")
+    stats = runner.comm_stats
+    if stats["uplink_client_bytes"] != dict(enumerate(lora_bytes)) or \
+            stats["uplink_bytes"] != sum(x["uplink"] for x in
+                                         runner.comm_log):
+        raise AssertionError(f"comm_stats {stats}")
+    for m in metrics + [out["summary"]] + out["client"] + [out["server"]]:
+        bad = [k for k, v in m.items() if not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"non-finite {bad} in {m}")
+    for n, t in trees.items():
+        if frozen_fingerprint(t) != frozen0[n]:
+            raise AssertionError(f"{n}: the frozen backbone changed")
+    for rt, base in zip(runner.cohorts, runner.cohort_bases):
+        bflat = flatten(base)
+        for i, p in enumerate(rt.device_params):
+            for k, v in flatten(p).items():
+                if not default_trainable(k) and v is not bflat[k]:
+                    raise AssertionError(f"{names[rt.idx]} client {i}: {k} "
+                                         "is not the cohort's backbone")
+    shared = [len(rt.shared) for rt in runner.cohorts]
+    own = [len(rt.own) for rt in runner.cohorts]
+    if shared[0] != shared[1] or shared[0] == 0 or shared[2] != 0 \
+            or own[:2] != [0, 0] or own[2] == 0:
+        raise AssertionError(f"shared keys {shared}, own keys {own}")
+
+    result = {
+        "cohorts": [{"name": c.name, "model": c.model.name,
+                     "clients": c.n_clients, "modalities": c.modalities,
+                     "rho": spec.cohort_rho(i),
+                     "batch_size": spec.cohort_batch_size(i),
+                     "layers": c.model.n_layers, "d_model": c.model.d_model,
+                     "heads": [c.model.n_heads, c.model.n_kv_heads,
+                               c.model.head_dim],
+                     "shared_keys": shared[i], "own_keys": own[i],
+                     "lora_bytes_per_client": lora_bytes[i]}
+                    for i, c in enumerate(spec.cohorts)],
+        "server_llm": spec.server_llm.name, "dtype": spec.server_llm.dtype,
+        "connector_dim": 1280, "robust": spec.robust,
+        "trim_frac": spec.trim_frac, "faults": HET_FAULTS,
+        "byzantine": runner._faults.byzantine.astype(int).tolist(),
+        "masks": runner.masks.astype(int).tolist(),
+        "init_s": init_s, "rounds": rounds,
+        "step_ms": {k: 1e3 * statistics.mean(v) for k, v in seconds.items()},
+        "steps": {k: len(v) for k, v in seconds.items()},
+        "round_wall_s": [x["wall_s"] for x in rounds],
+        "peak_mem_gb": peak_gb,
+        "summary": out["summary"],
+        "comm_stats": stats,
+        "first_step_metrics": metrics[0], "last_seccl_metrics": [
+            m for m in metrics if "kt_llm" in m][-1],
+    }
+    serving, serve_launches, paged_qwen = phase_cohort_serving(runner, spec)
+    result["serving"] = serving
+    return result, total, serve_launches, paged_qwen
+
+
+def phase_cohort_serving(runner, spec):
+    """CohortServer on the trained parameters of each cohort's first client
+    (merged): 8 soft-prompted requests a cohort, prompts of 20-240 tokens,
+    budgets of 16-64, round-robin.  Checks budgets, free lists and the A
+    and B launch counts, holds qwen3's prefill -> decode logits against a
+    full forward, and times A at qwen3's fullest decode step."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve_engine import CohortServer, EngineConfig
+    from repro_torch.models.layers import BIG_WINDOW, padded_vocab
+
+    params = [rt.device_params[0] for rt in runner.cohorts]
+    econf = EngineConfig(n_slots=8, page_size=16, n_pages=256,
+                         max_pages_per_seq=32, max_out=64,
+                         buckets=(32, 64, 128, 256))
+    t0 = time.perf_counter()
+    server = CohortServer(spec, params, econf)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    engines = server.engines
+    reqs = [make_requests(e.cfg, p, seed=20 + c, n=HET_SERVE_REQUESTS)
+            for c, (e, p) in enumerate(zip(engines, params))]
+
+    # qwen3's fullest decode step (the most cached tokens) for row A
+    qwen = engines[2]
+    snap = {"best": -1}
+    tick = qwen.tick
+
+    def snapping():
+        busy = tick()
+        sd = qwen.sched
+        lens = torch.where(sd["active"], sd["seq_lens"] + 1, 0).int()
+        if int(lens.sum()) > snap["best"]:
+            snap.update(best=int(lens.sum()), state=(
+                sd["block_tables"].clone(), sd["seq_lens"].clone(),
+                sd["active"].clone()))
+        return busy
+    qwen.tick = snapping
+
+    zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rids = [[server.submit(c, t, max_new=m, prefix_embeds=s)
+             for t, m, s in rs] for c, rs in enumerate(reqs)]
+    done = server.serve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    qwen.tick = tick
+    launches = read_counters()
+    routes = check_tensor_core_routes("cohort serving")
+    others = {n: v for n, v in launches.items()
+              if v and n not in ("paged_attention", "flash_attention")}
+    if others:
+        raise AssertionError(f"cohort serving launched other kernels: "
+                             f"{others}")
+    want_a = sum(e.cfg.n_layers * e.n_steps for e in engines)
+    want_b = sum(e.cfg.n_layers * e.n_prefills for e in engines)
+    if launches["paged_attention"] != want_a or \
+            launches["flash_attention"] != want_b or \
+            any(e.n_prefills != HET_SERVE_REQUESTS for e in engines):
+        raise AssertionError(f"cohort serving launches {launches}: A "
+                             f"{want_a}, B {want_b} expected")
+    per, n_tokens = [], 0
+    for c, (e, rs, ids) in enumerate(zip(engines, reqs, rids)):
+        V = padded_vocab(e.cfg)
+        for rid, (_, budget, _) in zip(ids, rs):
+            got = done[c][rid].out
+            if len(got) != budget or got.min() < 0 or got.max() >= V:
+                raise AssertionError(f"cohort {c} request {rid}: "
+                                     f"{len(got)} tokens, budget {budget}")
+            n_tokens += len(got)
+        if sorted(e._free_pages) != list(range(1, econf.n_pages)) or \
+                sorted(e._free_slots) != list(range(econf.n_slots)):
+            raise AssertionError(f"cohort {c}: free lists not restored")
+        lat = sorted(done[c][r].latency for r in ids)
+        per.append({"model": e.cfg.name, "decode_steps": e.n_steps,
+                    "prefills": e.n_prefills,
+                    "decode_step_ms_mean": 1e3 * e.decode_seconds
+                    / max(e.n_steps, 1),
+                    "prefill_ms_mean": 1e3 * e.prefill_seconds
+                    / max(e.n_prefills, 1),
+                    "latency_p50_s": float(np.percentile(lat, 50)),
+                    "latency_p99_s": float(np.percentile(lat, 99))})
+    e2e_err, _ = prefill_decode_consistency(qwen.bundle, qwen.params,
+                                            reqs[2][0][2])
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    paged_qwen = paged_row(qwen, snap["state"],
+                           [BIG_WINDOW] * qwen.cfg.n_layers, gen)
+    serving = {
+        "requests_per_cohort": HET_SERVE_REQUESTS, "tokens": n_tokens,
+        "wall_s": wall, "tokens_per_s": n_tokens / wall, "init_s": init_s,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+        "by_cohort": per, "launches": launches,
+        "launches_by_route": {n: routes[n] for n in
+                              ("paged_attention", "flash_attention")},
+        "qwen3_prefill_vs_decode_max_abs_err": e2e_err,
+    }
+    return serving, launches, paged_qwen
+
 
 # ---------------------------------------------------------------------------
 # phase 9: kernel G (the SSD chunk scan) against its plain version
@@ -2422,6 +2909,11 @@ def main() -> int:
     emit({"channel": channel})
     release()
     lap("channel")
+    het, het_launches, cohort_launches, paged_qwen = \
+        phase_heterogeneous_round()
+    emit({"heterogeneous_round": het})
+    release()
+    lap("heterogeneous_round")
     ssm_serving, ssm_launches = phase_ssm_serving()
     emit({"ssm_serving": ssm_serving})
     release()
@@ -2429,9 +2921,10 @@ def main() -> int:
     hybrid_serving, hybrid_launches, paged_hybrid = phase_hybrid_serving()
     emit({"hybrid_serving": hybrid_serving})
     row_a = kernels[0]
-    row_a["at_other_shapes"] = {"hybrid": paged_hybrid}
+    row_a["at_other_shapes"] = {"hybrid": paged_hybrid, "qwen3": paged_qwen}
     row_a["max_abs_err"] = max(row_a["max_abs_err"],
-                               paged_hybrid["max_abs_err"])
+                               paged_hybrid["max_abs_err"],
+                               paged_qwen["max_abs_err"])
     release()
     lap("hybrid_serving")
     kernels += training_kernel_rows()
@@ -2442,6 +2935,8 @@ def main() -> int:
     # each row's launches: the counted runs of the main paths
     paths = {"serving": launches, "training_round": train_launches,
              "channel_rounds": channel_launches,
+             "heterogeneous_rounds": het_launches,
+             "cohort_serving": cohort_launches,
              "ssm_serving": ssm_launches, "hybrid_serving": hybrid_launches}
     for row in kernels:
         by_path = {p: n[row["name"]] for p, n in paths.items()

@@ -1,5 +1,6 @@
-"""The ML-ECS federated round — Algorithm 1 on the loop engine (port of
-the legacy single-cohort form of ``repro.core.federated``).
+"""The ML-ECS federated round — Algorithm 1 on the loop engine, for
+cohort-structured federations (port of ``repro.core.federated``'s loop
+engine).
 
 One cloud server (a unified LLM and a server-side SLM) and N edge devices
 (unified SLMs with heterogeneous modality availability).  Per round:
@@ -14,14 +15,37 @@ One cloud server (a unified LLM and a server-side SLM) and N edge devices
      on public data (Eq. 15-16), each model with its own AdamW update;
   5. the server SLM's LoRA leaves are redistributed to every device.
 
-Covered: one homogeneous cohort, ``engine="loop"``, the modes mlecs /
-fedavg / standalone, the ablations ``use_mma`` / ``use_seccl`` /
-``use_ccl``, both CCL scores, ``prox_weight``, the mean reduction, and the
-identity, int8 and int4 channels (uploads cross the wire before MMA, the
-redistribution crosses it on the way down).  Everything else, the sketch
-codec included, raises ``NotImplementedError``.
+**Cohorts.**  The runner is built from a
+:class:`~repro_torch.core.spec.FederationSpec`: an ordered tuple of
+cohorts, each of ``n_clients`` devices sharing ONE architecture (plus an
+optional modality subset, MER ``rho``, data fraction, batch size and step
+counts).  Across cohorts the protocol runs on the **shared subset**: the
+LoRA keys whose path and shape match the server SLM; the others federate
+within their cohort only (the intra-cohort MMA average).  Aggregation is
+two-level and order-deterministic: per-cohort f32 partial sums under
+globally normalized Eq. 13 weights, then a cohort-ordered shared-key
+combine.  The legacy form ``FederatedRunner(cfg, slm_bundle, llm_bundle,
+corpus)`` is a shim over :meth:`FederationSpec.from_legacy`.
 
-Every device shares ONE frozen backbone (the tensors of the cohort base);
+**Faults.**  A :class:`~repro_torch.core.spec.FaultSpec` draws per-round
+presence and straggle masks (:class:`~repro_torch.core.faults.
+FaultSchedule`): an offline client trains nothing (its streams still
+advance), uploads nothing and receives nothing; a straggler trains and
+receives, but its upload weighs 0.  The Eq. 13 mass renormalizes over the
+present, on-time clients.  Byzantine clients flip their train labels at
+init or scale their uploads.  ``robust`` picks the reduction (mean,
+trimmed_mean, norm_clip); robust reductions take the raw per-client
+uploads.
+
+Covered: ``engine="loop"``, the modes mlecs / fedavg / standalone, the
+ablations ``use_mma`` / ``use_seccl`` / ``use_ccl``, both CCL scores,
+``prox_weight``, the three reductions, client faults, and the identity,
+int8 and int4 channels (uploads cross the wire before MMA, each cohort's
+redistribution crosses it on the way down).  The other engines, the
+sketch codec, participant sampling and checkpoints raise
+``NotImplementedError``.
+
+Every member of a cohort shares ONE frozen backbone (the cohort base);
 only its personal leaves (LoRA + connector) are its own.  Steps never
 write a tensor in place: a step returns a new tree that shares the frozen
 leaves.
@@ -29,7 +53,7 @@ leaves.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,11 +62,14 @@ from repro_torch import interop
 from repro_torch.core import ccl as ccl_lib
 from repro_torch.core import lora, mma, seccl
 from repro_torch.core.channel import ChannelSpec, TensorSpec
-from repro_torch.core.connector import latent_dim
-from repro_torch.core.spec import ENGINES, draw_masks, validate_protocol
+from repro_torch.core.faults import FaultSchedule
+from repro_torch.core.spec import (ENGINES, ClientCohort, FaultSpec,
+                                   FederationSpec, validate_protocol)
+from repro_torch.data import attacks
 from repro_torch.data.multimodal import (paper_split, take_fraction,
                                          train_test_split)
 from repro_torch.data.pipeline import ClientStreams, np_eval_batches, to_tensors
+from repro_torch.models.model import build_model
 from repro_torch.optim.adamw import adamw, apply_updates
 
 
@@ -64,9 +91,9 @@ def _ccl_weight(cfg: "FederatedConfig") -> float:
 @dataclasses.dataclass
 class FederatedConfig:
     """Hyperparameters of one federated simulation: the reference's fields
-    and defaults.  ``channel`` is a :class:`ChannelSpec` of the port (None
-    = identity).  ``faults`` and ``sampler`` are accepted here (as the
-    reference's objects, opaque to the port) and refused by
+    and defaults.  ``channel`` is a :class:`ChannelSpec` and ``faults`` a
+    :class:`FaultSpec` of the port (None = identity wire, no faults).
+    ``sampler`` is accepted (opaque) and refused by
     :class:`FederatedRunner`, as is the sketch codec."""
 
     n_devices: int = 3
@@ -88,9 +115,9 @@ class FederatedConfig:
     kt_weight: float = 0.5
     prox_weight: float = 0.0         # FedProx-style pull toward the global
     ccl_score: str = "volume"        # volume (Eq. 5-8) | cosine (ablation)
-    robust: str = "mean"             # only "mean" is ported
+    robust: str = "mean"             # mean | trimmed_mean | norm_clip
     trim_frac: float = 0.2
-    faults: Optional[Any] = None
+    faults: Optional[FaultSpec] = None
     sampler: Optional[Any] = None
     channel: Optional[ChannelSpec] = None   # wire codec (None = identity)
 
@@ -101,193 +128,288 @@ class FederatedConfig:
                           self.staleness, self.robust, self.trim_frac)
 
 
-def _refuse_unported(cfg: FederatedConfig, engine: str) -> None:
+def _refuse_unported(spec: FederationSpec, engine: str) -> None:
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
     if engine != "loop":
         raise NotImplementedError(
             f"engine={engine!r} is not ported; pass engine='loop'")
-    if cfg.robust != "mean":
+    if spec.staleness > 0:
+        raise ValueError("staleness > 0 requires the overlap engine")
+    if spec.channel is not None and spec.channel.codec == "sketch":
         raise NotImplementedError(
-            f"robust={cfg.robust!r} MMA is not ported (mean only)")
-    if cfg.channel is not None:
-        if not isinstance(cfg.channel, ChannelSpec):
-            raise TypeError("channel must be repro_torch.core.channel."
-                            f"ChannelSpec; got {type(cfg.channel).__name__}")
-        if cfg.channel.codec == "sketch":
-            raise NotImplementedError(
-                "the sketch codec is not ported (identity, int8, int4)")
-    if cfg.faults is not None:
-        raise NotImplementedError("client faults are not ported (faults=None)")
-    if cfg.sampler is not None:
+            "the sketch codec is not ported (identity, int8, int4)")
+    if spec.faults is not None and not isinstance(spec.faults, FaultSpec):
+        raise TypeError("faults must be repro_torch.core.spec.FaultSpec; "
+                        f"got {type(spec.faults).__name__}")
+    if spec.sampler is not None:
         raise NotImplementedError(
             "participant sampling is not ported (sampler=None)")
 
 
+class _Cohort:
+    """Runtime state of one cohort: its model bundle, the contiguous
+    global-client slice it owns, its globally normalized Eq. 13 weights,
+    the server-shape-shared key subset, the wire templates and byte costs,
+    its members' parameters and optimizer states, and its steps."""
+
+    def __init__(self, idx: int, spec: ClientCohort, bundle, offset: int):
+        self.idx = idx
+        self.bundle = bundle
+        self.offset = offset
+        self.n = spec.n_clients
+        self.weights = None          # (n,) globally normalized MMA weights
+        self.w_total = 0.0           # the cohort's weight mass
+        self.shared: Tuple[str, ...] = ()   # server-shape-matching LoRA keys
+        self.own: Tuple[str, ...] = ()      # cohort-local LoRA keys
+        self.own_dtypes: Dict = {}
+        self.last_global: Dict = {}  # last delivery (prox reference)
+        self.device_params: List = []
+        self.device_opt: List = []
+
+    @property
+    def slice(self) -> slice:
+        """Global client-index slice of this cohort's members."""
+        return slice(self.offset, self.offset + self.n)
+
+
 class FederatedRunner:
-    """One homogeneous cohort of ``cfg.n_devices`` edge devices and the
-    cloud server, on the loop engine:
+    """A federation of cohorts and the cloud server, on the loop engine:
 
-        ``FederatedRunner(cfg, slm_bundle, llm_bundle, corpus,
-        engine=None, device="cuda", init_state=None)``
+        ``FederatedRunner(spec, corpus, engine=None, device="cuda",
+        init_state=None)``
 
-    The states are drawn from a ``torch.Generator`` seeded with
-    ``cfg.seed`` on ``device`` unless ``init_state`` gives them: a dict of
-    flat numpy trees (``interop`` format) with ``"cohort_base"`` (the
-    shared unified SLM), ``"personal"`` (a list of each device's
-    trainable leaves), ``"server_slm"`` and ``"server_llm"``.
-    The runner runs on the card; ``device="cpu"`` asks for the CPU."""
+    or through the legacy single-cohort shim:
 
-    def __init__(self, cfg, slm_bundle=None, llm_bundle=None, corpus=None,
-                 *, engine: Optional[str] = None, device="cuda",
-                 init_state: Optional[Dict] = None):
-        if not isinstance(cfg, FederatedConfig):
-            if hasattr(cfg, "cohorts"):
-                raise NotImplementedError(
-                    "FederationSpec input is not ported; use the legacy "
-                    "form FederatedRunner(FederatedConfig, slm_bundle, "
-                    "llm_bundle, corpus)")
-            raise TypeError(f"expected FederatedConfig, got "
-                            f"{type(cfg).__name__}")
-        if slm_bundle is None or llm_bundle is None or corpus is None:
-            raise TypeError("FederatedRunner(cfg, slm_bundle, llm_bundle, "
-                            "corpus, ...)")
-        self.engine = engine or cfg.engine
-        _refuse_unported(cfg, self.engine)
+        ``FederatedRunner(cfg, slm_bundle, llm_bundle, corpus, ...)``
+
+    The states are drawn from a ``torch.Generator`` seeded with the seed
+    on ``device`` unless ``init_state`` gives them: a dict of flat numpy
+    trees (``interop`` format) with ``"cohort_bases"`` (one shared
+    unified SLM per cohort; the legacy ``"cohort_base"`` names cohort 0's),
+    ``"personal"`` (each global client's trainable leaves),
+    ``"server_slm"`` and ``"server_llm"``.  The runner runs on the card;
+    ``device="cpu"`` asks for the CPU."""
+
+    def __init__(self, spec, *args, engine: Optional[str] = None,
+                 device="cuda", init_state: Optional[Dict] = None):
+        if isinstance(spec, FederationSpec):
+            if len(args) != 1:
+                raise TypeError("FederatedRunner(spec, corpus, engine=..., "
+                                "device=..., init_state=...)")
+            (corpus,) = args
+            bundles = [build_model(c.model) for c in spec.cohorts]
+            llm_bundle = build_model(spec.server_llm)
+            srv_slm_bundle = (bundles[0] if spec.server_slm is None
+                              else build_model(spec.server_slm))
+        elif isinstance(spec, FederatedConfig):
+            if len(args) != 3:
+                raise TypeError("FederatedRunner(cfg, slm_bundle, "
+                                "llm_bundle, corpus, ...)")
+            slm_bundle, llm_bundle, corpus = args
+            spec = FederationSpec.from_legacy(spec, slm_bundle.cfg,
+                                              llm_bundle.cfg)
+            bundles = [slm_bundle]
+            srv_slm_bundle = slm_bundle
+        else:
+            raise TypeError(f"expected FederationSpec or FederatedConfig, "
+                            f"got {type(spec).__name__}")
+        self.spec = spec
+        self.cfg = cfg = spec.to_config()
+        self.engine = engine or spec.engine
+        _refuse_unported(spec, self.engine)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("CUDA is not available; pass device='cpu' "
                                "to run the round on the CPU")
-        iface = {(b.cfg.n_modalities, b.cfg.modality_dim, latent_dim(b.cfg))
-                 for b in (slm_bundle, llm_bundle)}
-        if len(iface) != 1:
-            raise ValueError(
-                "cohort/server models disagree on the connector interface "
-                f"(n_modalities, modality_dim, latent): {sorted(iface)}")
-        self.cfg = cfg
-        self.slm, self.llm = slm_bundle, llm_bundle
+        self.channel = (spec.channel or ChannelSpec()).make()
+        self.slm = bundles[0]        # legacy alias: cohort 0's bundle
+        self.llm = llm_bundle
+        self._srv_slm_bundle = srv_slm_bundle
         N = cfg.n_devices
 
-        # data: public / private, train / test, modality masks
+        # data: public / private, train / test, modality masks.  Private
+        # shards are allocated over the GLOBAL client index, then thinned
+        # by the owning cohort's data_fraction.
         public, privates = paper_split(corpus, N, cfg.seed)
         self.public_train, self.public_test = train_test_split(
             public, 0.1, cfg.seed)
         self.priv_train, self.priv_test = [], []
         for j, pv in enumerate(privates):
-            pv = take_fraction(pv, 1.0, cfg.seed + 10_000 + j)
+            frac = spec.cohorts[spec.cohort_of(j)].data_fraction
+            pv = take_fraction(pv, frac, cfg.seed + 10_000 + j)
             tr, te = train_test_split(pv, 0.1, cfg.seed + j + 1)
             self.priv_train.append(tr)
             self.priv_test.append(te)
         M = corpus["modality_feats"].shape[1]
-        self.masks = draw_masks(cfg.seed, N, M, cfg.rho)
+        self.masks = spec.draw_masks(M)
 
-        # models: one frozen backbone shared by every device
+        # the fault model: per-round host masks; label-flip poisoning
+        # rewrites the Byzantine clients' TRAIN shards before any stream
+        # reads them (test shards stay clean)
+        self._faults = (FaultSchedule(spec.faults, N)
+                        if spec.faults is not None else None)
+        self._round_idx = 0
+        self._rnd_no = None          # the current round's index
+        self._rnd_present = None     # (N,) bool — training + delivery mask
+        self._rnd_contrib = None     # (N,) bool — aggregation mask
+        self._rnd_weights = None     # (N,) f32 — survivor-renormalized
+        self._attack_scale = None    # (N,) f32 — scaled-update factors
+        if self._faults is not None:
+            fl = spec.faults
+            if fl.attack == "label_flip":
+                for j in np.flatnonzero(self._faults.byzantine):
+                    self.priv_train[j] = attacks.label_flip(
+                        self.priv_train[j], seed=fl.seed + 31_000 + j)
+            elif fl.attack == "scaled_update" and \
+                    bool(self._faults.byzantine.any()):
+                self._attack_scale = np.where(
+                    self._faults.byzantine, fl.attack_scale,
+                    1.0).astype(np.float32)
+
+        # models: one frozen backbone per cohort, shared by its members
         if init_state is None:
-            self._init_states(N)
+            device_params = self._init_states(bundles)
         else:
-            self._load_states(init_state, N)
+            device_params = self._load_states(init_state, bundles)
 
         self.opt = opt = adamw(cfg.lr, weight_decay=0.0)
-        self.device_opt = [opt.init(lora.partition(p))
-                           for p in self.device_params]
+        device_opt = [opt.init(lora.partition(p)) for p in device_params]
         self.server_llm_opt = opt.init(lora.partition(self.server_llm))
         self.server_slm_opt = opt.init(lora.partition(self.server_slm))
 
-        counts = [int(self.masks[j].sum()) for j in range(N)]
+        # MMA weights (Eq. 13), normalized GLOBALLY so per-cohort partial
+        # sums recompose into the flat Eq. 13 aggregate on shared keys
+        self._mod_counts = [int(self.masks[j].sum()) for j in range(N)]
         if cfg.use_mma and cfg.mode == "mlecs":
-            self.agg_weights = mma.aggregation_weights(counts,
+            self.agg_weights = mma.aggregation_weights(self._mod_counts,
                                                        device=self.device)
         else:
             self.agg_weights = torch.ones((N,), device=self.device) / N
 
+        # cohort runtimes: weights, shared / own keys, wire, state, steps
         server_lora = lora.partition(self.server_slm, lora.is_lora_leaf)
-        up0 = lora.partition(self.device_params[0], lora.is_lora_leaf)
-        if lora.shared_keys(up0, server_lora) != tuple(sorted(up0)) \
-                or len(up0) != len(server_lora):
-            raise NotImplementedError(
-                "the server SLM's LoRA leaves differ from the devices': "
-                "heterogeneous cohorts are not ported")
-        self.last_global = dict(server_lora)
-
-        # the wire: the stacked upload templates, the error-feedback
-        # residuals (f32, (N, ...)) and the exact per-round byte costs
-        # (bytes_on_wire is linear in the client axis)
-        self.channel = (cfg.channel or ChannelSpec()).make()
-        self.up_like = {k: TensorSpec((N, *v.shape), v.dtype)
-                        for k, v in up0.items()}
-        self.chan_state = self.channel.init_state(self.up_like, self.device)
-        self._uplink_client_bytes = \
-            self.channel.bytes_on_wire(self.up_like) // N
-        self._dense_client_bytes = \
-            ChannelSpec().make().bytes_on_wire(self.up_like) // N
-        # the paper's Fig. 3 baseline is dense float32 uploads
-        self._f32_client_bytes = 4 * sum(v.numel() for v in up0.values())
-        self._downlink_bytes = self.channel.bytes_on_wire(
-            {k: TensorSpec((1, *v.shape), v.dtype)
-             for k, v in server_lora.items()})
+        self._server_lora_dtypes = {k: v.dtype for k, v in server_lora.items()}
+        ident = ChannelSpec().make()
+        self._cohorts: List[_Cohort] = []
+        for c, cs in enumerate(spec.cohorts):
+            rt = _Cohort(c, cs, bundles[c], spec.offsets[c])
+            rt.weights = (self.agg_weights if spec.n_cohorts == 1
+                          else self.agg_weights[rt.slice])
+            rt.w_total = float(rt.weights.cpu().numpy().astype(np.float32)
+                               .sum(dtype=np.float32))
+            rt.device_params = device_params[rt.slice]
+            rt.device_opt = device_opt[rt.slice]
+            up0 = lora.partition(rt.device_params[0], lora.is_lora_leaf)
+            rt.shared = lora.shared_keys(up0, server_lora)
+            rt.own = tuple(k for k in sorted(up0) if k not in rt.shared)
+            rt.own_dtypes = {k: up0[k].dtype for k in rt.own}
+            rt.last_global = {k: server_lora[k] for k in rt.shared}
+            # the wire: the stacked upload template, the error-feedback
+            # residuals (f32, (n, ...)) and the exact per-round byte costs
+            # (bytes_on_wire is linear in the client axis)
+            rt.up_like = {k: TensorSpec((rt.n, *v.shape), v.dtype)
+                          for k, v in up0.items()}
+            rt.chan_state = self.channel.init_state(rt.up_like, self.device)
+            rt.uplink_client_bytes = \
+                self.channel.bytes_on_wire(rt.up_like) // rt.n
+            rt.dense_client_bytes = ident.bytes_on_wire(rt.up_like) // rt.n
+            # the paper's Fig. 3 baseline is dense float32 uploads
+            rt.f32_client_bytes = 4 * sum(v.numel() for v in up0.values())
+            down_like = {k: server_lora[k] for k in rt.shared}
+            down_like.update({k: up0[k] for k in rt.own})
+            rt.downlink_bytes = self.channel.bytes_on_wire(
+                {k: TensorSpec((1, *v.shape), v.dtype)
+                 for k, v in down_like.items()})
+            # the steps (public attributes, so a caller can time or wrap
+            # them)
+            rt.ccl_step = ccl_lib.make_local_step(
+                rt.bundle, opt, ccl_weight=_ccl_weight(cfg),
+                n_negatives=cfg.n_negatives, ccl_score=cfg.ccl_score)
+            rt.amt_step = ccl_lib.make_local_step(
+                rt.bundle, opt, ccl_weight=0.0, with_anchor=False,
+                prox_weight=cfg.prox_weight)
+            rt.eval_step = seccl.make_eval_step(rt.bundle)
+            self._cohorts.append(rt)
+        # the legacy fast path needs FULL key coverage by one cohort
+        self._homogeneous = (spec.n_cohorts == 1
+                             and not self._cohorts[0].own
+                             and len(self._cohorts[0].shared)
+                             == len(server_lora))
         self._bytes_up = self._bytes_up_dense = 0
         self._bytes_up_f32 = self._bytes_down = 0
         self.comm_log: List[Dict] = []
 
+        # one shuffle stream per GLOBAL client id (plus the server's)
         self._streams = ClientStreams()
         for j in range(N):
-            self._streams.register(f"pub/{j}", self.public_train,
-                                   cfg.batch_size, cfg.seed + 100 + j,
-                                   self.masks[j])
-            self._streams.register(f"priv/{j}", self.priv_train[j],
-                                   cfg.batch_size, cfg.seed + 200 + j,
-                                   self.masks[j])
+            bs_c = spec.cohort_batch_size(spec.cohort_of(j))
+            self._streams.register(f"pub/{j}", self.public_train, bs_c,
+                                   cfg.seed + 100 + j, self.masks[j])
+            self._streams.register(f"priv/{j}", self.priv_train[j], bs_c,
+                                   cfg.seed + 200 + j, self.masks[j])
         self._streams.register("server", self.public_train, cfg.batch_size,
                                cfg.seed + 999)
 
-        # the steps (public attributes, so a caller can time or wrap them)
-        self.ccl_step = ccl_lib.make_local_step(
-            self.slm, opt, ccl_weight=_ccl_weight(cfg),
-            n_negatives=cfg.n_negatives, ccl_score=cfg.ccl_score)
-        self.amt_step = ccl_lib.make_local_step(
-            self.slm, opt, ccl_weight=0.0, with_anchor=False,
-            prox_weight=cfg.prox_weight)
         self.se_step = self._make_seccl_step()
-        self.slm_eval_step = seccl.make_eval_step(self.slm)
         self.llm_eval_step = seccl.make_eval_step(self.llm)
-        self._round_idx = 0
         self.history: List[Dict] = []
 
     # ------------------------------------------------------------------
-    def _init_states(self, N: int) -> None:
+    def _init_states(self, bundles) -> List[dict]:
+        """Draw every state from one generator: per cohort its base, then
+        each further member's personal leaves; then the server SLM and
+        LLM.  Returns the members' trees in global order."""
         gen = torch.Generator(device=self.device).manual_seed(self.cfg.seed)
-        self.cohort_base = ccl_lib.init_unified(gen, self.slm)
-        self.device_params = [self.cohort_base]
-        for _ in range(1, N):
-            personal = lora.partition(ccl_lib.init_unified(gen, self.slm))
-            self.device_params.append(lora.combine(self.cohort_base,
-                                                   personal))
-        self.server_slm = ccl_lib.init_unified(gen, self.slm)
+        self.cohort_bases, device_params = [], []
+        for c, cs in enumerate(self.spec.cohorts):
+            base = ccl_lib.init_unified(gen, bundles[c])
+            self.cohort_bases.append(base)
+            device_params.append(base)
+            for _ in range(1, cs.n_clients):
+                personal = lora.partition(ccl_lib.init_unified(gen,
+                                                               bundles[c]))
+                device_params.append(lora.combine(base, personal))
+        self.server_slm = ccl_lib.init_unified(gen, self._srv_slm_bundle)
         self.server_llm = ccl_lib.init_unified(gen, self.llm)
+        return device_params
 
-    def _load_states(self, state: Dict, N: int) -> None:
-        sdt, ldt = self.slm.cfg.torch_dtype, self.llm.cfg.torch_dtype
-        self.cohort_base = interop.params_from_numpy(
-            state["cohort_base"], self.device, sdt)
-        if len(state["personal"]) != N:
+    def _load_states(self, state: Dict, bundles) -> List[dict]:
+        spec = self.spec
+        bases = state.get("cohort_bases")
+        if bases is None:
+            bases = [state["cohort_base"]]
+        if len(bases) != spec.n_cohorts:
+            raise ValueError(f"init_state has {len(bases)} cohort bases for "
+                             f"{spec.n_cohorts} cohorts")
+        if len(state["personal"]) != spec.n_devices:
             raise ValueError(f"init_state has {len(state['personal'])} "
-                             f"personal sets for {N} devices")
-        self.device_params = [
-            lora.combine(self.cohort_base,
-                         interop.leaves_from_numpy(pers, self.device, sdt))
-            for pers in state["personal"]]
+                             f"personal sets for {spec.n_devices} devices")
+        self.cohort_bases = [
+            interop.params_from_numpy(b, self.device, bd.cfg.torch_dtype)
+            for b, bd in zip(bases, bundles)]
+        device_params = []
+        for j, pers in enumerate(state["personal"]):
+            c = spec.cohort_of(j)
+            device_params.append(lora.combine(
+                self.cohort_bases[c],
+                interop.leaves_from_numpy(pers, self.device,
+                                          bundles[c].cfg.torch_dtype)))
         self.server_slm = interop.params_from_numpy(
-            state["server_slm"], self.device, sdt)
+            state["server_slm"], self.device,
+            self._srv_slm_bundle.cfg.torch_dtype)
         self.server_llm = interop.params_from_numpy(
-            state["server_llm"], self.device, ldt)
+            state["server_llm"], self.device, self.llm.cfg.torch_dtype)
+        return device_params
 
     def _make_seccl_step(self) -> Callable:
-        """Joint SE-CCL update: the LLM minimizes Eq. 15, the SLM Eq. 16.
-        Each model runs twice: ``mlecs_loss`` with its soft prompt, then
-        ``logits`` on the raw batch for the KT terms.  One backward gives
-        both models' gradients; each takes its own AdamW update."""
+        """Joint SE-CCL update of the server LLM (Eq. 15) and the server
+        SLM (Eq. 16), with the server SLM's own bundle.  Each model runs
+        twice: ``mlecs_loss`` with its soft prompt, then ``logits`` on the
+        raw batch for the KT terms.  One backward gives both models'
+        gradients; each takes its own AdamW update."""
         cfg = self.cfg
-        llm, slm = self.llm, self.slm
+        llm, slm = self.llm, self._srv_slm_bundle
 
         def step(llm_params, slm_params, llm_opt, slm_opt, batch):
             t_llm = {k: v.detach().requires_grad_(True)
@@ -325,6 +447,61 @@ class FederatedRunner:
         return step
 
     # ------------------------------------------------------------------
+    # views
+
+    @property
+    def cohorts(self) -> Tuple[_Cohort, ...]:
+        """The per-cohort runtime states (offset, size, shared keys,
+        weights, members' parameters and steps)."""
+        return tuple(self._cohorts)
+
+    def _single(self) -> _Cohort:
+        """The sole cohort (the legacy single-cohort attribute views)."""
+        if len(self._cohorts) != 1:
+            raise AttributeError(
+                "this attribute is the legacy single-cohort view; use "
+                "runner.cohorts[c].<attr> on multi-cohort federations")
+        return self._cohorts[0]
+
+    @property
+    def device_params(self) -> List[dict]:
+        """Every device's parameter tree, in global client order."""
+        return [p for rt in self._cohorts for p in rt.device_params]
+
+    @property
+    def device_opt(self) -> List:
+        """Every device's optimizer state, in global client order."""
+        return [o for rt in self._cohorts for o in rt.device_opt]
+
+    @property
+    def cohort_base(self) -> dict:
+        return self.cohort_bases[self._single().idx]
+
+    @property
+    def up_like(self) -> Dict:
+        return self._single().up_like
+
+    @property
+    def chan_state(self) -> Dict:
+        return self._single().chan_state
+
+    @property
+    def ccl_step(self) -> Callable:
+        return self._single().ccl_step
+
+    @ccl_step.setter
+    def ccl_step(self, fn: Callable) -> None:
+        self._single().ccl_step = fn
+
+    @property
+    def amt_step(self) -> Callable:
+        return self._single().amt_step
+
+    @amt_step.setter
+    def amt_step(self, fn: Callable) -> None:
+        self._single().amt_step = fn
+
+    # ------------------------------------------------------------------
     def pull(self, name: str) -> Dict[str, torch.Tensor]:
         """The next batch of stream ``name`` (``"pub/<j>"``, ``"priv/<j>"``,
         ``"server"``) as tensors on the runner's device."""
@@ -338,46 +515,213 @@ class FederatedRunner:
         batch = dict(pub, modality_mask=torch.ones_like(pub["modality_mask"]))
         return ccl_lib.server_anchors(self.server_llm, self.llm, batch)
 
-    def _deliver(self, delivery: Dict[str, torch.Tensor]) -> None:
-        """Alg. 1 step 5: splice the (decoded) delivery into every device;
-        it is also the prox reference of the next round."""
-        self.last_global = delivery
-        self.device_params = [lora.combine(p, delivery)
-                              for p in self.device_params]
+    # ------------------------------------------------------------------
+    # per-round fault state (no-ops without a FaultSpec)
 
-    def _encode_uploads(self, uploads: List[Dict]) -> Dict[str, torch.Tensor]:
-        """The uplink: every device's upload, stacked on the client axis,
-        crosses the channel; returns what the server receives (stacked)
-        and advances the error-feedback residuals."""
-        stacked = {k: torch.stack([u[k] for u in uploads])
-                   for k in uploads[0]}
-        # stateless codecs hold {} as their state and get {} back
-        dec, self.chan_state = self.channel.roundtrip(
-            stacked, self.chan_state, self._round_idx - 1)
-        return dec
+    def _begin_round(self) -> None:
+        """Advance the round counter and draw the round's presence and
+        straggle masks, with the Eq. 13 weights renormalized over the
+        contributing (present and on-time) clients."""
+        cfg = self.cfg
+        self._rnd_no = self._round_idx
+        self._round_idx += 1
+        if self._faults is None:
+            return
+        present, ontime = self._faults.round_masks(self._rnd_no)
+        contrib = present & ontime
+        if cfg.use_mma and cfg.mode == "mlecs":
+            w = mma.aggregation_weights(self._mod_counts,
+                                        present=contrib).numpy()
+        else:
+            w = contrib.astype(np.float32) / max(int(contrib.sum()), 1)
+        self._rnd_present = present
+        self._rnd_contrib = contrib
+        self._rnd_weights = np.array(w, np.float32)
+
+    def _active_weights(self) -> np.ndarray:
+        """This round's globally normalized weights as host numpy."""
+        if self._rnd_weights is not None:
+            return self._rnd_weights
+        return self.agg_weights.cpu().numpy().astype(np.float32)
+
+    def _weights_for(self, rt: _Cohort):
+        """The cohort's weights this round (fault-masked under faults)."""
+        if self._rnd_weights is None:
+            return rt.weights
+        return torch.as_tensor(self._rnd_weights[rt.slice],
+                               device=self.device)
+
+    def _w_total_for(self, rt: _Cohort) -> float:
+        """The cohort's weight mass this round (its surviving mass under
+        faults: the combine's renormalization denominator)."""
+        if self._rnd_weights is None:
+            return rt.w_total
+        return float(self._rnd_weights[rt.slice].sum(dtype=np.float32))
+
+    def _present_for(self, rt: _Cohort) -> Optional[torch.Tensor]:
+        """The cohort's block of the presence mask (None without faults)."""
+        if self._rnd_present is None:
+            return None
+        return torch.as_tensor(self._rnd_present[rt.slice],
+                               device=self.device)
+
+    # ------------------------------------------------------------------
+    # aggregation
+
+    def _own_avgs(self, partials) -> Tuple[Dict, ...]:
+        """Each cohort's intra-cohort MMA average of its non-shared keys,
+        from its f32 partial sums, over its surviving mass; a cohort that
+        lost every contributor averages nothing."""
+        out = []
+        for rt, p in zip(self._cohorts, partials):
+            wt = self._w_total_for(rt)
+            if not rt.own or not wt > 0.0:
+                out.append({})
+                continue
+            out.append({k: (p[k] / float(np.float32(wt))).to(rt.own_dtypes[k])
+                        for k in rt.own})
+        return tuple(out)
+
+    def _combine_payloads(self, stacked):
+        """Fold each cohort's decoded uploads (stacked on the client axis)
+        into the server-bound aggregate: under ``robust != "mean"`` the
+        raw uploads through :meth:`_robust_combine`; else the weighted mean
+        of the single fully shared cohort, or each cohort's f32 partial
+        sums combined on the shared keys in cohort order.  Returns
+        ``(agg, own_avgs)``."""
+        if self.cfg.robust != "mean":
+            return self._robust_combine(stacked)
+        if self._homogeneous:
+            return mma.aggregate_stacked(
+                stacked[0], self._weights_for(self._cohorts[0])), ({},)
+        partials = [mma.partial_aggregate_stacked(s, self._weights_for(rt))
+                    for rt, s in zip(self._cohorts, stacked)]
+        agg = mma.combine_cohort_partials(
+            partials, [rt.shared for rt in self._cohorts],
+            [self._w_total_for(rt) for rt in self._cohorts],
+            self._server_lora_dtypes)
+        return agg, self._own_avgs(partials)
+
+    def _robust_combine(self, payloads):
+        """The robust reduction over each cohort's RAW stacked uploads:
+        own keys within the cohort, shared keys across the cohorts that
+        share them.  Returns ``(agg, own_avgs)``."""
+        cfg = self.cfg
+        w = self._active_weights()
+        contrib = self._rnd_contrib          # None without a fault model
+        if self._homogeneous:
+            agg = mma.aggregate_stacked(
+                payloads[0], w, robust=cfg.robust, present=contrib,
+                trim_frac=cfg.trim_frac)
+            return agg, ({},)
+        own_avgs = []
+        for rt, p in zip(self._cohorts, payloads):
+            wsl = w[rt.slice]
+            csl = None if contrib is None else contrib[rt.slice]
+            mass = float(wsl.sum() if csl is None else (wsl * csl).sum())
+            if not rt.own or not mass > 0.0:
+                own_avgs.append({})
+                continue
+            own_avgs.append(mma.aggregate_stacked(
+                {k: p[k] for k in rt.own}, wsl, robust=cfg.robust,
+                present=csl, trim_frac=cfg.trim_frac))
+        agg = mma.robust_combine_cohorts(
+            payloads, [w[rt.slice] for rt in self._cohorts],
+            [rt.shared for rt in self._cohorts],
+            self._server_lora_dtypes, cfg.robust,
+            present=(None if contrib is None else
+                     [contrib[rt.slice] for rt in self._cohorts]),
+            trim_frac=cfg.trim_frac)
+        return agg, tuple(own_avgs)
+
+    def _cohort_delivery(self, rt: _Cohort, down: Dict, own_avg: Dict
+                         ) -> Dict:
+        """What cohort ``rt`` receives in Alg. 1 step 5: the server's
+        values on its shared keys plus its intra-cohort average of its own
+        keys (``down`` itself for the fully shared single cohort).  A key
+        that aggregated nothing this round re-sends the previous value."""
+        if self._homogeneous:
+            return down
+        delivery = {}
+        for k in rt.shared:
+            if k in down:
+                delivery[k] = down[k]
+            elif k in rt.last_global:
+                delivery[k] = rt.last_global[k]
+        for k in rt.own:
+            if k in own_avg:
+                delivery[k] = own_avg[k]
+            elif k in rt.last_global:
+                delivery[k] = rt.last_global[k]
+        return delivery
+
+    # ------------------------------------------------------------------
+    # the wire
+
+    def _encode_uploads(self, uploads: List[List[Dict]]) -> List[Dict]:
+        """The uplink: each cohort's uploads, stacked on the client axis,
+        cross the channel; returns what the server receives (each cohort's
+        decoded leaves, stacked) and advances the error-feedback residuals
+        of the PRESENT clients only."""
+        out = []
+        for rt, ups in zip(self._cohorts, uploads):
+            stacked = {k: torch.stack([u[k] for u in ups]) for k in ups[0]}
+            # stateless codecs hold {} as their state and get {} back
+            dec, new_state = self.channel.roundtrip(stacked, rt.chan_state,
+                                                    self._rnd_no)
+            if self.channel.stateful:
+                pres = self._present_for(rt)
+                if pres is not None:
+                    new_state = {
+                        k: torch.where(mma._bcast(pres, v), v,
+                                       rt.chan_state[k])
+                        for k, v in new_state.items()}
+                rt.chan_state = new_state
+            out.append(dec)
+        return out
+
+    def _deliver(self, rt: _Cohort, delivery: Dict) -> None:
+        """Alg. 1 step 5: splice the (decoded) delivery into every
+        reachable member of the cohort; it is also the cohort's prox
+        reference of the next round.  Offline clients receive nothing."""
+        rt.last_global = delivery
+        pres = self._rnd_present
+        for i in range(rt.n):
+            if pres is None or pres[rt.offset + i]:
+                rt.device_params[i] = lora.combine(rt.device_params[i],
+                                                   delivery)
 
     def _commit_comm(self) -> None:
-        """Account one round's exact bytes on the wire: every device's
-        encoded upload and one multicast downlink; standalone rounds move
-        nothing."""
-        rnd = self._round_idx - 1
+        """Account one round's exact bytes on the wire: per cohort, every
+        PRESENT member's encoded upload (stragglers transmit too, offline
+        clients nothing) and one multicast downlink; standalone rounds
+        move nothing."""
         if self.cfg.mode == "standalone":
-            self.comm_log.append({"round": rnd, "uplink": 0, "downlink": 0})
+            self.comm_log.append({"round": self._rnd_no, "uplink": 0,
+                                  "downlink": 0})
             return
-        N = self.cfg.n_devices
-        up = N * self._uplink_client_bytes
+        up = up_dense = up_f32 = down = 0
+        for rt in self._cohorts:
+            n = rt.n
+            if self._rnd_present is not None:
+                n = int(self._rnd_present[rt.slice].sum())
+            up += n * rt.uplink_client_bytes
+            up_dense += n * rt.dense_client_bytes
+            up_f32 += n * rt.f32_client_bytes
+            down += rt.downlink_bytes
         self._bytes_up += up
-        self._bytes_up_dense += N * self._dense_client_bytes
-        self._bytes_up_f32 += N * self._f32_client_bytes
-        self._bytes_down += self._downlink_bytes
-        self.comm_log.append({"round": rnd, "uplink": up,
-                              "downlink": self._downlink_bytes})
+        self._bytes_up_dense += up_dense
+        self._bytes_up_f32 += up_f32
+        self._bytes_down += down
+        self.comm_log.append({"round": self._rnd_no, "uplink": int(up),
+                              "downlink": int(down)})
 
     @property
     def comm_stats(self) -> Dict:
         """Wire-traffic totals over the committed rounds: the codec, the
         exact uplink and downlink bytes, what the same uploads would cost
-        dense (in their own dtype and in f32), and the ratios."""
+        dense (in their own dtype and in f32), the ratios, and each
+        cohort's encoded bytes per client."""
         up, dense = int(self._bytes_up), int(self._bytes_up_dense)
         f32 = int(self._bytes_up_f32)
         return {"codec": self.channel.spec.codec,
@@ -387,7 +731,8 @@ class FederatedRunner:
                 "uplink_ratio": (dense / up) if up else float("inf"),
                 "uplink_ratio_f32": (f32 / up) if up else float("inf"),
                 "downlink_bytes": int(self._bytes_down),
-                "uplink_client_bytes": {0: self._uplink_client_bytes}}
+                "uplink_client_bytes": {rt.idx: rt.uplink_client_bytes
+                                        for rt in self._cohorts}}
 
     # ------------------------------------------------------------------
     def run_round(self, evaluate: bool = True) -> Dict:
@@ -396,35 +741,61 @@ class FederatedRunner:
         Client metrics are measured on the post-AMT device models, server
         metrics after SE-CCL; redistribution seeds the next round.  With
         ``evaluate=False`` no metric is computed and ``{}`` is returned."""
-        cfg = self.cfg
-        self._round_idx += 1
-        uploads = []
-        for j in range(cfg.n_devices):
-            p, o = self.device_params[j], self.device_opt[j]
-            if _do_ccl(cfg):
-                for _ in range(cfg.local_steps_ccl):
-                    pub = self.pull(f"pub/{j}")
-                    p, o, _ = self.ccl_step(p, o, pub, self.anchors(pub))
-            gref = self.last_global if cfg.prox_weight > 0 else None
-            for _ in range(cfg.local_steps_amt):
-                p, o, _ = self.amt_step(p, o, self.pull(f"priv/{j}"), None,
-                                        gref)
-            self.device_params[j], self.device_opt[j] = p, o
-            uploads.append(lora.partition(p, lora.is_lora_leaf))
+        cfg, spec = self.cfg, self.spec
+        self._begin_round()
+        pres, scale = self._rnd_present, self._attack_scale
+        # (2) device side: CCL then AMT, cohort by cohort
+        uploads: List[List[Dict]] = []
+        for rt in self._cohorts:
+            k_ccl = spec.cohort_steps_ccl(rt.idx)
+            k_amt = spec.cohort_steps_amt(rt.idx)
+            ups = []
+            for i in range(rt.n):
+                j = rt.offset + i
+                p, o = rt.device_params[i], rt.device_opt[i]
+                if pres is not None and not pres[j]:
+                    # offline: the round does not happen for this device,
+                    # but its shuffle streams advance as the reference's do
+                    if _do_ccl(cfg):
+                        self._streams.advance(f"pub/{j}", k_ccl)
+                    self._streams.advance(f"priv/{j}", k_amt)
+                    ups.append(lora.partition(p, lora.is_lora_leaf))
+                    continue
+                if _do_ccl(cfg):
+                    for _ in range(k_ccl):
+                        pub = self.pull(f"pub/{j}")
+                        p, o, _ = rt.ccl_step(p, o, pub, self.anchors(pub))
+                gref = rt.last_global if cfg.prox_weight > 0 else None
+                for _ in range(k_amt):
+                    p, o, _ = rt.amt_step(p, o, self.pull(f"priv/{j}"),
+                                          None, gref)
+                rt.device_params[i], rt.device_opt[i] = p, o
+                ups.append(lora.partition(p, lora.is_lora_leaf))
+            if scale is not None:
+                # Byzantine scaled-update: every marked client reports
+                # scale × u (a stale upload weighs 0 anyway)
+                ups = [attacks.scaled_update(u, float(scale[rt.offset + i]))
+                       if scale[rt.offset + i] != 1.0 else u
+                       for i, u in enumerate(ups)]
+            uploads.append(ups)
 
         client_eval = self.evaluate_clients() if evaluate else None
         if cfg.mode == "standalone":
             self._commit_comm()
             return self._finalize_eval(client_eval) if evaluate else {}
 
-        # the uplink wire, then (3) MMA (Eq. 13) over what the server
-        # received: f32, left to right over the devices.  The devices keep
-        # their own (undecoded) parameters.
-        agg = mma.aggregate_stacked(self._encode_uploads(uploads),
-                                    self.agg_weights)
-        rnd = self._round_idx - 1
+        # the uplink wire, then (3) MMA over what the server received: f32,
+        # left to right over the clients, then cohort order per key.  The
+        # devices keep their own (undecoded) parameters.
+        agg, own_avgs = self._combine_payloads(self._encode_uploads(uploads))
+
         if cfg.mode == "fedavg":
-            self._deliver(self.channel.roundtrip_tree(agg, rnd))
+            # Multi-FedAvg: the average straight back, through the
+            # downlink once per cohort
+            for c, rt in enumerate(self._cohorts):
+                self._deliver(rt, self.channel.roundtrip_tree(
+                    self._cohort_delivery(rt, agg, own_avgs[c]),
+                    self._rnd_no))
             self._commit_comm()
             return self._finalize_eval(client_eval) if evaluate else {}
 
@@ -436,10 +807,13 @@ class FederatedRunner:
                  self.server_slm_opt, _) = self.se_step(
                     self.server_llm, self.server_slm, self.server_llm_opt,
                     self.server_slm_opt, self.pull("server"))
-        # (5) redistribute the server SLM's LoRA leaves through the
-        # downlink; the server SLM keeps its own values
-        self._deliver(self.channel.roundtrip_tree(
-            lora.partition(self.server_slm, lora.is_lora_leaf), rnd))
+        # (5) redistribute: the server SLM's shared leaves and each
+        # cohort's own averages, through the downlink; the server SLM
+        # keeps its own values
+        down = lora.partition(self.server_slm, lora.is_lora_leaf)
+        for c, rt in enumerate(self._cohorts):
+            self._deliver(rt, self.channel.roundtrip_tree(
+                self._cohort_delivery(rt, down, own_avgs[c]), self._rnd_no))
         self._commit_comm()
         return self._finalize_eval(client_eval) if evaluate else {}
 
@@ -450,21 +824,26 @@ class FederatedRunner:
         return self.history
 
     # ------------------------------------------------------------------
-    def _eval_model(self, step, params, data, mask) -> Dict:
+    def _eval_model(self, step, params, data, mask,
+                    batch_size: Optional[int] = None) -> Dict:
         """Host loop over padded in-order eval batches, accumulating the
         per-batch masked sums in f32 (the reference's order)."""
         sums = {k: np.float32(0.0) for k in seccl.EVAL_SUM_KEYS}
-        for batch in np_eval_batches(data, self.cfg.batch_size, mask):
+        for batch in np_eval_batches(data, batch_size or self.cfg.batch_size,
+                                     mask):
             out = step(params, to_tensors(batch, self.device))
             for k in sums:
                 sums[k] = np.float32(sums[k] + np.float32(out[k].item()))
         return seccl.metrics_from_sums(sums)
 
     def evaluate_clients(self) -> List[Dict]:
-        """Per-device ``{"ce", "acc"}`` on each private test set."""
-        return [self._eval_model(self.slm_eval_step, self.device_params[j],
-                                 self.priv_test[j], self.masks[j])
-                for j in range(self.cfg.n_devices)]
+        """Per-device ``{"ce", "acc"}`` on each private test set, in global
+        client order, each cohort at its own batch size."""
+        return [self._eval_model(rt.eval_step, rt.device_params[i],
+                                 self.priv_test[rt.offset + i],
+                                 self.masks[rt.offset + i],
+                                 self.spec.cohort_batch_size(rt.idx))
+                for rt in self._cohorts for i in range(rt.n)]
 
     def evaluate_server(self) -> Dict:
         """Server LLM ``{"ce", "acc"}`` on the public test set."""

@@ -17,6 +17,9 @@
   unconditional cache writes land on scratch page 0, and its pages freed
   on the host.
 
+:class:`CohortServer` runs one engine per cohort of a federation (each
+cohort's architecture) and ticks them round-robin.
+
 Greedy decoding takes ``argmax`` on the device.  Temperature sampling draws
 from a ``torch.Generator`` seeded with ``EngineConfig.seed``; it cannot
 reproduce the reference's ``jax.random`` bits.
@@ -34,7 +37,7 @@ import torch
 
 from repro_torch.core.lora import flatten, merge_lora
 from repro_torch.models import paged
-from repro_torch.models.model import ModelBundle
+from repro_torch.models.model import ModelBundle, build_model
 
 
 @dataclasses.dataclass
@@ -313,3 +316,54 @@ class ServingEngine:
         while self.busy:
             self.tick()
         return self.finished
+
+
+# ---------------------------------------------------------------------------
+# heterogeneous cohorts
+
+class CohortServer:
+    """One :class:`ServingEngine` per :class:`FederationSpec` cohort, each
+    with its cohort's architecture; :meth:`serve` ticks the engines
+    round-robin so all cohorts decode concurrently."""
+
+    def __init__(self, spec, cohort_params,
+                 econf: Optional[EngineConfig] = None):
+        if len(cohort_params) != spec.n_cohorts:
+            raise ValueError(
+                f"got {len(cohort_params)} param trees for "
+                f"{spec.n_cohorts} cohorts")
+        self.spec = spec
+        self.engines = [
+            ServingEngine(build_model(c.model), p, econf)
+            for c, p in zip(spec.cohorts, cohort_params)]
+
+    @classmethod
+    def from_spec(cls, spec, econf: Optional[EngineConfig] = None
+                  ) -> "CohortServer":
+        """Fresh per-cohort parameters (the connector included when the
+        cohort's model is multimodal), drawn in cohort order from one
+        ``torch.Generator`` seeded with ``spec.seed`` on the engines'
+        device."""
+        from repro_torch.core.connector import init_unified
+        econf = econf or EngineConfig()
+        gen = torch.Generator(device=_resolve_device(econf.device))
+        gen.manual_seed(spec.seed)
+        params = []
+        for c in spec.cohorts:
+            bundle = build_model(c.model)
+            params.append(init_unified(gen, bundle) if c.model.n_modalities
+                          else bundle.init(gen))
+        return cls(spec, params, econf)
+
+    def submit(self, cohort: int, tokens, **kw) -> int:
+        """Queue a prompt on cohort ``cohort``'s engine."""
+        return self.engines[cohort].submit(tokens, **kw)
+
+    def serve(self) -> List[Dict[int, Request]]:
+        """Round-robin until every cohort's queue drains; each engine's
+        finished requests, in cohort order."""
+        while any(e.busy for e in self.engines):
+            for e in self.engines:
+                if e.busy:
+                    e.tick()
+        return [e.finished for e in self.engines]

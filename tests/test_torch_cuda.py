@@ -60,6 +60,7 @@ def gen():
     (5, 4, 2, 32, 8, 6, 0),
     (3, 12, 4, 128, 16, 4, 21),
     (2, 16, 1, 64, 4, 9, 0),        # MQA: G = 16 > 8, two head chunks
+    (8, 16, 8, 128, 16, 21, 0),     # qwen3's cohort serving: G = 2, D 128
 ])
 def test_paged_kernel_matches_plain(gen, dtype, B, H, K, D, ps, M, window):
     P = B * M + 3
@@ -208,6 +209,7 @@ LSE_TOL = dict(atol=1e-4, rtol=1e-5)
     (1, 2, 2, 97, 97, 256, 40),
     (1, 20, 20, 264, 264, 64, 0),      # the SLM's serving prefill
     (8, 16, 16, 136, 136, 256, 0),     # the LLM in the round
+    (8, 16, 8, 136, 136, 128, 0),      # qwen3 in the round: G = 2, D 128
 ])
 def test_flash_forward_routes_match_plain(gen, route, B, H, K, Sq, Sk, D,
                                           window):
@@ -343,6 +345,11 @@ def _routed(fn, route, n=1):
     (1088, 4096, 4096, 8, True),     # the LLM's dx (W read K-major)
     (1088, 1280, 1280, 8, False),    # the SLM's projection
     (1088, 1280, 1280, 8, True),     # the SLM's dx
+    (1088, 2048, 2048, 8, False),    # qwen3's wq / wo
+    (1088, 2048, 1024, 8, False),    # qwen3's wk / wv: N = 1024 (ragged
+                                     # on 96-wide tiles)
+    (1088, 2048, 2048, 8, True),     # qwen3's dx of wq / wo
+    (1088, 1024, 2048, 8, True),     # qwen3's dx of wk / wv
     (1900, 136, 1800, 8, False),     # the 192 x 192 tile, ragged everywhere
     (1900, 136, 1800, 8, True),
     (1001, 264, 136, 16, False),     # M, K and N not multiples of a tile
@@ -367,7 +374,8 @@ def test_lora_wgmma_route_matches_plain(gen, M, K, N, r, trans_w):
     torch.testing.assert_close(got.float(), want.float(), **TOL[dt])
 
 
-@pytest.mark.parametrize("M,K,N", [(1088, 1280, 1280), (300, 4096, 520)])
+@pytest.mark.parametrize("M,K,N", [(1088, 1280, 1280), (300, 4096, 520),
+                                   (1088, 2048, 1024)])
 def test_lora_wgmma_route_gradients(gen, M, K, N):
     """Forward and dx on the wgmma route through autograd, against the
     plain version's autograd; each row held relative to its own size."""
@@ -767,6 +775,7 @@ def test_flash_backward_kernel_matches_plain(gen, dtype, B, H, K, Sq, Sk, D,
 @pytest.mark.parametrize("B,H,K,Sq,Sk,D,window", [
     (8, 20, 20, 136, 136, 64, 0),      # the SLM in the round
     (8, 16, 16, 136, 136, 256, 0),     # the LLM in the round
+    (8, 16, 8, 136, 136, 128, 0),      # qwen3 in the round: G = 2, D 128
     (2, 8, 2, 45, 131, 256, 0),        # GQA, Sq < Sk, D 256
     (2, 6, 2, 77, 200, 64, 37),        # GQA, a window, Sq < Sk
     (1, 4, 1, 97, 97, 128, 50),        # MQA, a window, D 128
@@ -795,6 +804,7 @@ def test_flash_backward_mma_route_matches_plain(gen, B, H, K, Sq, Sk, D,
 @pytest.mark.parametrize("B,H,K,S,D,window", [
     (2, 20, 20, 136, 64, 0),           # the SLM in the round
     (2, 8, 2, 131, 128, 45),           # GQA, a window, ragged S
+    (8, 16, 8, 136, 128, 0),           # qwen3 in the round
 ])
 def test_flash_autograd_runs_both_passes_on_mma(gen, B, H, K, S, D, window):
     """Through ``flash_attention_autograd`` (``ops.attention``) bf16 takes

@@ -7,7 +7,8 @@ corpus, at float32 on toy configs shaped like tests/test_system.py's; one
 round of one CCL, one AMT and one SE-CCL step each, then the summaries and
 every device's and the server's LoRA leaves are compared.  The same holds
 for two rounds over the int8 / int4 wire (uploads and redistribution
-through the channel, with and without error feedback, mlecs and fedavg).
+through the channel, with and without error feedback, mlecs and fedavg),
+and for a trimmed-mean round and two rounds under client faults.
 """
 import dataclasses
 
@@ -21,13 +22,16 @@ from repro.core import lora as jlora
 from repro.core.channel import ChannelSpec as JChannelSpec
 from repro.core.federated import FederatedConfig as JFedConfig
 from repro.core.federated import FederatedRunner as JRunner
-from repro.core.spec import FaultSpec, FederationSpec, ParticipantSampler
+from repro.core.spec import FaultSpec as JFaultSpec
+from repro.core.spec import FederationSpec as JFederationSpec
+from repro.core.spec import ParticipantSampler
 from repro.data.synthetic import synthetic_multimodal_corpus
 from repro.models.model import build_model as jbuild
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import lora
 from repro_torch.core.channel import ChannelSpec
 from repro_torch.core.federated import FederatedConfig, FederatedRunner
+from repro_torch.core.spec import FaultSpec, FederationSpec
 from repro_torch.kernels.quantize import quantize_rows_plain
 from repro_torch.models.model import build_model
 
@@ -306,9 +310,7 @@ def test_cosine_score_and_prox_run(corpus):
 @pytest.mark.parametrize("over,engine", [
     ({}, "vectorized"),
     ({}, "overlap"),
-    ({"robust": "trimmed_mean"}, "loop"),
     ({"channel": ChannelSpec(codec="sketch")}, "loop"),
-    ({"faults": FaultSpec(dropout=0.2)}, "loop"),
     ({"sampler": ParticipantSampler(per_cohort=2)}, "loop"),
 ])
 def test_unported_options_raise(corpus, over, engine):
@@ -319,9 +321,30 @@ def test_unported_options_raise(corpus, over, engine):
 
 
 def test_spec_input_checkpoints_and_missing_cuda_raise(corpus):
-    spec = FederationSpec.from_legacy(JFedConfig(**ROUND), SLM, LLM)
-    with pytest.raises(NotImplementedError, match="FederationSpec"):
-        FederatedRunner(spec, *port_bundles(), corpus)
+    """The legacy form is a shim over ``FederationSpec.from_legacy``: the
+    port's spec equals the reference's, and the spec form builds the same
+    runner (masks, weights and the states drawn from the same seed)."""
+    jspec = JFederationSpec.from_legacy(JFedConfig(**ROUND), SLM, LLM)
+    slm_b, llm_b = port_bundles()
+    spec = FederationSpec.from_legacy(FederatedConfig(**ROUND), slm_b.cfg,
+                                      llm_b.cfg)
+    assert spec.n_devices == jspec.n_devices and spec.offsets == (0,)
+    assert dataclasses.asdict(spec.cohorts[0].model) == \
+        dataclasses.asdict(jspec.cohorts[0].model)
+    for f in ("rounds", "batch_size", "lr", "rho", "seed", "engine", "mode",
+              "robust", "trim_frac", "local_steps_ccl", "server_steps"):
+        assert getattr(spec, f) == getattr(jspec, f), f
+    np.testing.assert_array_equal(spec.draw_masks(3), jspec.draw_masks(3))
+    legacy = FederatedRunner(FederatedConfig(engine="loop", **ROUND),
+                             slm_b, llm_b, corpus, device="cpu")
+    from_spec = FederatedRunner(dataclasses.replace(spec, engine="loop"),
+                                corpus, device="cpu")
+    np.testing.assert_array_equal(from_spec.masks, legacy.masks)
+    assert torch.equal(from_spec.agg_weights, legacy.agg_weights)
+    for a, b in zip(from_spec.device_params + [from_spec.server_llm],
+                    legacy.device_params + [legacy.server_llm]):
+        fa, fb = lora.flatten(a), lora.flatten(b)
+        assert all(torch.equal(fa[k], fb[k]) for k in fb)
     ok = FederatedConfig(engine="loop", **ROUND)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -334,3 +357,53 @@ def test_spec_input_checkpoints_and_missing_cuda_raise(corpus):
         FederatedRunner(ok, port_bundles()[0],
                         build_model(ModelConfig(**dataclasses.asdict(big))),
                         corpus, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# robust MMA and client faults on the legacy form
+
+LEGACY_FAULT_CASES = {
+    "robust": (dict(robust="trimmed_mean"), 1),
+    "faults": (dict(faults=dict(dropout=0.3, straggler=0.3, max_delay=2,
+                                seed=3)), 1),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LEGACY_FAULT_CASES))
+def test_legacy_robust_and_faults_match_jax(corpus, name):
+    """The options the legacy form used to refuse, run and held against
+    the JAX loop runner from the same states, one round each (as the
+    legacy round test: on this config a second SE-CCL step moves the
+    server LLM's LoRA up to ~1e-4 from JAX even without faults, Adam's
+    first steps magnifying f32 noise in gradients that cancel to ~eps):
+    a trimmed-mean round, and a round with one client offline and one
+    late (two rounds of faults on two cohorts are in
+    tests/test_torch_faults.py).  Summaries rtol 1e-4, leaves atol 2e-5,
+    comm_stats and the fault masks equal."""
+    over, n_rounds = LEGACY_FAULT_CASES[name]
+    jover, tover = dict(over), dict(over)
+    if "faults" in over:
+        jover["faults"] = JFaultSpec(**over["faults"])
+        tover["faults"] = FaultSpec(**over["faults"])
+    cfg = dict(ROUND, rounds=n_rounds)
+    jr, tr = runner_pair(corpus, JFedConfig(engine="loop", **cfg, **jover),
+                         FederatedConfig(engine="loop", **cfg, **tover))
+    for _ in range(n_rounds):
+        j, t = jr.run_round()["summary"], tr.run_round()["summary"]
+        for k in ("avg_ce", "server_ce"):
+            np.testing.assert_allclose(t[k], j[k], rtol=1e-4, err_msg=k)
+        assert t["avg_acc"] == pytest.approx(j["avg_acc"], abs=1e-6)
+        if "faults" in over:
+            np.testing.assert_array_equal(tr._rnd_present, jr._rnd_present)
+            np.testing.assert_array_equal(tr._rnd_weights, jr._rnd_weights)
+            assert not tr._rnd_present.all()
+            assert not tr._rnd_contrib[tr._rnd_present].all()
+    pairs = list(zip(jr.device_params, tr.device_params))
+    pairs += [(jr.server_slm, tr.server_slm), (jr.server_llm, tr.server_llm)]
+    for jtree, ttree in pairs:
+        jflat = flat_numpy(jlora.partition(jtree, jlora.is_lora_leaf))
+        tflat = lora.partition(ttree, lora.is_lora_leaf)
+        for k in jflat:
+            np.testing.assert_allclose(_np(tflat[k]), jflat[k], atol=2e-5,
+                                       err_msg=k)
+    assert tr.comm_stats == jr.comm_stats

@@ -118,13 +118,15 @@ def _np(x):
 # configs, interop, connector, merge_lora, forward
 
 @pytest.mark.parametrize("arch", ["mlecs-slm-720m", "mlecs-llm-6b",
-                                  "gemma3-1b", "mamba2-2.7b", "hymba-1.5b"])
+                                  "gemma3-1b", "mamba2-2.7b", "hymba-1.5b",
+                                  "qwen3-1.7b"])
 def test_config_copy_matches_reference(arch):
     from repro.configs.base import get_config
-    from repro_torch.configs import hymba_1p5b, mamba2_2p7b
+    from repro_torch.configs import hymba_1p5b, mamba2_2p7b, qwen3_1p7b
     from repro_torch.configs.mlecs_paper import CONFIGS
     copies = dict(CONFIGS, **{"mamba2-2.7b": mamba2_2p7b.CONFIG,
-                              "hymba-1.5b": hymba_1p5b.CONFIG})
+                              "hymba-1.5b": hymba_1p5b.CONFIG,
+                              "qwen3-1.7b": qwen3_1p7b.CONFIG})
     ref = get_config(arch)
     cfg = ModelConfig(**dataclasses.asdict(ref))
     if arch in copies:

@@ -380,7 +380,7 @@ def test_communicated_fraction_matches_jax():
 
 def test_mma_matches_jax():
     """Eq. 13 weights and the stacked mean, f32 and bf16 uploads: 1e-7 /
-    bit-equal."""
+    bit-equal; the trimmed mean and norm clip at f32, 1e-6."""
     counts = [3, 1, 2]
     np.testing.assert_allclose(_np(mma.aggregation_weights(counts)),
                                np.asarray(jmma.aggregation_weights(counts)))
@@ -403,9 +403,17 @@ def test_mma_matches_jax():
                               for j in range(3)], w)
     for k in ups:
         np.testing.assert_allclose(_np(listed[k]), _np(jlisted[k]), atol=1e-6)
-    with pytest.raises(NotImplementedError):
+    # the robust reductions (once refused here) against the reference's
+    for robust in ("trimmed_mean", "norm_clip"):
+        jout = jmma.aggregate_stacked(
+            {k: jnp.asarray(v) for k, v in ups.items()}, w, robust=robust)
+        tout = mma.aggregate_stacked({k: _t(v) for k, v in ups.items()},
+                                     torch.from_numpy(w), robust=robust)
+        for k in ups:
+            np.testing.assert_allclose(_np(tout[k]), _np(jout[k]), atol=1e-6)
+    with pytest.raises(ValueError, match="unknown robust"):
         mma.aggregate_stacked({k: _t(v) for k, v in ups.items()},
-                              torch.from_numpy(w), robust="trimmed_mean")
+                              torch.from_numpy(w), robust="median")
 
 
 def test_pooled_kl_unequal_lengths_and_vocab():
