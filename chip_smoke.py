@@ -80,7 +80,25 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    launch counts, holds qwen3's prefill -> decode logits against a full
    forward, and times A at qwen3's fullest decode step; prints a
    ``{"heterogeneous_round": ...}`` line;
-10. serves 24 soft-prompted requests each on ``mamba2-2.7b`` (prompts of
+10. holds the grouped form of C (one launch for the G clients of a
+   cohort, each on its own adapter) against its plain version and against
+   G ungrouped launches (bit-equal where both take one tile shape), forward
+   and dx, at the SLM's round shape (G 3 x 1088 rows), qwen3's (G 2, N
+   1024), a group of 136 rows and on the FMA route in f32, with its
+   gradients and a planted adapter swap that must fail; then runs one
+   evaluated round of the training configuration on the loop engine and
+   one on the vectorized engine (``engine="vectorized"``: each local step
+   one stacked step for the cohort) from the same seed's states, checks
+   each round's exact launch counts (B, B', C and D once per cohort step
+   on the vectorized engine, client eval once per padded batch of the
+   cohort), the tensor-core routes, the frozen backbone, and the two
+   rounds' summaries and LoRA leaves against each other; then one stacked
+   CCL step against the loop engine's three from per-client, non-zero
+   LoRA B (losses, gradients row by row, updated leaves), with client 0
+   given client 1's adapter as a planted fault that must fail; prints a
+   ``{"vectorized_round": ...}`` line (round wall time, ms per step and
+   peak memory per engine, launches per kernel per engine);
+11. serves 24 soft-prompted requests each on ``mamba2-2.7b`` (prompts of
    20-700 tokens, no pages) and ``hymba-1.5b`` (20-1200, the window
    bites) at full width, checks budgets, free lists and exact launch
    counts (G 64 per mamba2 admission; B and G 32 per hymba admission,
@@ -92,7 +110,7 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    profiles an
    admission tick and four decode steps, and prints ``{"ssm_serving":
    ...}`` and ``{"hybrid_serving": ...}`` lines;
-11. prints ``{"phase_seconds": ...}`` and a ``{"kernels": [...]}`` line
+12. prints ``{"phase_seconds": ...}`` and a ``{"kernels": [...]}`` line
    (times from CUDA-graph replay, bounds from this run's inputs; rows
    A-G, each with its launches on the main paths; the rows of the five
    two-route kernels, A, B, B's backward, C and G, also time their FMA
@@ -102,7 +120,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    sample, at the split the rule picks for it); row A, at the SLM's,
    hymba's and qwen3's fullest decode step (``at_other_shapes``), also
    times every forced cluster size, ``ms_by_splits`` and ``ms_splits1``;
-   rows B, B's backward and C also at qwen3's training shapes).
+   rows B, B's backward and C also at qwen3's training shapes; the row
+   of C's grouped form at G 3 x 1088 x 1280 x 1280 beside three ungrouped
+   launches of the same work, ``ungrouped_x3_ms``).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero and prints no result; it also exits
@@ -1241,7 +1261,8 @@ def counters():
         flash_attention_backward_cuda, flash_attention_cuda)
     from repro_torch.kernels.gram_volume import (
         gram_log_volume_backward_cuda, gram_log_volume_cuda)
-    from repro_torch.kernels.lora_matmul import lora_matmul_cuda
+    from repro_torch.kernels.lora_matmul import (lora_matmul_cuda,
+                                                 lora_matmul_grouped_cuda)
     from repro_torch.kernels.paged_attention import paged_attention_cuda
     from repro_torch.kernels.quantize import (dequantize_rows_cuda,
                                               quantize_rows_cuda)
@@ -1250,6 +1271,7 @@ def counters():
             "flash_attention": flash_attention_cuda,
             "flash_attention_backward": flash_attention_backward_cuda,
             "lora_matmul": lora_matmul_cuda,
+            "lora_matmul_grouped": lora_matmul_grouped_cuda,
             "gram_log_volume": gram_log_volume_cuda,
             "gram_log_volume_backward": gram_log_volume_backward_cuda,
             "quantize_rows": quantize_rows_cuda,
@@ -1261,6 +1283,7 @@ def counters():
 # every bf16 launch of the main paths must take
 TENSOR_CORE_ROUTES = {"paged_attention": "mma",
                       "lora_matmul": "wgmma",
+                      "lora_matmul_grouped": "wgmma",
                       "flash_attention": "mma",
                       "flash_attention_backward": "mma",
                       "ssd_chunk": "mma"}
@@ -1295,7 +1318,13 @@ def check_tensor_core_routes(tag):
 def expected_round_launches(runner, evaluate=True):
     """Launches of every kernel in one round (evaluated or not), from the
     step structure, cohort by cohort (each cohort's model, batch size and
-    step counts; only the round's present clients train).  A trained pass
+    step counts).  On the loop engine only the round's present clients
+    train, each pass is one client's, and client eval runs each client's
+    own batches.  On the vectorized engine each local step is ONE pass of
+    the whole cohort (offline clients train and are selected back), its C
+    launches are the grouped form's, and client eval runs one pass per
+    padded eval batch of the cohort (the most any member needs); the
+    server's launches are the same on both engines.  A trained pass
     of an L-layer model launches C 4L times forward, 4L more when
     ``remat`` recomputes the layers in the backward, and 4L for dx (3
     fewer on a raw batch: layer 0's wq/wk/wv inputs are the frozen
@@ -1316,29 +1345,41 @@ def expected_round_launches(runner, evaluate=True):
         L = mc.n_layers
         return 4 * L * rem + 4 * L - (0 if prefix else 3), L * rem
 
-    passes, d, k, evals = [], cfg.server_steps, 0, []
+    stacked = runner.engine == "vectorized"
+    passes, grouped, d, k = [], [], cfg.server_steps, 0
+    evals, grouped_evals = [], []
     for rt in runner.cohorts:
         m = rt.bundle.cfg
         n = rt.n if pres is None else int(pres[rt.slice].sum())
         k_ccl = spec.cohort_steps_ccl(rt.idx)
-        passes += [(m, True)] * n * (k_ccl + spec.cohort_steps_amt(rt.idx))
-        d += n * k_ccl
+        steps = k_ccl + spec.cohort_steps_amt(rt.idx)
         bs = spec.cohort_batch_size(rt.idx)
-        evals.append((m, sum(-(-runner.priv_test[j]["tokens"].shape[0] // bs)
-                             for j in range(rt.offset, rt.offset + rt.n))))
+        blocks = [-(-runner.priv_test[j]["tokens"].shape[0] // bs)
+                  for j in range(rt.offset, rt.offset + rt.n)]
+        if stacked:
+            grouped += [(m, True)] * steps
+            d += k_ccl
+            grouped_evals.append((m, max(blocks)))
+        else:
+            passes += [(m, True)] * n * steps
+            d += n * k_ccl
+            evals.append((m, sum(blocks)))
         k += len(rt.up_like) if not runner.channel.is_identity else 0
     evals.append((l, -(-runner.public_test["tokens"].shape[0]
                       // cfg.batch_size)))
     passes += cfg.server_steps * [(l, True), (l, False), (s, True),
                                   (s, False)]
     c = sum(trained(m, p)[0] for m, p in passes)
-    b = sum(trained(m, p)[1] for m, p in passes)
-    b_bwd = sum(m.n_layers for m, _ in passes)
+    cg = sum(trained(m, p)[0] for m, p in grouped)
+    b = sum(trained(m, p)[1] for m, p in passes + grouped)
+    b_bwd = sum(m.n_layers for m, _ in passes + grouped)
     if evaluate:
         c += sum(4 * m.n_layers * n for m, n in evals)
-        b += sum(m.n_layers * n for m, n in evals)
+        cg += sum(4 * m.n_layers * n for m, n in grouped_evals)
+        b += sum(m.n_layers * n for m, n in evals + grouped_evals)
     return {"paged_attention": 0, "flash_attention": b,
             "flash_attention_backward": b_bwd, "lora_matmul": c,
+            "lora_matmul_grouped": cg,
             "gram_log_volume": d, "gram_log_volume_backward": d,
             "quantize_rows": 2 * k,
             "dequantize_rows": (3 if runner.channel.stateful else 2) * k,
@@ -2856,6 +2897,483 @@ def ssd_kernel_rows():
         "at_other_shapes": others}]
 
 
+# ---------------------------------------------------------------------------
+# phase: the vectorized engine (grouped C, one stacked step against the
+# loop engine's steps, one evaluated round on each engine)
+
+# grouped C's cases: name -> (G, Mg, K, N, r, trans_w, dtype name)
+GROUPED_CASES = {
+    "slm_round": (3, 1088, 1280, 1280, 8, False, "bfloat16"),
+    "slm_round_dx": (3, 1088, 1280, 1280, 8, True, "bfloat16"),
+    "qwen3_k_v": (2, 1088, 2048, 1024, 8, False, "bfloat16"),
+    "qwen3_k_v_dx": (2, 1088, 1024, 2048, 8, True, "bfloat16"),
+    "small_mg": (3, 136, 1280, 1280, 8, False, "bfloat16"),
+    "small_mg_dx": (3, 136, 1280, 1280, 8, True, "bfloat16"),
+    "fma_f32": (3, 136, 1280, 1280, 8, False, "float32"),
+    "fma_f32_dx": (3, 1088, 1280, 1280, 8, True, "float32"),
+}
+# the stacked step against the loop engine's steps at bf16 (the two paths
+# round bf16 GEMMs of other shapes: cuBLAS at M = 3 x 1088 against 1088,
+# through 36 layers forward and back): per-client losses to 1e-2
+# relative; each client's gradient of each leaf within 2e-2 of its own
+# L2 norm; and each row of it (last axis) within 0.15 of the row's
+# largest |value|, floored at a tenth of the leaf's largest: twice the
+# largest row deviation of the first full-width run (0.069, in 3 elements
+# of one LoRA A leaf, where a row's entries cancel).  The updated leaves
+# within two AdamW steps of lr (a gradient entry near 0 may change sign)
+# plus the leaf's bf16 rounding.
+STEP_LOSS_RTOL = 1e-2
+STEP_GRAD_L2_RTOL = 2e-2
+STEP_GRAD_TOL = dict(atol=0.15, rtol=0.0)
+STEP_GRAD_FLOOR = 0.1
+# the two engines' evaluated rounds at bf16: CE to 2e-2 relative, accuracy
+# to 0.02 (a template token may flip), every LoRA leaf within 2 lr per
+# AdamW step that moved it (device CCL + AMT steps, then SE-CCL) plus
+# the leaf's bf16 rounding
+ROUND_CE_RTOL = 2e-2
+ROUND_ACC_ATOL = 0.02
+
+
+def grouped_inputs(gen, G, Mg, K, N, r, dtype, trans_w=False):
+    import torch
+    x = torch.randn((G * Mg, K), generator=gen, device="cuda").to(dtype)
+    wshape = (N, K) if trans_w else (K, N)
+    w = (torch.randn(wshape, generator=gen, device="cuda") / math.sqrt(K)
+         ).to(dtype)
+    a = (torch.randn((G, K, r), generator=gen, device="cuda")
+         / math.sqrt(K)).to(dtype)
+    b = (0.1 * torch.randn((G, r, N), generator=gen, device="cuda")
+         ).to(dtype)
+    return x, w, a, b
+
+
+def grouped_tile(G, Mg, N, r):
+    """The wgmma route's tile for G groups (``big_tile`` of
+    ``csrc/lora_matmul.cu``): "192x192" or "128x96"."""
+    tiles = G * -(-Mg // 192) * -(-N // 192)
+    return "192x192" if r == 8 and tiles >= 99 else "128x96"
+
+
+def phase_grouped_lora_checks():
+    """Grouped C against its plain version and against G ungrouped
+    launches, forward and dx, on the route it should take; bit-equal to
+    the ungrouped launches where both take one tile shape (per group the
+    same tiles, K order and epilogue), else within the tolerance; the
+    autograd gradients (dx, dA, dB) at the SLM's round shape; and a
+    planted fault (every client on client 0's adapter) that must fail."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.lora_matmul import (lora_matmul_cuda,
+                                                 lora_matmul_grouped_cuda,
+                                                 lora_matmul_grouped_plain,
+                                                 lora_matmul_grouped_route)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    results, vs_ungrouped = {}, {}
+    for name, (G, Mg, K, N, r, tw, dt) in GROUPED_CASES.items():
+        dtype = getattr(torch, dt)
+        tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+        x, w, a, b = grouped_inputs(gen, G, Mg, K, N, r, dtype, tw)
+        route = lora_matmul_grouped_route(x, w, a, b, tw)
+        want_route = "wgmma" if dtype == torch.bfloat16 else "fma"
+        before = dict(lora_matmul_grouped_cuda.launches_by_route)
+        got = lora_matmul_grouped_cuda(x, w, a, b, 2.0, trans_w=tw)
+        moved = {k: v - before[k] for k, v in
+                 lora_matmul_grouped_cuda.launches_by_route.items()}
+        if route != want_route or moved != {k: int(k == route)
+                                            for k in moved}:
+            raise AssertionError(f"grouped lora {name}: route {route}, "
+                                 f"launches {moved}")
+        want = lora_matmul_grouped_plain(x, w.t() if tw else w, a, b, 2.0)
+        solo = torch.cat([lora_matmul_cuda(x[g * Mg:(g + 1) * Mg], w, a[g],
+                                           b[g], 2.0, trans_w=tw)
+                          for g in range(G)])
+        torch.cuda.synchronize()
+        results[name] = check_close(f"grouped lora {name}", got, want, tol)
+        same_tile = route == "fma" or \
+            grouped_tile(G, Mg, N, r) == grouped_tile(1, Mg, N, r)
+        equal = bool(torch.equal(got, solo))
+        if same_tile and not equal:
+            raise AssertionError(f"grouped lora {name}: not bit-equal to "
+                                 f"{G} ungrouped launches of one tile")
+        vs_ungrouped[name] = {
+            "route": route, "same_tile": same_tile, "bit_equal": equal,
+            "tile": grouped_tile(G, Mg, N, r) if route == "wgmma" else
+            "64x64 fma", "ungrouped_tile": grouped_tile(1, Mg, N, r)
+            if route == "wgmma" else "64x64 fma",
+            "max_abs_diff": check_close(f"grouped vs ungrouped {name}", got,
+                                        solo, tol)}
+    # autograd at the SLM's round shape: both launches on wgmma
+    x, w, a, b = grouped_inputs(gen, 3, 1088, 1280, 1280, 8, torch.bfloat16)
+    dy = torch.randn((3264, 1280), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    grads = []
+    for fn in (ops.lora_matmul_grouped, lora_matmul_grouped_plain):
+        ins = [t.clone().requires_grad_(True) for t in (x, a, b)]
+        n0 = lora_matmul_grouped_cuda.launches_by_route["wgmma"]
+        fn(ins[0], w, ins[1], ins[2], 2.0).backward(dy)
+        if fn is ops.lora_matmul_grouped and \
+                lora_matmul_grouped_cuda.launches_by_route["wgmma"] != n0 + 2:
+            raise AssertionError("grouped lora autograd: not 2 wgmma "
+                                 "launches")
+        grads.append([t.grad.reshape(-1, t.shape[-1]) for t in ins])
+    torch.cuda.synchronize()
+    for n, got, want in zip(("dx", "dA", "dB"), *grads):
+        results[f"grad_{n}"] = rel_check(f"grouped lora {n}", got, want,
+                                         BF16_TOL)
+    # planted: client 0's adapter for every client must fail the check
+    got = lora_matmul_grouped_cuda(x, w, a, b, 2.0)
+    wrong = lora_matmul_grouped_plain(x, w, a[:1].expand_as(a),
+                                      b[:1].expand_as(b), 2.0)
+    try:
+        check_close("planted", got, wrong, BF16_TOL)
+    except AssertionError as e:
+        planted = str(e)
+    else:
+        raise AssertionError("grouped lora: the planted adapter swap passed")
+    return {"phase": "grouped_lora_vs_plain", "max_abs_err": results,
+            "vs_ungrouped": vs_ungrouped, "planted_fault_failed": planted,
+            "tolerance": {"bfloat16": BF16_TOL, "float32": F32_TOL,
+                          "gradients": "each row over its largest |value|"}}
+
+
+def grouped_lora_row():
+    """Row of grouped C at the SLM's round shape (G 3 x 1088 x 1280 x
+    1280, r 8, bf16) from CUDA-graph replay: the grouped launch, three
+    ungrouped launches of the same work, cuBLAS x @ W at M = 3264, the
+    plain version, replays in turn; dx (W read transposed) beside it."""
+    import torch
+    from repro_torch.kernels.lora_matmul import (lora_matmul_cuda,
+                                                 lora_matmul_grouped_cuda,
+                                                 lora_matmul_grouped_plain)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    G, Mg, K, N, r = 3, 1088, 1280, 1280, 8
+    out = {}
+    for tw in (False, True):
+        x, w, a, b = grouped_inputs(gen, G, Mg, K, N, r, torch.bfloat16, tw)
+        wt = w.t() if tw else w
+        xs = [x[g * Mg:(g + 1) * Mg] for g in range(G)]
+        t = graphs_ms({
+            "grouped": lambda i: lora_matmul_grouped_cuda(x, w, a, b, 2.0,
+                                                          trans_w=tw),
+            "ungrouped_x3": lambda i: [lora_matmul_cuda(
+                xs[g], w, a[g], b[g], 2.0, trans_w=tw) for g in range(G)],
+            "cublas": lambda i: torch.matmul(x, wt),
+            "plain": lambda i: lora_matmul_grouped_plain(x, wt, a, b, 2.0)})
+        err = check_close("grouped lora row", lora_matmul_grouped_cuda(
+            x, w, a, b, 2.0, trans_w=tw),
+            lora_matmul_grouped_plain(x, wt, a, b, 2.0), BF16_TOL)
+        M = G * Mg
+        bytes_ = (M * K + K * N + G * K * r + G * r * N + M * N) * 2
+        flops = 2 * M * K * N + 2 * M * K * r + 2 * M * r * N
+        bound, by = _bound(bytes_, flops)
+        out["dx" if tw else "forward"] = {
+            "ms": t["grouped"], "ungrouped_x3_ms": t["ungrouped_x3"],
+            "plain_ms": t["plain"], "library_ms": t["cublas"],
+            "bound_ms": bound, "bound_by": by, "max_abs_err": err,
+            "tile": grouped_tile(G, Mg, N, r),
+            "shape": {"G": G, "Mg": Mg, "K": K, "N": N, "r": r,
+                      "trans_w": tw, "dtype": "torch.bfloat16"}}
+    f = out["forward"]
+    return {"name": "lora_matmul_grouped", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/lora_matmul.cu",
+            "replaces": "src/repro/kernels/lora_matmul.py:55 (vmap over "
+                        "the client axis)",
+            "max_abs_err": max(o["max_abs_err"] for o in out.values()),
+            "tolerance": BF16_TOL,
+            **{k: f[k] for k in ("ms", "ungrouped_x3_ms", "plain_ms",
+                                 "bound_ms", "bound_by", "library_ms",
+                                 "tile", "shape")},
+            "ungrouped_x3_is": "three ungrouped launches of C, one a "
+                               "client, in one timed call",
+            "library_call": "torch.matmul(x, W) at M = G x Mg: the dense "
+                            "part alone (no single PyTorch call computes "
+                            "the whole function)",
+            "at_other_shapes": {"dx_transposed_w": out["dx"]}}
+
+
+def lora_leaves(tree):
+    from repro_torch.core.lora import is_lora_leaf, partition
+    return {k: v.detach().clone() for k, v in
+            partition(tree, is_lora_leaf).items()}
+
+
+def leaf_bound(lr, steps, want):
+    """|got - want| allowed for a bf16 leaf after ``steps`` AdamW steps on
+    two paths whose gradients differ at bf16 rounding: 2 lr a step (a
+    first-moment sign may flip where the gradient is near 0) plus the
+    leaf's bf16 half-ulp (2^-9 |x|, and 2^-8 for the sum's rounding)."""
+    return 2.0 * lr * steps + 2.0 ** -8 * want.float().abs()
+
+
+def step_check(tag, got_loss, want_loss, got_grads, want_grads):
+    """Per-client losses and gradients of the stacked step against the
+    loop engine's, every leaf measured before any is judged: raises with
+    the worst leaves when any is out of tolerance.  Returns the worst
+    errors: the losses', each leaf's L2 and row-wise ones."""
+    import torch
+    loss_rel, l2, rows, bad = [], {}, {}, []
+    for g, (lw, gw) in enumerate(zip(want_loss, want_grads)):
+        rel = abs(float(got_loss[g]) - float(lw)) / abs(float(lw))
+        loss_rel.append(rel)
+        if not rel <= STEP_LOSS_RTOL:
+            bad.append(f"client {g} loss rel {rel:.3e}")
+        for k, want in gw.items():
+            got = got_grads[k][g].float().reshape(-1, want.shape[-1])
+            want = want.float().reshape(-1, want.shape[-1])
+            e2 = float(torch.linalg.vector_norm(got - want)
+                       / torch.linalg.vector_norm(want).clamp(min=1e-30))
+            scale = torch.maximum(
+                want.abs().amax(dim=1, keepdim=True),
+                STEP_GRAD_FLOOR * want.abs().max()).clamp(min=1e-30)
+            er = float(((got - want).abs() / scale).max())
+            l2[k] = max(l2.get(k, 0.0), e2)
+            rows[k] = max(rows.get(k, 0.0), er)
+            if not (e2 <= STEP_GRAD_L2_RTOL and er <= STEP_GRAD_TOL["atol"]
+                    and bool(torch.isfinite(got).all())):
+                bad.append(f"client {g} d{k}: L2 {e2:.3e}, row {er:.3e}")
+    worst = {"loss_rel": max(loss_rel), "grad_l2_rel": max(l2.values()),
+             "grad_row_rel": max(rows.values()),
+             "grad_l2_rel_by_leaf": l2, "grad_row_rel_by_leaf": rows}
+    if bad:
+        raise AssertionError(f"{tag}: {len(bad)} out of tolerance: "
+                             f"{bad[:12]}; worst L2 by leaf {l2}; worst "
+                             f"row by leaf {rows}")
+    return worst
+
+
+def stacked_step_check(runner):
+    """One stacked CCL step against the loop engine's three, from one
+    state whose LoRA B leaves are non-zero and different per client, on
+    the same batches and anchors: per-client losses, gradients (row by
+    row) and updated leaves.  A planted fault, client 0 on client 1's
+    adapter, must fail the same check."""
+    import torch
+    from repro_torch.core import ccl as ccl_lib
+    from repro_torch.core.lora import (combine, gather_client, is_lora_leaf,
+                                       partition)
+    from repro_torch.data.pipeline import to_tensors
+    cfg, rt = runner.cfg, runner.cohorts[0]
+    bundle = rt.bundle
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    sp = rt.stacked_params
+    sp = combine(sp, {k: (0.02 * torch.randn(v.shape, generator=gen,
+                                             device="cuda")).to(v.dtype)
+                      for k, v in partition(sp).items()
+                      if k.endswith("_lora_b")})
+    pubs = to_tensors(runner._streams.gather_steps(
+        [f"pub/{j}" for j in range(rt.offset, rt.offset + rt.n)], 1),
+        "cuda")
+    pub = {k: v[0] for k, v in pubs.items()}
+    anchor = runner.stacked_anchors(pub)
+
+    def stacked_grads(tree):
+        train = {k: v.detach().requires_grad_(True)
+                 for k, v in partition(tree).items()}
+        loss, _ = ccl_lib.mlecs_loss(
+            combine(tree, train), bundle, pub, anchor=anchor,
+            ccl_weight=0.5, n_negatives=cfg.n_negatives, stacked=True)
+        return loss.detach(), ccl_lib.grads_of(torch.sum(loss), train)
+
+    personal = partition(sp)
+    trees = [combine(sp, gather_client(personal, g)) for g in range(rt.n)]
+    batches = [{k: v[g] for k, v in pub.items()} for g in range(rt.n)]
+    want_loss, want_grads = [], []
+    for tree, batch in zip(trees, batches):
+        train = {k: v.detach().requires_grad_(True)
+                 for k, v in partition(tree).items()}
+        loss, _ = ccl_lib.mlecs_loss(
+            combine(tree, train), bundle, batch,
+            anchor=runner.anchors(batch), ccl_weight=0.5,
+            n_negatives=cfg.n_negatives)
+        want_loss.append(loss.detach())
+        want_grads.append(ccl_lib.grads_of(loss, train))
+    got_loss, got_grads = stacked_grads(sp)
+    torch.cuda.synchronize()
+    worst = step_check("stacked step", got_loss, want_loss, got_grads,
+                       want_grads)
+
+    # planted: client 0 trains on client 1's adapter
+    swapped = combine(sp, {k: torch.cat([v[1:2], v[1:]]) for k, v in
+                           partition(sp, is_lora_leaf).items()})
+    bad_loss, bad_grads = stacked_grads(swapped)
+    try:
+        step_check("planted", bad_loss, want_loss, bad_grads, want_grads)
+    except AssertionError as e:
+        planted = str(e)
+    else:
+        raise AssertionError("stacked step: the planted adapter swap passed")
+
+    # the steps themselves: the stacked step and the loop engine's step
+    loop_step = ccl_lib.make_local_step(
+        bundle, runner.opt, ccl_weight=0.5, n_negatives=cfg.n_negatives,
+        ccl_score=cfg.ccl_score)
+    new_sp, new_opt, _ = rt.ccl_step(sp, rt.stacked_opt, pub, anchor)
+    opts = runner.device_opt
+    leaf_worst, moved = 0.0, 0
+    for g, (tree, batch) in enumerate(zip(trees, batches)):
+        p, o, _ = loop_step(tree, opts[g], batch, runner.anchors(batch))
+        want = partition(p)
+        got = partition(new_sp)
+        for k, v in want.items():
+            err = (got[k][g].float() - v.float()).abs()
+            if bool((err > leaf_bound(cfg.lr, 1, v)).any()):
+                raise AssertionError(f"stacked step: client {g} {k} "
+                                     f"moved {float(err.max())} apart")
+            leaf_worst = max(leaf_worst, float(err.max()))
+            moved += int((got[k][g] != partition(tree)[k]).sum())
+        if int(o["step"]) != int(new_opt["step"][g]):
+            raise AssertionError("stacked step: AdamW step counts differ")
+    torch.cuda.synchronize()
+    return {"clients": rt.n, "loss": [float(x) for x in got_loss],
+            "max_loss_rel_err": worst["loss_rel"],
+            "max_grad_l2_rel_err": worst["grad_l2_rel"],
+            "max_grad_row_rel_err": worst["grad_row_rel"],
+            "grad_l2_rel_err_by_leaf": worst["grad_l2_rel_by_leaf"],
+            "grad_row_rel_err_by_leaf": worst["grad_row_rel_by_leaf"],
+            "max_leaf_abs_err": leaf_worst, "leaf_elements_moved": moved,
+            "planted_fault_failed": planted,
+            "tolerance": {"loss_rtol": STEP_LOSS_RTOL,
+                          "grad_l2_rtol": STEP_GRAD_L2_RTOL,
+                          "grad_rows": STEP_GRAD_TOL,
+                          "grad_floor": STEP_GRAD_FLOOR,
+                          "leaves": "2 lr a step + 2^-8 |leaf|"}}
+
+
+def engine_round(engine, seconds):
+    """One evaluated round of the training configuration on ``engine``
+    from the seed's states, counted and timed: (runner, record)."""
+    import torch
+    from repro_torch.core.federated import FederatedConfig, FederatedRunner
+    from repro_torch.core.lora import default_trainable, flatten
+    from repro_torch.models.model import build_model
+    slm_cfg, llm_cfg = round_models()
+    runner = FederatedRunner(FederatedConfig(**dict(ROUND, engine=engine)),
+                             build_model(slm_cfg), build_model(llm_cfg),
+                             round_corpus(), device="cuda")
+    rt = runner.cohorts[0]
+
+    def timed(fn, key):
+        def run(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            seconds.setdefault(key, []).append(time.perf_counter() - t)
+            return out
+        return run
+    steps = (rt.ccl_step, rt.amt_step)
+    rt.ccl_step = timed(rt.ccl_step, f"{engine}/ccl")
+    rt.amt_step = timed(rt.amt_step, f"{engine}/amt")
+    init = {f"device{j}": trainable_copy(p)
+            for j, p in enumerate(runner.device_params)}
+    trees = {"device_base": runner.cohort_base,
+             "server_slm": runner.server_slm,
+             "server_llm": runner.server_llm}
+    frozen0 = {n: frozen_fingerprint(t) for n, t in trees.items()}
+    zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = runner.run_round()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    routes = check_tensor_core_routes(f"{engine} round")
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    rt.ccl_step, rt.amt_step = steps
+    want = expected_round_launches(runner)
+    if launches != want:
+        raise AssertionError(f"{engine} round: launches {launches} != "
+                             f"expected {want}")
+    for n, t in trees.items():
+        if frozen_fingerprint(t) != frozen0[n]:
+            raise AssertionError(f"{engine} round: {n} changed")
+    base = flatten(runner.cohort_base)
+    for j, p in enumerate(runner.device_params):
+        for k, v in flatten(p).items():
+            if not default_trainable(k) and v is not base[k]:
+                raise AssertionError(f"{engine} round: device {j}: {k} is "
+                                     "not the shared backbone tensor")
+    for m in [out["summary"]] + out["client"] + [out["server"]]:
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"{engine} round: non-finite {m}")
+    return runner, {
+        "init": init, "summary": out["summary"], "wall_s": wall,
+        "peak_mem_gb": peak_gb, "launches": launches, "routes": routes,
+        "leaves": {"server_slm": lora_leaves(runner.server_slm),
+                   "server_llm": lora_leaves(runner.server_llm),
+                   **{f"device{j}": lora_leaves(p)
+                      for j, p in enumerate(runner.device_params)}}}
+
+
+def phase_vectorized_round():
+    """Grouped C's checks, then one evaluated round of the training
+    configuration on the loop engine and one on the vectorized engine
+    from the same seed's states (bit-equal at the start), each counted,
+    timed and checked, held against each other; then one stacked CCL step
+    against the loop engine's steps on the vectorized runner."""
+    import torch
+    emit(phase_grouped_lora_checks())
+    seconds, rec = {}, {}
+    for engine in ("loop", "vectorized"):
+        runner, rec[engine] = engine_round(engine, seconds)
+        if engine == "loop":
+            del runner
+            release()
+    loop, vec = rec["loop"], rec["vectorized"]
+    for j, leaves in loop["init"].items():
+        other = vec["init"][j]
+        if any(not torch.equal(v, other[k]) for k, v in leaves.items()):
+            raise AssertionError(f"the engines' {j} did not start equal")
+    for k in ("avg_ce", "server_ce"):
+        a, b = loop["summary"][k], vec["summary"][k]
+        if not abs(a - b) <= ROUND_CE_RTOL * abs(a):
+            raise AssertionError(f"engines' {k}: {a} vs {b}")
+    for k in ("avg_acc", "best_acc", "worst_acc", "server_acc"):
+        if not abs(loop["summary"][k] - vec["summary"][k]) <= ROUND_ACC_ATOL:
+            raise AssertionError(f"engines' {k}: {loop['summary'][k]} vs "
+                                 f"{vec['summary'][k]}")
+    cfg = runner.cfg
+    n_steps = {"server_slm": ROUND["local_steps_ccl"]
+               + ROUND["local_steps_amt"] + ROUND["server_steps"],
+               "server_llm": ROUND["server_steps"]}
+    leaf_err = {}
+    for n, leaves in loop["leaves"].items():
+        steps = n_steps.get(n, n_steps["server_slm"])
+        for k, want in leaves.items():
+            got = vec["leaves"][n][k]
+            err = (got.float() - want.float()).abs()
+            if bool((err > leaf_bound(cfg.lr, steps, want)).any()):
+                raise AssertionError(f"engines' {n}:{k} {float(err.max())}"
+                                     " apart")
+            leaf_err[n] = max(leaf_err.get(n, 0.0), float(err.max()))
+    if vec["launches"]["lora_matmul_grouped"] == 0:
+        raise AssertionError("the vectorized round launched no grouped C")
+    step = stacked_step_check(runner)
+    del runner
+    ms = {k: 1e3 * statistics.mean(v) for k, v in seconds.items()}
+    result = {
+        "config": {"slm": round_models()[0].name,
+                   "llm": round_models()[1].name, "round": dict(ROUND),
+                   "dtype": round_models()[0].dtype},
+        "round_wall_s": {e: rec[e]["wall_s"] for e in rec},
+        "step_ms": ms,
+        "steps": {k: len(v) for k, v in seconds.items()},
+        "stacked_step_ms_over_loop_client_step_ms": {
+            kind: ms[f"vectorized/{kind}"] / ms[f"loop/{kind}"]
+            for kind in ("ccl", "amt")},
+        "peak_mem_gb": {e: rec[e]["peak_mem_gb"] for e in rec},
+        "launches": {e: rec[e]["launches"] for e in rec},
+        "launches_by_route": {e: rec[e]["routes"] for e in rec},
+        "summary": {e: rec[e]["summary"] for e in rec},
+        "max_leaf_abs_err_vs_loop": leaf_err,
+        "tolerance": {"ce_rtol": ROUND_CE_RTOL, "acc_atol": ROUND_ACC_ATOL,
+                      "leaves": "2 lr per AdamW step + 2^-8 |leaf|"},
+        "stacked_step": step,
+    }
+    return result, vec["launches"]
+
+
 def release():
     """Free what the last phase left: its objects hold reference cycles
     (a runner's step closures refer back to it), so collect them before
@@ -2914,6 +3432,10 @@ def main() -> int:
     emit({"heterogeneous_round": het})
     release()
     lap("heterogeneous_round")
+    vectorized, vec_launches = phase_vectorized_round()
+    emit({"vectorized_round": vectorized})
+    release()
+    lap("vectorized_round")
     ssm_serving, ssm_launches = phase_ssm_serving()
     emit({"ssm_serving": ssm_serving})
     release()
@@ -2928,6 +3450,7 @@ def main() -> int:
     release()
     lap("hybrid_serving")
     kernels += training_kernel_rows()
+    kernels.append(grouped_lora_row())
     kernels += channel_kernel_rows()
     kernels += ssd_kernel_rows()
     lap("kernel_rows")
@@ -2937,6 +3460,7 @@ def main() -> int:
              "channel_rounds": channel_launches,
              "heterogeneous_rounds": het_launches,
              "cohort_serving": cohort_launches,
+             "vectorized_round": vec_launches,
              "ssm_serving": ssm_launches, "hybrid_serving": hybrid_launches}
     for row in kernels:
         by_path = {p: n[row["name"]] for p, n in paths.items()

@@ -2,6 +2,11 @@
 per-modality projectors (Eq. 4), a fusion MLP (Eq. 9) and a soft-prompt
 generator (Eq. 10), plus ``init_unified`` (``repro.core.ccl``), which
 builds the backbone and then the connector.
+
+Every function also takes G clients at once: connector leaves stacked
+(G, ...) with inputs (G, B, ...), or one connector (the server's) over
+(G, B, ...) inputs.  The products are ``torch.einsum`` / ``torch.matmul``
+with the leading axes batched, as ``vmap`` of the reference gives.
 """
 from __future__ import annotations
 
@@ -36,23 +41,24 @@ def init_connector(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 
 def project_modalities(p, cfg: ModelConfig, feats, mask):
-    """Eq. 4.  feats: (B, M, fd); mask: (B, M) bool availability.
-    Returns (B, M, c) with absent modalities zeroed."""
-    h = torch.einsum("bmf,mfd->bmd", feats.to(p["proj_w"].dtype),
-                     p["proj_w"]) + p["proj_b"]
+    """Eq. 4.  feats: ([G,] B, M, fd); mask: ([G,] B, M) bool
+    availability.  Returns ([G,] B, M, c) with absent modalities zeroed."""
+    h = torch.einsum("...bmf,...mfd->...bmd", feats.to(p["proj_w"].dtype),
+                     p["proj_w"]) + p["proj_b"][..., None, :, :]
     return h * mask[..., None].to(h.dtype)
 
 
 def fuse(p, cfg: ModelConfig, h, mask):
-    """Eq. 9: fused multimodal representation (B, c)."""
-    flat = (h * mask[..., None].to(h.dtype)).reshape(h.shape[0], -1)
+    """Eq. 9: fused multimodal representation ([G,] B, c)."""
+    flat = (h * mask[..., None].to(h.dtype)).reshape(*h.shape[:-2], -1)
     return F.gelu(flat @ p["fuse_w1"], approximate="tanh") @ p["fuse_w2"]
 
 
 def soft_prompt(p, cfg: ModelConfig, fused):
-    """Eq. 10: soft-prompt tokens (B, n_soft, d)."""
+    """Eq. 10: soft-prompt tokens ([G,] B, n_soft, d)."""
     g = F.gelu(fused @ p["spg_w1"], approximate="tanh")
-    return g[:, None, :] * p["spg_scale"][None] + p["spg_bias"][None]
+    return (g[..., None, :] * p["spg_scale"][..., None, :, :]
+            + p["spg_bias"][..., None, :, :])
 
 
 def connector_prefix(p, cfg: ModelConfig, feats, mask

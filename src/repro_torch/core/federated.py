@@ -1,6 +1,6 @@
-"""The ML-ECS federated round — Algorithm 1 on the loop engine, for
-cohort-structured federations (port of ``repro.core.federated``'s loop
-engine).
+"""The ML-ECS federated round — Algorithm 1 on the loop and vectorized
+engines, for cohort-structured federations (port of
+``repro.core.federated``).
 
 One cloud server (a unified LLM and a server-side SLM) and N edge devices
 (unified SLMs with heterogeneous modality availability).  Per round:
@@ -37,18 +37,32 @@ init or scale their uploads.  ``robust`` picks the reduction (mean,
 trimmed_mean, norm_clip); robust reductions take the raw per-client
 uploads.
 
-Covered: ``engine="loop"``, the modes mlecs / fedavg / standalone, the
-ablations ``use_mma`` / ``use_seccl`` / ``use_ccl``, both CCL scores,
-``prox_weight``, the three reductions, client faults, and the identity,
-int8 and int4 channels (uploads cross the wire before MMA, each cohort's
-redistribution crosses it on the way down).  The other engines, the
-sketch codec, participant sampling and checkpoints raise
+**Engines.**  ``engine="loop"`` (the numerical ground truth) runs every
+client's steps one client at a time.  ``engine="vectorized"`` (the
+reference's default) stacks each cohort's personal leaves and AdamW
+states on a leading client axis and runs each local step as ONE stacked
+step for all clients of the cohort (:func:`~repro_torch.core.ccl.
+make_stacked_step`): every kernel on the step's path launches once per
+cohort, kernel C in its grouped form.  Offline clients train with the
+others and are then selected back (parameters and AdamW state, its step
+count included); their streams advance.  Client evaluation runs each
+cohort's padded eval shards in one pass per batch.  The two engines share
+everything after the device phase: the wire, the combines, SE-CCL and the
+delivery (redistribution is a presence-masked broadcast into the stack).
+They agree to float rounding.
+
+Covered: the loop and vectorized engines, the modes mlecs / fedavg /
+standalone, the ablations ``use_mma`` / ``use_seccl`` / ``use_ccl``, both
+CCL scores, ``prox_weight``, the three reductions, client faults, and the
+identity, int8 and int4 channels (uploads cross the wire before MMA, each
+cohort's redistribution crosses it on the way down).  The overlap engine,
+the sketch codec, participant sampling and checkpoints raise
 ``NotImplementedError``.
 
 Every member of a cohort shares ONE frozen backbone (the cohort base);
-only its personal leaves (LoRA + connector) are its own.  Steps never
-write a tensor in place: a step returns a new tree that shares the frozen
-leaves.
+only its personal leaves (LoRA + connector) are its own, stacked (n, ...)
+under the vectorized engine.  Steps never write a tensor in place: a step
+returns a new tree that shares the frozen leaves.
 """
 from __future__ import annotations
 
@@ -68,7 +82,9 @@ from repro_torch.core.spec import (ENGINES, ClientCohort, FaultSpec,
 from repro_torch.data import attacks
 from repro_torch.data.multimodal import (paper_split, take_fraction,
                                          train_test_split)
-from repro_torch.data.pipeline import ClientStreams, np_eval_batches, to_tensors
+from repro_torch.data.pipeline import (ClientStreams, np_eval_batches,
+                                       stack_eval_steps,
+                                       stacked_eval_batches, to_tensors)
 from repro_torch.models.model import build_model
 from repro_torch.optim.adamw import adamw, apply_updates
 
@@ -86,6 +102,27 @@ def _do_seccl(cfg: "FederatedConfig") -> bool:
 def _ccl_weight(cfg: "FederatedConfig") -> float:
     """CCL loss weight of the device public-data steps (0 outside mlecs)."""
     return 0.5 if (cfg.use_ccl and cfg.mode == "mlecs") else 0.0
+
+
+def _where_clients(mask: torch.Tensor, new, old):
+    """Per-client select over the stacked leading axis of (nested) dicts:
+    ``new`` where the client took part this round, ``old`` (its pre-round
+    value) where it was offline."""
+    if isinstance(new, dict):
+        return {k: _where_clients(mask, v, old[k]) for k, v in new.items()}
+    return torch.where(mma._bcast(mask, new), new, old)
+
+
+def _scale_uploads(uploads: Dict[str, torch.Tensor], scale: np.ndarray
+                   ) -> Dict[str, torch.Tensor]:
+    """Byzantine scaled-update over a stacked upload: client j reports
+    ``scale[j] × u_j`` (1.0 for honest clients: exact), the product in f32
+    rounded once, as :func:`repro_torch.data.attacks.scaled_update`."""
+    out = {}
+    for k, v in uploads.items():
+        s = torch.as_tensor(scale, dtype=torch.float32, device=v.device)
+        out[k] = (v.float() * mma._bcast(s, v)).to(v.dtype)
+    return out
 
 
 @dataclasses.dataclass
@@ -106,7 +143,7 @@ class FederatedConfig:
     rho: float = 0.7                 # modality existing rate (MER)
     n_negatives: int = 4
     seed: int = 0
-    engine: str = "vectorized"       # only "loop" is ported
+    engine: str = "vectorized"       # "loop" or "vectorized"
     staleness: int = 0
     use_mma: bool = True             # False -> uniform averaging (w/o MMA)
     use_seccl: bool = True           # False -> skip step 4     (w/o SE-CCL)
@@ -131,9 +168,10 @@ class FederatedConfig:
 def _refuse_unported(spec: FederationSpec, engine: str) -> None:
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
-    if engine != "loop":
+    if engine == "overlap":
         raise NotImplementedError(
-            f"engine={engine!r} is not ported; pass engine='loop'")
+            "engine='overlap' is not ported; pass engine='loop' or "
+            "'vectorized'")
     if spec.staleness > 0:
         raise ValueError("staleness > 0 requires the overlap engine")
     if spec.channel is not None and spec.channel.codec == "sketch":
@@ -151,7 +189,12 @@ class _Cohort:
     """Runtime state of one cohort: its model bundle, the contiguous
     global-client slice it owns, its globally normalized Eq. 13 weights,
     the server-shape-shared key subset, the wire templates and byte costs,
-    its members' parameters and optimizer states, and its steps."""
+    its members' parameters and optimizer states, and its steps.  The
+    loop engine keeps one tree per member (``device_params``,
+    ``device_opt``); the vectorized engine one stacked tree
+    (``stacked_params``: the backbone once, the personal leaves (n, ...))
+    and one stacked AdamW state (``stacked_opt``), with its padded eval
+    shards (``eval_steps``)."""
 
     def __init__(self, idx: int, spec: ClientCohort, bundle, offset: int):
         self.idx = idx
@@ -166,6 +209,9 @@ class _Cohort:
         self.last_global: Dict = {}  # last delivery (prox reference)
         self.device_params: List = []
         self.device_opt: List = []
+        self.stacked_params: Optional[dict] = None
+        self.stacked_opt: Optional[dict] = None
+        self.eval_steps: Optional[Dict] = None
 
     @property
     def slice(self) -> slice:
@@ -174,7 +220,8 @@ class _Cohort:
 
 
 class FederatedRunner:
-    """A federation of cohorts and the cloud server, on the loop engine:
+    """A federation of cohorts and the cloud server, on the loop or the
+    vectorized engine (``engine``, default the spec's):
 
         ``FederatedRunner(spec, corpus, engine=None, device="cuda",
         init_state=None)``
@@ -218,6 +265,7 @@ class FederatedRunner:
         self.cfg = cfg = spec.to_config()
         self.engine = engine or spec.engine
         _refuse_unported(spec, self.engine)
+        self._stacked = self.engine == "vectorized"
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("CUDA is not available; pass device='cpu' "
@@ -322,14 +370,25 @@ class FederatedRunner:
                 {k: TensorSpec((1, *v.shape), v.dtype)
                  for k, v in down_like.items()})
             # the steps (public attributes, so a caller can time or wrap
-            # them)
-            rt.ccl_step = ccl_lib.make_local_step(
+            # them): per client on the loop engine, per cohort stacked on
+            # the vectorized one
+            make_step = (ccl_lib.make_stacked_step if self._stacked
+                         else ccl_lib.make_local_step)
+            rt.ccl_step = make_step(
                 rt.bundle, opt, ccl_weight=_ccl_weight(cfg),
                 n_negatives=cfg.n_negatives, ccl_score=cfg.ccl_score)
-            rt.amt_step = ccl_lib.make_local_step(
+            rt.amt_step = make_step(
                 rt.bundle, opt, ccl_weight=0.0, with_anchor=False,
                 prox_weight=cfg.prox_weight)
-            rt.eval_step = seccl.make_eval_step(rt.bundle)
+            if self._stacked:
+                rt.stacked_params = lora.combine(
+                    self.cohort_bases[c], lora.stack_clients(
+                        [lora.partition(p) for p in rt.device_params]))
+                rt.stacked_opt = lora.stack_trees(rt.device_opt)
+                rt.device_params, rt.device_opt = [], []
+                rt.eval_fn = seccl.make_eval_fn(rt.bundle, n_clients=rt.n)
+            else:
+                rt.eval_step = seccl.make_eval_step(rt.bundle)
             self._cohorts.append(rt)
         # the legacy fast path needs FULL key coverage by one cohort
         self._homogeneous = (spec.n_cohorts == 1
@@ -353,6 +412,9 @@ class FederatedRunner:
 
         self.se_step = self._make_seccl_step()
         self.llm_eval_step = seccl.make_eval_step(self.llm)
+        self._server_eval_fn = seccl.make_eval_fn(self.llm)
+        self._server_eval_steps = None
+        self.refresh_eval_shards()
         self.history: List[Dict] = []
 
     # ------------------------------------------------------------------
@@ -465,13 +527,37 @@ class FederatedRunner:
 
     @property
     def device_params(self) -> List[dict]:
-        """Every device's parameter tree, in global client order."""
+        """Every device's parameter tree, in global client order (views of
+        the stacks under the vectorized engine: the cohort's backbone and
+        the client's slice of each personal leaf)."""
+        if self._stacked:
+            out = []
+            for rt in self._cohorts:
+                personal = lora.partition(rt.stacked_params)
+                out += [lora.combine(rt.stacked_params,
+                                     lora.gather_client(personal, i))
+                        for i in range(rt.n)]
+            return out
         return [p for rt in self._cohorts for p in rt.device_params]
 
     @property
     def device_opt(self) -> List:
         """Every device's optimizer state, in global client order."""
+        if self._stacked:
+            return [o for rt in self._cohorts
+                    for o in lora.unstack_tree(rt.stacked_opt, rt.n)]
         return [o for rt in self._cohorts for o in rt.device_opt]
+
+    @property
+    def stacked_params(self) -> dict:
+        """Legacy single-cohort view of the stacked parameters (the
+        vectorized engine)."""
+        return self._single().stacked_params
+
+    @property
+    def stacked_opt(self) -> dict:
+        """Legacy single-cohort view of the stacked AdamW state."""
+        return self._single().stacked_opt
 
     @property
     def cohort_base(self) -> dict:
@@ -514,6 +600,14 @@ class FederatedRunner:
         all-ones modality mask."""
         batch = dict(pub, modality_mask=torch.ones_like(pub["modality_mask"]))
         return ccl_lib.server_anchors(self.server_llm, self.llm, batch)
+
+    @torch.no_grad()
+    def stacked_anchors(self, pub: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """:meth:`anchors` for a cohort's stacked public batch (G, B, ...)
+        at once: (G, B, c)."""
+        batch = dict(pub, modality_mask=torch.ones_like(pub["modality_mask"]))
+        return ccl_lib.stacked_server_anchors(self.server_llm, self.llm,
+                                              batch)
 
     # ------------------------------------------------------------------
     # per-round fault state (no-ops without a FaultSpec)
@@ -658,14 +752,13 @@ class FederatedRunner:
     # ------------------------------------------------------------------
     # the wire
 
-    def _encode_uploads(self, uploads: List[List[Dict]]) -> List[Dict]:
+    def _encode_uploads(self, uploads: List[Dict]) -> List[Dict]:
         """The uplink: each cohort's uploads, stacked on the client axis,
         cross the channel; returns what the server receives (each cohort's
         decoded leaves, stacked) and advances the error-feedback residuals
         of the PRESENT clients only."""
         out = []
-        for rt, ups in zip(self._cohorts, uploads):
-            stacked = {k: torch.stack([u[k] for u in ups]) for k in ups[0]}
+        for rt, stacked in zip(self._cohorts, uploads):
             # stateless codecs hold {} as their state and get {} back
             dec, new_state = self.channel.roundtrip(stacked, rt.chan_state,
                                                     self._rnd_no)
@@ -682,9 +775,19 @@ class FederatedRunner:
 
     def _deliver(self, rt: _Cohort, delivery: Dict) -> None:
         """Alg. 1 step 5: splice the (decoded) delivery into every
-        reachable member of the cohort; it is also the cohort's prox
-        reference of the next round.  Offline clients receive nothing."""
+        reachable member of the cohort (a broadcast over the stack under
+        the vectorized engine, masked by presence); it is also the
+        cohort's prox reference of the next round.  Offline clients
+        receive nothing."""
         rt.last_global = delivery
+        if self._stacked:
+            cur = lora.partition(rt.stacked_params, lambda k: k in delivery)
+            bcast = lora.broadcast_clients(cur, delivery)
+            pres = self._present_for(rt)
+            if pres is not None:
+                bcast = _where_clients(pres, bcast, cur)
+            rt.stacked_params = lora.combine(rt.stacked_params, bcast)
+            return
         pres = self._rnd_present
         for i in range(rt.n):
             if pres is None or pres[rt.offset + i]:
@@ -736,48 +839,20 @@ class FederatedRunner:
 
     # ------------------------------------------------------------------
     def run_round(self, evaluate: bool = True) -> Dict:
-        """One communication round (``_run_round_loop`` of the reference).
+        """One communication round (the reference's ``_run_round_loop`` on
+        the loop engine; its vectorized round, fused or split by cohort, on
+        the vectorized one: both are a device phase per cohort, then the
+        shared server side).
 
         Client metrics are measured on the post-AMT device models, server
         metrics after SE-CCL; redistribution seeds the next round.  With
         ``evaluate=False`` no metric is computed and ``{}`` is returned."""
-        cfg, spec = self.cfg, self.spec
+        cfg = self.cfg
         self._begin_round()
-        pres, scale = self._rnd_present, self._attack_scale
-        # (2) device side: CCL then AMT, cohort by cohort
-        uploads: List[List[Dict]] = []
-        for rt in self._cohorts:
-            k_ccl = spec.cohort_steps_ccl(rt.idx)
-            k_amt = spec.cohort_steps_amt(rt.idx)
-            ups = []
-            for i in range(rt.n):
-                j = rt.offset + i
-                p, o = rt.device_params[i], rt.device_opt[i]
-                if pres is not None and not pres[j]:
-                    # offline: the round does not happen for this device,
-                    # but its shuffle streams advance as the reference's do
-                    if _do_ccl(cfg):
-                        self._streams.advance(f"pub/{j}", k_ccl)
-                    self._streams.advance(f"priv/{j}", k_amt)
-                    ups.append(lora.partition(p, lora.is_lora_leaf))
-                    continue
-                if _do_ccl(cfg):
-                    for _ in range(k_ccl):
-                        pub = self.pull(f"pub/{j}")
-                        p, o, _ = rt.ccl_step(p, o, pub, self.anchors(pub))
-                gref = rt.last_global if cfg.prox_weight > 0 else None
-                for _ in range(k_amt):
-                    p, o, _ = rt.amt_step(p, o, self.pull(f"priv/{j}"),
-                                          None, gref)
-                rt.device_params[i], rt.device_opt[i] = p, o
-                ups.append(lora.partition(p, lora.is_lora_leaf))
-            if scale is not None:
-                # Byzantine scaled-update: every marked client reports
-                # scale × u (a stale upload weighs 0 anyway)
-                ups = [attacks.scaled_update(u, float(scale[rt.offset + i]))
-                       if scale[rt.offset + i] != 1.0 else u
-                       for i, u in enumerate(ups)]
-            uploads.append(ups)
+        # (1)-(2) the device side: per client (loop) or per cohort
+        # (vectorized); each cohort's uploads stacked on the client axis
+        uploads = (self._device_phase_stacked() if self._stacked
+                   else self._device_phase_loop())
 
         client_eval = self.evaluate_clients() if evaluate else None
         if cfg.mode == "standalone":
@@ -817,6 +892,90 @@ class FederatedRunner:
         self._commit_comm()
         return self._finalize_eval(client_eval) if evaluate else {}
 
+    def _device_phase_loop(self) -> List[Dict]:
+        """The loop engine's device side: each client's CCL then AMT steps,
+        one client at a time.  Returns each cohort's uploads (LoRA leaves,
+        Byzantine-scaled where marked) stacked on the client axis."""
+        cfg, spec = self.cfg, self.spec
+        pres, scale = self._rnd_present, self._attack_scale
+        uploads: List[Dict] = []
+        for rt in self._cohorts:
+            k_ccl = spec.cohort_steps_ccl(rt.idx)
+            k_amt = spec.cohort_steps_amt(rt.idx)
+            ups = []
+            for i in range(rt.n):
+                j = rt.offset + i
+                p, o = rt.device_params[i], rt.device_opt[i]
+                if pres is not None and not pres[j]:
+                    # offline: the round does not happen for this device,
+                    # but its shuffle streams advance as the reference's do
+                    if _do_ccl(cfg):
+                        self._streams.advance(f"pub/{j}", k_ccl)
+                    self._streams.advance(f"priv/{j}", k_amt)
+                    ups.append(lora.partition(p, lora.is_lora_leaf))
+                    continue
+                if _do_ccl(cfg):
+                    for _ in range(k_ccl):
+                        pub = self.pull(f"pub/{j}")
+                        p, o, _ = rt.ccl_step(p, o, pub, self.anchors(pub))
+                gref = rt.last_global if cfg.prox_weight > 0 else None
+                for _ in range(k_amt):
+                    p, o, _ = rt.amt_step(p, o, self.pull(f"priv/{j}"),
+                                          None, gref)
+                rt.device_params[i], rt.device_opt[i] = p, o
+                ups.append(lora.partition(p, lora.is_lora_leaf))
+            if scale is not None:
+                # Byzantine scaled-update: every marked client reports
+                # scale × u (a stale upload weighs 0 anyway)
+                ups = [attacks.scaled_update(u, float(scale[rt.offset + i]))
+                       if scale[rt.offset + i] != 1.0 else u
+                       for i, u in enumerate(ups)]
+            uploads.append(lora.stack_clients(ups))
+        return uploads
+
+    def _device_phase_stacked(self) -> List[Dict]:
+        """The vectorized engine's device side: per cohort, the round's
+        batches of all its clients pulled at once (client-major per step,
+        one transfer per phase), then each CCL and AMT step as ONE stacked
+        step for all clients.  Offline clients train with the others and
+        are selected back (parameters and AdamW state, the step count
+        included); their streams advance as the loop engine's do.
+        Returns each cohort's uploads stacked on the client axis."""
+        cfg, spec = self.cfg, self.spec
+        uploads: List[Dict] = []
+        for rt in self._cohorts:
+            names = range(rt.offset, rt.offset + rt.n)
+            p0, o0 = rt.stacked_params, rt.stacked_opt
+            p, o = p0, o0
+            k_ccl = spec.cohort_steps_ccl(rt.idx) if _do_ccl(cfg) else 0
+            if k_ccl:
+                pubs = to_tensors(self._streams.gather_steps(
+                    [f"pub/{j}" for j in names], k_ccl), self.device)
+                for t in range(k_ccl):
+                    pub = {k: v[t] for k, v in pubs.items()}
+                    p, o, _ = rt.ccl_step(p, o, pub, self.stacked_anchors(pub))
+            gref = rt.last_global if cfg.prox_weight > 0 else None
+            k_amt = spec.cohort_steps_amt(rt.idx)
+            if k_amt:
+                privs = to_tensors(self._streams.gather_steps(
+                    [f"priv/{j}" for j in names], k_amt), self.device)
+                for t in range(k_amt):
+                    p, o, _ = rt.amt_step(
+                        p, o, {k: v[t] for k, v in privs.items()}, None, gref)
+            pres = self._present_for(rt)
+            if pres is not None:
+                # an offline client's round does not happen: its training
+                # is undone by a per-client select
+                p = lora.combine(p, _where_clients(
+                    pres, lora.partition(p), lora.partition(p0)))
+                o = _where_clients(pres, o, o0)
+            rt.stacked_params, rt.stacked_opt = p, o
+            up = lora.partition(p, lora.is_lora_leaf)
+            if self._attack_scale is not None:
+                up = _scale_uploads(up, self._attack_scale[rt.slice])
+            uploads.append(up)
+        return uploads
+
     def run(self) -> List[Dict]:
         """Run ``cfg.rounds`` evaluated rounds, appending to ``history``."""
         for _ in range(self.cfg.rounds):
@@ -836,9 +995,38 @@ class FederatedRunner:
                 sums[k] = np.float32(sums[k] + np.float32(out[k].item()))
         return seccl.metrics_from_sums(sums)
 
+    def refresh_eval_shards(self) -> None:
+        """(Re)build the vectorized engine's eval shards from the CURRENT
+        ``priv_test`` / ``public_test``: per cohort its clients' test sets
+        in padded (T, n, B, ...) steps at the cohort's batch size, and the
+        server's (T, B, ...) steps, on the runner's device.  Call it after
+        changing a test set; a no-op on the loop engine (which reads the
+        test sets live)."""
+        if not self._stacked:
+            return
+        for rt in self._cohorts:
+            sl = rt.slice
+            rt.eval_steps = to_tensors(stack_eval_steps(stacked_eval_batches(
+                self.priv_test[sl], self.spec.cohort_batch_size(rt.idx),
+                self.masks[sl])), self.device)
+        self._server_eval_steps = to_tensors(stack_eval_steps(
+            np_eval_batches(self.public_test, self.cfg.batch_size)),
+            self.device)
+
     def evaluate_clients(self) -> List[Dict]:
         """Per-device ``{"ce", "acc"}`` on each private test set, in global
-        client order, each cohort at its own batch size."""
+        client order, each cohort at its own batch size: one client at a
+        time (loop), or all of a cohort's clients in one pass per padded
+        eval batch (vectorized)."""
+        if self._stacked:
+            out = []
+            for rt in self._cohorts:
+                sums = rt.eval_fn(rt.stacked_params, rt.eval_steps)
+                host = {k: v.cpu().numpy() for k, v in sums.items()}
+                out += [seccl.metrics_from_sums({k: v[i]
+                                                 for k, v in host.items()})
+                        for i in range(rt.n)]
+            return out
         return [self._eval_model(rt.eval_step, rt.device_params[i],
                                  self.priv_test[rt.offset + i],
                                  self.masks[rt.offset + i],
@@ -846,7 +1034,11 @@ class FederatedRunner:
                 for rt in self._cohorts for i in range(rt.n)]
 
     def evaluate_server(self) -> Dict:
-        """Server LLM ``{"ce", "acc"}`` on the public test set."""
+        """Server LLM ``{"ce", "acc"}`` on the public test set (the
+        vectorized engine over its prebuilt eval steps)."""
+        if self._stacked:
+            return seccl.metrics_from_sums(self._server_eval_fn(
+                self.server_llm, self._server_eval_steps))
         return self._eval_model(self.llm_eval_step, self.server_llm,
                                 self.public_test, None)
 

@@ -8,7 +8,7 @@ trainable subset is such a flat dict: gradients are taken over it only.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Sequence, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
 
@@ -85,6 +85,55 @@ def stack_trees(trees: Sequence[dict]) -> dict:
     first = trees[0]
     return {k: stack_trees([t[k] for t in trees]) if isinstance(v, dict)
             else torch.stack([t[k] for t in trees]) for k, v in first.items()}
+
+
+def gather_tree_device(tree: dict, j: int) -> dict:
+    """Client ``j`` of a tree whose every leaf is stacked on axis 0."""
+    return {k: gather_tree_device(v, j) if isinstance(v, dict) else v[j]
+            for k, v in tree.items()}
+
+
+def unstack_tree(tree: dict, n: int) -> list:
+    """Inverse of :func:`stack_trees`: the ``n`` trees of the clients."""
+    return [gather_tree_device(tree, j) for j in range(n)]
+
+
+# ---------------------------------------------------------------------------
+# the clients of a cohort as one flat dict with a leading client axis (the
+# reference's ``StackedClients``).  The vectorized engine stacks only the
+# personal leaves (LoRA + connector): the cohort keeps one frozen backbone.
+
+
+def stack_clients(clients: Sequence[Dict[str, torch.Tensor]]
+                  ) -> Dict[str, torch.Tensor]:
+    """Stack per-client flat dicts (one key set) client-major: (N, ...)."""
+    keys = set(clients[0])
+    if any(set(c) != keys for c in clients):
+        raise ValueError("the clients' key sets differ")
+    return {k: torch.stack([c[k] for c in clients]) for k in clients[0]}
+
+
+def gather_client(stacked: Dict[str, torch.Tensor], j: int
+                  ) -> Dict[str, torch.Tensor]:
+    """Client ``j``'s leaves of a stacked flat dict."""
+    return {k: v[j] for k, v in stacked.items()}
+
+
+def unstack_clients(stacked: Dict[str, torch.Tensor]
+                    ) -> List[Dict[str, torch.Tensor]]:
+    """Inverse of :func:`stack_clients`."""
+    n = next(iter(stacked.values())).shape[0]
+    return [gather_client(stacked, j) for j in range(n)]
+
+
+def broadcast_clients(stacked: Dict[str, torch.Tensor],
+                      flat: Dict[str, torch.Tensor]
+                      ) -> Dict[str, torch.Tensor]:
+    """Every client's entry of ``stacked``'s keys replaced by the shared
+    ``flat`` value (the redistribution, Alg. 1 step 5): an expanded view,
+    no copy."""
+    n = next(iter(stacked.values())).shape[0]
+    return {k: flat[k].expand((n,) + tuple(flat[k].shape)) for k in stacked}
 
 
 def n_params(tree: dict) -> int:

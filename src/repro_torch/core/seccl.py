@@ -8,7 +8,7 @@ smoothed and f32.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -58,11 +58,18 @@ def kt_loss(y_student, y_teacher, temperature: float = 2.0):
 EVAL_SUM_KEYS = ("ce_sum", "hits", "weight")
 
 
-def make_eval_step(bundle):
+def make_eval_step(bundle, stacked: bool = False):
     """``step(params, batch) -> {ce_sum, hits, weight}``: the masked sums of
     one eval batch (``row_valid`` weighs each row, so padding rows add
-    exactly zero), f32 scalars, in one forward pass without autograd."""
+    exactly zero), f32 scalars, in one forward pass without autograd.
+    With ``stacked`` the personal leaves and the batch carry a leading
+    client axis, every client is evaluated in the same pass, and each sum
+    is (G,)."""
     cfg = bundle.cfg
+    logits_fn = bundle.logits_stacked if stacked else bundle.logits
+
+    def total(x):          # the batch's sum: per client when stacked
+        return torch.sum(x, dim=(-2, -1)) if stacked else torch.sum(x)
 
     @torch.no_grad()
     def step(params, batch: Dict) -> Dict[str, torch.Tensor]:
@@ -73,22 +80,45 @@ def make_eval_step(bundle):
                                           b["modality_feats"],
                                           b["modality_mask"])
             b["prefix_embeds"] = soft
-        logits, _ = bundle.logits(params, b)
+        logits, _ = logits_fn(params, b)
         tokens = b["tokens"]
-        S = tokens.shape[1]
-        P = logits.shape[1] - S
-        pred = logits[:, P:P + S - 1].float()
-        targets = tokens[:, 1:].long()
+        S = tokens.shape[-1]
+        P = logits.shape[-2] - S
+        pred = logits[..., P:P + S - 1, :].float()
+        targets = tokens[..., 1:].long()
         logp = torch.log_softmax(pred, dim=-1)
         nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
-        w = b["loss_mask"][:, 1:].float()
+        w = b["loss_mask"][..., 1:].float()
         if row_valid is not None:
-            w = w * row_valid.float()[:, None]
+            w = w * row_valid.float()[..., None]
         hit = (torch.argmax(pred, dim=-1) == targets).float()
-        return {"ce_sum": torch.sum(nll * w), "hits": torch.sum(hit * w),
-                "weight": torch.sum(w)}
+        return {"ce_sum": total(nll * w), "hits": total(hit * w),
+                "weight": total(w)}
 
     return step
+
+
+def make_eval_fn(bundle, n_clients: Optional[int] = None):
+    """Whole-eval-pass function ``run(params, steps)``: ``steps`` leaves
+    carry a leading step axis ((T, B, ...), from
+    :func:`repro_torch.data.pipeline.stack_eval_steps`).  With
+    ``n_clients=None`` one model's scalar sums; with ``n_clients=N`` the
+    per-batch step is the stacked one (``params`` with (N, ...) personal
+    leaves, ``steps`` (T, N, B, ...) from ``stacked_eval_batches``) and
+    the sums are (N,).  The sums accumulate batch by batch in f32, in the
+    host loop's order."""
+    step = make_eval_step(bundle, stacked=n_clients is not None)
+
+    def run(params, steps: Dict) -> Dict[str, torch.Tensor]:
+        T = next(iter(steps.values())).shape[0]
+        sums = None
+        for t in range(T):
+            out = step(params, {k: v[t] for k, v in steps.items()})
+            sums = out if sums is None else {k: sums[k] + out[k]
+                                             for k in EVAL_SUM_KEYS}
+        return sums
+
+    return run
 
 
 def metrics_from_sums(sums: Dict) -> Dict[str, float]:

@@ -1,5 +1,5 @@
-"""Batching for the loop engine (port of the parts of
-``repro.data.pipeline`` it uses): numpy index streams and gathers, copied
+"""Batching for the loop and vectorized engines (port of the parts of
+``repro.data.pipeline`` they use): numpy index streams and gathers, copied
 as they are, and batches handed over as tensors on the runner's device.
 
 * :func:`_index_stream` — infinite per-epoch-shuffled index batches;
@@ -7,12 +7,20 @@ as they are, and batches handed over as tensors on the runner's device.
   mask applied in numpy (unobservable features zeroed);
 * :func:`np_eval_batches` — finite, in-order eval batches padded to the
   batch size, with a ``row_valid`` mask;
+* :func:`stacked_batches` / :func:`stack_steps`,
+  :func:`stacked_eval_batches` / :func:`stack_eval_steps` — the same
+  streams stacked on a leading client axis (and a leading step axis), for
+  the vectorized engine: client j's sub-stream is bit-identical to its
+  own unstacked stream;
 * :class:`ClientStreams` — the bank of named shuffle streams (one per
   client and data split, plus the server's).
+
+Stacks stay numpy here; :func:`to_tensors` hands a whole stack to the
+device in one transfer.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -47,6 +55,36 @@ def _gather_np(data: Dict[str, np.ndarray], idx,
     # zero features the device cannot observe
     b["modality_feats"] = b["modality_feats"] * mm[..., None]
     return b
+
+
+def stacked_batches(datas: Sequence[Dict[str, np.ndarray]], batch_size: int,
+                    seeds: Sequence[int],
+                    masks: Optional[np.ndarray] = None
+                    ) -> Iterator[Dict[str, np.ndarray]]:
+    """Client-stacked batch iterator: numpy leaves (N, B, ...).  Client
+    j's sub-stream (``datas[j]``, ``seeds[j]``, ``masks[j]``) is
+    bit-identical to its own shuffle stream."""
+    n_dev = len(datas)
+    if len(seeds) != n_dev:
+        raise ValueError(f"{len(seeds)} seeds for {n_dev} clients")
+    streams = [_index_stream(d["tokens"].shape[0], batch_size, s)
+               for d, s in zip(datas, seeds)]
+    while True:
+        per_dev = [_gather_np(datas[j], next(streams[j]),
+                              None if masks is None else masks[j])
+                   for j in range(n_dev)]
+        yield _stack(per_dev)
+
+
+def _stack(batches: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
+    """Stack host batches on a new leading axis."""
+    return {k: np.stack([b[k] for b in batches]) for k in batches[0]}
+
+
+def stack_steps(it: Iterator[Dict[str, np.ndarray]], k: int
+                ) -> Dict[str, np.ndarray]:
+    """Pull ``k`` batches and stack them on a new leading step axis."""
+    return _stack([next(it) for _ in range(k)])
 
 
 def to_tensors(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
@@ -92,6 +130,37 @@ def np_eval_batches(data: Dict[str, np.ndarray], batch_size: int,
         yield b
 
 
+def stacked_eval_batches(datas: Sequence[Dict[str, np.ndarray]],
+                         batch_size: int,
+                         masks: Optional[np.ndarray] = None,
+                         n_blocks: Optional[int] = None
+                         ) -> Iterator[Dict[str, np.ndarray]]:
+    """Client-stacked eval shards, (N, B, ...) numpy leaves: every client
+    padded to the largest client's block count (or ``n_blocks``), with
+    ``row_valid`` (N, B) zeroing the tail padding and whole past-the-end
+    blocks, so client j's masked sums equal those of its own
+    :func:`np_eval_batches`."""
+    sizes = [d["tokens"].shape[0] for d in datas]
+    if n_blocks is None:
+        n_blocks = max(-(-n // batch_size) for n in sizes)
+    iters = [np_eval_batches(d, batch_size,
+                             None if masks is None else masks[j],
+                             n_blocks=n_blocks)
+             for j, d in enumerate(datas)]
+    for per_dev in zip(*iters):
+        yield _stack(list(per_dev))
+
+
+def stack_eval_steps(it: Iterator[Dict[str, np.ndarray]]
+                     ) -> Dict[str, np.ndarray]:
+    """Exhaust a finite eval iterator and stack it on a leading step axis
+    ((T, B, ...), or (T, N, B, ...) for stacked shards)."""
+    steps = list(it)
+    if not steps:
+        raise ValueError("empty eval iterator")
+    return _stack(steps)
+
+
 class ClientStreams:
     """A bank of named infinite shuffle streams (``"pub/<j>"``,
     ``"priv/<j>"``, ``"server"``), each created lazily from its seed and
@@ -134,3 +203,15 @@ class ClientStreams:
     def pulled(self, name: str) -> int:
         """Batches consumed from ``name`` so far (0 if never pulled)."""
         return self._pulled.get(name, 0)
+
+    def stack_steps(self, name: str, k: int) -> Dict[str, np.ndarray]:
+        """``k`` batches of one stream stacked (k, B, ...)."""
+        return _stack([self.pull(name) for _ in range(k)])
+
+    def gather_steps(self, names: Sequence[str], k: int
+                     ) -> Dict[str, np.ndarray]:
+        """``k`` steps of ``len(names)`` clients stacked (k, N, B, ...),
+        pulled client-major within each step (client 0 step t, client 1
+        step t, ...), as :func:`stacked_batches` + :func:`stack_steps`."""
+        return _stack([_stack([self.pull(n) for n in names])
+                       for _ in range(k)])

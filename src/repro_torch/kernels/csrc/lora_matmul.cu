@@ -44,8 +44,8 @@
 //     guarded, so M = 1088 (8.5 tiles) needs no padding.
 //   * the tensor maps are encoded on the host at every launch (three
 //     cuTensorMapEncodeTiled calls, found through cudaGetDriverEntryPoint
-//     so that the library needs no -lcuda) and passed as
-//     __grid_constant__ parameters.
+//     so that the library needs no -lcuda, after a runtime call has bound
+//     the thread's context) and passed as __grid_constant__ parameters.
 //
 // fma route (f32, or shapes TMA cannot take), `lora_matmul_kernel`:
 //   * grid (N / 64, M / 64), 256 threads; each thread owns a 4 x 4 tile of
@@ -59,6 +59,19 @@
 //     W as the (N, K) row-major matrix whose transpose is the K x N operand.
 // The backward's dx = dy@W^T + s*(dy@B^T)@A^T is this same function with W
 // read transposed and the r-wide B^T, A^T passed as the adapter pair.
+//
+// Grouped form (both routes): one launch computes y_g = x_g W + s (x_g A_g)
+// B_g for G groups of Mg rows each (the clients of a cohort: x is (G Mg,
+// K) with group g's rows contiguous, W is shared, A is (G, K, r) and B is
+// (G, r, N)).  The grid's z index is the group; row tiles are counted
+// within the group, so a tile never takes rows of two groups: the last
+// tile of a group may load the next group's rows (or TMA's zeros past the
+// end of x) but stores only rows below Mg.  The wgmma route reads A^T
+// through one tensor map over the (G r, K) stack at row g r, and B_g at
+// its group stride.  G = 1 is the ungrouped kernel: per group the tiles,
+// the K order and the epilogue are those of an ungrouped launch at M =
+// Mg, so a grouped launch of equal tile shape gives the same bits as G
+// ungrouped ones.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -88,6 +101,12 @@ __global__ void __launch_bounds__(NT)
 lora_matmul_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ a,
                    const T* __restrict__ b, T* __restrict__ y, int M, int N, int K, int r,
                    int trans_w, float scale) {
+  // group blockIdx.z: its M rows of x and y, its A (K, r) and B (r, N)
+  const size_t g = blockIdx.z;
+  x += g * M * K;
+  y += g * M * N;
+  a += g * K * r;
+  b += g * r * N;
   __shared__ __align__(16) float Xs[BK][BM + 4];
   __shared__ __align__(16) float Ws[BK][BN + 4];
   __shared__ float As[BK][RMAX];
@@ -222,8 +241,8 @@ __global__ void __launch_bounds__(WTile<NC, BN>::NT, 1)
 lora_matmul_kernel_wgmma(const __grid_constant__ CUtensorMap tmx,
                          const __grid_constant__ CUtensorMap tmw,
                          const __grid_constant__ CUtensorMap tma, const __nv_bfloat16* __restrict__ b,
-                         long long sbj, long long sbn, __nv_bfloat16* __restrict__ y, int M, int N,
-                         int K, float scale) {
+                         long long sbg, long long sbj, long long sbn, __nv_bfloat16* __restrict__ y,
+                         int M, int N, int K, float scale) {
   using T = WTile<NC, BN>;
   constexpr int R = RC * 8;
   constexpr int NACC = BN / 2;  // accumulators a thread: 64 rows x BN over 128 threads
@@ -237,6 +256,11 @@ lora_matmul_kernel_wgmma(const __grid_constant__ CUtensorMap tmx,
   const int tid = threadIdx.x;
   const int m0 = blockIdx.y * T::BM, n0 = blockIdx.x * BN;
   const int nk = (K + WK - 1) / WK;
+  // group blockIdx.z: M rows from row g M of x and y, A^T's rows g r on
+  const int g = blockIdx.z;
+  const int xrow = g * M + m0;
+  b += g * sbg;
+  y += (size_t)g * M * N;
 
   for (int e = tid; e < R * BN; e += T::NT) {
     const int j = e / BN, n = e % BN;
@@ -262,7 +286,7 @@ lora_matmul_kernel_wgmma(const __grid_constant__ CUtensorMap tmx,
         if (kt >= WST) sm90::mbar_wait(&empty[s], ((kt / WST) + 1) & 1);
         uint8_t* st = smem + s * T::STAGE_BYTES;
         sm90::mbar_arrive_expect_tx(&full[s], bytes);
-        sm90::tma_load_2d(st, &tmx, &full[s], kt * WK, m0);
+        sm90::tma_load_2d(st, &tmx, &full[s], kt * WK, xrow);
         if (TRANS_W) {
           sm90::tma_load_2d(st + T::X_BYTES, &tmw, &full[s], kt * WK, n0);
         } else {
@@ -271,7 +295,7 @@ lora_matmul_kernel_wgmma(const __grid_constant__ CUtensorMap tmx,
             sm90::tma_load_2d(st + T::X_BYTES + i * WBOX_N * WK * 2, &tmw, &full[s],
                               n0 + i * WBOX_N, kt * WK);
         }
-        sm90::tma_load_2d(st + T::X_BYTES + T::W_BYTES, &tma, &full[s], kt * WK, 0);
+        sm90::tma_load_2d(st + T::X_BYTES + T::W_BYTES, &tma, &full[s], kt * WK, g * R);
       }
     }
     return;
@@ -399,9 +423,9 @@ bool encode_2d(EncodeTiledFn enc, CUtensorMap* map, const void* ptr, int rows, i
 
 template <int NC, int BN, int TRANS_W, int RC>
 cudaError_t launch_wgmma_typed(const CUtensorMap& mx, const CUtensorMap& mw, const CUtensorMap& ma,
-                               const __nv_bfloat16* b, long long sbj, long long sbn,
-                               __nv_bfloat16* y, int M, int N, int K, float scale,
-                               cudaStream_t stream) {
+                               const __nv_bfloat16* b, long long sbg, long long sbj,
+                               long long sbn, __nv_bfloat16* y, int G, int M, int N, int K,
+                               float scale, cudaStream_t stream) {
   using T = WTile<NC, BN>;
   static bool configured = false;
   if (!configured) {
@@ -410,20 +434,20 @@ cudaError_t launch_wgmma_typed(const CUtensorMap& mx, const CUtensorMap& mw, con
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  dim3 grid((N + BN - 1) / BN, (M + T::BM - 1) / T::BM);
+  dim3 grid((N + BN - 1) / BN, (M + T::BM - 1) / T::BM, G);
   lora_matmul_kernel_wgmma<NC, BN, TRANS_W, RC><<<grid, T::NT, T::SMEM, stream>>>(
-      mx, mw, ma, b, sbj, sbn, y, M, N, K, scale);
+      mx, mw, ma, b, sbg, sbj, sbn, y, M, N, K, scale);
   return cudaGetLastError();
 }
 
 // the 128 x 96 tile at any rank
 template <int TRANS_W>
 cudaError_t launch_wgmma_rank(int r, const CUtensorMap& mx, const CUtensorMap& mw,
-                              const CUtensorMap& ma, const __nv_bfloat16* b, long long sbj,
-                              long long sbn, __nv_bfloat16* y, int M, int N, int K, float scale,
-                              cudaStream_t s) {
+                              const CUtensorMap& ma, const __nv_bfloat16* b, long long sbg,
+                              long long sbj, long long sbn, __nv_bfloat16* y, int G, int M,
+                              int N, int K, float scale, cudaStream_t s) {
 #define LORA_RANK(RC) \
-  launch_wgmma_typed<2, 96, TRANS_W, RC>(mx, mw, ma, b, sbj, sbn, y, M, N, K, scale, s)
+  launch_wgmma_typed<2, 96, TRANS_W, RC>(mx, mw, ma, b, sbg, sbj, sbn, y, G, M, N, K, scale, s)
   switch (r) {
     case 8: return LORA_RANK(1);
     case 16: return LORA_RANK(2);
@@ -434,28 +458,28 @@ cudaError_t launch_wgmma_rank(int r, const CUtensorMap& mx, const CUtensorMap& m
 #undef LORA_RANK
 }
 
-// The tile for an (M, N) output of rank r: 192 x 192 when such tiles fill
-// at least three quarters of the 132 SMs (fewer bytes from L2 per output)
-// and r = 8 (its 512 threads get 128 registers each: 96 accumulators and
-// t's 2r gathered values fit only at r = 8), else 128 x 96.
-bool big_tile(int M, int N, int r) {
-  const int tiles = ((M + 191) / 192) * ((N + 191) / 192);
+// The tile for G groups of (M, N) outputs of rank r: 192 x 192 when such
+// tiles fill at least three quarters of the 132 SMs (fewer bytes from L2
+// per output) and r = 8 (its 512 threads get 128 registers each: 96
+// accumulators and t's 2r gathered values fit only at r = 8), else 128 x 96.
+bool big_tile(int G, int M, int N, int r) {
+  const int tiles = G * ((M + 191) / 192) * ((N + 191) / 192);
   return r == 8 && tiles >= 99;
 }
 
 }  // namespace
 
-// x (M, K); W (K, N), or (N, K) when trans_w; A (K, r); B (r, N); y (M, N).
-// Contiguous, one dtype (f32 or bf16), 1 <= r <= 32.  Returns the
-// cudaError_t of the launch (0 = launched).
+// G groups of M rows: x (G M, K); W (K, N), or (N, K) when trans_w; A (G,
+// K, r); B (G, r, N); y (G M, N).  Contiguous, one dtype (f32 or bf16),
+// 1 <= r <= 32.  Returns the cudaError_t of the launch (0 = launched).
 extern "C" int lora_matmul_launch(const void* x, const void* w, const void* a, const void* b,
-                                  void* y, int M, int N, int K, int r, int trans_w, float scale,
-                                  int is_bf16, void* stream) {
-  if (M == 0 || N == 0) return 0;
-  if (r < 1 || r > RMAX || K < 0) return (int)cudaErrorInvalidValue;
-  if ((M + BM - 1) / BM > 65535) return (int)cudaErrorInvalidConfiguration;
+                                  void* y, int G, int M, int N, int K, int r, int trans_w,
+                                  float scale, int is_bf16, void* stream) {
+  if (G == 0 || M == 0 || N == 0) return 0;
+  if (r < 1 || r > RMAX || K < 0 || G < 0) return (int)cudaErrorInvalidValue;
+  if ((M + BM - 1) / BM > 65535 || G > 65535) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, G);
   if (is_bf16) {
     using T = __nv_bfloat16;
     lora_matmul_kernel<T><<<grid, NT, 0, s>>>(
@@ -474,37 +498,54 @@ extern "C" const char* lora_matmul_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// The wgmma route, bf16 only: x (M, K); W (K, N), or (N, K) when trans_w;
-// at = A^T (r, K) row-major; B (r, N) at element strides (sbj, sbn); y (M,
-// N).  K, N and r multiples of 8, r <= 32, K > 0; x, W and at 16-byte
-// aligned.  Returns the cudaError_t of the launch (0 = launched).
+// The wgmma route, bf16 only, G groups of M rows: x (G M, K); W (K, N), or
+// (N, K) when trans_w; at = A^T (G, r, K) row-major; B_g (r, N) at element
+// strides (sbj, sbn), B_{g+1} sbg elements after it; y (G M, N).  K, N and
+// r multiples of 8, r <= 32, K > 0; x, W and at 16-byte aligned.  Returns
+// the cudaError_t of the launch (0 = launched).
 extern "C" int lora_matmul_wgmma_launch(const void* x, const void* w, const void* at,
-                                        const void* b, long long sbj, long long sbn, void* y,
-                                        int M, int N, int K, int r, int trans_w, float scale,
-                                        void* stream) {
-  if (M == 0 || N == 0) return 0;
-  if (K <= 0 || K % 8 || N % 8 || r % 8 || r < 8 || r > RMAX) return (int)cudaErrorInvalidValue;
-  if ((M + 127) / 128 > 65535) return (int)cudaErrorInvalidConfiguration;
+                                        const void* b, long long sbg, long long sbj,
+                                        long long sbn, void* y, int G, int M, int N, int K,
+                                        int r, int trans_w, float scale, void* stream) {
+  if (G == 0 || M == 0 || N == 0) return 0;
+  if (K <= 0 || K % 8 || N % 8 || r % 8 || r < 8 || r > RMAX || G < 0)
+    return (int)cudaErrorInvalidValue;
+  if ((M + 127) / 128 > 65535 || G > 65535 || (long long)G * M > 2147483647LL)
+    return (int)cudaErrorInvalidConfiguration;
   EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
-  const bool big = big_tile(M, N, r);
+  // cuTensorMapEncodeTiled needs a CUDA context current on this thread.
+  // A thread whose first CUDA work is this launch (the autograd engine's,
+  // when dx is the first node of its backward) has none yet: one runtime
+  // call per thread binds the primary context, as the launch itself
+  // would.
+  thread_local bool bound = false;
+  if (!bound) {
+    cudaFuncAttributes attr;
+    const cudaError_t err = cudaFuncGetAttributes(&attr, lora_matmul_kernel<float>);
+    if (err != cudaSuccess) return (int)err;
+    bound = true;
+  }
+  const bool big = big_tile(G, M, N, r);
   const int bm = big ? 192 : 128, bn = big ? 192 : 96;
   CUtensorMap mx, mw, ma;
-  const bool ok = encode_2d(enc, &mx, x, M, K, bm, WK) &&
+  const bool ok = encode_2d(enc, &mx, x, G * M, K, bm, WK) &&
                   (trans_w ? encode_2d(enc, &mw, w, N, K, bn, WK)
                            : encode_2d(enc, &mw, w, K, N, WK, WBOX_N,
                                        CU_TENSOR_MAP_SWIZZLE_64B)) &&
-                  encode_2d(enc, &ma, at, r, K, r, WK);
+                  encode_2d(enc, &ma, at, G * r, K, r, WK);
   if (!ok) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* bb = static_cast<const __nv_bfloat16*>(b);
   auto* yy = static_cast<__nv_bfloat16*>(y);
   if (big) {  // r = 8
 #define LORA_BIG(TW) \
-  launch_wgmma_typed<3, 192, TW, 1>(mx, mw, ma, bb, sbj, sbn, yy, M, N, K, scale, s)
+  launch_wgmma_typed<3, 192, TW, 1>(mx, mw, ma, bb, sbg, sbj, sbn, yy, G, M, N, K, scale, s)
     return (int)(trans_w ? LORA_BIG(1) : LORA_BIG(0));
 #undef LORA_BIG
   }
-  return (int)(trans_w ? launch_wgmma_rank<1>(r, mx, mw, ma, bb, sbj, sbn, yy, M, N, K, scale, s)
-                       : launch_wgmma_rank<0>(r, mx, mw, ma, bb, sbj, sbn, yy, M, N, K, scale, s));
+  return (int)(trans_w ? launch_wgmma_rank<1>(r, mx, mw, ma, bb, sbg, sbj, sbn, yy, G, M, N, K,
+                                              scale, s)
+                       : launch_wgmma_rank<0>(r, mx, mw, ma, bb, sbg, sbj, sbn, yy, G, M, N, K,
+                                              scale, s));
 }

@@ -15,6 +15,12 @@ every other input takes the ``"fma"`` kernel (f32 FMAs).
 launch.  :func:`lora_matmul_cuda` counts its launches in
 ``lora_matmul_cuda.launches`` and per route in
 ``lora_matmul_cuda.launches_by_route``.
+
+The grouped form (:func:`lora_matmul_grouped_cuda`, what ``vmap`` of the
+TPU kernel over a client axis computes) is one launch of the same kernels
+for G groups of equal row count: x (G·Mg, K) with each group's rows
+contiguous, W shared, A (G, K, r), B (G, r, N).  It counts its own
+launches, one per call.
 """
 from __future__ import annotations
 
@@ -25,7 +31,9 @@ import torch
 from repro_torch.kernels import _build, _route
 
 __all__ = ["lora_matmul_cuda", "lora_matmul_plain", "lora_matmul_autograd",
-           "lora_matmul_route", "MAX_RANK", "ROUTES"]
+           "lora_matmul_route", "lora_matmul_grouped_cuda",
+           "lora_matmul_grouped_plain", "lora_matmul_grouped_autograd",
+           "lora_matmul_grouped_route", "MAX_RANK", "ROUTES"]
 
 MAX_RANK = 32
 ROUTES = ("wgmma", "fma")
@@ -35,11 +43,11 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the C functions of csrc/lora_matmul.cu: argument types, return type
 C_FUNCTIONS = {
     "lora_matmul_launch": (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
     "lora_matmul_wgmma_launch": (
-        [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
-        + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p],
+        [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p],
         ctypes.c_int),
     "lora_matmul_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
@@ -94,40 +102,46 @@ def lora_matmul_cuda(x, w, a, b, scale: float, trans_w: bool = False,
     f32 and rounded once.
     """
     route = _route.pick(lora_matmul_route(x, w, a, b, trans_w), route)
-    M, K = x.shape
-    N = b.shape[1]
-    r = a.shape[1]
+    y = _launch(x, w, a[None], b[None], scale, trans_w, route)
+    lora_matmul_cuda.launches += 1
+    lora_matmul_cuda.launches_by_route[route] += 1
+    return y
+
+
+def _launch(x, w, a, b, scale: float, trans_w: bool, route: str):
+    """One launch of ``route``'s kernel over the G groups of a (G, K, r)
+    and b (G, r, N) (G = 1: the ungrouped function)."""
+    G, K, r = a.shape
+    M, N = x.shape[0] // G, b.shape[2]
     if x.device.type != "cuda" or any(t.device != x.device for t in (w, a, b)):
         raise ValueError("all inputs must lie on one CUDA device")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("x and w must be contiguous")
-    if -(-M // 64) > 65535:
-        raise ValueError(f"M={M} exceeds the grid's y limit")
-    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    if -(-M // 64) > 65535 or G > 65535:
+        raise ValueError(f"M={M} or G={G} exceeds the grid's limits")
+    y = torch.empty((G * M, N), dtype=x.dtype, device=x.device)
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if route == "wgmma":
-            # A^T (r, K) row-major is the K-major operand of t = x @ A;
+            # A^T (G, r, K) row-major is the K-major operand of t = x @ A;
             # the transpose of the backward's A view is contiguous already
-            at = a.t().contiguous()
+            at = a.transpose(1, 2).contiguous()
             if not _route.aligned16(at):
                 at = at.clone()
             rc = lib.lora_matmul_wgmma_launch(
                 x.data_ptr(), w.data_ptr(), at.data_ptr(), b.data_ptr(),
-                b.stride(0), b.stride(1), y.data_ptr(), M, N, K, r,
-                int(bool(trans_w)), float(scale), stream)
+                b.stride(0), b.stride(1), b.stride(2), y.data_ptr(), G, M, N,
+                K, r, int(bool(trans_w)), float(scale), stream)
         else:
             a, b = a.contiguous(), b.contiguous()
             rc = lib.lora_matmul_launch(
                 x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
-                y.data_ptr(), M, N, K, r, int(bool(trans_w)), float(scale),
-                _DTYPES[x.dtype], stream)
+                y.data_ptr(), G, M, N, K, r, int(bool(trans_w)),
+                float(scale), _DTYPES[x.dtype], stream)
     if rc:
         raise RuntimeError(f"lora_matmul ({route}) launch failed: "
                            + lib.lora_matmul_error_string(rc).decode())
-    lora_matmul_cuda.launches += 1
-    lora_matmul_cuda.launches_by_route[route] += 1
     return y
 
 
@@ -166,3 +180,90 @@ class _LoraMatmul(torch.autograd.Function):
 def lora_matmul_autograd(x, w, a, b, scale: float):
     """The kernel with gradients for x, A and B (W frozen)."""
     return _LoraMatmul.apply(x, w, a, b, scale)
+
+
+# ---------------------------------------------------------------------------
+# the grouped form: one launch for the G clients of a cohort
+
+
+def lora_matmul_grouped_plain(x, w, a, b, scale: float):
+    """Plain PyTorch version of the grouped form, differentiable by
+    autograd: group g's rows of x (G·Mg, K) times the shared w (K, N) plus
+    scale · (x_g a_g) b_g, a (G, K, r), b (G, r, N); f32 products,
+    rounded once to x's dtype."""
+    G, K, _ = a.shape
+    xf = x.float().reshape(G, -1, K)
+    y = xf @ w.float() + scale * torch.bmm(torch.bmm(xf, a.float()),
+                                           b.float())
+    return y.reshape(x.shape[0], -1).to(x.dtype)
+
+
+def lora_matmul_grouped_route(x, w, a, b, trans_w: bool = False) -> str:
+    """The route of the grouped form: that of one group's operands
+    (:func:`lora_matmul_route`); raises unless x's rows split into
+    ``a.shape[0]`` equal groups and a, b are (G, K, r), (G, r, N)."""
+    if a.dim() != 3 or b.dim() != 3 or b.shape[0] != a.shape[0] \
+            or a.shape[0] < 1 or x.dim() != 2 or x.shape[0] % a.shape[0]:
+        raise ValueError(f"bad grouped shapes x{tuple(x.shape)} "
+                         f"a{tuple(a.shape)} b{tuple(b.shape)}")
+    return lora_matmul_route(x, w, a[0], b[0], trans_w)
+
+
+def lora_matmul_grouped_cuda(x, w, a, b, scale: float, trans_w: bool = False,
+                             route: str | None = None):
+    """One launch of the fused LoRA projection for G groups of Mg rows:
+    x (G·Mg, K) contiguous, group g's rows contiguous; w (K, N), or (N, K)
+    read as its transpose when ``trans_w``, shared; a (G, K, r) and b
+    (G, r, N), any views.  Returns y (G·Mg, N) with y_g = x_g W + scale ·
+    (x_g a_g) b_g in x's dtype, summed in f32 and rounded once.  Counts
+    one launch in ``lora_matmul_grouped_cuda.launches`` and in
+    ``.launches_by_route``."""
+    route = _route.pick(lora_matmul_grouped_route(x, w, a, b, trans_w),
+                        route)
+    y = _launch(x, w, a, b, scale, trans_w, route)
+    lora_matmul_grouped_cuda.launches += 1
+    lora_matmul_grouped_cuda.launches_by_route[route] += 1
+    return y
+
+
+lora_matmul_grouped_cuda.launches = 0
+lora_matmul_grouped_cuda.launches_by_route = dict.fromkeys(ROUTES, 0)
+
+
+class _LoraMatmulGrouped(torch.autograd.Function):
+    """Forward and dx through the grouped kernel; dA, dB as per-group
+    f32 rank-r products (``torch.bmm``)."""
+
+    @staticmethod
+    def forward(ctx, x, w, a, b, scale):
+        if w.requires_grad:
+            raise NotImplementedError("lora_matmul: W is frozen (no dW)")
+        ctx.save_for_backward(x, w, a, b)
+        ctx.scale = scale
+        return lora_matmul_grouped_cuda(x, w, a, b, scale)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, a, b = ctx.saved_tensors
+        s = ctx.scale
+        dy = dy.contiguous()
+        dx = da = db = None
+        if ctx.needs_input_grad[0]:
+            dx = lora_matmul_grouped_cuda(dy, w, b.transpose(1, 2),
+                                          a.transpose(1, 2), s, trans_w=True)
+        if ctx.needs_input_grad[2] or ctx.needs_input_grad[3]:
+            G, K, _ = a.shape
+            xf = x.float().reshape(G, -1, K)
+            dyf = dy.float().reshape(G, xf.shape[1], -1)
+            if ctx.needs_input_grad[2]:
+                da = (s * torch.bmm(xf.transpose(1, 2), torch.bmm(
+                    dyf, b.float().transpose(1, 2)))).to(a.dtype)
+            if ctx.needs_input_grad[3]:
+                db = (s * torch.bmm(torch.bmm(xf, a.float()).transpose(1, 2),
+                                    dyf)).to(b.dtype)
+        return dx, None, da, db, None
+
+
+def lora_matmul_grouped_autograd(x, w, a, b, scale: float):
+    """The grouped kernel with gradients for x, A and B (W frozen)."""
+    return _LoraMatmulGrouped.apply(x, w, a, b, scale)

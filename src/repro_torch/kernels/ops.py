@@ -18,6 +18,8 @@ from repro_torch.kernels.flash_attention import (flash_attention_autograd,
 from repro_torch.kernels.gram_volume import (gram_log_volume_autograd,
                                              gram_log_volume_plain)
 from repro_torch.kernels.lora_matmul import (lora_matmul_autograd,
+                                             lora_matmul_grouped_autograd,
+                                             lora_matmul_grouped_plain,
                                              lora_matmul_plain)
 from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                  paged_attention_plain)
@@ -42,6 +44,16 @@ def lora_matmul(x, w, a, b, scale: float):
     """y = x @ w + scale * (x @ a) @ b for x (M, K), w (K, N) frozen,
     a (K, r), b (r, N): f32 sums, rounded once to x's dtype."""
     fn = lora_matmul_autograd if x.is_cuda else lora_matmul_plain
+    return fn(x, w, a, b, scale)
+
+
+def lora_matmul_grouped(x, w, a, b, scale: float):
+    """The grouped form for the G clients of a cohort: x (G·Mg, K) with
+    each client's rows contiguous, w (K, N) frozen and shared, a (G, K, r),
+    b (G, r, N); y_g = x_g @ w + scale * (x_g @ a_g) @ b_g, f32 sums
+    rounded once (one kernel C launch on the card)."""
+    fn = lora_matmul_grouped_autograd if x.is_cuda else \
+        lora_matmul_grouped_plain
     return fn(x, w, a, b, scale)
 
 

@@ -23,10 +23,14 @@ from repro_torch.kernels import ops
 BIG_WINDOW = 1 << 30   # stands for "no window" in per-layer window lists
 
 
-def layer_params(layers: dict, i: int) -> dict:
+def layer_params(layers: dict, i: int, clients: bool = False) -> dict:
     """The params of layer ``i`` of a stack (views into the leaves, which
-    carry the layers on axis 0)."""
-    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
+    carry the layers on axis 0).  With ``clients`` the LoRA leaves carry a
+    leading client axis before the layer axis (a cohort's stacked
+    adapters over one shared backbone): layer ``i`` of each is
+    ``v[:, i]``, (G, ...)."""
+    return {k: layer_params(v, i, clients) if isinstance(v, dict)
+            else v[:, i] if clients and "_lora_" in k else v[i]
             for k, v in layers.items()}
 
 
@@ -56,13 +60,16 @@ def init_lora(gen: torch.Generator, p: dict, name: str, in_dim: int,
 def proj(p: dict, name: str, x, cfg: ModelConfig):
     """Linear projection with the optional unmerged LoRA update; with
     adapter leaves present it is one fused ``ops.lora_matmul`` (kernel C
-    on the card), f32 sums rounded once."""
+    on the card), f32 sums rounded once.  A stacked adapter (G, K, r) /
+    (G, r, N) takes the grouped form: x's leading axis holds the G clients'
+    rows in order, and one launch applies each client's own adapter."""
     w = p[name]
     a = p.get(f"{name}_lora_a")
     if a is None:
         return x @ w
-    y = ops.lora_matmul(x.reshape(-1, x.shape[-1]).contiguous(), w, a,
-                        p[f"{name}_lora_b"], cfg.lora_alpha / cfg.lora_rank)
+    fn = ops.lora_matmul_grouped if a.dim() == 3 else ops.lora_matmul
+    y = fn(x.reshape(-1, x.shape[-1]).contiguous(), w, a,
+           p[f"{name}_lora_b"], cfg.lora_alpha / cfg.lora_rank)
     return y.reshape(*x.shape[:-1], w.shape[1])
 
 

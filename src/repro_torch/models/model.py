@@ -5,6 +5,8 @@ for the dense, ssm (mamba2) and hybrid (hymba) families.
   bundle.logits(params, batch)                          -> (logits, aux)
   bundle.hidden(params, batch)                          -> (hidden, aux)
   bundle.lm_loss(params, batch)                         -> (loss, metrics)
+  bundle.logits_stacked(params, batch)                  -> (logits (G, B, ...), aux)
+  bundle.lm_loss_stacked(params, batch)                 -> (loss (G,), metrics)
   bundle.init_paged(n_slots, n_pages, page_size, device)-> pstate
   bundle.prefill_paged(params, batch, true_len)         -> (last, pack, kv_len)
   bundle.insert_paged(pstate, pack, slot, page_ids)     -> pstate
@@ -37,6 +39,8 @@ class ModelBundle(NamedTuple):
     insert_paged: Callable
     decode_paged: Callable
     hidden: Callable      # (params, batch) -> final-norm states (B, P+S, d)
+    logits_stacked: Callable    # G clients' (G, B, ...) batch at once
+    lm_loss_stacked: Callable   # the same -> (G,) losses
 
 
 def _prefix(params, cfg: ModelConfig, batch: Dict[str, Any]):
@@ -44,13 +48,17 @@ def _prefix(params, cfg: ModelConfig, batch: Dict[str, Any]):
     return batch.get("prefix_embeds")
 
 
-def cross_entropy(logits, targets, mask, vocab_size: int):
+def cross_entropy(logits, targets, mask, vocab_size: int, dims=None):
     """Token-level CE in f32 over the padded vocab, averaged over the
-    positions where ``mask`` is set (at least 1)."""
+    positions where ``mask`` is set (at least 1): over all of them, or
+    over ``dims`` only (one mean per remaining index)."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
     mask = mask.float()
-    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    if dims is None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.sum(nll * mask, dim=dims) / torch.clamp(
+        torch.sum(mask, dim=dims), min=1.0)
 
 
 def build_model(cfg: ModelConfig) -> ModelBundle:
@@ -88,6 +96,43 @@ def build_model(cfg: ModelConfig) -> ModelBundle:
         loss = ce + cfg.router_aux_weight * aux
         return loss, {"ce": ce, "aux": aux}
 
+    def logits_stacked(params, batch):
+        """G clients at once: ``params`` carries the LoRA leaves stacked
+        (G, ...) over one backbone; ``batch`` leaves are (G, B, ...).  The
+        clients' rows go through the trunk as one batch of G·B rows (every
+        kernel launches once for the G clients).  Returns (logits (G, B,
+        P+S, V) f32, aux)."""
+        if cfg.family == "ssm":
+            raise NotImplementedError("stacked passes of the ssm family "
+                                      "are not ported")
+        tokens = batch["tokens"]
+        G, B, S = tokens.shape
+        prefix = batch.get("prefix_embeds")
+        if prefix is not None:
+            prefix = prefix.reshape(G * B, *prefix.shape[2:])
+        logits, aux, _ = transformer.forward(
+            params, cfg, tokens.reshape(G * B, S), prefix, clients=True)
+        return logits.reshape(G, B, *logits.shape[1:]), aux
+
+    def lm_loss_stacked(params, batch):
+        """Each client's loss: its own masked mean over its own tokens,
+        (G,)."""
+        logits, aux = logits_stacked(params, batch)
+        tokens = batch["tokens"]
+        G, S = tokens.shape[0], tokens.shape[2]
+        P = logits.shape[2] - S
+        targets = tokens[:, :, 1:]
+        pred = logits[:, :, P:P + S - 1]
+        mask = batch.get("loss_mask")
+        mask = torch.ones(targets.shape, dtype=torch.float32,
+                          device=targets.device) if mask is None \
+            else mask[:, :, 1:]
+        ce = cross_entropy(pred, targets, mask, padded_vocab(cfg),
+                           dims=(1, 2))
+        aux = aux.expand(G)
+        loss = ce + cfg.router_aux_weight * aux
+        return loss, {"ce": ce, "aux": aux}
+
     def prefill_paged_fn(params, batch, true_len):
         return paged.prefill_paged(params, cfg, batch, true_len)
 
@@ -100,4 +145,5 @@ def build_model(cfg: ModelConfig) -> ModelBundle:
                        functools.partial(paged.init_paged, cfg),
                        prefill_paged_fn,
                        functools.partial(paged.insert_paged, cfg),
-                       decode_paged_fn, hidden_fn)
+                       decode_paged_fn, hidden_fn, logits_stacked,
+                       lm_loss_stacked)

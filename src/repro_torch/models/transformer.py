@@ -91,8 +91,12 @@ def _block(lp, cfg: ModelConfig, x, positions, window: int):
 
 def forward(params, cfg: ModelConfig, tokens,
             prefix_embeds: Optional[torch.Tensor] = None,
-            collect_kv: bool = False, return_hidden: bool = False):
-    """tokens: (B, S) int; prefix_embeds: (B, P, d) soft prompt.
+            collect_kv: bool = False, return_hidden: bool = False,
+            clients: bool = False):
+    """tokens: (B, S) int; prefix_embeds: (B, P, d) soft prompt.  With
+    ``clients`` the LoRA leaves are stacked over G clients (leading axis)
+    and the batch holds the clients' rows in order, B / G each: every
+    adapted projection is one grouped launch.
 
     Returns (logits (B, P+S, V) float32, aux (0.0), kv|None) with
     kv = (k, v), each (L, B, P+S, K, hd); for the hybrid family kv =
@@ -109,7 +113,7 @@ def forward(params, cfg: ModelConfig, tokens,
     collected = []
     remat = cfg.remat and torch.is_grad_enabled()
     for i, w in enumerate(window_array(cfg)):
-        lp = L.layer_params(params["layers"], i)
+        lp = L.layer_params(params["layers"], i, clients)
         if remat:      # jax.checkpoint of the scanned layer body
             x, kv, state = checkpoint(_block, lp, cfg, x, positions, w,
                                       use_reentrant=False)

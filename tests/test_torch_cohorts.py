@@ -79,8 +79,8 @@ def test_cohort_structure_of_the_cases(case):
 
 def test_spec_runner_refuses_unported(corpus):
     _, tspec = make_specs(HET, None, 1, {})
-    with pytest.raises(NotImplementedError, match="vectorized"):
-        FederatedRunner(tspec, corpus, engine="vectorized", device="cpu")
+    with pytest.raises(NotImplementedError, match="overlap"):
+        FederatedRunner(tspec, corpus, engine="overlap", device="cpu")
     with pytest.raises(NotImplementedError, match="sampling"):
         FederatedRunner(dataclasses.replace(tspec, sampler=object()),
                         corpus, device="cpu")

@@ -23,6 +23,9 @@ from repro_torch.kernels.gram_volume import (
     gram_log_volume_backward_from_dots_plain, gram_log_volume_cuda,
     gram_log_volume_plain, gram_log_volume_splits)
 from repro_torch.kernels.lora_matmul import (lora_matmul_cuda,
+                                             lora_matmul_grouped_cuda,
+                                             lora_matmul_grouped_plain,
+                                             lora_matmul_grouped_route,
                                              lora_matmul_plain,
                                              lora_matmul_route)
 from repro_torch.kernels.paged_attention import (paged_attention_cuda,
@@ -411,6 +414,118 @@ def test_lora_fma_route_matches_plain(gen, dtype, K, N, r, route):
     want = lora_matmul_plain(x, w, a, b, 2.0)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+def _grouped_inputs(gen, G, Mg, K, N, r, dtype, trans_w=False):
+    """Grouped C's inputs: G clients' rows, one W, per-client non-zero
+    adapters (B differs per client, so a wrong adapter index shows)."""
+    x = torch.randn((G * Mg, K), generator=gen, device="cuda").to(dtype)
+    wshape = (N, K) if trans_w else (K, N)
+    w = (torch.randn(wshape, generator=gen, device="cuda") / K ** 0.5
+         ).to(dtype)
+    a = (torch.randn((G, K, r), generator=gen, device="cuda") / K ** 0.5
+         ).to(dtype)
+    b = (0.1 * torch.randn((G, r, N), generator=gen, device="cuda")
+         ).to(dtype)
+    return x, w, a, b
+
+
+@pytest.mark.parametrize("G,Mg,K,N,r,trans_w,dtype", [
+    (3, 1088, 1280, 1280, 8, False, torch.bfloat16),  # the SLM's round
+    (3, 1088, 1280, 1280, 8, True, torch.bfloat16),   # its dx
+    (2, 1088, 2048, 1024, 8, False, torch.bfloat16),  # qwen3's wk / wv
+    (2, 1088, 1024, 2048, 8, True, torch.bfloat16),   # their dx
+    (3, 136, 1280, 1280, 8, False, torch.bfloat16),   # Mg on no tile
+    (4, 77, 200, 72, 16, True, torch.bfloat16),       # ragged everywhere
+    (3, 136, 48, 40, 4, False, torch.float32),        # the toy configs
+    (3, 70, 64, 64, 8, True, torch.float32),
+])
+def test_lora_grouped_matches_plain_and_ungrouped(gen, G, Mg, K, N, r,
+                                                  trans_w, dtype):
+    """One grouped launch against the plain grouped version and against G
+    ungrouped launches (bit-equal where the grouped launch takes the
+    ungrouped tile), on the route the route function names; one launch
+    counted."""
+    x, w, a, b = _grouped_inputs(gen, G, Mg, K, N, r, dtype, trans_w)
+    route = lora_matmul_grouped_route(x, w, a, b, trans_w)
+    assert route == ("wgmma" if dtype == torch.bfloat16 else "fma")
+    with _routed(lora_matmul_grouped_cuda, route):
+        got = lora_matmul_grouped_cuda(x, w, a, b, 2.0, trans_w=trans_w)
+    want = lora_matmul_grouped_plain(x, w.t() if trans_w else w, a, b, 2.0)
+    solo = torch.cat([lora_matmul_cuda(x[g * Mg:(g + 1) * Mg], w, a[g],
+                                       b[g], 2.0, trans_w=trans_w)
+                      for g in range(G)])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    same_tile = route == "fma" or ((G * -(-Mg // 192) * -(-N // 192) >= 99)
+                                   == (-(-Mg // 192) * -(-N // 192) >= 99))
+    if same_tile:
+        assert torch.equal(got, solo)
+    else:
+        torch.testing.assert_close(got.float(), solo.float(), **TOL[dtype])
+
+
+def test_lora_grouped_autograd_on_wgmma(gen):
+    """Forward and dx of the grouped form through autograd, both on the
+    wgmma route (two launches), against the plain grouped version's
+    autograd; each row held relative to its own size."""
+    dt = torch.bfloat16
+    x, w, a, b = _grouped_inputs(gen, 3, 1088, 1280, 1280, 8, dt)
+    dy = torch.randn(x.shape[0], 1280, generator=gen, device="cuda").to(dt)
+    grads = []
+    for fn in (ops.lora_matmul_grouped, lora_matmul_grouped_plain):
+        ins = [t.clone().requires_grad_(True) for t in (x, a, b)]
+        if fn is ops.lora_matmul_grouped:
+            with _routed(lora_matmul_grouped_cuda, "wgmma", n=2):
+                fn(ins[0], w, ins[1], ins[2], 2.0).backward(dy)
+        else:
+            fn(ins[0], w, ins[1], ins[2], 2.0).backward(dy)
+        grads.append([t.grad.float() for t in ins])
+    torch.cuda.synchronize()
+    for got, want in zip(*grads):
+        flat, ref = got.reshape(-1, got.shape[-1]), want.reshape(
+            -1, want.shape[-1])
+        scale = ref.abs().amax(dim=1, keepdim=True).clamp(min=1e-30)
+        torch.testing.assert_close(flat / scale, ref / scale,
+                                   **TOL[torch.bfloat16])
+
+
+def test_lora_wgmma_launches_from_a_fresh_thread(gen):
+    """A thread whose first CUDA work is a wgmma launch (its tensor maps
+    are encoded by cuTensorMapEncodeTiled, which needs a context current
+    on the thread), as the autograd engine's thread is when dx is the
+    first node of its backward: the launch succeeds and matches the main
+    thread's."""
+    import threading
+    x, w, a, b = _grouped_inputs(gen, 3, 136, 256, 128, 8, torch.bfloat16,
+                                 trans_w=True)
+    want = lora_matmul_grouped_cuda(x, w, a, b, 2.0, trans_w=True)
+    torch.cuda.synchronize()
+    got, errors = [], []
+
+    def run():
+        try:
+            got.append(lora_matmul_grouped_cuda(x, w, a, b, 2.0,
+                                                trans_w=True))
+            torch.cuda.synchronize()
+        except Exception as e:      # noqa: BLE001 — re-raised below
+            errors.append(e)
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    assert not errors, errors
+    assert torch.equal(got[0], want)
+
+
+def test_lora_grouped_uses_each_clients_adapter(gen):
+    """Planted fault: every client on client 0's adapter differs from the
+    kernel's output by far more than the tolerance."""
+    x, w, a, b = _grouped_inputs(gen, 3, 136, 1280, 1280, 8, torch.bfloat16)
+    got = lora_matmul_grouped_cuda(x, w, a, b, 2.0)
+    wrong = lora_matmul_grouped_plain(x, w, a[:1].expand_as(a),
+                                      b[:1].expand_as(b), 2.0)
+    torch.cuda.synchronize()
+    assert float((got.float() - wrong.float()).abs().max()) > 0.1
 
 
 # ---------------------------------------------------------------------------

@@ -308,7 +308,6 @@ def test_cosine_score_and_prox_run(corpus):
 # what the port refuses
 
 @pytest.mark.parametrize("over,engine", [
-    ({}, "vectorized"),
     ({}, "overlap"),
     ({"channel": ChannelSpec(codec="sketch")}, "loop"),
     ({"sampler": ParticipantSampler(per_cohort=2)}, "loop"),
