@@ -95,10 +95,31 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    rounds' summaries and LoRA leaves against each other; then one stacked
    CCL step against the loop engine's three from per-client, non-zero
    LoRA B (losses, gradients row by row, updated leaves), with client 0
-   given client 1's adapter as a planted fault that must fail; prints a
-   ``{"vectorized_round": ...}`` line (round wall time, ms per step and
-   peak memory per engine, launches per kernel per engine);
-11. serves 24 soft-prompted requests each on ``mamba2-2.7b`` (prompts of
+   given client 1's adapter as a planted fault that must fail, and the
+   same gradients once more at f32 on the same state, batches and
+   anchors (TF32 off); prints a ``{"vectorized_round": ...}`` line (round
+   wall time, ms per step and peak memory per engine, launches per kernel
+   per engine);
+11. drives the registered population on the vectorized engine: one
+   cohort of 24 ``mlecs-slm-720m`` clients registered in the client store,
+   3 sampled a round (``ParticipantSampler``), ``mlecs-llm-6b`` on the
+   server, trimmed-mean MMA under the heterogeneous phase's faults, the
+   int8 wire with error feedback (the residuals ride in the store and the
+   checkpoint), 1 CCL + 1 AMT + 1 SE-CCL step a round; runs rounds 0 and
+   1 unevaluated, saves a checkpoint (after checking the temporary
+   directory's free space; its bytes and save seconds printed), runs
+   round 2 evaluated; a fresh runner from the same seed loads the
+   checkpoint (seconds printed) and runs round 2 again, which must be bit
+   for bit the first (participants, summary, the participants' store
+   entries, the server SLM's LoRA); a runner of 8 clients with its store
+   spilled to disk runs round 0, and the device memory at the round's end
+   must equal the 24 clients' within 1 % with a store of exactly 8/24 of
+   their bytes; a loop-engine runner's round 0 from the same seed is held
+   against the vectorized one's (summaries and LoRA leaves under the
+   vectorized phase's bounds); every round's exact launches (counted over
+   the working set) and tensor-core routes; prints a
+   ``{"population_rounds": ...}`` line;
+12. serves 24 soft-prompted requests each on ``mamba2-2.7b`` (prompts of
    20-700 tokens, no pages) and ``hymba-1.5b`` (20-1200, the window
    bites) at full width, checks budgets, free lists and exact launch
    counts (G 64 per mamba2 admission; B and G 32 per hymba admission,
@@ -110,7 +131,7 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    profiles an
    admission tick and four decode steps, and prints ``{"ssm_serving":
    ...}`` and ``{"hybrid_serving": ...}`` lines;
-12. prints ``{"phase_seconds": ...}`` and a ``{"kernels": [...]}`` line
+13. prints ``{"phase_seconds": ...}`` and a ``{"kernels": [...]}`` line
    (times from CUDA-graph replay, bounds from this run's inputs; rows
    A-G, each with its launches on the main paths; the rows of the five
    two-route kernels, A, B, B's backward, C and G, also time their FMA
@@ -135,6 +156,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -1018,9 +1040,12 @@ def bits_equal(a, b) -> bool:
     """Equal bit for bit (floats by their bit pattern), wherever they lie."""
     import torch
     a, b = a.detach().cpu().contiguous(), b.detach().cpu().contiguous()
-    if a.dtype == torch.float32:
-        a, b = a.view(torch.int32), b.view(torch.int32)
-    return a.dtype == b.dtype and torch.equal(a, b)
+    if a.dtype != b.dtype:
+        return False
+    bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    if a.dtype in bits:
+        a, b = a.view(bits[a.dtype]), b.view(bits[a.dtype])
+    return torch.equal(a, b)
 
 
 QUANT_SHAPES = {"uplink": (8640, 128), "downlink": (2880, 128),
@@ -1318,13 +1343,15 @@ def check_tensor_core_routes(tag):
 def expected_round_launches(runner, evaluate=True):
     """Launches of every kernel in one round (evaluated or not), from the
     step structure, cohort by cohort (each cohort's model, batch size and
-    step counts).  On the loop engine only the round's present clients
-    train, each pass is one client's, and client eval runs each client's
-    own batches.  On the vectorized engine each local step is ONE pass of
-    the whole cohort (offline clients train and are selected back), its C
-    launches are the grouped form's, and client eval runs one pass per
-    padded eval batch of the cohort (the most any member needs); the
-    server's launches are the same on both engines.  A trained pass
+    step counts) over the round's working set (under a sampler the
+    sampled members, else every member).  On the loop engine only the
+    working set's present clients train, each pass is one client's, and
+    client eval runs each member's own batches.  On the vectorized engine
+    each local step is ONE pass of the cohort's working set (offline
+    clients train and are selected back), its C launches are the grouped
+    form's, and client eval runs one pass per padded eval batch of the
+    cohort (the most any registered member needs); the server's launches
+    are the same on both engines.  A trained pass
     of an L-layer model launches C 4L times forward, 4L more when
     ``remat`` recomputes the layers in the backward, and 4L for dx (3
     fewer on a raw batch: layer 0's wq/wk/wv inputs are the frozen
@@ -1350,16 +1377,16 @@ def expected_round_launches(runner, evaluate=True):
     evals, grouped_evals = [], []
     for rt in runner.cohorts:
         m = rt.bundle.cfg
-        n = rt.n if pres is None else int(pres[rt.slice].sum())
+        n = rt.work_n if pres is None else int(pres[rt.work_slice].sum())
         k_ccl = spec.cohort_steps_ccl(rt.idx)
         steps = k_ccl + spec.cohort_steps_amt(rt.idx)
         bs = spec.cohort_batch_size(rt.idx)
-        blocks = [-(-runner.priv_test[j]["tokens"].shape[0] // bs)
-                  for j in range(rt.offset, rt.offset + rt.n)]
+        blocks = [-(-runner.priv_test[rt.offset + i]["tokens"].shape[0]
+                    // bs) for i in runner._members(rt)]
         if stacked:
             grouped += [(m, True)] * steps
             d += k_ccl
-            grouped_evals.append((m, max(blocks)))
+            grouped_evals.append((m, rt.eval_blocks))
         else:
             passes += [(m, True)] * n * steps
             d += n * k_ccl
@@ -3141,12 +3168,97 @@ def step_check(tag, got_loss, want_loss, got_grads, want_grads):
     return worst
 
 
+def step_grads(bundle, sp, pub, anchor, loop_anchors, n_negatives):
+    """The stacked CCL loss and its gradients over the G clients of
+    ``sp`` (one backward of the sum), and each client's loss and
+    gradients on the loop engine's path (its own tree, batch and
+    anchor): (stacked losses, stacked grads, [loss], [grads])."""
+    import torch
+    from repro_torch.core import ccl as ccl_lib
+    from repro_torch.core.lora import combine, gather_client, partition
+
+    def grads(tree, batch, anc, stacked):
+        train = {k: v.detach().requires_grad_(True)
+                 for k, v in partition(tree).items()}
+        loss, _ = ccl_lib.mlecs_loss(
+            combine(tree, train), bundle, batch, anchor=anc,
+            ccl_weight=0.5, n_negatives=n_negatives, stacked=stacked)
+        return loss.detach(), ccl_lib.grads_of(torch.sum(loss), train)
+
+    got_loss, got_grads = grads(sp, pub, anchor, True)
+    personal = partition(sp)
+    want = [grads(combine(sp, gather_client(personal, g)),
+                  {k: v[g] for k, v in pub.items()}, loop_anchors[g], False)
+            for g in range(len(loop_anchors))]
+    return (got_loss, got_grads, [w[0] for w in want],
+            [w[1] for w in want])
+
+
+# the stacked step against the loop engine's steps at f32 (ROADMAP 3.6):
+# the same state upcast, the same batches and anchors, TF32 off; each row
+# of a gradient within 1e-3 of the row's largest |value| (floored as the
+# bf16 check), losses and L2 to 1e-4 relative
+STEP_F32_LOSS_RTOL = 1e-4
+STEP_F32_GRAD_L2_RTOL = 1e-4
+STEP_F32_GRAD_ROW_TOL = 1e-3
+
+
+def stacked_step_check_f32(runner, sp, pub, anchor):
+    """:func:`step_grads` at f32 on an f32 copy of the stacked state
+    ``sp`` (the backbone and every client's leaves upcast), the same
+    batches, and the stacked anchors upcast for both paths (the loop path
+    takes client g's slice, so only the step differs): the worst errors
+    by leaf, failing above the f32 bounds."""
+    import torch
+    from repro_torch.core.lora import flatten, unflatten
+    from repro_torch.models.model import build_model
+    bundle = build_model(dataclasses.replace(runner.cohorts[0].bundle.cfg,
+                                             dtype="float32"))
+    sp32 = unflatten({k: v.float() if v.is_floating_point() else v
+                      for k, v in flatten(sp).items()})
+    a32 = anchor.float()
+    got_loss, got_grads, want_loss, want_grads = step_grads(
+        bundle, sp32, pub, a32, list(a32), runner.cfg.n_negatives)
+    torch.cuda.synchronize()
+    loss_rel, l2, rows = [], {}, {}
+    for g, (lw, gw) in enumerate(zip(want_loss, want_grads)):
+        loss_rel.append(abs(float(got_loss[g]) - float(lw)) / abs(float(lw)))
+        for k, want in gw.items():
+            got = got_grads[k][g].reshape(-1, want.shape[-1])
+            want = want.reshape(-1, want.shape[-1])
+            l2[k] = max(l2.get(k, 0.0), float(
+                torch.linalg.vector_norm(got - want)
+                / torch.linalg.vector_norm(want).clamp(min=1e-30)))
+            scale = torch.maximum(
+                want.abs().amax(dim=1, keepdim=True),
+                STEP_GRAD_FLOOR * want.abs().max()).clamp(min=1e-30)
+            rows[k] = max(rows.get(k, 0.0),
+                          float(((got - want).abs() / scale).max()))
+    out = {"max_loss_rel_err": max(loss_rel),
+           "max_grad_l2_rel_err": max(l2.values()),
+           "max_grad_row_rel_err": max(rows.values()),
+           "grad_row_rel_err_by_leaf": rows,
+           "tolerance": {"loss_rtol": STEP_F32_LOSS_RTOL,
+                         "grad_l2_rtol": STEP_F32_GRAD_L2_RTOL,
+                         "grad_rows": STEP_F32_GRAD_ROW_TOL}}
+    if not (out["max_loss_rel_err"] <= STEP_F32_LOSS_RTOL
+            and out["max_grad_l2_rel_err"] <= STEP_F32_GRAD_L2_RTOL
+            and out["max_grad_row_rel_err"] <= STEP_F32_GRAD_ROW_TOL):
+        worst = sorted(rows, key=rows.get, reverse=True)[:5]
+        raise AssertionError(
+            f"stacked step at f32: {out['max_loss_rel_err']:.3e} loss, "
+            f"{out['max_grad_l2_rel_err']:.3e} L2, "
+            f"{out['max_grad_row_rel_err']:.3e} row; worst leaves "
+            f"{[(k, rows[k], l2[k]) for k in worst]}")
+    return out
+
+
 def stacked_step_check(runner):
     """One stacked CCL step against the loop engine's three, from one
     state whose LoRA B leaves are non-zero and different per client, on
     the same batches and anchors: per-client losses, gradients (row by
-    row) and updated leaves.  A planted fault, client 0 on client 1's
-    adapter, must fail the same check."""
+    row) and updated leaves; then the same gradients at f32.  A planted
+    fault, client 0 on client 1's adapter, must fail the same check."""
     import torch
     from repro_torch.core import ccl as ccl_lib
     from repro_torch.core.lora import (combine, gather_client, is_lora_leaf,
@@ -3165,29 +3277,12 @@ def stacked_step_check(runner):
         "cuda")
     pub = {k: v[0] for k, v in pubs.items()}
     anchor = runner.stacked_anchors(pub)
-
-    def stacked_grads(tree):
-        train = {k: v.detach().requires_grad_(True)
-                 for k, v in partition(tree).items()}
-        loss, _ = ccl_lib.mlecs_loss(
-            combine(tree, train), bundle, pub, anchor=anchor,
-            ccl_weight=0.5, n_negatives=cfg.n_negatives, stacked=True)
-        return loss.detach(), ccl_lib.grads_of(torch.sum(loss), train)
-
     personal = partition(sp)
     trees = [combine(sp, gather_client(personal, g)) for g in range(rt.n)]
     batches = [{k: v[g] for k, v in pub.items()} for g in range(rt.n)]
-    want_loss, want_grads = [], []
-    for tree, batch in zip(trees, batches):
-        train = {k: v.detach().requires_grad_(True)
-                 for k, v in partition(tree).items()}
-        loss, _ = ccl_lib.mlecs_loss(
-            combine(tree, train), bundle, batch,
-            anchor=runner.anchors(batch), ccl_weight=0.5,
-            n_negatives=cfg.n_negatives)
-        want_loss.append(loss.detach())
-        want_grads.append(ccl_lib.grads_of(loss, train))
-    got_loss, got_grads = stacked_grads(sp)
+    got_loss, got_grads, want_loss, want_grads = step_grads(
+        bundle, sp, pub, anchor, [runner.anchors(b) for b in batches],
+        cfg.n_negatives)
     torch.cuda.synchronize()
     worst = step_check("stacked step", got_loss, want_loss, got_grads,
                        want_grads)
@@ -3195,7 +3290,8 @@ def stacked_step_check(runner):
     # planted: client 0 trains on client 1's adapter
     swapped = combine(sp, {k: torch.cat([v[1:2], v[1:]]) for k, v in
                            partition(sp, is_lora_leaf).items()})
-    bad_loss, bad_grads = stacked_grads(swapped)
+    bad_loss, bad_grads = step_grads(bundle, swapped, pub, anchor, [],
+                                     cfg.n_negatives)[:2]
     try:
         step_check("planted", bad_loss, want_loss, bad_grads, want_grads)
     except AssertionError as e:
@@ -3224,6 +3320,8 @@ def stacked_step_check(runner):
         if int(o["step"]) != int(new_opt["step"][g]):
             raise AssertionError("stacked step: AdamW step counts differ")
     torch.cuda.synchronize()
+    del new_sp, new_opt, p, o
+    f32 = stacked_step_check_f32(runner, sp, pub, anchor)
     return {"clients": rt.n, "loss": [float(x) for x in got_loss],
             "max_loss_rel_err": worst["loss_rel"],
             "max_grad_l2_rel_err": worst["grad_l2_rel"],
@@ -3231,7 +3329,7 @@ def stacked_step_check(runner):
             "grad_l2_rel_err_by_leaf": worst["grad_l2_rel_by_leaf"],
             "grad_row_rel_err_by_leaf": worst["grad_row_rel_by_leaf"],
             "max_leaf_abs_err": leaf_worst, "leaf_elements_moved": moved,
-            "planted_fault_failed": planted,
+            "planted_fault_failed": planted, "float32": f32,
             "tolerance": {"loss_rtol": STEP_LOSS_RTOL,
                           "grad_l2_rtol": STEP_GRAD_L2_RTOL,
                           "grad_rows": STEP_GRAD_TOL,
@@ -3374,6 +3472,292 @@ def phase_vectorized_round():
     return result, vec["launches"]
 
 
+# ---------------------------------------------------------------------------
+# phase: the registered population (a sampler, the client store) and
+# checkpoint / resume
+
+POP_CLIENTS = 24          # registered clients of the resumed runs
+POP_SMALL = 8             # registered clients of the memory comparison
+POP_PER_ROUND = 3         # the working set (the vectorized_round's G)
+POP_ROUNDS = 3            # rounds 0 and 1 unevaluated, then round 2
+POP_MEM_RTOL = 0.01       # device memory at N 8 against N 24
+
+
+def pop_spec(n, engine="vectorized"):
+    """One cohort of ``n`` registered SLM' clients sampled 3 a round,
+    LLM' on the server; trimmed-mean MMA under the heterogeneous phase's
+    faults, the int8 wire with error feedback (the residuals ride in the
+    store), 1 CCL + 1 AMT + 1 SE-CCL step a round."""
+    from repro_torch.core.channel import ChannelSpec
+    from repro_torch.core.spec import (ClientCohort, FaultSpec,
+                                       FederationSpec, ParticipantSampler)
+    slm, llm = round_models()
+    return FederationSpec(
+        cohorts=(ClientCohort(slm, n, "population"),), server_llm=llm,
+        rounds=POP_ROUNDS, local_steps_ccl=1, local_steps_amt=1,
+        server_steps=1, engine=engine, seed=0, robust="trimmed_mean",
+        trim_frac=HET_TRIM, faults=FaultSpec(**HET_FAULTS),
+        sampler=ParticipantSampler(per_cohort=POP_PER_ROUND, seed=0),
+        channel=ChannelSpec(codec="int8"))
+
+
+def pop_runner(n, engine="vectorized", store_dir=None):
+    """(runner, seconds to build it) of :func:`pop_spec`."""
+    import torch
+    from repro_torch.core.federated import FederatedRunner
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner = FederatedRunner(pop_spec(n, engine), round_corpus(),
+                             device="cuda", store_dir=store_dir)
+    torch.cuda.synchronize()
+    return runner, time.perf_counter() - t0
+
+
+def pop_round(runner, tag, evaluate, total):
+    """One counted round: exact launches over the working set, tensor-core
+    routes, finite metrics; the counts add into ``total``.  Returns the
+    round's record (with the device memory at its end) and its output."""
+    import torch
+    zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = runner.run_round(evaluate=evaluate)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    routes = check_tensor_core_routes(tag)
+    want = expected_round_launches(runner, evaluate=evaluate)
+    if launches != want:
+        raise AssertionError(f"{tag}: launches {launches} != expected "
+                             f"{want}")
+    for n, v in launches.items():
+        total[n] = total.get(n, 0) + v
+    if evaluate:
+        for m in [out["summary"]] + out["client"] + [out["server"]]:
+            if not all(math.isfinite(v) for v in m.values()):
+                raise AssertionError(f"{tag}: non-finite {m}")
+    return {"wall_s": wall, "evaluate": evaluate,
+            "participants": [int(j) for j in runner._rnd_ids],
+            "present": runner._rnd_present.astype(int).tolist(),
+            "on_time": runner._rnd_contrib.astype(int).tolist(),
+            "mem_allocated_bytes": torch.cuda.memory_allocated(),
+            "launches": launches, "launches_by_route": routes}, out
+
+
+def pop_lora_on_host(runner, ids):
+    """Host copies of the LoRA leaves of the stored clients ``ids`` and of
+    the server SLM and LLM."""
+    from repro_torch.core.lora import is_lora_leaf
+    out = {f"client{j}": {k: v.clone() for k, v in
+                          runner.store.get(j)["train"].items()
+                          if is_lora_leaf(k)} for j in ids}
+    out.update({n: {k: v.cpu() for k, v in lora_leaves(t).items()}
+                for n, t in (("server_slm", runner.server_slm),
+                             ("server_llm", runner.server_llm))})
+    return out
+
+
+def entries_on_host(runner, ids):
+    """Deep host copies of the store entries of ``ids`` (flat keys)."""
+    from repro_torch.checkpointing import flatten_pytree
+    return {j: {k: v.clone() for k, v in
+                flatten_pytree(runner.store.get(j)).items()} for j in ids}
+
+
+def checkpoint_dir(runner):
+    """A fresh temporary directory for the runner's checkpoint, after
+    checking that its file system holds twice the state's bytes."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpointing import flatten_pytree
+    need = sum(t.numel() * t.element_size() for t in
+               flatten_pytree(runner.checkpoint_state()).values())
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    free = shutil.disk_usage(d).free
+    if free < 2 * need:
+        shutil.rmtree(d, ignore_errors=True)
+        raise RuntimeError(
+            f"the checkpoint needs {need} bytes and {d} has {free} free; "
+            "point TMPDIR at a file system with twice that free")
+    return d, need
+
+
+def phase_population_rounds():
+    """The registered population at full width: a runner of 24 clients
+    sampled 3 a round runs rounds 0 and 1 unevaluated, saves a checkpoint
+    and runs round 2 evaluated; a fresh runner loads the checkpoint and
+    runs round 2 again, bit for bit.  A runner of 8 clients spilled to
+    disk runs round 0: the device memory at the round's end equals the 24
+    clients' within 1 % and the store is 8/24 of theirs.  A loop-engine
+    runner runs round 0 from the same seed against the vectorized one.
+    Every round: exact launches over the working set and tensor-core
+    routes."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.checkpointing import CheckpointManager
+    total, rounds, res = {}, {}, {}
+    cfg = pop_spec(POP_CLIENTS).to_config()
+
+    # N = 24: rounds 0 and 1, the checkpoint, round 2
+    runner, res["init_s"] = pop_runner(POP_CLIENTS)
+    rt = runner.cohorts[0]
+    if rt.work_n != POP_PER_ROUND or len(runner.store) != POP_CLIENTS:
+        raise AssertionError(f"working set {rt.work_n}, store "
+                             f"{len(runner.store)}")
+    trees = {"base": runner.cohort_base, "server_slm": runner.server_slm,
+             "server_llm": runner.server_llm}
+    frozen0 = {n: frozen_fingerprint(t) for n, t in trees.items()}
+    rec, _ = pop_round(runner, "population round 0", False, total)
+    rounds["n24_round0"] = rec
+    # round 0's result, kept on the host (the memory comparison below
+    # must not see it)
+    vec0 = {"summary": runner.evaluate()["summary"],
+            "participants": rec["participants"],
+            "leaves": pop_lora_on_host(runner, rec["participants"])}
+    rounds["n24_round1"], _ = pop_round(runner, "population round 1",
+                                        False, total)
+    n24_store = runner.store.nbytes()
+    ck, want_bytes = checkpoint_dir(runner)
+    try:
+        mgr = CheckpointManager(ck)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step = runner.save_checkpoint(mgr)
+        res["save_s"] = time.perf_counter() - t0
+        res["checkpoint_bytes"] = sum(
+            os.path.getsize(os.path.join(ck, f)) for f in os.listdir(ck))
+        res["checkpoint_state_bytes"] = want_bytes
+        rec, first = pop_round(runner, "population round 2", True, total)
+        rounds["n24_round2"] = rec
+        snap = {"participants": first["participants"],
+                "summary": first["summary"],
+                "entries": entries_on_host(runner, first["participants"]),
+                "server_slm": {k: v.cpu() for k, v in
+                               lora_leaves(runner.server_slm).items()}}
+        # (a comprehension: a loop variable would keep the first server
+        # LLM alive past the runner, 12 GB of the memory comparison)
+        changed = [n for n, t in trees.items()
+                   if frozen_fingerprint(t) != frozen0[n]]
+        if changed:
+            raise AssertionError(f"population: {changed} changed")
+        del runner, trees, rt
+        release()
+
+        # a fresh runner from the same seed resumes at round 2
+        runner, res["resume_init_s"] = pop_runner(POP_CLIENTS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner.load_checkpoint(mgr, step)
+        torch.cuda.synchronize()
+        res["load_s"] = time.perf_counter() - t0
+        rec, again = pop_round(runner, "resumed round 2", True, total)
+        rounds["n24_resumed_round2"] = rec
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    if again["participants"] != snap["participants"] or \
+            again["summary"] != snap["summary"]:
+        raise AssertionError(f"resume: {again['participants']} "
+                             f"{again['summary']} != {snap['participants']}"
+                             f" {snap['summary']}")
+    unequal = [f"client{j}:{k}" for j, e in entries_on_host(
+        runner, again["participants"]).items() for k, v in e.items()
+        if not bits_equal(v, snap["entries"][j][k])]
+    unequal += [f"server_slm:{k}" for k, v in
+                lora_leaves(runner.server_slm).items()
+                if not bits_equal(v, snap["server_slm"][k])]
+    if unequal:
+        raise AssertionError(f"resume: {len(unequal)} leaves not bit-equal,"
+                             f" e.g. {unequal[:4]}")
+    res["resume_bit_equal_leaves"] = sum(len(e) for e in
+                                         snap["entries"].values()) \
+        + len(snap["server_slm"])
+    res["summary"] = snap["summary"]
+    del runner, snap
+    release()
+
+    # N = 8 spilled to disk: device memory follows the working set
+    spill = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    try:
+        runner, res["n8_init_s"] = pop_runner(POP_SMALL, store_dir=spill)
+        rounds["n8_round0"], _ = pop_round(runner, "8-client round 0",
+                                           False, total)
+        n8_store = runner.store.nbytes()
+        res["n8_store_files"] = len(os.listdir(spill))
+        del runner
+        release()
+    finally:
+        shutil.rmtree(spill, ignore_errors=True)
+    mem24 = rounds["n24_round0"]["mem_allocated_bytes"]
+    mem8 = rounds["n8_round0"]["mem_allocated_bytes"]
+    if abs(mem8 - mem24) > POP_MEM_RTOL * mem24:
+        raise AssertionError(f"device memory {mem8} at N {POP_SMALL} vs "
+                             f"{mem24} at N {POP_CLIENTS}")
+    if n8_store * POP_CLIENTS != n24_store * POP_SMALL:
+        raise AssertionError(f"store bytes {n8_store} at N {POP_SMALL} vs "
+                             f"{n24_store} at N {POP_CLIENTS}")
+
+    # the loop engine's round 0 from the same seed
+    runner, res["loop_init_s"] = pop_runner(POP_CLIENTS, "loop")
+    rec, _ = pop_round(runner, "loop-engine round 0", False, total)
+    rounds["n24_loop_round0"] = rec
+    if rec["participants"] != vec0["participants"]:
+        raise AssertionError("the engines sampled other participants")
+    loop0 = runner.evaluate()["summary"]
+    for k in ("avg_ce", "server_ce"):
+        if not abs(loop0[k] - vec0["summary"][k]) <= \
+                ROUND_CE_RTOL * abs(loop0[k]):
+            raise AssertionError(f"engines' {k}: {loop0[k]} vs "
+                                 f"{vec0['summary'][k]}")
+    # a template token may flip, as in the vectorized phase: here one
+    # token of the smallest participant's test set (a few rows a client
+    # at 24 clients) moves its accuracy by more than 0.02
+    scored = min(float(runner.priv_test[j]["loss_mask"][:, 1:].sum())
+                 for j in rec["participants"])
+    acc_tol = max(ROUND_ACC_ATOL, 1.0 / scored)
+    for k in ("avg_acc", "best_acc", "worst_acc", "server_acc"):
+        if not abs(loop0[k] - vec0["summary"][k]) <= acc_tol:
+            raise AssertionError(f"engines' {k}: {loop0[k]} vs "
+                                 f"{vec0['summary'][k]}")
+    n_steps = {"server_llm": cfg.server_steps}
+    loop_leaves = pop_lora_on_host(runner, rec["participants"])
+    leaf_err = {}
+    for n, leaves in loop_leaves.items():
+        steps = n_steps.get(n, cfg.local_steps_ccl + cfg.local_steps_amt
+                            + cfg.server_steps)
+        for k, want in leaves.items():
+            err = (vec0["leaves"][n][k].float() - want.float()).abs()
+            if bool((err > leaf_bound(cfg.lr, steps, want)).any()):
+                raise AssertionError(f"engines' {n}:{k} {float(err.max())}"
+                                     " apart")
+            leaf_err[n] = max(leaf_err.get(n, 0.0), float(err.max()))
+    summaries = {"vectorized": vec0["summary"], "loop": loop0}
+    del runner, vec0, loop_leaves
+    release()
+
+    slm, llm = round_models()
+    res.update({
+        "config": {"slm": slm.name, "llm": llm.name, "dtype": slm.dtype,
+                   "registered": [POP_CLIENTS, POP_SMALL],
+                   "per_round": POP_PER_ROUND, "rounds": POP_ROUNDS,
+                   "robust": "trimmed_mean", "trim_frac": HET_TRIM,
+                   "faults": HET_FAULTS, "codec": "int8",
+                   "error_feedback": True},
+        "rounds": rounds,
+        "round_wall_s": {k: v["wall_s"] for k, v in rounds.items()},
+        "mem_allocated_bytes": {"n24": mem24, "n8": mem8},
+        "mem_rel_diff": abs(mem8 - mem24) / mem24,
+        "store_bytes": {"n24": n24_store, "n8": n8_store},
+        "engines": {"summary_after_round0": summaries,
+                    "max_leaf_abs_err_vs_loop": leaf_err},
+        "tolerance": {"memory_rtol": POP_MEM_RTOL, "resume": "bit-equal",
+                      "ce_rtol": ROUND_CE_RTOL, "acc_atol": acc_tol,
+                      "leaves": "2 lr per AdamW step + 2^-8 |leaf|"},
+    })
+    return res, total
+
+
+
 def release():
     """Free what the last phase left: its objects hold reference cycles
     (a runner's step closures refer back to it), so collect them before
@@ -3436,6 +3820,10 @@ def main() -> int:
     emit({"vectorized_round": vectorized})
     release()
     lap("vectorized_round")
+    population, pop_launches = phase_population_rounds()
+    emit({"population_rounds": population})
+    release()
+    lap("population_rounds")
     ssm_serving, ssm_launches = phase_ssm_serving()
     emit({"ssm_serving": ssm_serving})
     release()
@@ -3461,6 +3849,7 @@ def main() -> int:
              "heterogeneous_rounds": het_launches,
              "cohort_serving": cohort_launches,
              "vectorized_round": vec_launches,
+             "population_rounds": pop_launches,
              "ssm_serving": ssm_launches, "hybrid_serving": hybrid_launches}
     for row in kernels:
         by_path = {p: n[row["name"]] for p, n in paths.items()

@@ -51,13 +51,31 @@ everything after the device phase: the wire, the combines, SE-CCL and the
 delivery (redistribution is a presence-masked broadcast into the stack).
 They agree to float rounding.
 
+**Registered population.**  A :class:`~repro_torch.core.spec.
+ParticipantSampler` on the spec splits client state in two: every
+registered client's personal state lives on the host (or on disk, with
+``store_dir=``) in a :class:`~repro_torch.core.store.ClientStore`, and
+the engines keep only the round's working set on the device.  Each round
+draws its participants (:class:`~repro_torch.core.store.
+ParticipantSchedule`, stateless from ``(seed, round)``), gathers their
+rows from the store into the stacked buffers (the loop engine reads and
+writes each member's entry), trains on Eq. 13 weights renormalized over
+the sampled set, and scatters the rows back.  Per-round vectors (weights,
+presence, attack scale) are working-set sized: a cohort's block is its
+``work_slice``.  A sampler that covers every client reproduces the
+unsampled runner bit for bit.  :meth:`FederatedRunner.save_checkpoint` /
+:meth:`~FederatedRunner.load_checkpoint` round-trip the run state (the
+round counter, the server, the population) in the reference's format;
+a restore replays the sampler's draws and the data streams from the round
+counter, so the resumed rounds are bit-identical.
+
 Covered: the loop and vectorized engines, the modes mlecs / fedavg /
 standalone, the ablations ``use_mma`` / ``use_seccl`` / ``use_ccl``, both
-CCL scores, ``prox_weight``, the three reductions, client faults, and the
-identity, int8 and int4 channels (uploads cross the wire before MMA, each
-cohort's redistribution crosses it on the way down).  The overlap engine,
-the sketch codec, participant sampling and checkpoints raise
-``NotImplementedError``.
+CCL scores, ``prox_weight``, the three reductions, client faults,
+participant sampling, checkpoints, and the identity, int8 and int4
+channels (uploads cross the wire before MMA, each cohort's redistribution
+crosses it on the way down).  The overlap engine and the sketch codec
+raise ``NotImplementedError``.
 
 Every member of a cohort shares ONE frozen backbone (the cohort base);
 only its personal leaves (LoRA + connector) are its own, stacked (n, ...)
@@ -67,7 +85,7 @@ returns a new tree that shares the frozen leaves.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -75,10 +93,13 @@ import torch
 from repro_torch import interop
 from repro_torch.core import ccl as ccl_lib
 from repro_torch.core import lora, mma, seccl
+from repro_torch.checkpointing.checkpoint import map_pytree
 from repro_torch.core.channel import ChannelSpec, TensorSpec
 from repro_torch.core.faults import FaultSchedule
 from repro_torch.core.spec import (ENGINES, ClientCohort, FaultSpec,
-                                   FederationSpec, validate_protocol)
+                                   FederationSpec, ParticipantSampler,
+                                   validate_protocol)
+from repro_torch.core.store import ClientStore, ParticipantSchedule
 from repro_torch.data import attacks
 from repro_torch.data.multimodal import (paper_split, take_fraction,
                                          train_test_split)
@@ -113,6 +134,11 @@ def _where_clients(mask: torch.Tensor, new, old):
     return torch.where(mma._bcast(mask, new), new, old)
 
 
+def _to_device(tree, device):
+    """Every tensor leaf of a pytree moved to ``device``."""
+    return map_pytree(lambda t: t.to(device), tree)
+
+
 def _scale_uploads(uploads: Dict[str, torch.Tensor], scale: np.ndarray
                    ) -> Dict[str, torch.Tensor]:
     """Byzantine scaled-update over a stacked upload: client j reports
@@ -128,10 +154,10 @@ def _scale_uploads(uploads: Dict[str, torch.Tensor], scale: np.ndarray
 @dataclasses.dataclass
 class FederatedConfig:
     """Hyperparameters of one federated simulation: the reference's fields
-    and defaults.  ``channel`` is a :class:`ChannelSpec` and ``faults`` a
-    :class:`FaultSpec` of the port (None = identity wire, no faults).
-    ``sampler`` is accepted (opaque) and refused by
-    :class:`FederatedRunner`, as is the sketch codec."""
+    and defaults.  ``channel`` is a :class:`ChannelSpec`, ``faults`` a
+    :class:`FaultSpec` and ``sampler`` a :class:`ParticipantSampler` of
+    the port (None = identity wire, no faults, every client every
+    round)."""
 
     n_devices: int = 3
     rounds: int = 5
@@ -155,7 +181,7 @@ class FederatedConfig:
     robust: str = "mean"             # mean | trimmed_mean | norm_clip
     trim_frac: float = 0.2
     faults: Optional[FaultSpec] = None
-    sampler: Optional[Any] = None
+    sampler: Optional[ParticipantSampler] = None
     channel: Optional[ChannelSpec] = None   # wire codec (None = identity)
 
     def __post_init__(self):
@@ -180,9 +206,6 @@ def _refuse_unported(spec: FederationSpec, engine: str) -> None:
     if spec.faults is not None and not isinstance(spec.faults, FaultSpec):
         raise TypeError("faults must be repro_torch.core.spec.FaultSpec; "
                         f"got {type(spec.faults).__name__}")
-    if spec.sampler is not None:
-        raise NotImplementedError(
-            "participant sampling is not ported (sampler=None)")
 
 
 class _Cohort:
@@ -191,10 +214,11 @@ class _Cohort:
     the server-shape-shared key subset, the wire templates and byte costs,
     its members' parameters and optimizer states, and its steps.  The
     loop engine keeps one tree per member (``device_params``,
-    ``device_opt``); the vectorized engine one stacked tree
-    (``stacked_params``: the backbone once, the personal leaves (n, ...))
-    and one stacked AdamW state (``stacked_opt``), with its padded eval
-    shards (``eval_steps``)."""
+    ``device_opt``; none under a sampler: the store holds them); the
+    vectorized engine one stacked tree (``stacked_params``: the backbone
+    once, the personal leaves (work_n, ...)) and one stacked AdamW state
+    (``stacked_opt``), with its padded eval shards (``eval_steps``; per
+    sampled member set in ``eval_cache`` under a sampler)."""
 
     def __init__(self, idx: int, spec: ClientCohort, bundle, offset: int):
         self.idx = idx
@@ -212,11 +236,24 @@ class _Cohort:
         self.stacked_params: Optional[dict] = None
         self.stacked_opt: Optional[dict] = None
         self.eval_steps: Optional[Dict] = None
+        self.eval_cache: Dict = {}   # sampled eval shards, by member tuple
+        # the round's working set (the whole cohort without a sampler):
+        # the stacked buffers hold work_n clients, and every per-round
+        # vector (weights, presence, attack scale) is indexed by
+        # work_slice
+        self.work_n = spec.n_clients
+        self.work_offset = offset
 
     @property
     def slice(self) -> slice:
         """Global client-index slice of this cohort's members."""
         return slice(self.offset, self.offset + self.n)
+
+    @property
+    def work_slice(self) -> slice:
+        """This cohort's block of the round's working-set vectors (equal
+        to :attr:`slice` without a sampler)."""
+        return slice(self.work_offset, self.work_offset + self.work_n)
 
 
 class FederatedRunner:
@@ -224,7 +261,7 @@ class FederatedRunner:
     vectorized engine (``engine``, default the spec's):
 
         ``FederatedRunner(spec, corpus, engine=None, device="cuda",
-        init_state=None)``
+        init_state=None, store_dir=None)``
 
     or through the legacy single-cohort shim:
 
@@ -235,11 +272,14 @@ class FederatedRunner:
     trees (``interop`` format) with ``"cohort_bases"`` (one shared
     unified SLM per cohort; the legacy ``"cohort_base"`` names cohort 0's),
     ``"personal"`` (each global client's trainable leaves),
-    ``"server_slm"`` and ``"server_llm"``.  The runner runs on the card;
-    ``device="cpu"`` asks for the CPU."""
+    ``"server_slm"`` and ``"server_llm"``.  Under a sampler the population
+    is registered in a :class:`ClientStore` (``store_dir`` spills it to
+    one file a client).  The runner runs on the card; ``device="cpu"``
+    asks for the CPU."""
 
     def __init__(self, spec, *args, engine: Optional[str] = None,
-                 device="cuda", init_state: Optional[Dict] = None):
+                 device="cuda", init_state: Optional[Dict] = None,
+                 store_dir: Optional[str] = None):
         if isinstance(spec, FederationSpec):
             if len(args) != 1:
                 raise TypeError("FederatedRunner(spec, corpus, engine=..., "
@@ -299,10 +339,21 @@ class FederatedRunner:
                         if spec.faults is not None else None)
         self._round_idx = 0
         self._rnd_no = None          # the current round's index
-        self._rnd_present = None     # (N,) bool — training + delivery mask
-        self._rnd_contrib = None     # (N,) bool — aggregation mask
-        self._rnd_weights = None     # (N,) f32 — survivor-renormalized
+        self._rnd_present = None     # (S,) bool — training + delivery mask
+        self._rnd_contrib = None     # (S,) bool — aggregation mask
+        self._rnd_weights = None     # (S,) f32 — survivor-renormalized
         self._attack_scale = None    # (N,) f32 — scaled-update factors
+        # participant sampling: the registered population (the store) and
+        # the round's working set; the per-round vectors above are
+        # working-set sized (S == N without a sampler)
+        self._schedule = (ParticipantSchedule(
+            spec.sampler, [c.n_clients for c in spec.cohorts], spec.offsets)
+            if spec.sampler is not None else None)
+        self._store = (ClientStore(store_dir)
+                       if self._schedule is not None else None)
+        self._rnd_locals = None      # per-cohort sampled LOCAL indices
+        self._rnd_ids = None         # (S,) sampled GLOBAL client ids
+        self._rnd_scale = None       # (S,) the attack scale of the sampled
         if self._faults is not None:
             fl = spec.faults
             if fl.attack == "label_flip":
@@ -325,6 +376,18 @@ class FederatedRunner:
         device_opt = [opt.init(lora.partition(p)) for p in device_params]
         self.server_llm_opt = opt.init(lora.partition(self.server_llm))
         self.server_slm_opt = opt.init(lora.partition(self.server_slm))
+        if self._store is not None:
+            # the registered population: every client's personal state
+            # (with a zero error-feedback residual under a stateful codec)
+            # on the host; the device keeps the working set only
+            for j, (p, o) in enumerate(zip(device_params, device_opt)):
+                entry = {"train": lora.partition(p), "opt": o}
+                if self.channel.stateful:
+                    entry["chan"] = {
+                        k: torch.zeros(v.shape, dtype=torch.float32)
+                        for k, v in lora.partition(
+                            p, lora.is_lora_leaf).items()}
+                self._store.put(j, entry)
 
         # MMA weights (Eq. 13), normalized GLOBALLY so per-cohort partial
         # sums recompose into the flat Eq. 13 aggregate on shared keys
@@ -340,28 +403,36 @@ class FederatedRunner:
         self._server_lora_dtypes = {k: v.dtype for k, v in server_lora.items()}
         ident = ChannelSpec().make()
         self._cohorts: List[_Cohort] = []
+        counts = (self._schedule.counts if self._schedule is not None
+                  else [c.n_clients for c in spec.cohorts])
         for c, cs in enumerate(spec.cohorts):
             rt = _Cohort(c, cs, bundles[c], spec.offsets[c])
+            rt.work_n = counts[c]
+            rt.work_offset = sum(counts[:c])
             rt.weights = (self.agg_weights if spec.n_cohorts == 1
                           else self.agg_weights[rt.slice])
             rt.w_total = float(rt.weights.cpu().numpy().astype(np.float32)
                                .sum(dtype=np.float32))
-            rt.device_params = device_params[rt.slice]
-            rt.device_opt = device_opt[rt.slice]
+            # the members' states (under a sampler: round 0's draw, which
+            # the stacked buffers are seeded with; the store holds all)
+            members = [rt.offset + i for i in self._members(rt, 0)]
+            rt.device_params = [device_params[j] for j in members]
+            rt.device_opt = [device_opt[j] for j in members]
             up0 = lora.partition(rt.device_params[0], lora.is_lora_leaf)
             rt.shared = lora.shared_keys(up0, server_lora)
             rt.own = tuple(k for k in sorted(up0) if k not in rt.shared)
             rt.own_dtypes = {k: up0[k].dtype for k in rt.own}
             rt.last_global = {k: server_lora[k] for k in rt.shared}
             # the wire: the stacked upload template, the error-feedback
-            # residuals (f32, (n, ...)) and the exact per-round byte costs
-            # (bytes_on_wire is linear in the client axis)
-            rt.up_like = {k: TensorSpec((rt.n, *v.shape), v.dtype)
+            # residuals (f32, (work_n, ...)) and the exact per-round byte
+            # costs (bytes_on_wire is linear in the client axis)
+            rt.up_like = {k: TensorSpec((rt.work_n, *v.shape), v.dtype)
                           for k, v in up0.items()}
             rt.chan_state = self.channel.init_state(rt.up_like, self.device)
             rt.uplink_client_bytes = \
-                self.channel.bytes_on_wire(rt.up_like) // rt.n
-            rt.dense_client_bytes = ident.bytes_on_wire(rt.up_like) // rt.n
+                self.channel.bytes_on_wire(rt.up_like) // rt.work_n
+            rt.dense_client_bytes = \
+                ident.bytes_on_wire(rt.up_like) // rt.work_n
             # the paper's Fig. 3 baseline is dense float32 uploads
             rt.f32_client_bytes = 4 * sum(v.numel() for v in up0.values())
             down_like = {k: server_lora[k] for k in rt.shared}
@@ -386,10 +457,18 @@ class FederatedRunner:
                         [lora.partition(p) for p in rt.device_params]))
                 rt.stacked_opt = lora.stack_trees(rt.device_opt)
                 rt.device_params, rt.device_opt = [], []
-                rt.eval_fn = seccl.make_eval_fn(rt.bundle, n_clients=rt.n)
+                bs_c = spec.cohort_batch_size(c)
+                rt.eval_blocks = max(
+                    -(-self.priv_test[j]["tokens"].shape[0] // bs_c)
+                    for j in range(rt.offset, rt.offset + rt.n))
+                rt.eval_fn = seccl.make_eval_fn(rt.bundle,
+                                                n_clients=rt.work_n)
             else:
                 rt.eval_step = seccl.make_eval_step(rt.bundle)
+                if self._schedule is not None:
+                    rt.device_params, rt.device_opt = [], []
             self._cohorts.append(rt)
+        del device_params, device_opt
         # the legacy fast path needs FULL key coverage by one cohort
         self._homogeneous = (spec.n_cohorts == 1
                              and not self._cohorts[0].own
@@ -526,10 +605,42 @@ class FederatedRunner:
         return self._cohorts[0]
 
     @property
+    def store(self) -> Optional[ClientStore]:
+        """The registered population (None without a sampler: all client
+        state is then resident)."""
+        return self._store
+
+    def _members(self, rt: _Cohort, rnd: Optional[int] = None) -> List[int]:
+        """Local indices of cohort ``rt``'s working set: every member
+        without a sampler, else round ``rnd``'s draw (default: the draw
+        the current client state belongs to, :meth:`_active_locals`)."""
+        if self._schedule is None:
+            return list(range(rt.n))
+        locs = (self._active_locals() if rnd is None
+                else self._schedule.round_locals(rnd))
+        return [int(i) for i in locs[rt.idx]]
+
+    def _loop_client_state(self, rt: _Cohort, i: int):
+        """Client ``rt.offset + i``'s parameters and AdamW state on the
+        loop engine: the resident trees, or under a sampler the cohort's
+        backbone with the client's stored personal leaves, on the
+        device."""
+        if self._schedule is None:
+            return rt.device_params[i], rt.device_opt[i]
+        st = self._store.get(rt.offset + i)
+        return (lora.combine(self.cohort_bases[rt.idx],
+                             _to_device(st["train"], self.device)),
+                _to_device(st["opt"], self.device))
+
+    @property
     def device_params(self) -> List[dict]:
         """Every device's parameter tree, in global client order (views of
         the stacks under the vectorized engine: the cohort's backbone and
-        the client's slice of each personal leaf)."""
+        the client's slice of each personal leaf; under a sampler every
+        registered client's, from the store)."""
+        if self._schedule is not None:
+            return [self._loop_client_state(rt, i)[0]
+                    for rt in self._cohorts for i in range(rt.n)]
         if self._stacked:
             out = []
             for rt in self._cohorts:
@@ -543,6 +654,9 @@ class FederatedRunner:
     @property
     def device_opt(self) -> List:
         """Every device's optimizer state, in global client order."""
+        if self._schedule is not None:
+            return [self._loop_client_state(rt, i)[1]
+                    for rt in self._cohorts for i in range(rt.n)]
         if self._stacked:
             return [o for rt in self._cohorts
                     for o in lora.unstack_tree(rt.stacked_opt, rt.n)]
@@ -613,19 +727,48 @@ class FederatedRunner:
     # per-round fault state (no-ops without a FaultSpec)
 
     def _begin_round(self) -> None:
-        """Advance the round counter and draw the round's presence and
-        straggle masks, with the Eq. 13 weights renormalized over the
-        contributing (present and on-time) clients."""
+        """Advance the round counter and draw the round's host state: the
+        sampled participants (under a sampler, with their attack scale),
+        the presence and straggle masks restricted to them, and the Eq. 13
+        weights renormalized over the contributing (sampled, present and
+        on-time) clients."""
         cfg = self.cfg
-        self._rnd_no = self._round_idx
+        rnd = self._rnd_no = self._round_idx
         self._round_idx += 1
+        ids = None
+        if self._schedule is not None:
+            self._rnd_locals = self._schedule.round_locals(rnd)
+            self._rnd_ids = ids = np.concatenate([
+                off + loc for off, loc in zip(self.spec.offsets,
+                                              self._rnd_locals)])
+            self._rnd_scale = (self._attack_scale[ids]
+                               if self._attack_scale is not None else None)
         if self._faults is None:
+            if ids is None:
+                return
+            # weights renormalized over the sampled set (the identity
+            # sampler gives the init-time weights bit for bit); presence
+            # stays None
+            if cfg.use_mma and cfg.mode == "mlecs":
+                w = mma.sampled_weights(self._mod_counts, ids).numpy()
+            else:
+                w = np.ones((len(ids),), np.float32) / len(ids)
+            self._rnd_weights = np.array(w, np.float32)
             return
-        present, ontime = self._faults.round_masks(self._rnd_no)
+        present, ontime = self._faults.round_masks(rnd)
+        if ids is not None:
+            present = present[ids].copy()
+            ontime = ontime[ids].copy()
+            if not bool((present & ontime).any()):
+                # a sampled set whose every member failed would push an
+                # all-zero weight vector to the server: revive one member
+                # (its upload is its pre-round state)
+                present[0] = ontime[0] = True
         contrib = present & ontime
         if cfg.use_mma and cfg.mode == "mlecs":
-            w = mma.aggregation_weights(self._mod_counts,
-                                        present=contrib).numpy()
+            w = (mma.aggregation_weights(self._mod_counts, present=contrib)
+                 if ids is None else mma.sampled_weights(
+                     self._mod_counts, ids, present=contrib)).numpy()
         else:
             w = contrib.astype(np.float32) / max(int(contrib.sum()), 1)
         self._rnd_present = present
@@ -639,25 +782,35 @@ class FederatedRunner:
         return self.agg_weights.cpu().numpy().astype(np.float32)
 
     def _weights_for(self, rt: _Cohort):
-        """The cohort's weights this round (fault-masked under faults)."""
+        """The cohort's weights this round (fault-masked under faults,
+        over the working set under a sampler)."""
         if self._rnd_weights is None:
             return rt.weights
-        return torch.as_tensor(self._rnd_weights[rt.slice],
+        return torch.as_tensor(self._rnd_weights[rt.work_slice],
                                device=self.device)
 
     def _w_total_for(self, rt: _Cohort) -> float:
-        """The cohort's weight mass this round (its surviving mass under
-        faults: the combine's renormalization denominator)."""
+        """The cohort's weight mass this round (its surviving sampled mass
+        under faults: the combine's renormalization denominator)."""
         if self._rnd_weights is None:
             return rt.w_total
-        return float(self._rnd_weights[rt.slice].sum(dtype=np.float32))
+        return float(self._rnd_weights[rt.work_slice].sum(dtype=np.float32))
 
     def _present_for(self, rt: _Cohort) -> Optional[torch.Tensor]:
         """The cohort's block of the presence mask (None without faults)."""
         if self._rnd_present is None:
             return None
-        return torch.as_tensor(self._rnd_present[rt.slice],
+        return torch.as_tensor(self._rnd_present[rt.work_slice],
                                device=self.device)
+
+    def _scale_for(self, rt: _Cohort) -> Optional[np.ndarray]:
+        """The cohort's working-set block of the Byzantine scale vector
+        (None without a scaled-update attack)."""
+        if self._rnd_scale is not None:
+            return self._rnd_scale[rt.work_slice]
+        if self._attack_scale is not None:
+            return self._attack_scale[rt.slice]
+        return None
 
     # ------------------------------------------------------------------
     # aggregation
@@ -710,8 +863,8 @@ class FederatedRunner:
             return agg, ({},)
         own_avgs = []
         for rt, p in zip(self._cohorts, payloads):
-            wsl = w[rt.slice]
-            csl = None if contrib is None else contrib[rt.slice]
+            wsl = w[rt.work_slice]
+            csl = None if contrib is None else contrib[rt.work_slice]
             mass = float(wsl.sum() if csl is None else (wsl * csl).sum())
             if not rt.own or not mass > 0.0:
                 own_avgs.append({})
@@ -720,11 +873,11 @@ class FederatedRunner:
                 {k: p[k] for k in rt.own}, wsl, robust=cfg.robust,
                 present=csl, trim_frac=cfg.trim_frac))
         agg = mma.robust_combine_cohorts(
-            payloads, [w[rt.slice] for rt in self._cohorts],
+            payloads, [w[rt.work_slice] for rt in self._cohorts],
             [rt.shared for rt in self._cohorts],
             self._server_lora_dtypes, cfg.robust,
             present=(None if contrib is None else
-                     [contrib[rt.slice] for rt in self._cohorts]),
+                     [contrib[rt.work_slice] for rt in self._cohorts]),
             trim_frac=cfg.trim_frac)
         return agg, tuple(own_avgs)
 
@@ -756,20 +909,32 @@ class FederatedRunner:
         """The uplink: each cohort's uploads, stacked on the client axis,
         cross the channel; returns what the server receives (each cohort's
         decoded leaves, stacked) and advances the error-feedback residuals
-        of the PRESENT clients only."""
+        of the PRESENT clients only.  On the loop engine under a sampler
+        the residuals come from the members' store entries and go back
+        there."""
+        chan = self.channel
+        in_store = chan.stateful and self._store is not None \
+            and not self._stacked
         out = []
         for rt, stacked in zip(self._cohorts, uploads):
+            if in_store:
+                ids = [rt.offset + i for i in self._members(rt)]
+                rt.chan_state = _to_device(self._store.gather(ids)["chan"],
+                                           self.device)
             # stateless codecs hold {} as their state and get {} back
-            dec, new_state = self.channel.roundtrip(stacked, rt.chan_state,
-                                                    self._rnd_no)
-            if self.channel.stateful:
+            dec, new_state = chan.roundtrip(stacked, rt.chan_state,
+                                            self._rnd_no)
+            if chan.stateful:
                 pres = self._present_for(rt)
                 if pres is not None:
-                    new_state = {
-                        k: torch.where(mma._bcast(pres, v), v,
-                                       rt.chan_state[k])
-                        for k, v in new_state.items()}
+                    new_state = _where_clients(pres, new_state,
+                                               rt.chan_state)
                 rt.chan_state = new_state
+            if in_store:
+                for pos, cid in enumerate(ids):
+                    entry = dict(self._store.get(cid))
+                    entry["chan"] = lora.gather_client(new_state, pos)
+                    self._store.put(cid, entry)
             out.append(dec)
         return out
 
@@ -789,10 +954,20 @@ class FederatedRunner:
             rt.stacked_params = lora.combine(rt.stacked_params, bcast)
             return
         pres = self._rnd_present
-        for i in range(rt.n):
-            if pres is None or pres[rt.offset + i]:
+        for pos, i in enumerate(self._members(rt)):
+            if pres is not None and not pres[rt.work_offset + pos]:
+                continue
+            if self._store is None:
                 rt.device_params[i] = lora.combine(rt.device_params[i],
                                                    delivery)
+                continue
+            # the stored personal leaves; every other entry key (the
+            # residual "chan") stays as it is
+            j = rt.offset + i
+            st = self._store.get(j)
+            train = dict(st["train"])
+            train.update({k: v for k, v in delivery.items() if k in train})
+            self._store.put(j, dict(st, train=train))
 
     def _commit_comm(self) -> None:
         """Account one round's exact bytes on the wire: per cohort, every
@@ -805,9 +980,9 @@ class FederatedRunner:
             return
         up = up_dense = up_f32 = down = 0
         for rt in self._cohorts:
-            n = rt.n
+            n = rt.work_n
             if self._rnd_present is not None:
-                n = int(self._rnd_present[rt.slice].sum())
+                n = int(self._rnd_present[rt.work_slice].sum())
             up += n * rt.uplink_client_bytes
             up_dense += n * rt.dense_client_bytes
             up_f32 += n * rt.f32_client_bytes
@@ -845,23 +1020,31 @@ class FederatedRunner:
         shared server side).
 
         Client metrics are measured on the post-AMT device models, server
-        metrics after SE-CCL; redistribution seeds the next round.  With
-        ``evaluate=False`` no metric is computed and ``{}`` is returned."""
-        cfg = self.cfg
+        metrics after SE-CCL; redistribution seeds the next round.  Under
+        a sampler the round's participants train (their rows gathered from
+        the store and scattered back at the end) and the metrics are
+        theirs.  With ``evaluate=False`` no metric is computed and ``{}``
+        is returned."""
         self._begin_round()
+        self._load_working_set(self._rnd_no)
         # (1)-(2) the device side: per client (loop) or per cohort
         # (vectorized); each cohort's uploads stacked on the client axis
         uploads = (self._device_phase_stacked() if self._stacked
                    else self._device_phase_loop())
-
         client_eval = self.evaluate_clients() if evaluate else None
-        if cfg.mode == "standalone":
-            self._commit_comm()
-            return self._finalize_eval(client_eval) if evaluate else {}
+        if self.cfg.mode != "standalone":
+            self._server_side(uploads)
+        self._scatter_working_set()
+        self._commit_comm()
+        return self._finalize_eval(client_eval) if evaluate else {}
 
-        # the uplink wire, then (3) MMA over what the server received: f32,
-        # left to right over the clients, then cohort order per key.  The
-        # devices keep their own (undecoded) parameters.
+    def _server_side(self, uploads: List[Dict]) -> None:
+        """The uplink wire, then (3) MMA over what the server received
+        (f32, left to right over the clients, then cohort order per key;
+        the devices keep their own undecoded parameters), then (4) SE-CCL
+        and (5) the redistribution; under fedavg the average goes straight
+        back."""
+        cfg = self.cfg
         agg, own_avgs = self._combine_payloads(self._encode_uploads(uploads))
 
         if cfg.mode == "fedavg":
@@ -871,8 +1054,7 @@ class FederatedRunner:
                 self._deliver(rt, self.channel.roundtrip_tree(
                     self._cohort_delivery(rt, agg, own_avgs[c]),
                     self._rnd_no))
-            self._commit_comm()
-            return self._finalize_eval(client_eval) if evaluate else {}
+            return
 
         self.server_slm = lora.combine(self.server_slm, agg)
         # (4) SE-CCL on the server
@@ -889,24 +1071,61 @@ class FederatedRunner:
         for c, rt in enumerate(self._cohorts):
             self._deliver(rt, self.channel.roundtrip_tree(
                 self._cohort_delivery(rt, down, own_avgs[c]), self._rnd_no))
-        self._commit_comm()
-        return self._finalize_eval(client_eval) if evaluate else {}
+
+    # ------------------------------------------------------------------
+    # the working set under a sampler: the round's participants gathered
+    # from the store into the stacked buffers, scattered back at the end
+
+    def _load_working_set(self, rnd: int) -> None:
+        """Gather round ``rnd``'s participants from the store into each
+        cohort's stacked buffers (vectorized engine under a sampler; one
+        host stack and one transfer a leaf, cohort by cohort since their
+        personal key sets may differ): the personal leaves, the AdamW
+        state and the residuals move; the backbone in the buffer never
+        does."""
+        if self._schedule is None or not self._stacked:
+            return
+        for rt in self._cohorts:
+            h = self._store.gather([rt.offset + i
+                                    for i in self._members(rt, rnd)])
+            rt.stacked_params = lora.combine(
+                rt.stacked_params, _to_device(h["train"], self.device))
+            rt.stacked_opt = _to_device(h["opt"], self.device)
+            if "chan" in h:
+                rt.chan_state = _to_device(h["chan"], self.device)
+
+    def _scatter_working_set(self) -> None:
+        """Write the trained working set back to the store: the personal
+        leaves, the AdamW state and the residuals, what construction
+        registered (vectorized engine under a sampler)."""
+        if self._schedule is None or not self._stacked:
+            return
+        for rt in self._cohorts:
+            entry = {"train": lora.partition(rt.stacked_params),
+                     "opt": rt.stacked_opt}
+            if self.channel.stateful:
+                entry["chan"] = rt.chan_state
+            self._store.scatter([rt.offset + i for i in self._members(rt)],
+                                entry)
 
     def _device_phase_loop(self) -> List[Dict]:
-        """The loop engine's device side: each client's CCL then AMT steps,
-        one client at a time.  Returns each cohort's uploads (LoRA leaves,
-        Byzantine-scaled where marked) stacked on the client axis."""
+        """The loop engine's device side: each member's CCL then AMT steps,
+        one client at a time (under a sampler the round's participants,
+        each read from the store and written back after AMT).  Returns
+        each cohort's uploads (LoRA leaves, Byzantine-scaled where marked)
+        stacked on the client axis."""
         cfg, spec = self.cfg, self.spec
-        pres, scale = self._rnd_present, self._attack_scale
+        pres = self._rnd_present
         uploads: List[Dict] = []
         for rt in self._cohorts:
             k_ccl = spec.cohort_steps_ccl(rt.idx)
             k_amt = spec.cohort_steps_amt(rt.idx)
+            members = self._members(rt)
             ups = []
-            for i in range(rt.n):
+            for pos, i in enumerate(members):
                 j = rt.offset + i
-                p, o = rt.device_params[i], rt.device_opt[i]
-                if pres is not None and not pres[j]:
+                p, o = self._loop_client_state(rt, i)
+                if pres is not None and not pres[rt.work_offset + pos]:
                     # offline: the round does not happen for this device,
                     # but its shuffle streams advance as the reference's do
                     if _do_ccl(cfg):
@@ -922,14 +1141,23 @@ class FederatedRunner:
                 for _ in range(k_amt):
                     p, o, _ = rt.amt_step(p, o, self.pull(f"priv/{j}"),
                                           None, gref)
-                rt.device_params[i], rt.device_opt[i] = p, o
+                if self._store is None:
+                    rt.device_params[i], rt.device_opt[i] = p, o
+                else:
+                    # the whole entry is overwritten: carry the residual
+                    # (it advances in _encode_uploads) forward
+                    entry = {"train": lora.partition(p), "opt": o}
+                    if self.channel.stateful:
+                        entry["chan"] = self._store.get(j)["chan"]
+                    self._store.put(j, entry)
                 ups.append(lora.partition(p, lora.is_lora_leaf))
+            scale = self._scale_for(rt)
             if scale is not None:
                 # Byzantine scaled-update: every marked client reports
                 # scale × u (a stale upload weighs 0 anyway)
-                ups = [attacks.scaled_update(u, float(scale[rt.offset + i]))
-                       if scale[rt.offset + i] != 1.0 else u
-                       for i, u in enumerate(ups)]
+                ups = [attacks.scaled_update(u, float(scale[pos]))
+                       if scale[pos] != 1.0 else u
+                       for pos, u in enumerate(ups)]
             uploads.append(lora.stack_clients(ups))
         return uploads
 
@@ -940,11 +1168,12 @@ class FederatedRunner:
         step for all clients.  Offline clients train with the others and
         are selected back (parameters and AdamW state, the step count
         included); their streams advance as the loop engine's do.
-        Returns each cohort's uploads stacked on the client axis."""
+        Under a sampler the stack is the round's working set.  Returns
+        each cohort's uploads stacked on the client axis."""
         cfg, spec = self.cfg, self.spec
         uploads: List[Dict] = []
         for rt in self._cohorts:
-            names = range(rt.offset, rt.offset + rt.n)
+            names = [rt.offset + i for i in self._members(rt)]
             p0, o0 = rt.stacked_params, rt.stacked_opt
             p, o = p0, o0
             k_ccl = spec.cohort_steps_ccl(rt.idx) if _do_ccl(cfg) else 0
@@ -971,8 +1200,9 @@ class FederatedRunner:
                 o = _where_clients(pres, o, o0)
             rt.stacked_params, rt.stacked_opt = p, o
             up = lora.partition(p, lora.is_lora_leaf)
-            if self._attack_scale is not None:
-                up = _scale_uploads(up, self._attack_scale[rt.slice])
+            scale = self._scale_for(rt)
+            if scale is not None:
+                up = _scale_uploads(up, scale)
             uploads.append(up)
         return uploads
 
@@ -998,13 +1228,17 @@ class FederatedRunner:
     def refresh_eval_shards(self) -> None:
         """(Re)build the vectorized engine's eval shards from the CURRENT
         ``priv_test`` / ``public_test``: per cohort its clients' test sets
-        in padded (T, n, B, ...) steps at the cohort's batch size, and the
-        server's (T, B, ...) steps, on the runner's device.  Call it after
-        changing a test set; a no-op on the loop engine (which reads the
-        test sets live)."""
+        in padded (T, n, B, ...) steps at the cohort's batch size (under a
+        sampler built per draw: the cache is emptied), and the server's
+        (T, B, ...) steps, on the runner's device.  Call it after changing
+        a test set; a no-op on the loop engine (which reads the test sets
+        live)."""
         if not self._stacked:
             return
         for rt in self._cohorts:
+            rt.eval_cache.clear()
+            if self._schedule is not None:
+                continue
             sl = rt.slice
             rt.eval_steps = to_tensors(stack_eval_steps(stacked_eval_batches(
                 self.priv_test[sl], self.spec.cohort_batch_size(rt.idx),
@@ -1013,25 +1247,63 @@ class FederatedRunner:
             np_eval_batches(self.public_test, self.cfg.batch_size)),
             self.device)
 
+    def _active_locals(self) -> List[np.ndarray]:
+        """The per-cohort sampled local indices the CURRENT client state
+        belongs to: this round's draw once :meth:`_begin_round` ran, else
+        the next round's (the stacked buffers were seeded or restored with
+        exactly that draw)."""
+        if self._rnd_locals is not None:
+            return self._rnd_locals
+        return self._schedule.round_locals(self._round_idx)
+
+    def _active_ids(self) -> np.ndarray:
+        """The sampled global client ids of :meth:`_active_locals`."""
+        return np.concatenate([
+            off + loc for off, loc in zip(self.spec.offsets,
+                                          self._active_locals())])
+
+    def _sampled_eval_steps(self, rt: _Cohort, members: List[int]) -> Dict:
+        """Padded stacked eval shards of one cohort's sampled members,
+        cached by member tuple (at most 8).  The block count is the
+        cohort's ``eval_blocks`` (the most any member needs), so the
+        shapes do not depend on the draw."""
+        key = tuple(members)
+        steps = rt.eval_cache.get(key)
+        if steps is None:
+            js = [rt.offset + i for i in key]
+            steps = to_tensors(stack_eval_steps(stacked_eval_batches(
+                [self.priv_test[j] for j in js],
+                self.spec.cohort_batch_size(rt.idx),
+                self.masks[np.array(js)], n_blocks=rt.eval_blocks)),
+                self.device)
+            if len(rt.eval_cache) >= 8:
+                rt.eval_cache.pop(next(iter(rt.eval_cache)))
+            rt.eval_cache[key] = steps
+        return steps
+
     def evaluate_clients(self) -> List[Dict]:
         """Per-device ``{"ce", "acc"}`` on each private test set, in global
-        client order, each cohort at its own batch size: one client at a
+        client order (under a sampler: the round's participants, still in
+        id order), each cohort at its own batch size: one client at a
         time (loop), or all of a cohort's clients in one pass per padded
         eval batch (vectorized)."""
         if self._stacked:
             out = []
             for rt in self._cohorts:
-                sums = rt.eval_fn(rt.stacked_params, rt.eval_steps)
+                steps = (rt.eval_steps if self._schedule is None else
+                         self._sampled_eval_steps(rt, self._members(rt)))
+                sums = rt.eval_fn(rt.stacked_params, steps)
                 host = {k: v.cpu().numpy() for k, v in sums.items()}
                 out += [seccl.metrics_from_sums({k: v[i]
                                                  for k, v in host.items()})
-                        for i in range(rt.n)]
+                        for i in range(rt.work_n)]
             return out
-        return [self._eval_model(rt.eval_step, rt.device_params[i],
+        return [self._eval_model(rt.eval_step,
+                                 self._loop_client_state(rt, i)[0],
                                  self.priv_test[rt.offset + i],
                                  self.masks[rt.offset + i],
                                  self.spec.cohort_batch_size(rt.idx))
-                for rt in self._cohorts for i in range(rt.n)]
+                for rt in self._cohorts for i in self._members(rt)]
 
     def evaluate_server(self) -> Dict:
         """Server LLM ``{"ce", "acc"}`` on the public test set (the
@@ -1047,6 +1319,9 @@ class FederatedRunner:
         cs = client_eval if client_eval is not None \
             else self.evaluate_clients()
         out = {"client": cs, "server": self.evaluate_server()}
+        if self._schedule is not None:
+            # which registered clients the per-client metrics belong to
+            out["participants"] = [int(j) for j in self._active_ids()]
         out["summary"] = {
             "avg_acc": float(np.mean([c["acc"] for c in cs])),
             "best_acc": float(np.max([c["acc"] for c in cs])),
@@ -1063,11 +1338,109 @@ class FederatedRunner:
         return self._finalize_eval()
 
     # ------------------------------------------------------------------
+    # checkpoint / resume: the whole run state as ONE pytree through a
+    # CheckpointManager, in the reference's format and key for key its
+    # tree.  A restore sets the round counter and replays the stream bank
+    # by per-round pull counts, so the next rounds draw the same
+    # participants and fault masks and consume the same data as the
+    # uninterrupted run, bit for bit.
+
     def checkpoint_state(self) -> Dict:
-        raise NotImplementedError("checkpoints are not ported")
+        """The run state: the round counter, the server models and their
+        AdamW states, each cohort's last delivery, and every client's
+        personal state (the store under a sampler; else the stacked
+        ``(train, opt)`` per cohort, or per-client tuples on the loop
+        engine), plus the residuals as ``channel`` under a stateful codec
+        without a sampler."""
+        if self._schedule is not None:
+            clients = self._store.state_pytree()
+        elif self._stacked:
+            clients = tuple((lora.partition(rt.stacked_params),
+                             rt.stacked_opt) for rt in self._cohorts)
+        else:
+            clients = tuple(
+                (tuple(lora.partition(p) for p in rt.device_params),
+                 tuple(rt.device_opt))
+                for rt in self._cohorts)
+        state = {
+            "round": torch.tensor(self._round_idx, dtype=torch.int64),
+            "server_llm": self.server_llm,
+            "server_slm": self.server_slm,
+            "server_llm_opt": self.server_llm_opt,
+            "server_slm_opt": self.server_slm_opt,
+            "last_global": tuple(rt.last_global for rt in self._cohorts),
+            "clients": clients,
+        }
+        if self.channel.stateful and self._schedule is None:
+            state["channel"] = tuple(rt.chan_state for rt in self._cohorts)
+        return state
 
     def save_checkpoint(self, mgr, step: Optional[int] = None) -> int:
-        raise NotImplementedError("checkpoints are not ported")
+        """Write the run state at the current round boundary through
+        ``mgr`` (a :class:`repro_torch.checkpointing.CheckpointManager`);
+        returns the step used (default: the completed-round count)."""
+        step = self._round_idx if step is None else int(step)
+        mgr.save(step, self.checkpoint_state())
+        return step
 
-    def load_checkpoint(self, mgr, step: Optional[int] = None):
-        raise NotImplementedError("checkpoints are not ported")
+    def load_checkpoint(self, mgr, step: Optional[int] = None
+                        ) -> "FederatedRunner":
+        """Restore a state saved by :meth:`save_checkpoint` (of this
+        package or of the reference) into this identically built runner
+        and fast-forward the data streams to the restored round."""
+        self._restore_state(mgr.restore(self.checkpoint_state(), step))
+        return self
+
+    def _restore_state(self, state: Dict) -> None:
+        rnd = int(state["round"])
+        self._round_idx = rnd
+        self._rnd_present = self._rnd_contrib = self._rnd_weights = None
+        self._rnd_locals = self._rnd_ids = self._rnd_no = None
+        self._rnd_scale = None
+        self.server_llm = state["server_llm"]
+        self.server_slm = state["server_slm"]
+        self.server_llm_opt = state["server_llm_opt"]
+        self.server_slm_opt = state["server_slm_opt"]
+        for rt, lg in zip(self._cohorts, state["last_global"]):
+            rt.last_global = lg
+        if self._schedule is not None:
+            self._store.load_state_pytree(state["clients"])
+            # the working set the next round draws
+            self._load_working_set(rnd)
+        elif self._stacked:
+            for rt, (train, opt) in zip(self._cohorts, state["clients"]):
+                rt.stacked_params = lora.combine(rt.stacked_params, train)
+                rt.stacked_opt = opt
+        else:
+            for rt, (trains, opts) in zip(self._cohorts, state["clients"]):
+                for i, (tr, o) in enumerate(zip(trains, opts)):
+                    rt.device_params[i] = lora.combine(rt.device_params[i],
+                                                       tr)
+                    rt.device_opt[i] = o
+        if "channel" in state:
+            for rt, cs in zip(self._cohorts, state["channel"]):
+                rt.chan_state = cs
+        # the data streams: back to position 0, then the completed
+        # rounds' pulls
+        self._streams.reset()
+        self._replay_streams(rnd)
+
+    def _replay_streams(self, rounds: int) -> None:
+        """Fast-forward the stream bank past ``rounds`` completed rounds:
+        every engine takes the same pulls a round (offline clients advance
+        their streams too; only sampled members pull at all)."""
+        cfg, spec = self.cfg, self.spec
+        pulls: Dict[str, int] = {}
+        for r in range(rounds):
+            for rt in self._cohorts:
+                k_ccl = spec.cohort_steps_ccl(rt.idx) if _do_ccl(cfg) else 0
+                k_amt = spec.cohort_steps_amt(rt.idx)
+                for i in self._members(rt, r):
+                    j = rt.offset + i
+                    pulls[f"pub/{j}"] = pulls.get(f"pub/{j}", 0) + k_ccl
+                    pulls[f"priv/{j}"] = pulls.get(f"priv/{j}", 0) + k_amt
+            if _do_seccl(cfg):
+                pulls["server"] = pulls.get("server", 0) + cfg.server_steps
+        for name, k in pulls.items():
+            if k:
+                self._streams.advance(name, k)

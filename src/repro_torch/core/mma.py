@@ -45,6 +45,18 @@ def aggregation_weights(n_modalities: Sequence[int], present=None,
     return m / torch.clamp(torch.sum(m), min=1.0)
 
 
+def sampled_weights(n_modalities: Sequence[int], sampled: Sequence[int],
+                    present=None, device="cpu") -> torch.Tensor:
+    """Eq. 13 weights renormalized over a sampled participant subset:
+    ``m_j / Σ_{i in sampled} m_i`` over the global ids ``sampled`` (the
+    working set's order), with ``present`` (over the sampled positions)
+    composing the survivor renormalization on top.  With the whole
+    population sampled in id order this is :func:`aggregation_weights`
+    bit for bit."""
+    m = np.asarray(n_modalities)[np.asarray(sampled, np.int64)]
+    return aggregation_weights(m.tolist(), present, device)
+
+
 def renormalize(weights, present) -> torch.Tensor:
     """``w*present / Σ(w*present)`` (all zeros, not NaN, when the
     surviving mass is 0)."""

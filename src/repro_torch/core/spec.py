@@ -10,13 +10,13 @@ runs on the shared subset: the LoRA leaves whose path and shape match
 between a cohort's SLM and the server SLM.  A single-cohort spec built by
 :meth:`FederationSpec.from_legacy` reproduces the legacy runner.
 
-``sampler`` is carried (as an opaque object) and refused by the runner:
-participant sampling is not ported.
+:class:`ParticipantSampler` sets how many registered clients each round
+samples (the working set: :mod:`repro_torch.core.store`).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -120,6 +120,53 @@ class FaultSpec:
 
 
 @dataclasses.dataclass(frozen=True)
+class ParticipantSampler:
+    """Per-round participant sampling over the registered population.
+
+    ``per_cohort`` is the per-round sample size: one int shared by every
+    cohort (clamped to each cohort's size), or a tuple with one entry per
+    cohort, each in ``[1, n_clients]``.  Draws replay statelessly from
+    ``(seed, round)`` (:class:`repro_torch.core.store.ParticipantSchedule`),
+    so checkpoint/resume needs no sampler state.  The Eq. 13 weights
+    renormalize over the sampled set; a sampler whose counts equal the
+    cohort sizes is the identity and reproduces the unsampled runner bit
+    for bit."""
+
+    per_cohort: object = 1            # int | Tuple[int, ...]
+    seed: int = 0
+
+    def __post_init__(self):
+        pc = self.per_cohort
+        if isinstance(pc, (tuple, list)):
+            pc = tuple(int(k) for k in pc)
+            if any(k < 1 for k in pc):
+                raise ValueError(f"per_cohort entries must be >= 1; got {pc}")
+        else:
+            pc = int(pc)
+            if pc < 1:
+                raise ValueError(f"per_cohort must be >= 1; got {pc}")
+        object.__setattr__(self, "per_cohort", pc)
+
+    def counts(self, cohort_sizes) -> Tuple[int, ...]:
+        """Per-cohort sample counts, validated against cohort sizes."""
+        sizes = tuple(int(n) for n in cohort_sizes)
+        pc = self.per_cohort
+        if isinstance(pc, int):
+            ks = tuple(min(pc, n) for n in sizes)
+        else:
+            if len(pc) != len(sizes):
+                raise ValueError(
+                    f"per_cohort has {len(pc)} entries for "
+                    f"{len(sizes)} cohorts")
+            ks = pc
+        for k, n in zip(ks, sizes):
+            if not (1 <= k <= n):
+                raise ValueError(
+                    f"sample count {k} out of range for cohort of {n}")
+        return ks
+
+
+@dataclasses.dataclass(frozen=True)
 class ClientCohort:
     """``n_clients`` edge devices sharing one model architecture.
 
@@ -184,7 +231,7 @@ class FederationSpec:
     rho: float = 0.7                 # default MER (cohorts may override)
     n_negatives: int = 4
     seed: int = 0
-    engine: str = "vectorized"       # only "loop" is ported
+    engine: str = "vectorized"       # "loop" | "vectorized" (overlap refused)
     staleness: int = 0
     use_mma: bool = True
     use_seccl: bool = True
@@ -196,7 +243,7 @@ class FederationSpec:
     robust: str = "mean"             # mean (Eq. 13) | trimmed_mean | norm_clip
     trim_frac: float = 0.2           # fraction trimmed from EACH end
     faults: Optional[FaultSpec] = None
-    sampler: Optional[Any] = None    # not ported: the runner refuses it
+    sampler: Optional[ParticipantSampler] = None
     channel: Optional[ChannelSpec] = None    # wire codec (None = identity)
 
     def __post_init__(self):
@@ -208,6 +255,13 @@ class FederationSpec:
                           self.staleness, self.robust, self.trim_frac)
         if not (0.0 <= self.rho <= 1.0):
             raise ValueError("rho must be in [0, 1]")
+        if self.sampler is not None:
+            if not isinstance(self.sampler, ParticipantSampler):
+                raise TypeError(
+                    "sampler must be repro_torch.core.spec."
+                    f"ParticipantSampler; got {type(self.sampler).__name__}")
+            # resolve and validate the per-cohort counts now, not mid-run
+            self.sampler.counts([c.n_clients for c in cohorts])
         if self.channel is not None and not isinstance(self.channel,
                                                        ChannelSpec):
             raise TypeError(

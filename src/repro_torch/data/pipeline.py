@@ -204,6 +204,12 @@ class ClientStreams:
         """Batches consumed from ``name`` so far (0 if never pulled)."""
         return self._pulled.get(name, 0)
 
+    def reset(self) -> None:
+        """Drop every stream's position (streams re-create lazily at 0):
+        the checkpoint restore's start before it replays the pulls."""
+        self._streams.clear()
+        self._pulled.clear()
+
     def stack_steps(self, name: str, k: int) -> Dict[str, np.ndarray]:
         """``k`` batches of one stream stacked (k, B, ...)."""
         return _stack([self.pull(name) for _ in range(k)])

@@ -81,9 +81,10 @@ def test_spec_runner_refuses_unported(corpus):
     _, tspec = make_specs(HET, None, 1, {})
     with pytest.raises(NotImplementedError, match="overlap"):
         FederatedRunner(tspec, corpus, engine="overlap", device="cpu")
-    with pytest.raises(NotImplementedError, match="sampling"):
-        FederatedRunner(dataclasses.replace(tspec, sampler=object()),
-                        corpus, device="cpu")
+    with pytest.raises(TypeError, match="ParticipantSampler"):
+        FederatedRunner(dataclasses.replace(
+            tspec, sampler=jspec.ParticipantSampler(per_cohort=1)), corpus,
+            device="cpu")
     with pytest.raises(TypeError, match="FaultSpec"):
         FederatedRunner(dataclasses.replace(
             tspec, faults=jspec.FaultSpec(dropout=0.1)), corpus,

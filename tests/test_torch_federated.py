@@ -24,14 +24,14 @@ from repro.core.federated import FederatedConfig as JFedConfig
 from repro.core.federated import FederatedRunner as JRunner
 from repro.core.spec import FaultSpec as JFaultSpec
 from repro.core.spec import FederationSpec as JFederationSpec
-from repro.core.spec import ParticipantSampler
 from repro.data.synthetic import synthetic_multimodal_corpus
 from repro.models.model import build_model as jbuild
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import lora
 from repro_torch.core.channel import ChannelSpec
 from repro_torch.core.federated import FederatedConfig, FederatedRunner
-from repro_torch.core.spec import FaultSpec, FederationSpec
+from repro_torch.core.spec import (FaultSpec, FederationSpec,
+                                   ParticipantSampler)
 from repro_torch.kernels.quantize import quantize_rows_plain
 from repro_torch.models.model import build_model
 
@@ -310,7 +310,8 @@ def test_cosine_score_and_prox_run(corpus):
 @pytest.mark.parametrize("over,engine", [
     ({}, "overlap"),
     ({"channel": ChannelSpec(codec="sketch")}, "loop"),
-    ({"sampler": ParticipantSampler(per_cohort=2)}, "loop"),
+    ({"sampler": ParticipantSampler(per_cohort=2),
+      "channel": ChannelSpec(codec="sketch")}, "loop"),
 ])
 def test_unported_options_raise(corpus, over, engine):
     cfg = FederatedConfig(**{**ROUND, **over})
@@ -349,8 +350,11 @@ def test_spec_input_checkpoints_and_missing_cuda_raise(corpus):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             FederatedRunner(ok, *port_bundles(), corpus)
     r = FederatedRunner(ok, *port_bundles(), corpus, device="cpu")
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        r.checkpoint_state()
+    state = r.checkpoint_state()
+    assert sorted(state) == ["clients", "last_global", "round",
+                             "server_llm", "server_llm_opt", "server_slm",
+                             "server_slm_opt"]
+    assert [len(t) for t in state["clients"][0]] == [3, 3]
     with pytest.raises(ValueError, match="connector interface"):
         big = dataclasses.replace(LLM, connector_dim=64)
         FederatedRunner(ok, port_bundles()[0],
