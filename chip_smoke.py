@@ -119,7 +119,24 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    vectorized phase's bounds); every round's exact launches (counted over
    the working set) and tensor-core routes; prints a
    ``{"population_rounds": ...}`` line;
-12. serves 24 soft-prompted requests each on ``mamba2-2.7b`` (prompts of
+12. drives the overlap engine on the training configuration at 1 CCL + 1
+   AMT + 1 SE-CCL step a round: a vectorized runner and an
+   ``engine="overlap", staleness=0`` runner from one seed run two
+   evaluated rounds each and are held against each other (bit-equal, else
+   within the vectorized phase's bounds with the differing leaves
+   listed); then a ``staleness=1`` runner over the sketch codec
+   (``ChannelSpec(codec="sketch", sketch_rank=8)``, uplink and downlink)
+   runs rounds 0 and 1 unevaluated and round 2 evaluated: no delivery
+   after round 0, one identical delivery on every client after round 1,
+   one server output always pending, ``comm_stats`` against the bytes
+   computed from the leaf shapes, every basis orthonormal on the card and
+   equal to the host's, a decoded leaf a fixed point of the codec, the
+   anchor model on the server LLM's own frozen tensors, the peak memory
+   within 1 GB of the vectorized runner's; every round's exact launches
+   (the vectorized engine's count) and tensor-core routes, its wall time
+   to ``sync()`` and to ``drain()``; prints an ``{"overlap_rounds":
+   ...}`` line (the server stream's use, the drain time);
+13. serves 24 soft-prompted requests each on ``mamba2-2.7b`` (prompts of
    20-700 tokens, no pages) and ``hymba-1.5b`` (20-1200, the window
    bites) at full width, checks budgets, free lists and exact launch
    counts (G 64 per mamba2 admission; B and G 32 per hymba admission,
@@ -131,7 +148,7 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    profiles an
    admission tick and four decode steps, and prints ``{"ssm_serving":
    ...}`` and ``{"hybrid_serving": ...}`` lines;
-13. prints ``{"phase_seconds": ...}`` and a ``{"kernels": [...]}`` line
+14. prints ``{"phase_seconds": ...}`` and a ``{"kernels": [...]}`` line
    (times from CUDA-graph replay, bounds from this run's inputs; rows
    A-G, each with its launches on the main paths; the rows of the five
    two-route kernels, A, B, B's backward, C and G, also time their FMA
@@ -1372,7 +1389,7 @@ def expected_round_launches(runner, evaluate=True):
         L = mc.n_layers
         return 4 * L * rem + 4 * L - (0 if prefix else 3), L * rem
 
-    stacked = runner.engine == "vectorized"
+    stacked = runner.engine in ("vectorized", "overlap")
     passes, grouped, d, k = [], [], cfg.server_steps, 0
     evals, grouped_evals = [], []
     for rt in runner.cohorts:
@@ -1391,7 +1408,8 @@ def expected_round_launches(runner, evaluate=True):
             passes += [(m, True)] * n * steps
             d += n * k_ccl
             evals.append((m, sum(blocks)))
-        k += len(rt.up_like) if not runner.channel.is_identity else 0
+        k += len(rt.up_like) if runner.channel.spec.codec in (
+            "int8", "int4") else 0
     evals.append((l, -(-runner.public_test["tokens"].shape[0]
                       // cfg.batch_size)))
     passes += cfg.server_steps * [(l, True), (l, False), (s, True),
@@ -3758,6 +3776,330 @@ def phase_population_rounds():
 
 
 
+
+# ---------------------------------------------------------------------------
+# phase: the overlap engine (staleness-pipelined rounds, the server phase
+# on its own CUDA stream) and the sketch codec
+
+OVERLAP_ROUND = dict(n_devices=3, local_steps_ccl=1, local_steps_amt=1,
+                     server_steps=1, seed=0)
+OVERLAP_SKETCH = dict(codec="sketch", sketch_rank=8, seed=0)
+OVERLAP_MEM_ATOL = 2**30       # peak bytes against the vectorized runner's
+BASIS_TOL = 1e-5               # |Q^T Q - I| on the card
+PROJECTION_TOL = 1e-5          # a decoded f32 leaf sketched again
+
+
+def overlap_runner(engine, staleness=0, channel=None):
+    """The training configuration at 1 + 1 + 1 steps on ``engine``."""
+    from repro_torch.core.federated import FederatedConfig, FederatedRunner
+    from repro_torch.models.model import build_model
+    slm_cfg, llm_cfg = round_models()
+    cfg = FederatedConfig(**OVERLAP_ROUND, engine=engine,
+                          staleness=staleness, channel=channel)
+    return FederatedRunner(cfg, build_model(slm_cfg), build_model(llm_cfg),
+                           round_corpus(), device="cuda")
+
+
+def overlap_round(runner, tag, evaluate, total):
+    """One counted round: exact launches (the vectorized engine's count),
+    tensor-core routes, finite metrics; the wall time to ``sync()`` (the
+    clients' side) and to ``drain()`` (everything queued)."""
+    import torch
+    zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = runner.run_round(evaluate=evaluate)
+    runner.sync()
+    t_sync = time.perf_counter() - t0
+    runner.drain()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    routes = check_tensor_core_routes(tag)
+    want = expected_round_launches(runner, evaluate=evaluate)
+    if launches != want:
+        raise AssertionError(f"{tag}: launches {launches} != expected "
+                             f"{want}")
+    for n, v in launches.items():
+        total[n] = total.get(n, 0) + v
+    if evaluate:
+        for m in [out["summary"]] + out["client"] + [out["server"]]:
+            if not all(math.isfinite(v) for v in m.values()):
+                raise AssertionError(f"{tag}: non-finite {m}")
+    return {"wall_s": wall, "sync_s": t_sync, "launches": launches,
+            "launches_by_route": routes,
+            "pending_server_outputs": len(runner._srv_q)}, out
+
+
+def trained_on_host(runner):
+    """Host copies of every client's LoRA leaves and the server models'
+    trainables (after ``drain()``)."""
+    from repro_torch.core.lora import partition
+    runner.drain()
+    out = {f"device{j}": {k: v.cpu() for k, v in lora_leaves(p).items()}
+           for j, p in enumerate(runner.device_params)}
+    out.update({n: {k: v.detach().cpu() for k, v in
+                    partition(getattr(runner, n)).items()}
+                for n in ("server_slm", "server_llm")})
+    return out
+
+
+def sketch_comm_stats(runner, rounds):
+    """The sketch wire's bytes from the leaf shapes: a leaf (m, n) with n
+    above the rank sends m x rank f32, else with m above it rank x n,
+    else its dense bytes; every client present, one downlink a round."""
+    r = runner.channel.spec.sketch_rank
+    N = runner.cfg.n_devices
+
+    def wire(shape, itemsize):
+        m, n = math.prod(shape[:-1]), shape[-1]
+        if len(shape) >= 2 and n > r:
+            return 4 * m * r
+        if len(shape) >= 2 and m > r:
+            return 4 * r * n
+        return math.prod(shape) * itemsize
+
+    leaves = [(tuple(t.shape[1:]), t.dtype.itemsize)
+              for t in runner.up_like.values()]
+    per_client = sum(wire(s, i) for s, i in leaves)
+    dense = sum(math.prod(s) * i for s, i in leaves)
+    f32 = sum(4 * math.prod(s) for s, _ in leaves)
+    return {"codec": "sketch", "rounds": rounds,
+            "uplink_bytes": rounds * N * per_client,
+            "uplink_dense_bytes": rounds * N * dense,
+            "uplink_f32_bytes": rounds * N * f32,
+            "uplink_ratio": dense / per_client,
+            "uplink_ratio_f32": f32 / per_client,
+            "downlink_bytes": rounds * per_client,
+            "uplink_client_bytes": {0: per_client}}
+
+
+def stream_concurrency(path):
+    """Kernel time per CUDA stream in a profiler trace, the time the
+    device had any kernel running (the union over streams) and the time
+    kernels of two or more streams ran at once, in ms."""
+    events = json.loads(path.read_text()).get("traceEvents", [])
+    spans = {}
+    for ev in events:
+        if ev.get("ph") == "X" and ev.get("cat") in (
+                "kernel", "gpu_memcpy", "gpu_memset"):
+            ts = float(ev["ts"])
+            spans.setdefault(str(ev.get("args", {}).get("stream")), []).append(
+                (ts, ts + float(ev.get("dur", 0.0))))
+
+    def union(iv):
+        out = []
+        for a, b in sorted(iv):
+            if out and a <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], b)
+            else:
+                out.append([a, b])
+        return out
+
+    def length(iv):
+        return sum(b - a for a, b in iv) / 1e3
+
+    merged = {k: union(v) for k, v in spans.items()}
+    busy = length(union([x for v in merged.values() for x in v]))
+    # a sweep over the per-stream unions' edges: the time at depth >= 2
+    edges = sorted([(a, 1) for v in merged.values() for a, _ in v]
+                   + [(b, -1) for v in merged.values() for _, b in v])
+    both, depth, last = 0.0, 0, None
+    for t, d in edges:
+        if depth >= 2:
+            both += t - last
+        depth, last = depth + d, t
+    return {"kernel_ms_by_stream": {k: length(v) for k, v in merged.items()},
+            "launches_by_stream": {k: len(v) for k, v in spans.items()},
+            "device_busy_ms": busy, "concurrent_ms": both / 1e3}
+
+
+def clients_equal(runner):
+    """Whether every client's LoRA leaves equal client 0's."""
+    import torch
+    from repro_torch.core.lora import is_lora_leaf, partition
+    tr = partition(runner.cohorts[0].stacked_params, is_lora_leaf)
+    return all(torch.equal(v[0], v[i]) for v in tr.values()
+               for i in range(1, v.shape[0]))
+
+
+def phase_overlap_rounds():
+    """A vectorized runner and an ``engine="overlap", staleness=0`` runner
+    from one seed run 2 evaluated rounds each, held against each other
+    (bit-equal, else within the vectorized phase's bounds, the leaves
+    that differ listed); then a ``staleness=1`` runner over the sketch
+    uplink and downlink runs rounds 0 and 1 unevaluated and round 2
+    evaluated: no delivery after round 0, one identical delivery on every
+    client after round 1, one server output always pending, the exact
+    bytes, the bases orthonormal on the card and equal to the host's, a
+    decoded leaf a fixed point of the codec, the anchor model on the
+    server LLM's own frozen tensors, the peak memory within 1 GB of the
+    vectorized runner's.  Every round: exact launches, tensor-core
+    routes, wall time to ``sync()`` and to ``drain()``."""
+    import torch
+    from repro_torch.core.channel import ChannelSpec
+    from repro_torch.core.lora import default_trainable, flatten
+    from repro_torch.core.threefry import sketch_basis
+    total, rounds, peak, res = {}, {}, {}, {}
+    cfg = None
+
+    # step 1: the vectorized engine and overlap(0) from one seed
+    snaps = {}
+    for engine in ("vectorized", "overlap"):
+        runner = overlap_runner(engine)
+        cfg = runner.cfg
+        torch.cuda.reset_peak_memory_stats()
+        sums = []
+        for i in range(2):
+            rec, out = overlap_round(
+                runner, f"{engine}(0) round {i}", True,
+                total if engine == "overlap" else {})
+            rounds[f"{engine}0_round{i}"] = rec
+            sums.append(out["summary"])
+        peak[f"{engine}0"] = torch.cuda.max_memory_allocated()
+        snaps[engine] = {"summaries": sums,
+                         "leaves": trained_on_host(runner)}
+        if engine == "overlap":
+            res["server_stream_used"] = (runner._srv_stream is not None
+                                         and runner._srv_event is not None)
+            runner.close()
+        del runner
+        release()
+    vec, ov = snaps["vectorized"], snaps["overlap"]
+    differ, leaf_err = [], {}
+    n_steps = {"server_llm": cfg.server_steps}
+    for n, leaves in vec["leaves"].items():
+        steps = n_steps.get(n, cfg.local_steps_ccl + cfg.local_steps_amt
+                            + cfg.server_steps)
+        for k, want in leaves.items():
+            got = ov["leaves"][n][k]
+            if bits_equal(got, want):
+                continue
+            err = (got.float() - want.float()).abs()
+            if bool((err > leaf_bound(cfg.lr, steps, want)).any()):
+                raise AssertionError(f"overlap(0) {n}:{k} "
+                                     f"{float(err.max())} from vectorized")
+            differ.append({"leaf": f"{n}:{k}", "numel": want.numel(),
+                           "max_abs_err": float(err.max())})
+            leaf_err[n] = max(leaf_err.get(n, 0.0), float(err.max()))
+    for a, b in zip(vec["summaries"], ov["summaries"]):
+        for k in ("avg_ce", "server_ce"):
+            if not abs(a[k] - b[k]) <= ROUND_CE_RTOL * abs(a[k]):
+                raise AssertionError(f"overlap(0) {k}: {b[k]} vs {a[k]}")
+        for k in ("avg_acc", "best_acc", "worst_acc", "server_acc"):
+            if not abs(a[k] - b[k]) <= ROUND_ACC_ATOL:
+                raise AssertionError(f"overlap(0) {k}: {b[k]} vs {a[k]}")
+    res["staleness0"] = {
+        "bit_equal": not differ and vec["summaries"] == ov["summaries"],
+        "summaries_equal": vec["summaries"] == ov["summaries"],
+        "leaves_compared": sum(len(v) for v in vec["leaves"].values()),
+        "leaves_not_bit_equal": differ,
+        "max_leaf_abs_err": leaf_err,
+        "summary": {"vectorized": vec["summaries"][-1],
+                    "overlap": ov["summaries"][-1]}}
+    del snaps, vec, ov
+    release()
+
+    # step 2: staleness 1 over the sketch uplink and downlink
+    runner = overlap_runner("overlap", 1, ChannelSpec(**OVERLAP_SKETCH))
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(3):
+        rec, out = overlap_round(runner, f"overlap(1) sketch round {i}",
+                                 i == 2, total)
+        rounds[f"overlap1_sketch_round{i}"] = rec
+        if len(runner._srv_q) != 1:
+            raise AssertionError(f"round {i}: {len(runner._srv_q)} pending "
+                                 "server outputs, expected 1")
+        if i == 0 and clients_equal(runner):
+            raise AssertionError("round 0 delivered (staleness 1)")
+        if i == 1 and not clients_equal(runner):
+            raise AssertionError("round 1: the clients hold different "
+                                 "deliveries")
+    peak["overlap1_sketch"] = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    runner.drain()
+    res["drain_s"] = time.perf_counter() - t0
+    res["summary_staleness1_sketch"] = out["summary"]
+    want = sketch_comm_stats(runner, 3)
+    if runner.comm_stats != want:
+        raise AssertionError(f"comm_stats {runner.comm_stats} != {want}")
+    res["comm_stats"] = want
+    spec = runner.channel.spec
+    basis_err = 0.0
+    for (dim, idx, rnd, dev), q in runner.channel._bases.items():
+        eye = torch.eye(spec.sketch_rank, device=q.device)
+        basis_err = max(basis_err, float((q.T @ q - eye).abs().max()))
+        host = torch.from_numpy(sketch_basis(spec.seed, dim, idx, rnd,
+                                             spec.sketch_rank))
+        if q.device.type != "cuda" or not torch.equal(q.cpu(), host):
+            raise AssertionError(f"basis {(dim, idx, rnd)} on the card is "
+                                 "not the host's")
+    if basis_err > BASIS_TOL:
+        raise AssertionError(f"a basis is {basis_err} from orthonormal")
+    up = {k: v.float() for k, v in
+          lora_leaves(runner.cohorts[0].stacked_params).items()}
+    dec, _ = runner.channel.roundtrip(up, None, runner._rnd_no)
+    again, _ = runner.channel.roundtrip(dec, None, runner._rnd_no)
+    proj_err = max(float((again[k] - dec[k]).abs().max()) for k in dec)
+    if proj_err > PROJECTION_TOL:
+        raise AssertionError(f"a decoded leaf moves {proj_err} when "
+                             "sketched again")
+    srv = flatten(runner.server_llm)
+    shared = [k for k, v in flatten(runner.cohorts[0].anchor_base).items()
+              if not default_trainable(k)
+              and v.data_ptr() == srv[k].data_ptr()]
+    frozen = [k for k in srv if not default_trainable(k)]
+    if len(shared) != len(frozen):
+        raise AssertionError(f"the anchor model shares {len(shared)} of "
+                             f"{len(frozen)} frozen server LLM leaves")
+    if abs(peak["overlap1_sketch"] - peak["vectorized0"]) > OVERLAP_MEM_ATOL:
+        raise AssertionError(f"peak {peak['overlap1_sketch']} B against the "
+                             f"vectorized runner's {peak['vectorized0']}")
+    # one more round under the profiler: does the server stream run
+    # beside the clients' kernels while one host thread dispatches both?
+    from torch.profiler import ProfilerActivity, profile
+    out_dir = ROOT / "build" / "profile"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        runner.run_round(evaluate=False)
+        runner.drain()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    trace = out_dir / "trace_overlap1_round3.json"
+    prof.export_chrome_trace(str(trace))
+    conc = stream_concurrency(trace)
+    conc.update(wall_ms=wall_ms, device_idle_share=(
+        1.0 - conc["device_busy_ms"] / wall_ms) if conc["device_busy_ms"]
+        else "not measured")
+    res["profile_staleness1_round3"] = conc
+    res.update({
+        "bases": len(runner.channel._bases),
+        "basis_max_abs_err_vs_identity": basis_err,
+        "projection_max_abs_err": proj_err,
+        "anchor_frozen_leaves_shared": len(shared)})
+    runner.close()
+    del runner, dec, again, up, srv
+    release()
+
+    slm, llm = round_models()
+    res.update({
+        "config": {"slm": slm.name, "llm": llm.name, "dtype": slm.dtype,
+                   "round": dict(OVERLAP_ROUND), "sketch": OVERLAP_SKETCH},
+        "rounds": rounds,
+        "round_wall_s": {k: v["wall_s"] for k, v in rounds.items()},
+        "round_sync_s": {k: v["sync_s"] for k, v in rounds.items()},
+        "peak_mem_bytes": peak,
+        "launches": total,
+        "tolerance": {"staleness0": "bit-equal, else 2 lr per AdamW step "
+                      "+ 2^-8 |leaf|", "ce_rtol": ROUND_CE_RTOL,
+                      "acc_atol": ROUND_ACC_ATOL,
+                      "peak_mem_atol_bytes": OVERLAP_MEM_ATOL,
+                      "basis": BASIS_TOL, "projection": PROJECTION_TOL},
+    })
+    return res, total
+
+
 def release():
     """Free what the last phase left: its objects hold reference cycles
     (a runner's step closures refer back to it), so collect them before
@@ -3824,6 +4166,10 @@ def main() -> int:
     emit({"population_rounds": population})
     release()
     lap("population_rounds")
+    overlap, overlap_launches = phase_overlap_rounds()
+    emit({"overlap_rounds": overlap})
+    release()
+    lap("overlap_rounds")
     ssm_serving, ssm_launches = phase_ssm_serving()
     emit({"ssm_serving": ssm_serving})
     release()
@@ -3850,6 +4196,7 @@ def main() -> int:
              "cohort_serving": cohort_launches,
              "vectorized_round": vec_launches,
              "population_rounds": pop_launches,
+             "overlap_rounds": overlap_launches,
              "ssm_serving": ssm_launches, "hybrid_serving": hybrid_launches}
     for row in kernels:
         by_path = {p: n[row["name"]] for p, n in paths.items()

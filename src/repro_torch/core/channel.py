@@ -17,10 +17,17 @@ Codecs (:class:`ChannelSpec.codec`):
   :meth:`bytes_on_wire` counts packed nibbles.  With ``error_feedback``
   each client keeps an f32 residual ``e``, transmits ``Q(u + e)`` and
   carries ``e' = (u + e) - deQ(Q(u + e))`` to the next round.
-* ``"sketch"``: accepted by :class:`ChannelSpec` and counted by
-  :meth:`bytes_on_wire`, but not ported: its bases come from JAX's
-  threefry generator, so :meth:`encode` / :meth:`decode` raise
-  ``NotImplementedError``.
+* ``"sketch"``: rank-``sketch_rank`` re-projection of each leaf.  Leaf
+  ``X`` (per client, as trailing-2D ``(m, n)``) is projected onto a
+  round-fresh orthonormal basis ``Q``, derived on both sides from
+  ``(seed, leaf index, round)`` and never sent: ``X @ Q`` crosses the
+  wire when ``n`` exceeds the rank ("right"), else ``Q^T @ X`` when ``m``
+  does ("left"); a leaf with neither passes raw.  The leaf index is its
+  position in the sorted keys, and the payload carries the round.  The
+  bases are the reference's (:mod:`repro_torch.core.threefry`, numpy on
+  the host, moved to the device once per ``(dim, index, round)``; the
+  channel keeps the current round's), and the projections are f32
+  ``torch.matmul`` at full precision (TF32 off, PyTorch's default).
 
 Tiles never cross the client axis, so encoding a stacked ``(N, ...)``
 upload equals encoding each client alone.  Encoding and decoding keep the
@@ -35,6 +42,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.core import threefry
 from repro_torch.kernels import ops
 
 CODECS = ("identity", "int8", "int4", "sketch")
@@ -96,6 +104,7 @@ class Channel:
 
     def __init__(self, spec: ChannelSpec):
         self.spec = spec
+        self._bases: Dict[tuple, torch.Tensor] = {}
 
     @property
     def is_identity(self) -> bool:
@@ -136,10 +145,59 @@ class Channel:
         t = self._tiles(ell)
         return rows.reshape(n, t * self.spec.block)[:, :ell].reshape(shape)
 
-    def _refuse_sketch(self):
-        raise NotImplementedError(
-            "the sketch codec is not ported (its bases come from JAX's "
-            "threefry generator); use identity, int8 or int4")
+    # -- sketch ----------------------------------------------------------
+    def _basis(self, dim: int, idx: int, rnd: int, device) -> torch.Tensor:
+        """The round-fresh orthonormal (dim, rank) f32 basis of leaf
+        ``idx`` in round ``rnd`` on ``device``: the reference's, computed
+        on the host once and cached for the round (encode and decode,
+        uplink and downlink share it)."""
+        rnd = int(rnd)
+        key = (dim, idx, rnd, torch.device(device))
+        q = self._bases.get(key)
+        if q is None:
+            if any(k[2] != rnd for k in self._bases):
+                self._bases = {k: v for k, v in self._bases.items()
+                               if k[2] == rnd}
+            q = torch.from_numpy(threefry.sketch_basis(
+                self.spec.seed, dim, idx, rnd,
+                self.spec.sketch_rank)).to(device)
+            self._bases[key] = q
+        return q
+
+    def _encode_sketch(self, flat, rnd):
+        payload = {}
+        for idx, k in enumerate(sorted(flat)):
+            x = flat[k]
+            mode = self._sketch_mode(x.shape)
+            if mode == "raw":
+                payload[k] = {"raw": x}
+                continue
+            n, m, d = x.shape[0], math.prod(x.shape[1:-1]), x.shape[-1]
+            xf = x.float().reshape(n, m, d)
+            if mode == "right":
+                s = torch.matmul(xf, self._basis(d, idx, rnd, x.device))
+            else:
+                s = torch.matmul(self._basis(m, idx, rnd, x.device).T, xf)
+            payload[k] = {"s": s, "rnd": torch.tensor(int(rnd),
+                                                      dtype=torch.int32)}
+        return payload
+
+    def _decode_sketch(self, payload, like):
+        out = {}
+        for idx, k in enumerate(sorted(payload)):
+            if "raw" in payload[k]:
+                out[k] = payload[k]["raw"]
+                continue
+            shape, dtype = tuple(like[k].shape), like[k].dtype
+            s, rnd = payload[k]["s"], int(payload[k]["rnd"])
+            m, d = math.prod(shape[1:-1]), shape[-1]
+            # the projection side is a function of the template's shape
+            if self._sketch_mode(shape) == "right":
+                xf = torch.matmul(s, self._basis(d, idx, rnd, s.device).T)
+            else:
+                xf = torch.matmul(self._basis(m, idx, rnd, s.device), s)
+            out[k] = xf.reshape(shape).to(dtype)
+        return out
 
     # -- encode / decode -------------------------------------------------
     def encode(self, flat: Dict, state: Optional[Dict] = None, rnd=0
@@ -148,12 +206,14 @@ class Channel:
 
         ``state`` is the per-client error-feedback residual dict (``None``
         or ``{}`` disables EF: the downlink mode).  ``rnd`` is the round
-        index, which only the sketch codec reads."""
+        index, which only the sketch codec reads (it freshens the bases and
+        travels in the payload)."""
         codec = self.spec.codec
         if codec == "identity":
             return flat, (state if state is not None else {})
         if codec == "sketch":
-            self._refuse_sketch()
+            return (self._encode_sketch(flat, rnd),
+                    state if state is not None else {})
         return self._encode_quant(flat, state, _QMAX[codec])
 
     def _encode_quant(self, flat, state, qmax):
@@ -179,7 +239,7 @@ class Channel:
         if codec == "identity":
             return payload
         if codec == "sketch":
-            self._refuse_sketch()
+            return self._decode_sketch(payload, like)
         out = {}
         for k in sorted(payload):
             tmpl = like[k]

@@ -1,5 +1,5 @@
-"""The ML-ECS federated round — Algorithm 1 on the loop and vectorized
-engines, for cohort-structured federations (port of
+"""The ML-ECS federated round — Algorithm 1 on the loop, vectorized and
+overlap engines, for cohort-structured federations (port of
 ``repro.core.federated``).
 
 One cloud server (a unified LLM and a server-side SLM) and N edge devices
@@ -51,6 +51,26 @@ everything after the device phase: the wire, the combines, SE-CCL and the
 delivery (redistribution is a presence-masked broadcast into the stack).
 They agree to float rounding.
 
+``engine="overlap"`` runs the vectorized device phase and the server
+phase (the combine's landing in the server SLM, SE-CCL, the delivery and
+the anchor trainables) pipelined across rounds.  ``staleness`` sets how
+many rounds a delivery lags: each round pushes its server output onto a
+queue, and once the queue holds more than ``staleness`` entries the
+oldest is applied, under THIS round's presence mask and through the
+downlink with THIS round's index.  Each cohort anchors its CCL steps on a
+stale anchor model: the server LLM's frozen leaves (the same tensors, no
+copy) with the trainables of the last applied delivery.
+``staleness=0`` reproduces the vectorized engine bit for bit.  On the
+card the server phase runs on its own CUDA stream (events and
+``record_stream`` order the tensors that cross); on the CPU it runs
+inline.  A worker thread (:class:`~repro_torch.data.pipeline.
+RoundPrefetcher`) assembles each round's host batches ahead of the
+applied rounds, and under a sampler the next round's store gather is
+staged on a thread after each scatter; both do host work only, every
+transfer stays on the main thread.  :meth:`FederatedRunner.sync` waits
+for the clients' side, :meth:`~FederatedRunner.drain` for everything,
+and :meth:`~FederatedRunner.close` stops the threads.
+
 **Registered population.**  A :class:`~repro_torch.core.spec.
 ParticipantSampler` on the spec splits client state in two: every
 registered client's personal state lives on the host (or on disk, with
@@ -72,10 +92,9 @@ counter, so the resumed rounds are bit-identical.
 Covered: the loop and vectorized engines, the modes mlecs / fedavg /
 standalone, the ablations ``use_mma`` / ``use_seccl`` / ``use_ccl``, both
 CCL scores, ``prox_weight``, the three reductions, client faults,
-participant sampling, checkpoints, and the identity, int8 and int4
+participant sampling, checkpoints, and the identity, int8, int4 and sketch
 channels (uploads cross the wire before MMA, each cohort's redistribution
-crosses it on the way down).  The overlap engine and the sketch codec
-raise ``NotImplementedError``.
+crosses it on the way down).
 
 Every member of a cohort shares ONE frozen backbone (the cohort base);
 only its personal leaves (LoRA + connector) are its own, stacked (n, ...)
@@ -84,7 +103,10 @@ returns a new tree that shares the frozen leaves.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import threading
+import weakref
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -103,8 +125,8 @@ from repro_torch.core.store import ClientStore, ParticipantSchedule
 from repro_torch.data import attacks
 from repro_torch.data.multimodal import (paper_split, take_fraction,
                                          train_test_split)
-from repro_torch.data.pipeline import (ClientStreams, np_eval_batches,
-                                       stack_eval_steps,
+from repro_torch.data.pipeline import (ClientStreams, RoundPrefetcher,
+                                       np_eval_batches, stack_eval_steps,
                                        stacked_eval_batches, to_tensors)
 from repro_torch.models.model import build_model
 from repro_torch.optim.adamw import adamw, apply_updates
@@ -139,6 +161,16 @@ def _to_device(tree, device):
     return map_pytree(lambda t: t.to(device), tree)
 
 
+def _record_stream(tree, stream) -> None:
+    """Mark every tensor of a pytree as used on ``stream``: the caching
+    allocator then reuses its memory only after the work queued there
+    when it is freed."""
+    def mark(t):
+        if isinstance(t, torch.Tensor):
+            t.record_stream(stream)
+    map_pytree(mark, tree)
+
+
 def _scale_uploads(uploads: Dict[str, torch.Tensor], scale: np.ndarray
                    ) -> Dict[str, torch.Tensor]:
     """Byzantine scaled-update over a stacked upload: client j reports
@@ -169,8 +201,8 @@ class FederatedConfig:
     rho: float = 0.7                 # modality existing rate (MER)
     n_negatives: int = 4
     seed: int = 0
-    engine: str = "vectorized"       # "loop" or "vectorized"
-    staleness: int = 0
+    engine: str = "vectorized"       # "loop" | "vectorized" | "overlap"
+    staleness: int = 0               # overlap: rounds a delivery lags
     use_mma: bool = True             # False -> uniform averaging (w/o MMA)
     use_seccl: bool = True           # False -> skip step 4     (w/o SE-CCL)
     use_ccl: bool = True             # False -> devices skip step 2's loss
@@ -191,18 +223,11 @@ class FederatedConfig:
                           self.staleness, self.robust, self.trim_frac)
 
 
-def _refuse_unported(spec: FederationSpec, engine: str) -> None:
+def _check_engine(spec: FederationSpec, engine: str) -> None:
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
-    if engine == "overlap":
-        raise NotImplementedError(
-            "engine='overlap' is not ported; pass engine='loop' or "
-            "'vectorized'")
-    if spec.staleness > 0:
+    if spec.staleness > 0 and engine != "overlap":
         raise ValueError("staleness > 0 requires the overlap engine")
-    if spec.channel is not None and spec.channel.codec == "sketch":
-        raise NotImplementedError(
-            "the sketch codec is not ported (identity, int8, int4)")
     if spec.faults is not None and not isinstance(spec.faults, FaultSpec):
         raise TypeError("faults must be repro_torch.core.spec.FaultSpec; "
                         f"got {type(spec.faults).__name__}")
@@ -218,7 +243,10 @@ class _Cohort:
     vectorized engine one stacked tree (``stacked_params``: the backbone
     once, the personal leaves (work_n, ...)) and one stacked AdamW state
     (``stacked_opt``), with its padded eval shards (``eval_steps``; per
-    sampled member set in ``eval_cache`` under a sampler)."""
+    sampled member set in ``eval_cache`` under a sampler).  The overlap
+    engine adds the cohort's stale anchor model: ``anchor_base`` (the
+    server LLM's tree: its frozen leaves are the server's own tensors)
+    and ``anchor_tr`` (the trainables of the last applied delivery)."""
 
     def __init__(self, idx: int, spec: ClientCohort, bundle, offset: int):
         self.idx = idx
@@ -237,6 +265,8 @@ class _Cohort:
         self.stacked_opt: Optional[dict] = None
         self.eval_steps: Optional[Dict] = None
         self.eval_cache: Dict = {}   # sampled eval shards, by member tuple
+        self.anchor_base: Optional[dict] = None
+        self.anchor_tr: Dict = {}
         # the round's working set (the whole cohort without a sampler):
         # the stacked buffers hold work_n clients, and every per-round
         # vector (weights, presence, attack scale) is indexed by
@@ -257,8 +287,8 @@ class _Cohort:
 
 
 class FederatedRunner:
-    """A federation of cohorts and the cloud server, on the loop or the
-    vectorized engine (``engine``, default the spec's):
+    """A federation of cohorts and the cloud server, on the loop, the
+    vectorized or the overlap engine (``engine``, default the spec's):
 
         ``FederatedRunner(spec, corpus, engine=None, device="cuda",
         init_state=None, store_dir=None)``
@@ -275,7 +305,8 @@ class FederatedRunner:
     ``"server_slm"`` and ``"server_llm"``.  Under a sampler the population
     is registered in a :class:`ClientStore` (``store_dir`` spills it to
     one file a client).  The runner runs on the card; ``device="cpu"``
-    asks for the CPU."""
+    asks for the CPU.  An overlap runner owns threads: call
+    :meth:`close` when done with it."""
 
     def __init__(self, spec, *args, engine: Optional[str] = None,
                  device="cuda", init_state: Optional[Dict] = None,
@@ -304,8 +335,9 @@ class FederatedRunner:
         self.spec = spec
         self.cfg = cfg = spec.to_config()
         self.engine = engine or spec.engine
-        _refuse_unported(spec, self.engine)
-        self._stacked = self.engine == "vectorized"
+        _check_engine(spec, self.engine)
+        self._stacked = self.engine in ("vectorized", "overlap")
+        self._overlap = self.engine == "overlap"
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("CUDA is not available; pass device='cpu' "
@@ -495,6 +527,11 @@ class FederatedRunner:
         self._server_eval_steps = None
         self.refresh_eval_shards()
         self.history: List[Dict] = []
+        self._srv_q: collections.deque = collections.deque()
+        self._srv_stream = self._srv_event = None
+        self._prefetch = self._staged_gather = None
+        if self._overlap:
+            self._init_overlap()
 
     # ------------------------------------------------------------------
     def _init_states(self, bundles) -> List[dict]:
@@ -716,12 +753,15 @@ class FederatedRunner:
         return ccl_lib.server_anchors(self.server_llm, self.llm, batch)
 
     @torch.no_grad()
-    def stacked_anchors(self, pub: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def stacked_anchors(self, pub: Dict[str, torch.Tensor],
+                        llm_params: Optional[dict] = None) -> torch.Tensor:
         """:meth:`anchors` for a cohort's stacked public batch (G, B, ...)
-        at once: (G, B, c)."""
+        at once: (G, B, c), from ``llm_params`` (default the live server
+        LLM; the overlap engine passes the cohort's anchor model)."""
         batch = dict(pub, modality_mask=torch.ones_like(pub["modality_mask"]))
-        return ccl_lib.stacked_server_anchors(self.server_llm, self.llm,
-                                              batch)
+        return ccl_lib.stacked_server_anchors(
+            self.server_llm if llm_params is None else llm_params, self.llm,
+            batch)
 
     # ------------------------------------------------------------------
     # per-round fault state (no-ops without a FaultSpec)
@@ -1024,7 +1064,10 @@ class FederatedRunner:
         a sampler the round's participants train (their rows gathered from
         the store and scattered back at the end) and the metrics are
         theirs.  With ``evaluate=False`` no metric is computed and ``{}``
-        is returned."""
+        is returned.  The overlap engine's round is
+        :meth:`_run_round_overlap`."""
+        if self._overlap:
+            return self._run_round_overlap(evaluate)
         self._begin_round()
         self._load_working_set(self._rnd_no)
         # (1)-(2) the device side: per client (loop) or per cohort
@@ -1038,36 +1081,200 @@ class FederatedRunner:
         self._commit_comm()
         return self._finalize_eval(client_eval) if evaluate else {}
 
+    # ------------------------------------------------------------------
+    # the overlap engine: the server phase pipelined behind the device
+    # phases by ``staleness`` rounds
+
+    def _init_overlap(self) -> None:
+        """The server stream (on the card), each cohort's anchor model
+        (the server LLM's own tree: no copy of its frozen leaves), the
+        batch prefetcher and, under a sampler, round 0's staged gather."""
+        if self.device.type == "cuda" and self._srv_stream is None:
+            self._srv_stream = torch.cuda.Stream(self.device)
+        for rt in self._cohorts:
+            rt.anchor_base = self.server_llm
+            rt.anchor_tr = lora.partition(self.server_llm)
+        self._assemble_idx = self._round_idx
+        self._start_prefetch()
+        if self._schedule is not None:
+            self._stage_gather_for(self._round_idx)
+
+    def _start_prefetch(self) -> None:
+        """(Re)start the round-assembly worker.  It holds the runner
+        weakly and stops once the runner is collected (:meth:`close` is
+        the deterministic path).  While it lives it is the only reader of
+        the data streams."""
+        ref = weakref.ref(self)
+
+        def assemble():
+            runner = ref()
+            return None if runner is None else runner._assemble_round()
+
+        self._prefetch = RoundPrefetcher(assemble,
+                                         alive=lambda: ref() is not None)
+
+    def _assemble_round(self) -> Tuple[List[Tuple], Optional[Dict]]:
+        """The next assembled round's host batches: each cohort's
+        ``(pub, priv)`` stacks and the server's (server_steps, B, ...)
+        stack (None without SE-CCL).  Runs on the prefetch worker, its
+        round counter ahead of the applied rounds (a sampler's draws are
+        a function of the round, so the worker draws the same sets)."""
+        rnd = self._assemble_idx
+        self._assemble_idx += 1
+        return self._assemble_cohorts(rnd), self._server_steps()
+
+    def _server_steps(self) -> Optional[Dict]:
+        """The round's server batches, (server_steps, B, ...) host stacks
+        (None without SE-CCL)."""
+        if not _do_seccl(self.cfg):
+            return None
+        return self._streams.stack_steps("server", self.cfg.server_steps)
+
+    def _server_phase(self, agg: Dict, steps: Optional[Dict]) -> Tuple:
+        """:meth:`_server_chain` on the server stream (inline on the CPU):
+        the stream first waits for the work queued so far on the caller's
+        stream (the aggregate), and every tensor of its inputs is marked
+        as used there.  Returns ``(down, anchor_tr, done)``, ``done`` the
+        event that ends the phase (None on the CPU)."""
+        stream = self._srv_stream
+        if stream is None:
+            return (*self._server_chain(agg, steps), None)
+        ready = torch.cuda.current_stream(self.device).record_event()
+        with torch.cuda.stream(stream):
+            stream.wait_event(ready)
+            _record_stream((agg, self.server_llm, self.server_slm,
+                            self.server_llm_opt, self.server_slm_opt),
+                           stream)
+            down, anchor_tr = self._server_chain(agg, steps)
+            self._srv_event = stream.record_event()
+        return down, anchor_tr, self._srv_event
+
+    def _sync_server(self) -> None:
+        """Order the caller's stream after every server phase queued so
+        far and mark the server's tensors as used there (a no-op without a
+        server stream)."""
+        if self._srv_event is None:
+            return
+        cur = torch.cuda.current_stream(self.device)
+        cur.wait_event(self._srv_event)
+        _record_stream((self.server_llm, self.server_slm,
+                        self.server_llm_opt, self.server_slm_opt), cur)
+
+    def _run_round_overlap(self, evaluate: bool = True) -> Dict:
+        """One pipelined round: every cohort's device phase on the
+        prefetched batches, anchored on its anchor model; the uplink and
+        the combine; the server phase (on the server stream), pushed onto
+        the staleness queue; the client eval on the post-AMT models while
+        the server phase runs; then, once the queue holds more than
+        ``staleness`` outputs, the oldest delivered (this round's presence
+        mask and downlink round) and the anchor trainables replaced.
+        Under fedavg the queued output is the aggregate itself."""
+        cfg = self.cfg
+        self._begin_round()
+        self._load_working_set(self._rnd_no)
+        batches, server = next(self._prefetch)
+        uploads = self._device_phase_stacked(batches)
+        if cfg.mode != "standalone":
+            agg, own_avgs = self._combine_payloads(
+                self._encode_uploads(uploads))
+            if cfg.mode == "fedavg":
+                self._srv_q.append((agg, None, own_avgs, None))
+            else:
+                down, anchor_tr, done = self._server_phase(agg, server)
+                self._srv_q.append((down, anchor_tr, own_avgs, done))
+        client_eval = self.evaluate_clients() if evaluate else None
+        if len(self._srv_q) > cfg.staleness:
+            down, anchor_tr, own_avgs, done = self._srv_q.popleft()
+            if done is not None:
+                cur = torch.cuda.current_stream(self.device)
+                cur.wait_event(done)
+                _record_stream((down, anchor_tr), cur)
+            self._apply_deliveries(down, own_avgs)
+            if anchor_tr is not None:
+                for rt in self._cohorts:
+                    rt.anchor_tr = anchor_tr
+        self._scatter_working_set()
+        if self._schedule is not None:
+            # round r+1's store gather, on a thread, behind this round
+            self._stage_gather_for(self._round_idx)
+        self._commit_comm()
+        return self._finalize_eval(client_eval) if evaluate else {}
+
+    def _stage_gather_for(self, rnd: int) -> None:
+        """Start round ``rnd``'s store gather (host work only) on a
+        thread; :meth:`_load_working_set` joins it."""
+        box = {"out": None, "err": None, "rnd": rnd}
+
+        def work():
+            try:
+                box["out"] = self._gather_host(rnd)
+            except Exception as e:  # noqa: BLE001 — re-raised at the join
+                box["err"] = e
+
+        box["thread"] = threading.Thread(target=work, name="store-gather",
+                                         daemon=True)
+        self._staged_gather = box
+        box["thread"].start()
+
+    def sync(self) -> "FederatedRunner":
+        """Wait for the clients' side of the queued work (on the card: the
+        caller's stream; under the overlap engine the server phase is off
+        that path, :meth:`drain` waits for it too)."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        return self
+
+    def drain(self) -> "FederatedRunner":
+        """Wait for all queued work: every cohort's state, the server
+        chain and the pending server outputs (every stream of the
+        device)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return self
+
+    def close(self) -> None:
+        """Stop the overlap engine's threads (the prefetcher, and a staged
+        gather, which is dropped); a no-op on the other engines, safe to
+        call twice."""
+        box, self._staged_gather = self._staged_gather, None
+        if box is not None:
+            box["thread"].join()
+        pf, self._prefetch = self._prefetch, None
+        if pf is not None:
+            pf.close()
+
     def _server_side(self, uploads: List[Dict]) -> None:
         """The uplink wire, then (3) MMA over what the server received
         (f32, left to right over the clients, then cohort order per key;
         the devices keep their own undecoded parameters), then (4) SE-CCL
         and (5) the redistribution; under fedavg the average goes straight
         back."""
-        cfg = self.cfg
         agg, own_avgs = self._combine_payloads(self._encode_uploads(uploads))
+        if self.cfg.mode != "fedavg":
+            agg, _ = self._server_chain(agg, self._server_steps())
+        self._apply_deliveries(agg, own_avgs)
 
-        if cfg.mode == "fedavg":
-            # Multi-FedAvg: the average straight back, through the
-            # downlink once per cohort
-            for c, rt in enumerate(self._cohorts):
-                self._deliver(rt, self.channel.roundtrip_tree(
-                    self._cohort_delivery(rt, agg, own_avgs[c]),
-                    self._rnd_no))
-            return
-
+    def _server_chain(self, agg: Dict, steps: Optional[Dict]
+                      ) -> Tuple[Dict, Dict]:
+        """The aggregate lands in the server SLM, then (4) SE-CCL on the
+        server batches ``steps`` (:meth:`_server_steps`).  Returns what
+        the clients get back: the server SLM's LoRA leaves and the server
+        LLM's trainables (the overlap engine's anchor download)."""
         self.server_slm = lora.combine(self.server_slm, agg)
-        # (4) SE-CCL on the server
-        if _do_seccl(cfg):
-            for _ in range(cfg.server_steps):
+        if steps is not None:
+            steps = to_tensors(steps, self.device)
+            for t in range(self.cfg.server_steps):
                 (self.server_llm, self.server_slm, self.server_llm_opt,
                  self.server_slm_opt, _) = self.se_step(
                     self.server_llm, self.server_slm, self.server_llm_opt,
-                    self.server_slm_opt, self.pull("server"))
-        # (5) redistribute: the server SLM's shared leaves and each
-        # cohort's own averages, through the downlink; the server SLM
-        # keeps its own values
-        down = lora.partition(self.server_slm, lora.is_lora_leaf)
+                    self.server_slm_opt, {k: v[t] for k, v in steps.items()})
+        return (lora.partition(self.server_slm, lora.is_lora_leaf),
+                lora.partition(self.server_llm))
+
+    def _apply_deliveries(self, down: Dict, own_avgs) -> None:
+        """(5) Redistribution: each cohort's delivery (the server's values
+        of its shared keys and its own-key averages) through the downlink
+        with this round's index, spliced into its reachable members."""
         for c, rt in enumerate(self._cohorts):
             self._deliver(rt, self.channel.roundtrip_tree(
                 self._cohort_delivery(rt, down, own_avgs[c]), self._rnd_no))
@@ -1076,18 +1283,34 @@ class FederatedRunner:
     # the working set under a sampler: the round's participants gathered
     # from the store into the stacked buffers, scattered back at the end
 
+    def _gather_host(self, rnd: int) -> List[Dict]:
+        """Round ``rnd``'s participants' store entries, one host stack per
+        cohort (cohort by cohort: their personal key sets may differ)."""
+        return [self._store.gather([rt.offset + i
+                                    for i in self._members(rt, rnd)])
+                for rt in self._cohorts]
+
     def _load_working_set(self, rnd: int) -> None:
         """Gather round ``rnd``'s participants from the store into each
-        cohort's stacked buffers (vectorized engine under a sampler; one
-        host stack and one transfer a leaf, cohort by cohort since their
-        personal key sets may differ): the personal leaves, the AdamW
+        cohort's stacked buffers (stacked engines under a sampler; one
+        host stack and one transfer a leaf; the overlap engine's staged
+        gather when it is this round's): the personal leaves, the AdamW
         state and the residuals move; the backbone in the buffer never
         does."""
         if self._schedule is None or not self._stacked:
             return
-        for rt in self._cohorts:
-            h = self._store.gather([rt.offset + i
-                                    for i in self._members(rt, rnd)])
+        host, box = None, self._staged_gather
+        if box is not None:
+            self._staged_gather = None
+            box["thread"].join()
+            if box["err"] is not None:
+                raise RuntimeError("staged store gather failed") \
+                    from box["err"]
+            if box["rnd"] == rnd:
+                host = box["out"]
+        if host is None:
+            host = self._gather_host(rnd)
+        for rt, h in zip(self._cohorts, host):
             rt.stacked_params = lora.combine(
                 rt.stacked_params, _to_device(h["train"], self.device))
             rt.stacked_opt = _to_device(h["opt"], self.device)
@@ -1161,33 +1384,53 @@ class FederatedRunner:
             uploads.append(lora.stack_clients(ups))
         return uploads
 
-    def _device_phase_stacked(self) -> List[Dict]:
-        """The vectorized engine's device side: per cohort, the round's
-        batches of all its clients pulled at once (client-major per step,
-        one transfer per phase), then each CCL and AMT step as ONE stacked
-        step for all clients.  Offline clients train with the others and
-        are selected back (parameters and AdamW state, the step count
-        included); their streams advance as the loop engine's do.
-        Under a sampler the stack is the round's working set.  Returns
-        each cohort's uploads stacked on the client axis."""
+    def _assemble_cohorts(self, rnd: int) -> List[Tuple]:
+        """Round ``rnd``'s host batch stacks, one ``(pub, priv)`` pair per
+        cohort ((k, n, B, ...) numpy leaves over the round's working set,
+        client-major per step; None for a phase with no step): every
+        member pulls, offline ones too, so the streams advance as the
+        loop engine's do."""
         cfg, spec = self.cfg, self.spec
-        uploads: List[Dict] = []
+        out = []
         for rt in self._cohorts:
-            names = [rt.offset + i for i in self._members(rt)]
+            names = [rt.offset + i for i in self._members(rt, rnd)]
+            k_ccl = spec.cohort_steps_ccl(rt.idx) if _do_ccl(cfg) else 0
+            k_amt = spec.cohort_steps_amt(rt.idx)
+            out.append(tuple(
+                self._streams.gather_steps([f"{s}/{j}" for j in names], k)
+                if k else None for s, k in (("pub", k_ccl), ("priv", k_amt))))
+        return out
+
+    def _device_phase_stacked(self, batches: Optional[List[Tuple]] = None
+                              ) -> List[Dict]:
+        """The stacked engines' device side: per cohort, the round's
+        batches of all its clients (pulled here, or the overlap engine's
+        prefetched ``batches``; one transfer per phase), then each CCL and
+        AMT step as ONE stacked step for all clients, anchored on the live
+        server LLM (the overlap engine: the cohort's anchor model).
+        Offline clients train with the others and are selected back
+        (parameters and AdamW state, the step count included).  Under a
+        sampler the stack is the round's working set.  Returns each
+        cohort's uploads stacked on the client axis."""
+        cfg, spec = self.cfg, self.spec
+        if batches is None:
+            batches = self._assemble_cohorts(self._rnd_no)
+        uploads: List[Dict] = []
+        for rt, (pub_np, priv_np) in zip(self._cohorts, batches):
             p0, o0 = rt.stacked_params, rt.stacked_opt
             p, o = p0, o0
-            k_ccl = spec.cohort_steps_ccl(rt.idx) if _do_ccl(cfg) else 0
-            if k_ccl:
-                pubs = to_tensors(self._streams.gather_steps(
-                    [f"pub/{j}" for j in names], k_ccl), self.device)
-                for t in range(k_ccl):
+            if pub_np is not None:
+                llm = (lora.combine(rt.anchor_base, rt.anchor_tr)
+                       if self._overlap else None)
+                pubs = to_tensors(pub_np, self.device)
+                for t in range(spec.cohort_steps_ccl(rt.idx)):
                     pub = {k: v[t] for k, v in pubs.items()}
-                    p, o, _ = rt.ccl_step(p, o, pub, self.stacked_anchors(pub))
+                    p, o, _ = rt.ccl_step(p, o, pub,
+                                          self.stacked_anchors(pub, llm))
             gref = rt.last_global if cfg.prox_weight > 0 else None
             k_amt = spec.cohort_steps_amt(rt.idx)
-            if k_amt:
-                privs = to_tensors(self._streams.gather_steps(
-                    [f"priv/{j}" for j in names], k_amt), self.device)
+            if priv_np is not None:
+                privs = to_tensors(priv_np, self.device)
                 for t in range(k_amt):
                     p, o, _ = rt.amt_step(
                         p, o, {k: v[t] for k, v in privs.items()}, None, gref)
@@ -1307,7 +1550,9 @@ class FederatedRunner:
 
     def evaluate_server(self) -> Dict:
         """Server LLM ``{"ce", "acc"}`` on the public test set (the
-        vectorized engine over its prebuilt eval steps)."""
+        stacked engines over their prebuilt eval steps, after the server
+        phases queued so far)."""
+        self._sync_server()
         if self._stacked:
             return seccl.metrics_from_sums(self._server_eval_fn(
                 self.server_llm, self._server_eval_steps))
@@ -1351,7 +1596,13 @@ class FederatedRunner:
         personal state (the store under a sampler; else the stacked
         ``(train, opt)`` per cohort, or per-client tuples on the loop
         engine), plus the residuals as ``channel`` under a stateful codec
-        without a sampler."""
+        without a sampler.  Refuses the overlap engine's pending server
+        outputs: a non-empty staleness queue is not a round boundary."""
+        if self._srv_q:
+            raise RuntimeError(
+                "cannot checkpoint with pending pipelined server outputs "
+                "(overlap staleness queue is non-empty)")
+        self._sync_server()
         if self._schedule is not None:
             clients = self._store.state_pytree()
         elif self._stacked:
@@ -1392,6 +1643,10 @@ class FederatedRunner:
         return self
 
     def _restore_state(self, state: Dict) -> None:
+        # the overlap engine's threads read the data streams and the
+        # store: stop them before touching either
+        self.close()
+        self._srv_q.clear()
         rnd = int(state["round"])
         self._round_idx = rnd
         self._rnd_present = self._rnd_contrib = self._rnd_weights = None
@@ -1424,6 +1679,10 @@ class FederatedRunner:
         # rounds' pulls
         self._streams.reset()
         self._replay_streams(rnd)
+        if self._overlap:
+            # an empty queue at the boundary: the anchor trainables are
+            # the restored server LLM's (whose frozen leaves it now holds)
+            self._init_overlap()
 
     def _replay_streams(self, rounds: int) -> None:
         """Fast-forward the stream bank past ``rounds`` completed rounds:

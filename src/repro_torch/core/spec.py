@@ -231,8 +231,8 @@ class FederationSpec:
     rho: float = 0.7                 # default MER (cohorts may override)
     n_negatives: int = 4
     seed: int = 0
-    engine: str = "vectorized"       # "loop" | "vectorized" (overlap refused)
-    staleness: int = 0
+    engine: str = "vectorized"       # "loop" | "vectorized" | "overlap"
+    staleness: int = 0               # overlap: rounds a delivery lags
     use_mma: bool = True
     use_seccl: bool = True
     use_ccl: bool = True

@@ -13,14 +13,18 @@ as they are, and batches handed over as tensors on the runner's device.
   the vectorized engine: client j's sub-stream is bit-identical to its
   own unstacked stream;
 * :class:`ClientStreams` — the bank of named shuffle streams (one per
-  client and data split, plus the server's).
+  client and data split, plus the server's);
+* :class:`RoundPrefetcher` — round assembly on a worker thread, ahead of
+  the consumer (the overlap engine's host pipeline).
 
 Stacks stay numpy here; :func:`to_tensors` hands a whole stack to the
 device in one transfer.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, List, Optional, Sequence
+import queue
+import threading
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -221,3 +225,79 @@ class ClientStreams:
         step t, ...), as :func:`stacked_batches` + :func:`stack_steps`."""
         return _stack([_stack([self.pull(n) for n in names])
                        for _ in range(k)])
+
+
+class RoundPrefetcher:
+    """Runs ``make_round`` on a daemon worker thread, ahead of the
+    consumer: ``next(prefetcher)`` returns the rounds in the order the
+    worker made them, so a single worker consumes stateful streams in the
+    order the synchronous path would.
+
+    * ``depth`` bounds the assembled rounds waiting in the queue (default
+      1: double buffering).
+    * A worker exception is re-raised at the next ``next()`` as
+      ``RuntimeError("round prefetch worker died")`` (the cause chained).
+    * ``make_round`` returning None ends the stream: ``next()`` then
+      raises ``StopIteration``, also when called again.
+    * ``alive`` is probed between waits; the worker stops once it returns
+      False (a consumer held weakly can be collected).
+    * :meth:`close` stops the worker and drops the buffered rounds.
+    """
+
+    _STOP = object()
+    _END = object()
+
+    def __init__(self, make_round: Callable[[], Any], depth: int = 1,
+                 alive: Optional[Callable[[], bool]] = None):
+        self._q: "queue.Queue" = queue.Queue(maxsize=max(1, depth))
+        self._stop = threading.Event()
+        self._err: Optional[BaseException] = None
+        self._alive = alive or (lambda: True)
+
+        def put_guarded(item) -> None:
+            while not self._stop.is_set() and self._alive():
+                try:
+                    self._q.put(item, timeout=0.5)
+                    return
+                except queue.Full:
+                    continue
+
+        def work() -> None:
+            try:
+                while not self._stop.is_set() and self._alive():
+                    item = make_round()
+                    if item is None:
+                        put_guarded(self._END)
+                        return
+                    put_guarded(item)
+            except Exception as e:  # noqa: BLE001 — re-raised at next()
+                self._err = e
+                put_guarded(self._STOP)
+
+        self._thread = threading.Thread(target=work, name="round-prefetch",
+                                        daemon=True)
+        self._thread.start()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = self._q.get()
+        if item is self._STOP:
+            self._q.put(self._STOP)     # keep raising on repeated next()
+            raise RuntimeError("round prefetch worker died") from self._err
+        if item is self._END:
+            self._q.put(self._END)
+            raise StopIteration
+        return item
+
+    def close(self) -> None:
+        """Stop the worker and drop the buffered rounds; returns once the
+        worker has ended."""
+        self._stop.set()
+        while True:
+            try:
+                self._q.get_nowait()
+            except queue.Empty:
+                break
+        self._thread.join()

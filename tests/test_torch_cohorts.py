@@ -79,8 +79,6 @@ def test_cohort_structure_of_the_cases(case):
 
 def test_spec_runner_refuses_unported(corpus):
     _, tspec = make_specs(HET, None, 1, {})
-    with pytest.raises(NotImplementedError, match="overlap"):
-        FederatedRunner(tspec, corpus, engine="overlap", device="cpu")
     with pytest.raises(TypeError, match="ParticipantSampler"):
         FederatedRunner(dataclasses.replace(
             tspec, sampler=jspec.ParticipantSampler(per_cohort=1)), corpus,

@@ -1,5 +1,5 @@
 """Port parity for federated rounds of Algorithm 1 on the loop engine,
-and the round's gates and refusals.
+and the round's gates.
 
 The JAX loop runner and the port's runner start from the same states (the
 JAX runner's, carried across with ``repro_torch.interop``) on the same
@@ -30,8 +30,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import lora
 from repro_torch.core.channel import ChannelSpec
 from repro_torch.core.federated import FederatedConfig, FederatedRunner
-from repro_torch.core.spec import (FaultSpec, FederationSpec,
-                                   ParticipantSampler)
+from repro_torch.core.spec import FaultSpec, FederationSpec
 from repro_torch.kernels.quantize import quantize_rows_plain
 from repro_torch.models.model import build_model
 
@@ -302,22 +301,6 @@ def test_mode_and_ablation_gates(corpus, mode, use_ccl, use_seccl, use_mma):
 def test_cosine_score_and_prox_run(corpus):
     r, before = _port_run(corpus, ccl_score="cosine", prox_weight=0.1)
     assert np.isfinite(r.evaluate()["summary"]["avg_ce"])
-
-
-# ---------------------------------------------------------------------------
-# what the port refuses
-
-@pytest.mark.parametrize("over,engine", [
-    ({}, "overlap"),
-    ({"channel": ChannelSpec(codec="sketch")}, "loop"),
-    ({"sampler": ParticipantSampler(per_cohort=2),
-      "channel": ChannelSpec(codec="sketch")}, "loop"),
-])
-def test_unported_options_raise(corpus, over, engine):
-    cfg = FederatedConfig(**{**ROUND, **over})
-    with pytest.raises(NotImplementedError):
-        FederatedRunner(cfg, *port_bundles(), corpus, engine=engine,
-                        device="cpu")
 
 
 def test_spec_input_checkpoints_and_missing_cuda_raise(corpus):
