@@ -38,7 +38,14 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    groups, over several chunks and at toy sizes (bf16 on both routes where
    the "mma" route takes the shape, f32 on "fma"), the whole
    ``ops.ssd_chunked`` against the token-by-token recurrence at ragged S
-   of 1, 2 and 3 chunks, and G's output at a large |A| dt;
+   of 1, 2 and 3 chunks, and G's output at a large |A| dt; then G's
+   backward (G′) against its explicit formulas (``ssd_chunk_bwd_plain``)
+   at mamba2's and hymba's training shapes (batch 8, one chunk of 256) and
+   over two and three chunks with a state gradient, with two groups, bf16
+   and f32, every gradient row against its own size; strong decay (all
+   finite); two launches bit-equal; ``ops.ssd_chunked``'s whole backward
+   at a ragged S of three chunks against the plain path's autograd with
+   exactly one G and one G′ launch;
 5. serves 48 soft-prompted requests through ``ServingEngine`` at the full
    width of ``mlecs-slm-720m`` (bf16, random weights from a seed), checks
    every budget, the free lists and both launch counters, then checks the
@@ -148,9 +155,26 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    profiles an
    admission tick and four decode steps, and prints ``{"ssm_serving":
    ...}`` and ``{"hybrid_serving": ...}`` lines;
-14. prints ``{"phase_seconds": ...}`` and a ``{"kernels": [...]}`` line
+14. trains the ssm and hybrid families: one ``FederationSpec`` at full
+   width (bf16, remat, identity wire) of 3 ``mamba2-2.7b`` clients on
+   modalities 0-1 and 2 ``hymba-1.5b`` clients on modality 2,
+   ``mlecs-llm-6b`` on the server (the server SLM is the mamba2 model, so
+   SE-CCL runs G′ too), every model with a 1280-wide connector latent,
+   batch 8, 1 CCL + 1 AMT + 1 SE-CCL step; one evaluated round on the
+   vectorized engine (after an evaluation before it), then one on the
+   loop engine from the same seed's states; checks each round's exact
+   launches (G twice a layer of a trained pass under remat and G′ once,
+   once a layer of an eval pass; C's FMA launches exactly those at
+   hymba's in_proj, whose N = 6,482 is no multiple of 8, every other
+   launch on the tensor-core routes), the frozen backbones, every
+   trainable leaf finite and moved (but the LLM's LoRA A, which one
+   SE-CCL step from B = 0 cannot reach), and the two rounds' summaries
+   and leaves against each other; prints an ``{"ssm_training": ...}``
+   line (round wall time, ms per step per cohort, peak memory,
+   ``avg_ce`` / ``server_ce`` before and after, launches per route);
+15. prints ``{"phase_seconds": ...}`` and a ``{"kernels": [...]}`` line
    (times from CUDA-graph replay, bounds from this run's inputs; rows
-   A-G, each with its launches on the main paths; the rows of the five
+   A-G and G′, each with its launches on the main paths; the rows of the five
    two-route kernels, A, B, B's backward, C and G, also time their FMA
    route on the same inputs, ``ms_fma_route``; the rows of D (forward and
    backward) and E time an empty kernel launched as the kernel launches,
@@ -158,7 +182,8 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    sample, at the split the rule picks for it); row A, at the SLM's,
    hymba's and qwen3's fullest decode step (``at_other_shapes``), also
    times every forced cluster size, ``ms_by_splits`` and ``ms_splits1``;
-   rows B, B's backward and C also at qwen3's training shapes; the row
+   rows B, B's backward and C also at qwen3's training shapes, C also at
+   mamba2's and hymba's in_proj (the latter on the FMA route); the row
    of C's grouped form at G 3 x 1088 x 1280 x 1280 beside three ungrouped
    launches of the same work, ``ungrouped_x3_ms``).
 
@@ -1308,7 +1333,8 @@ def counters():
     from repro_torch.kernels.paged_attention import paged_attention_cuda
     from repro_torch.kernels.quantize import (dequantize_rows_cuda,
                                               quantize_rows_cuda)
-    from repro_torch.kernels.ssd_scan import ssd_chunk_cuda
+    from repro_torch.kernels.ssd_scan import (ssd_chunk_bwd_cuda,
+                                              ssd_chunk_cuda)
     return {"paged_attention": paged_attention_cuda,
             "flash_attention": flash_attention_cuda,
             "flash_attention_backward": flash_attention_backward_cuda,
@@ -1318,7 +1344,8 @@ def counters():
             "gram_log_volume_backward": gram_log_volume_backward_cuda,
             "quantize_rows": quantize_rows_cuda,
             "dequantize_rows": dequantize_rows_cuda,
-            "ssd_chunk": ssd_chunk_cuda}
+            "ssd_chunk": ssd_chunk_cuda,
+            "ssd_chunk_bwd": ssd_chunk_bwd_cuda}
 
 
 # the kernels with a tensor-core route and an FMA route, and the route
@@ -1332,9 +1359,9 @@ TENSOR_CORE_ROUTES = {"paged_attention": "mma",
 
 
 def zero_counters():
-    for name, fn in counters().items():
+    for fn in counters().values():
         fn.launches = 0
-        if name in TENSOR_CORE_ROUTES:
+        if hasattr(fn, "launches_by_route"):
             fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
 
 
@@ -1342,53 +1369,110 @@ def read_counters():
     return {n: fn.launches for n, fn in counters().items()}
 
 
-def check_tensor_core_routes(tag):
+def check_tensor_core_routes(tag, fma=None):
     """Every launch of A, C, B (forward and backward) and G since the last
-    ``zero_counters`` took the tensor-core route; returns the per-route
-    counts."""
+    ``zero_counters`` took the tensor-core route, except exactly ``fma``'s
+    count of FMA launches per kernel (C at a projection whose shape the
+    wgmma route does not take: ``round_launch_plan``); returns the
+    per-route counts."""
     fns = counters()
+    fma = fma or {}
     routes = {n: dict(fns[n].launches_by_route) for n in TENSOR_CORE_ROUTES}
     for name, counts in routes.items():
         off = {r: n for r, n in counts.items()
                if r != TENSOR_CORE_ROUTES[name] and n}
-        if off:
+        if off != ({"fma": fma[name]} if fma.get(name) else {}):
             raise AssertionError(f"{tag}: {name} launched off the "
-                                 f"tensor-core route: {counts}")
+                                 f"tensor-core route: {counts}, expected "
+                                 f"{fma.get(name, 0)} on fma")
     return routes
 
 
+# the adapted projections fed by a layer's normed input: on a raw batch
+# (no soft prompt) layer 0's take the frozen embedding and need no dx
+ENTRY_PROJECTIONS = ("wq", "wk", "wv", "in_proj")
+
+
+def projection_routes(mc):
+    """{target: (route of y, route of dx)} for each adapted projection of
+    one layer of ``mc``, from C's route rule on meta tensors at its (K, N):
+    hymba's in_proj (N = 2 * 3200 + 2 * 16 + 50 = 6,482, no multiple of 8)
+    takes the FMA route both ways, every other projection of the main
+    paths the wgmma route."""
+    import torch
+    from repro_torch.kernels.lora_matmul import lora_matmul_route
+    d, r = mc.d_model, mc.lora_rank
+    dims = {}
+    if mc.family != "ssm":
+        H, K, hd = mc.n_heads, mc.n_kv_heads, mc.head_dim
+        dims.update(wq=(d, H * hd), wk=(d, K * hd), wv=(d, K * hd),
+                    wo=(H * hd, d))
+    if mc.family in ("ssm", "hybrid"):
+        di, N, G, Hs = mc.d_inner, mc.ssm_state, mc.ssm_groups, mc.ssm_heads
+        dims.update(in_proj=(d, 2 * di + 2 * G * N + Hs), out_proj=(di, d))
+    meta = dict(device="meta", dtype=mc.torch_dtype)
+    out = {}
+    for t in mc.lora_targets:
+        if t not in dims:
+            continue
+        k, n = dims[t]
+        w = torch.empty((k, n), **meta)
+        a, b = torch.empty((k, r), **meta), torch.empty((r, n), **meta)
+        out[t] = (lora_matmul_route(torch.empty((8, k), **meta), w, a, b),
+                  lora_matmul_route(torch.empty((8, n), **meta), w, b.t(),
+                                    a.t(), trans_w=True))
+    return out
+
+
+def pass_launches(mc, prefix, trained=True):
+    """Launches of one pass of ``mc``: C per route, B, B', G, G'.  A
+    trained pass launches each adapted projection's C L times forward, L
+    more when ``remat`` recomputes the layers in the backward, and L for dx
+    (one fewer for an entry projection on a raw batch); B (attention
+    families) and G (the ssm and hybrid families) L times forward, L more
+    under remat, and their backward kernels L times.  An untrained pass
+    (eval, no autograd) launches each once a layer."""
+    L = mc.n_layers
+    rem = 2 if trained and mc.remat else 1
+    c = {"wgmma": 0, "fma": 0}
+    for t, (fwd, dx) in projection_routes(mc).items():
+        c[fwd] += L * rem
+        if trained:
+            c[dx] += L - (0 if prefix or t not in ENTRY_PROJECTIONS else 1)
+    attn, ssd = mc.family != "ssm", mc.family in ("ssm", "hybrid")
+    return {"c": c, "b": L * rem * attn, "b_bwd": L * attn * trained,
+            "g": L * rem * ssd, "g_bwd": L * ssd * trained}
+
+
 def expected_round_launches(runner, evaluate=True):
+    """The launches of every kernel in one round: ``round_launch_plan``'s
+    first half."""
+    return round_launch_plan(runner, evaluate)[0]
+
+
+def round_launch_plan(runner, evaluate=True):
     """Launches of every kernel in one round (evaluated or not), from the
     step structure, cohort by cohort (each cohort's model, batch size and
     step counts) over the round's working set (under a sampler the
-    sampled members, else every member).  On the loop engine only the
-    working set's present clients train, each pass is one client's, and
-    client eval runs each member's own batches.  On the vectorized engine
-    each local step is ONE pass of the cohort's working set (offline
-    clients train and are selected back), its C launches are the grouped
-    form's, and client eval runs one pass per padded eval batch of the
-    cohort (the most any registered member needs); the server's launches
-    are the same on both engines.  A trained pass
-    of an L-layer model launches C 4L times forward, 4L more when
-    ``remat`` recomputes the layers in the backward, and 4L for dx (3
-    fewer on a raw batch: layer 0's wq/wk/wv inputs are the frozen
-    embedding, which needs no gradient); B L times forward, L more under
-    remat, and its backward L times.  Each CCL loss launches D once
-    forward and once backward.  The server's passes run the LLM and the
-    server SLM.  An eval batch is one forward without autograd: 4L C and
-    L B.  A quantized channel encodes each of a cohort's K LoRA leaves
-    once on the uplink and once on the downlink (E 2K) and decodes each
-    of them on both (F 2K), plus once more for the uplink's error
-    feedback (F 3K)."""
+    sampled members, else every member), and the FMA launches of C among
+    them: ({kernel: launches}, {"lora_matmul": n, "lora_matmul_grouped":
+    n}).  On the loop engine only the working set's present clients
+    train, each pass is one client's, and client eval runs each member's
+    own batches.  On the vectorized engine each local step is ONE pass of
+    the cohort's working set (offline clients train and are selected
+    back), its C launches are the grouped form's, and client eval runs one
+    pass per padded eval batch of the cohort (the most any registered
+    member needs); the server's launches are the same on both engines.
+    A pass launches what ``pass_launches`` counts; each CCL loss launches
+    D once forward and once backward.  The server's passes run the LLM
+    and the server SLM (the first cohort's model unless the spec names
+    one).  A quantized channel encodes each of a cohort's K LoRA leaves
+    once on the uplink and once on the downlink (E 2K) and decodes each of
+    them on both (F 2K), plus once more for the uplink's error feedback
+    (F 3K)."""
     cfg, spec, l = runner.cfg, runner.spec, runner.llm.cfg
     s = runner._srv_slm_bundle.cfg
     pres = runner._rnd_present
-
-    def trained(mc, prefix):
-        rem = 2 if mc.remat else 1
-        L = mc.n_layers
-        return 4 * L * rem + 4 * L - (0 if prefix else 3), L * rem
-
     stacked = runner.engine in ("vectorized", "overlap")
     passes, grouped, d, k = [], [], cfg.server_steps, 0
     evals, grouped_evals = [], []
@@ -1401,34 +1485,43 @@ def expected_round_launches(runner, evaluate=True):
         blocks = [-(-runner.priv_test[rt.offset + i]["tokens"].shape[0]
                     // bs) for i in runner._members(rt)]
         if stacked:
-            grouped += [(m, True)] * steps
+            grouped += [pass_launches(m, True)] * steps
             d += k_ccl
-            grouped_evals.append((m, rt.eval_blocks))
+            grouped_evals += [pass_launches(m, True, False)] * rt.eval_blocks
         else:
-            passes += [(m, True)] * n * steps
+            passes += [pass_launches(m, True)] * n * steps
             d += n * k_ccl
-            evals.append((m, sum(blocks)))
+            evals += [pass_launches(m, True, False)] * sum(blocks)
         k += len(rt.up_like) if runner.channel.spec.codec in (
             "int8", "int4") else 0
-    evals.append((l, -(-runner.public_test["tokens"].shape[0]
-                      // cfg.batch_size)))
-    passes += cfg.server_steps * [(l, True), (l, False), (s, True),
-                                  (s, False)]
-    c = sum(trained(m, p)[0] for m, p in passes)
-    cg = sum(trained(m, p)[0] for m, p in grouped)
-    b = sum(trained(m, p)[1] for m, p in passes + grouped)
-    b_bwd = sum(m.n_layers for m, _ in passes + grouped)
+    server_evals = [pass_launches(l, True, False)] * -(
+        -runner.public_test["tokens"].shape[0] // cfg.batch_size)
+    passes += cfg.server_steps * [pass_launches(l, True),
+                                  pass_launches(l, False),
+                                  pass_launches(s, True),
+                                  pass_launches(s, False)]
     if evaluate:
-        c += sum(4 * m.n_layers * n for m, n in evals)
-        cg += sum(4 * m.n_layers * n for m, n in grouped_evals)
-        b += sum(m.n_layers * n for m, n in evals + grouped_evals)
-    return {"paged_attention": 0, "flash_attention": b,
-            "flash_attention_backward": b_bwd, "lora_matmul": c,
-            "lora_matmul_grouped": cg,
-            "gram_log_volume": d, "gram_log_volume_backward": d,
-            "quantize_rows": 2 * k,
-            "dequantize_rows": (3 if runner.channel.stateful else 2) * k,
-            "ssd_chunk": 0}
+        passes += evals + server_evals
+        grouped += grouped_evals
+
+    def total(ps, key, route=None):
+        return sum(p[key][route] if route else p[key] for p in ps)
+    launches = {
+        "paged_attention": 0,
+        "flash_attention": total(passes + grouped, "b"),
+        "flash_attention_backward": total(passes + grouped, "b_bwd"),
+        "lora_matmul": total(passes, "c", "wgmma")
+        + total(passes, "c", "fma"),
+        "lora_matmul_grouped": total(grouped, "c", "wgmma")
+        + total(grouped, "c", "fma"),
+        "gram_log_volume": d, "gram_log_volume_backward": d,
+        "quantize_rows": 2 * k,
+        "dequantize_rows": (3 if runner.channel.stateful else 2) * k,
+        "ssd_chunk": total(passes + grouped, "g"),
+        "ssd_chunk_bwd": total(passes + grouped, "g_bwd")}
+    fma = {"lora_matmul": total(passes, "c", "fma"),
+           "lora_matmul_grouped": total(grouped, "c", "fma")}
+    return launches, fma
 
 
 def frozen_fingerprint(tree):
@@ -1674,10 +1767,10 @@ def training_kernel_rows():
     # SLM's forward and the LLM's dx (transposed W) are timed beside it.
     # Each shape also times the FMA route (every launch's kernel before
     # the wgmma route) on the same inputs.
-    def c_case(M, K, N, r, trans_w):
+    def c_case(M, K, N, r, trans_w, want="wgmma"):
         x, w, a, b = lora_inputs(gen, M, K, N, r, dt, trans_w=trans_w)
         route = lora_matmul_route(x, w, a, b, trans_w)
-        if route != "wgmma":
+        if route != want:
             raise AssertionError(f"lora row: route {route}")
         ms = graph_ms(lambda i: lora_matmul_cuda(x, w, a, b, 2.0,
                                                  trans_w=trans_w))
@@ -1707,7 +1800,14 @@ def training_kernel_rows():
               "qwen3_q_o_forward": c_case(1088, 2048, 2048, 8, False),
               "qwen3_k_v_forward": c_case(1088, 2048, 1024, 8, False),
               "qwen3_q_o_dx": c_case(1088, 2048, 2048, 8, True),
-              "qwen3_k_v_dx": c_case(1088, 1024, 2048, 8, True)}
+              "qwen3_k_v_dx": c_case(1088, 1024, 2048, 8, True),
+              # the ssm_training phase: mamba2's in_proj, and hymba's, whose
+              # N = 6,482 (no multiple of 8) takes the FMA route both ways
+              "mamba2_in_proj_forward": c_case(1088, 2560, 10576, 8, False),
+              "hymba_in_proj_forward_fma": c_case(1088, 1600, 6482, 8, False,
+                                                  want="fma"),
+              "hymba_in_proj_dx_fma": c_case(1088, 6482, 1600, 8, True,
+                                             want="fma")}
     rows.append({
         "name": "lora_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/lora_matmul.cu",
@@ -2671,6 +2771,123 @@ def phase_ssd_checks():
 
 
 # ---------------------------------------------------------------------------
+# phase: kernel G′ (the SSD chunk scan's backward) against its plain version
+
+# G′'s cases: name -> (B, S, H, P, G, N, chunk, with a state gradient)
+SSD_BWD_CASES = {
+    "mamba2_train": (8, 256, 80, 64, 1, 128, 256, False),
+    "mamba2_chunks3": (1, 768, 80, 64, 1, 128, 256, True),
+    "hymba_train": (8, 256, 50, 64, 1, 16, 256, False),
+    "hymba_chunks2": (1, 512, 50, 64, 1, 16, 256, True),
+    "groups2": (1, 128, 4, 16, 2, 8, 64, True),
+}
+# each row (the last axis) of a gradient against the larger of its own
+# largest |value| and a tenth of the tensor's, at F32_TOL: both sides sum
+# in f32 from the same values, in other orders (dB and dC over up to 80
+# heads), and a kernel that writes zeros fails
+SSD_BWD_FLOOR = 0.1
+SSD_BWD_NAMES = ("dx", "ddt", "dcum", "dB", "dC")
+
+
+def ssd_bwd_rows(tag, got, want):
+    """rel_check of each of G′'s five outputs, a row per last axis."""
+    return {f"{n}/{tag}": rel_check(
+        f"ssd bwd {n} {tag}", g.reshape(-1, g.shape[-1]),
+        w.reshape(-1, w.shape[-1]), F32_TOL, floor=SSD_BWD_FLOOR)
+        for n, g, w in zip(SSD_BWD_NAMES, got, want)}
+
+
+def ssd_bwd_inputs(gen, B, S, H, P, G, N, L, states, dtype, **kw):
+    """G's model-like inputs (``ssd_inputs``), their cum, dy and (with
+    ``states``) a nonzero state gradient."""
+    import torch
+    x, dt, A, Bm, Cm = ssd_inputs(gen, B, S, H, P, G, N, dtype, **kw)
+    cum = chunk_cum(dt, A, L)
+    dy = torch.randn((B, S, H, P), generator=gen, device="cuda")
+    ds = 0.5 * torch.randn((B, S // L, H, P, N), generator=gen,
+                           device="cuda") if states else None
+    return x, dt, cum, Bm, Cm, dy, ds
+
+
+def phase_ssd_bwd_checks():
+    """G′ against ``ssd_chunk_bwd_plain`` at mamba2's and hymba's training
+    shapes (batch 8, one chunk of 256: no state gradient, as in the round)
+    and over several chunks with a state gradient, a toy with two groups,
+    bf16 and f32; strong decay (every output finite); two launches
+    bit-equal; then ``ops.ssd_chunked``'s whole backward at a ragged S of
+    three chunks against the plain path's autograd, with exactly one G and
+    one G′ launch."""
+    import torch
+    from repro_torch.kernels import ops, ssd_scan
+    from repro_torch.kernels.ssd_scan import (ssd_chunk_bwd_cuda,
+                                              ssd_chunk_bwd_plain,
+                                              ssd_chunk_cuda)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    results = {}
+    for name, (B, S, H, P, G, N, L, st) in SSD_BWD_CASES.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            ins = ssd_bwd_inputs(gen, B, S, H, P, G, N, L, st, dtype)
+            n = ssd_chunk_bwd_cuda.launches
+            got = ssd_chunk_bwd_cuda(*ins, L)
+            if ssd_chunk_bwd_cuda.launches != n + 1:
+                raise AssertionError(f"ssd bwd {name}: launches")
+            want = ssd_chunk_bwd_plain(*ins, L)
+            torch.cuda.synchronize()
+            results.update(ssd_bwd_rows(f"{name}/{str(dtype)[6:]}", got,
+                                        want))
+    # |A| dt up to ~16 x 6 a row: exp above the diagonal would be inf
+    ins = ssd_bwd_inputs(gen, 1, 512, 80, 64, 1, 128, 256, True,
+                         torch.bfloat16, dt_shift=5.0)
+    got = ssd_chunk_bwd_cuda(*ins, 256)
+    torch.cuda.synchronize()
+    if not all(bool(torch.isfinite(g).all()) for g in got):
+        raise AssertionError("ssd bwd: non-finite output under strong "
+                             "decay")
+    strong = ssd_bwd_rows("strong_decay", got,
+                          ssd_chunk_bwd_plain(*ins, 256))
+    # no float atomics: the same bits twice (80 heads into one group)
+    L = SSD_BWD_CASES["mamba2_chunks3"][6]
+    ins = ssd_bwd_inputs(gen, *SSD_BWD_CASES["mamba2_chunks3"][:7], True,
+                         torch.bfloat16)
+    a, b = (ssd_chunk_bwd_cuda(*ins, L) for _ in range(2))
+    torch.cuda.synchronize()
+    if not all(torch.equal(u, v) for u, v in zip(a, b)):
+        raise AssertionError("ssd bwd: two launches differ")
+    # the chunked SSD's backward: one G and one G′ launch
+    x, dt, A, Bm, Cm = ssd_inputs(gen, 2, 700, 80, 64, 1, 128,
+                                  torch.float32, a_div=8.0)
+    wy = torch.randn(x.shape, generator=gen, device="cuda")
+    wh = torch.randn((2, 80, 64, 128), generator=gen, device="cuda")
+    grads, counts = [], []
+    for fn in (ssd_scan.ssd_chunk_autograd, ssd_scan.ssd_chunk_plain):
+        saved, ops.ssd_chunk_autograd = ops.ssd_chunk_autograd, fn
+        try:
+            ins = [t.clone().requires_grad_(True) for t in (x, dt, A, Bm, Cm)]
+            n = (ssd_chunk_cuda.launches, ssd_chunk_bwd_cuda.launches)
+            y, h = ops.ssd_chunked(*ins, 256, return_state=True)
+            ((y * wy).sum() + (h * wh).sum()).backward()
+            counts.append((ssd_chunk_cuda.launches - n[0],
+                           ssd_chunk_bwd_cuda.launches - n[1]))
+            grads.append([t.grad for t in ins])
+        finally:
+            ops.ssd_chunk_autograd = saved
+    if counts != [(1, 1), (0, 0)]:
+        raise AssertionError(f"ssd_chunked backward launches {counts}")
+    torch.cuda.synchronize()
+    chunked = {n: rel_check(f"ssd_chunked grad {n}",
+                            g.reshape(-1, g.shape[-1]),
+                            w.reshape(-1, w.shape[-1]), F32_TOL,
+                            floor=SSD_BWD_FLOOR)
+               for n, g, w in zip(("x", "dt", "A", "B", "C"), *grads)}
+    emit({"phase": "ssd_chunk_bwd_vs_plain", "cases": SSD_BWD_CASES,
+          "max_abs_err": results, "strong_decay": strong,
+          "bit_equal_twice": True,
+          "ssd_chunked_grads_vs_plain_autograd_f32": chunked,
+          "ssd_chunked_launches_G_Gbwd": counts[0],
+          "tolerance": {"rows": F32_TOL, "floor": SSD_BWD_FLOOR}})
+
+
+# ---------------------------------------------------------------------------
 # phases 10 / 11: serving the ssm and hybrid families at full width
 
 N_RECURRENT_REQUESTS = 24
@@ -2940,6 +3157,66 @@ def ssd_kernel_rows():
         "library_call": "none: no single PyTorch call computes the SSD "
                         "chunk scan",
         "at_other_shapes": others}]
+
+
+def ssd_bwd_kernel_row():
+    """Row G′ at mamba2's training shape (batch 8, one chunk of 256, 80
+    heads, bf16, no state gradient: the round's launches), from CUDA-graph
+    replay, beside the plain version; hymba's training shape and three
+    chunks with a state gradient also timed.  The bound counts the bytes
+    of every input and output once and the products the causal triangle
+    needs (dy.x^T, sum_i M dy_i, and dCB times B and C per head; C.B^T
+    once per group; dS B_j and dS^T x_j per row and head where dS is
+    given) at the tensor cores' bf16 rate."""
+    import torch
+    from repro_torch.kernels.ssd_scan import (ssd_chunk_bwd_cuda,
+                                              ssd_chunk_bwd_plain)
+    gen = torch.Generator(device="cuda").manual_seed(14)
+
+    def case(B, S, H, P, G, N, L, st):
+        ins = ssd_bwd_inputs(gen, B, S, H, P, G, N, L, st, torch.bfloat16)
+        got = ssd_chunk_bwd_cuda(*ins, L)
+        err = max(r["max_rel_err"] for r in ssd_bwd_rows(
+            "row", got, ssd_chunk_bwd_plain(*ins, L)).values())
+        times = graphs_ms({
+            "ms": lambda i: ssd_chunk_bwd_cuda(*ins, L),
+            "plain_ms": lambda i: ssd_chunk_bwd_plain(*ins, L)},
+            n_calls=10)
+        nc, es = S // L, ins[0].element_size()
+        rows_h, rows_g = B * S * H, B * S * G * N
+        bytes_ = (rows_h * P * es + 2 * rows_g * es + 2 * rows_h * 4
+                  + rows_h * P * 4 + (B * nc * H * P * N * 4 if st else 0)
+                  + rows_h * P * 4 + 2 * rows_h * 4 + 2 * rows_g * 4)
+        tri = L * (L + 1) // 2
+        flops = 2 * B * nc * (G * tri * N + H * tri * (2 * P + 2 * N)
+                              + (2 * H * L * P * N if st else 0))
+        bound, by = _bound(bytes_, flops)
+        return {**times, "bound_ms": bound, "bound_by": by,
+                "max_abs_err": err, "bytes": bytes_, "flops": flops,
+                "shape": {"B": B, "S": S, "H": H, "P": P, "G": G, "N": N,
+                          "chunk": L, "dstates": st,
+                          "dtype": str(ins[0].dtype)}}
+
+    main = case(*SSD_BWD_CASES["mamba2_train"])
+    others = {n: case(*SSD_BWD_CASES[n])
+              for n in ("hymba_train", "mamba2_chunks3")}
+    return {
+        "name": "ssd_chunk_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:55 (its gradient: "
+                    "jax.grad of src/repro/models/ssm.py:61 ssd_reference)",
+        "max_abs_err": max([main["max_abs_err"]]
+                           + [o["max_abs_err"] for o in others.values()]),
+        "max_abs_err_is": "the largest error of a gradient row divided by "
+                          "that row's scale (ssd_bwd_rows)",
+        "tolerance": {"rows": F32_TOL, "floor": SSD_BWD_FLOOR},
+        "kernel_route": "fma",
+        **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "shape", "bytes", "flops")},
+        "library_ms": None,
+        "library_call": "none: no single PyTorch call computes the SSD "
+                        "chunk scan's gradient",
+        "at_other_shapes": others}
 
 
 # ---------------------------------------------------------------------------
@@ -4100,6 +4377,247 @@ def phase_overlap_rounds():
     return res, total
 
 
+# ---------------------------------------------------------------------------
+# phase: training the ssm and hybrid families (G and G′ on the main path)
+
+SSM_ROUND = dict(local_steps_ccl=1, local_steps_amt=1, server_steps=1,
+                 batch_size=8, seed=0)
+
+
+def ssm_models():
+    """mamba2-2.7b, hymba-1.5b and the paper's LLM at their published
+    widths and depths, each with the one 1280-wide connector latent the
+    reference demands of every model of a federation."""
+    from repro_torch.configs.hymba_1p5b import CONFIG as HYMBA
+    from repro_torch.configs.mamba2_2p7b import CONFIG as MAMBA2
+    _, llm = round_models()
+    return (dataclasses.replace(MAMBA2, connector_dim=1280),
+            dataclasses.replace(HYMBA, connector_dim=1280), llm)
+
+
+def ssm_spec(engine):
+    """3 mamba2 clients on modalities 0-1, 2 hymba clients on modality 2,
+    the LLM on the server; the server SLM is the first cohort's model, so
+    SE-CCL trains a mamba2 too."""
+    from repro_torch.core.spec import ClientCohort, FederationSpec
+    mamba2, hymba, llm = ssm_models()
+    return FederationSpec(
+        cohorts=(ClientCohort(mamba2, 3, "mamba2-edge", modalities=(0, 1)),
+                 ClientCohort(hymba, 2, "hymba-edge", modalities=(2,))),
+        server_llm=llm, rounds=1, engine=engine, **SSM_ROUND)
+
+
+def ssm_corpus():
+    """The round's corpus over hymba's 32,001-token vocabulary, the
+    smallest of the federation's (token ids past a model's vocabulary
+    are refused)."""
+    from repro_torch.data.synthetic import synthetic_multimodal_corpus
+    return synthetic_multimodal_corpus(
+        0, CORPUS["n_samples"], CORPUS["seq_len"],
+        min(m.vocab_size for m in ssm_models()),
+        n_classes=CORPUS["n_classes"], n_modalities=CORPUS["n_modalities"],
+        modality_dim=CORPUS["modality_dim"],
+        template_len=CORPUS["template_len"])
+
+
+def adam_step_below_bf16(runner, who, key, leaf):
+    """Whether trainable leaf ``key`` of ``who`` ("device{j}",
+    "server_slm", "server_llm") had a gradient (a nonzero AdamW first
+    moment) whose last AdamW step, recomputed from the optimizer state,
+    lies under half the bf16 spacing of every element (2^-9 |x|), so that
+    the step rounds back to the leaf's value: {"below", "last_step",
+    "mu"} (the step's and the first moment's largest magnitudes)."""
+    import torch
+    if who.startswith("device"):
+        j = int(who[len("device"):])
+        rt = next(r for r in runner.cohorts
+                  if r.offset <= j < r.offset + r.n)
+        i = j - rt.offset
+        if rt.stacked_opt is not None:
+            o = rt.stacked_opt
+            step, mu, nu = o["step"][i], o["mu"][key][i], o["nu"][key][i]
+        else:
+            o = rt.device_opt[i]
+            step, mu, nu = o["step"], o["mu"][key], o["nu"][key]
+    else:
+        o = getattr(runner, f"{who}_opt")
+        step, mu, nu = o["step"], o["mu"][key], o["nu"][key]
+    t = step.float()
+    u = runner.spec.lr * (mu / (1 - 0.9 ** t)) / (
+        torch.sqrt(nu / (1 - 0.95 ** t)) + 1e-8)
+    below = bool((u.abs() < 2.0 ** -9 * leaf.float().abs()).all()) \
+        and bool((mu != 0).any())
+    return {"below": below, "last_step": float(u.abs().max()),
+            "mu": float(mu.abs().max())}
+
+
+def ssm_round(engine, seconds, pre_eval):
+    """One evaluated round of ``ssm_spec(engine)`` from the seed's states,
+    counted, timed and checked: (runner, record)."""
+    import torch
+    from repro_torch.core.federated import FederatedRunner
+    from repro_torch.core.lora import default_trainable, flatten
+    spec = ssm_spec(engine)
+    names = [c.name for c in spec.cohorts]
+    runner = FederatedRunner(spec, ssm_corpus(), device="cuda")
+
+    def timed(fn, key):
+        def run(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            seconds.setdefault(key, []).append(time.perf_counter() - t)
+            return out
+        return run
+    steps = [(rt.ccl_step, rt.amt_step) for rt in runner.cohorts]
+    for rt, name in zip(runner.cohorts, names):
+        rt.ccl_step = timed(rt.ccl_step, f"{engine}/{name}/ccl")
+        rt.amt_step = timed(rt.amt_step, f"{engine}/{name}/amt")
+    se_step = runner.se_step
+    runner.se_step = timed(se_step, f"{engine}/server/seccl")
+    trees = {f"base/{n}": b for n, b in zip(names, runner.cohort_bases)}
+    trees.update(server_slm=runner.server_slm, server_llm=runner.server_llm)
+    frozen0 = {n: frozen_fingerprint(t) for n, t in trees.items()}
+    init = snapshot_trainable(runner)
+    before = runner.evaluate()["summary"] if pre_eval else None
+    zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = runner.run_round()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    peak = torch.cuda.max_memory_allocated()
+    want, fma = round_launch_plan(runner)
+    routes = check_tensor_core_routes(f"ssm {engine} round", fma)
+    if launches != want:
+        raise AssertionError(f"ssm {engine} round: launches {launches} != "
+                             f"expected {want}")
+    if not fma["lora_matmul" if engine == "loop" else "lora_matmul_grouped"]:
+        raise AssertionError(f"ssm {engine} round: hymba's in_proj took no "
+                             "FMA launch")
+    for rt, (ccl, amt) in zip(runner.cohorts, steps):
+        rt.ccl_step, rt.amt_step = ccl, amt
+    runner.se_step = se_step
+    for n, t in trees.items():
+        if frozen_fingerprint(t) != frozen0[n]:
+            raise AssertionError(f"ssm {engine} round: {n}: the frozen "
+                                 "backbone changed")
+    for rt, base in zip(runner.cohorts, runner.cohort_bases):
+        bflat = flatten(base)
+        for i, p in enumerate(rt.device_params):
+            for k, v in flatten(p).items():
+                if not default_trainable(k) and v is not bflat[k]:
+                    raise AssertionError(f"ssm {engine} round: {names[rt.idx]}"
+                                         f" client {i}: {k} is not the "
+                                         "cohort's backbone")
+    bad = [f"{n}:{k}" for n, t in snapshot_trainable(runner).items()
+           for k, v in t.items() if not bool(torch.isfinite(v).all())]
+    if bad:
+        raise AssertionError(f"ssm {engine} round: non-finite {bad[:3]}")
+    # one SE-CCL step from LoRA B = 0 gives the LLM's LoRA A no gradient;
+    # any other leaf that did not move must have had a gradient whose
+    # AdamW steps fell below half its bf16 spacing
+    unmoved = set(unmoved_leaves(init, runner))
+    no_grad = {f"server_llm:{k}" for k in init["server_llm"]
+               if k.endswith("_lora_a")}
+    if not no_grad <= unmoved:
+        raise AssertionError(f"ssm {engine} round: the LLM's LoRA A moved: "
+                             f"{sorted(no_grad - unmoved)[:3]}")
+    now = snapshot_trainable(runner)
+    below_bf16 = {}
+    for name in sorted(unmoved - no_grad):
+        who, key = name.split(":", 1)
+        below_bf16[name] = adam_step_below_bf16(runner, who, key,
+                                                now[who][key])
+        if not below_bf16[name]["below"]:
+            raise AssertionError(f"ssm {engine} round: {name} did not move"
+                                 f": {below_bf16[name]}")
+    for m in [out["summary"]] + out["client"] + [out["server"]]:
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"ssm {engine} round: non-finite {m}")
+    return runner, {
+        "init": init, "before": before, "summary": out["summary"],
+        "wall_s": wall, "peak_mem_bytes": peak, "launches": launches,
+        "routes": routes, "fma_launches_of_C": fma,
+        "unmoved_below_bf16_spacing": below_bf16,
+        "leaves": {n: lora_leaves(t) for n, t in
+                   [("server_slm", runner.server_slm),
+                    ("server_llm", runner.server_llm)]
+                   + [(f"device{j}", p)
+                      for j, p in enumerate(runner.device_params)]}}
+
+
+def phase_ssm_training():
+    """One evaluated round of the ssm + hybrid federation on the vectorized
+    engine, then one on the loop engine from the same seed's states (equal
+    at the start), each counted (G, G′ and C's FMA launches at hymba's
+    in_proj exactly), timed and checked; the two rounds' summaries and
+    LoRA leaves held against each other."""
+    import torch
+    seconds, rec = {}, {}
+    for engine in ("vectorized", "loop"):
+        runner, rec[engine] = ssm_round(engine, seconds,
+                                        pre_eval=engine == "vectorized")
+        del runner
+        release()
+    vec, loop = rec["vectorized"], rec["loop"]
+    for n, leaves in vec["init"].items():
+        if any(not torch.equal(v, loop["init"][n][k])
+               for k, v in leaves.items()):
+            raise AssertionError(f"ssm rounds: {n} did not start equal")
+    for k in ("avg_ce", "server_ce"):
+        a, b = loop["summary"][k], vec["summary"][k]
+        if not abs(a - b) <= ROUND_CE_RTOL * abs(a):
+            raise AssertionError(f"ssm rounds' {k}: {a} vs {b}")
+    for k in ("avg_acc", "best_acc", "worst_acc", "server_acc"):
+        if not abs(loop["summary"][k] - vec["summary"][k]) <= ROUND_ACC_ATOL:
+            raise AssertionError(f"ssm rounds' {k}: {loop['summary'][k]} vs"
+                                 f" {vec['summary'][k]}")
+    n_steps = {"server_llm": SSM_ROUND["server_steps"]}
+    lr, leaf_err = ssm_spec("loop").lr, {}
+    for n, leaves in loop["leaves"].items():
+        steps = n_steps.get(n, SSM_ROUND["local_steps_ccl"]
+                            + SSM_ROUND["local_steps_amt"]
+                            + SSM_ROUND["server_steps"])
+        for k, want in leaves.items():
+            got = vec["leaves"][n][k]
+            err = (got.float() - want.float()).abs()
+            if bool((err > leaf_bound(lr, steps, want)).any()):
+                raise AssertionError(f"ssm rounds' {n}:{k} "
+                                     f"{float(err.max())} apart")
+            leaf_err[n] = max(leaf_err.get(n, 0.0), float(err.max()))
+    mamba2, hymba, llm = ssm_models()
+    ms = {k: 1e3 * statistics.mean(v) for k, v in seconds.items()}
+    result = {
+        "config": {"cohorts": [[mamba2.name, 3, [0, 1]],
+                               [hymba.name, 2, [2]]],
+                   "server_llm": llm.name, "server_slm": mamba2.name,
+                   "connector_dim": 1280, "dtype": mamba2.dtype,
+                   "corpus_vocab": min(m.vocab_size for m in ssm_models()),
+                   "remat": mamba2.remat, "round": dict(SSM_ROUND)},
+        "round_wall_s": {e: rec[e]["wall_s"] for e in rec},
+        "step_ms": ms, "steps": {k: len(v) for k, v in seconds.items()},
+        "peak_mem_bytes": {e: rec[e]["peak_mem_bytes"] for e in rec},
+        "before": vec["before"],
+        "summary": {e: rec[e]["summary"] for e in rec},
+        "launches": {e: rec[e]["launches"] for e in rec},
+        "launches_by_route": {e: rec[e]["routes"] for e in rec},
+        "fma_launches_of_C": {e: rec[e]["fma_launches_of_C"] for e in rec},
+        "unmoved_below_bf16_spacing": {
+            e: rec[e]["unmoved_below_bf16_spacing"] for e in rec},
+        "hymba_in_proj_routes": projection_routes(hymba)["in_proj"],
+        "max_leaf_abs_err_vs_loop": leaf_err,
+        "tolerance": {"ce_rtol": ROUND_CE_RTOL, "acc_atol": ROUND_ACC_ATOL,
+                      "leaves": "2 lr per AdamW step + 2^-8 |leaf|"},
+    }
+    total = {n: sum(rec[e]["launches"][n] for e in rec)
+             for n in vec["launches"]}
+    return result, total
+
+
 def release():
     """Free what the last phase left: its objects hold reference cycles
     (a runner's step closures refer back to it), so collect them before
@@ -4135,6 +4653,7 @@ def main() -> int:
     phase_lora_checks()
     phase_gram_checks()
     phase_ssd_checks()
+    phase_ssd_bwd_checks()
     lap("kernel_checks")
     engine, snap, launches, serving, reqs = phase_serving()
     emit({"serving": serving})
@@ -4183,10 +4702,15 @@ def main() -> int:
                                paged_qwen["max_abs_err"])
     release()
     lap("hybrid_serving")
+    ssm_training, ssm_train_launches = phase_ssm_training()
+    emit({"ssm_training": ssm_training})
+    release()
+    lap("ssm_training")
     kernels += training_kernel_rows()
     kernels.append(grouped_lora_row())
     kernels += channel_kernel_rows()
     kernels += ssd_kernel_rows()
+    kernels.append(ssd_bwd_kernel_row())
     lap("kernel_rows")
     emit({"phase_seconds": seconds})
     # each row's launches: the counted runs of the main paths
@@ -4197,7 +4721,8 @@ def main() -> int:
              "vectorized_round": vec_launches,
              "population_rounds": pop_launches,
              "overlap_rounds": overlap_launches,
-             "ssm_serving": ssm_launches, "hybrid_serving": hybrid_launches}
+             "ssm_serving": ssm_launches, "hybrid_serving": hybrid_launches,
+             "ssm_training": ssm_train_launches}
     for row in kernels:
         by_path = {p: n[row["name"]] for p, n in paths.items()
                    if n[row["name"]]}

@@ -347,6 +347,17 @@ class FederatedRunner:
         self.llm = llm_bundle
         self._srv_slm_bundle = srv_slm_bundle
         N = cfg.n_devices
+        # a token id at or past a model's vocabulary is no token of it, and
+        # past its padded rows it indexes past the embedding (on the card
+        # an out-of-range gather; the reference's jnp.take fills NaN), so
+        # every model must cover the corpus
+        top = int(np.max(corpus["tokens"]))
+        short = sorted({m.cfg.name for m in [*bundles, llm_bundle,
+                                             srv_slm_bundle]
+                        if m.cfg.vocab_size <= top})
+        if short:
+            raise ValueError(f"corpus token ids reach {top}, past the "
+                             f"vocabulary of {short}")
 
         # data: public / private, train / test, modality masks.  Private
         # shards are allocated over the GLOBAL client index, then thinned

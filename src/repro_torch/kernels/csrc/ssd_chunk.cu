@@ -1,4 +1,6 @@
-// Mamba2 SSD intra-chunk scan (state-space duality) for Hopper, sm_90a.
+// Mamba2 SSD intra-chunk scan (state-space duality) for Hopper, sm_90a,
+// forward (G: two routes, below) and backward (G': one FMA route, after the
+// mma namespace).
 //
 // Replaces the TPU kernel `ssd_chunk` / `_ssd_kernel` in
 // src/repro/kernels/ssd_scan.py (pallas_call at line 55).  For every
@@ -648,6 +650,424 @@ cudaError_t launch(const void* x, const void* dt, const void* cum, const void* B
 
 }  // namespace mma
 
+// ------------------------------------------------------- backward, G' (fma)
+// The gradient of the intra-chunk output and of the chunk end states with
+// respect to x, dt, cum, B and C (TPU: `jax.grad` of the reference's
+// ssd_reference).  For one chunk and head, with M_ij = (C_i . B_j)
+// exp(cum_i - cum_j) for j <= i (0 above the diagonal), dAtt = dy x^T,
+// w_j = exp(cum_{L-1} - cum_j) and dS the end state's gradient:
+//
+//   dx_j   = dt_j sum_i M_ij dy_i + dt_j w_j (dS B_j)
+//   ddt_j  = sum_i dAtt_ij M_ij + w_j x_j^T dS B_j
+//   dCB_ij = dAtt_ij dt_j exp(cum_i - cum_j)                 (j <= i)
+//   dC_i   = sum_j dCB_ij B_j,   dB_j = sum_i dCB_ij C_i + dt_j w_j dS^T x_j
+//   dcum_i = sum_j T_ij - sum_k T_ki - s_i,  T_ij = dCB_ij (C_i . B_j),
+//            s_j = dt_j w_j x_j^T dS B_j;  dcum_{L-1} also gains sum_j s_j
+//
+// dB and dC sum over the heads of a group (all 80 at mamba2).
+//
+// What bounds it on the H100: per (chunk, head) it reads L*P values of x
+// and of dy (f32), 2L of dt and cum and P*N of dS, per (chunk, group) L*N
+// of each of B and C, and writes L*P f32 of dx, 2L of ddt and dcum and
+// per group 2*L*N of dB and dC.  The products are ~L^2/2 * (2N + 2P) per
+// head plus 2*L*P*N for the state term: at mamba2's training shape (batch
+// 8, one chunk of 256, 80 heads, P 64, N 128) ~130 MB against ~40 GFLOP,
+// so it is bound by operations at the tensor cores' rate.  This first
+// kernel runs every product on f32 FMA units (67 TFLOP/s, a floor of
+// ~0.6 ms there); tensor cores are later work.
+//
+// Design (`ssd_chunk_bwd_kernel` + two small finishing kernels, one call):
+//   * grid (2 * row tiles, groups x head slices of HS = 8 heads, batch x
+//     chunks), 256 threads (16 x 16, a 4 x 4 register tile of a 64 x 64
+//     score tile each).  A "row" block owns 64 rows i and walks the source
+//     tiles j <= i: dC_i and the row sums of T.  A "column" block owns 64
+//     rows j and walks the tiles i >= j: dx_j, ddt_j, dB_j, the column sums
+//     of T and the state term.  Both form C_i . B_j and dy_i . x_j for a
+//     tile pair in registers (the column block transposed, so that its
+//     sums over i are sums along its own rows), so the scores are formed
+//     twice; nothing crosses blocks but the outputs.
+//   * exp(cum_i - cum_j) is evaluated only where j <= i: above the
+//     diagonal its argument is large and positive, exp gives inf and
+//     0 * inf NaN.  w_j's argument is <= 0.
+//   * no float atomics: a block walks its slice's heads in order and keeps
+//     dB (or dC) of its rows in registers across them; each slice writes
+//     its partial sums (slices x B x S x G x N f32, 10 x 1 MB at mamba2
+//     against 84 MB a head), and a finishing kernel adds the slices in
+//     order.  dcum's row sums, column sums and state term land in three
+//     buffers that the second finishing kernel combines per (chunk, head)
+//     in row order.  Two launches on the same inputs give the same bits.
+//   * shared memory (floats): 2 * 64 * (N + 1) + 2 * 64 * (P + 1) + 2 * 64 *
+//     65 + 320, 134 KB at N 128, P 64 (one block an SM); dS (P x (N + 1))
+//     overlays the score tiles in the state step.  The caller passes every
+//     output and the scratch (`ssd_chunk_bwd_workspace_floats`): the
+//     launcher allocates nothing.
+namespace bwd {
+
+constexpr int NT = 256;    // 16 x 16 threads
+constexpr int T = 64;      // rows of a tile
+constexpr int TS = T + 1;  // padded stride of a score tile
+constexpr int HS = 8;      // heads of a slice
+
+int n_slices(int H, int G) { return (H / G + HS - 1) / HS; }
+
+size_t work_floats(int N, int P) {
+  return (size_t)T * (N + 1) + (size_t)T * (P + 1) + 2 * (size_t)T * TS;
+}
+
+size_t smem_floats(int N, int P) {
+  return (size_t)T * (N + 1) + (size_t)T * (P + 1) + work_floats(N, P) + 5 * T;
+}
+
+// the sum over the 16 lanes of a half-warp, the same bits in every lane
+__device__ __forceinline__ float half_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v;
+}
+
+template <typename Tp>
+__device__ __forceinline__ void load_rows(float* dst, int stride, const Tp* src, size_t first,
+                                          size_t step, int width, int n_rows) {
+  for (int e = threadIdx.x; e < T * width; e += NT) {
+    const int r = e / width, c = e - r * width;
+    dst[r * stride + c] = r < n_rows ? to_f(src[(first + r * step) * width + c]) : 0.f;
+  }
+}
+
+// grid (2 * ceil(L / 64), G * slices, B * chunks): x < row tiles a row
+// block, else a column block
+template <typename Tp, int KP, int NQ>
+__global__ void __launch_bounds__(NT)
+    ssd_chunk_bwd_kernel(const Tp* __restrict__ x, const float* __restrict__ dt,
+                         const float* __restrict__ cum, const Tp* __restrict__ Bm,
+                         const Tp* __restrict__ Cm, const float* __restrict__ dy,
+                         const float* __restrict__ dS, float* __restrict__ dx,
+                         float* __restrict__ ddt, float* __restrict__ row_t,
+                         float* __restrict__ col_t, float* __restrict__ s_out,
+                         float* __restrict__ dB_part, float* __restrict__ dC_part, int S, int H,
+                         int G, int N, int P, int L, size_t rows) {
+  extern __shared__ float smem[];
+  const int n_tiles = (L + T - 1) / T;
+  const bool col = (int)blockIdx.x >= n_tiles;  // block-uniform
+  const int tile = (int)blockIdx.x % n_tiles, t0 = tile * T, nt = min(T, L - t0);
+  const int R = H / G, ns = (R + HS - 1) / HS;
+  const int gi = blockIdx.y / ns, sl = blockIdx.y % ns;
+  const int h0 = gi * R + sl * HS, nh = min(HS, R - sl * HS);
+  const size_t bc = blockIdx.z;  // b * chunks + c
+  const int nc = S / L;
+  const size_t row0 = (bc / nc) * S + (bc % nc) * L;
+  const int NS = N + 1, PS = P + 1;
+  float* sOwnN = smem;            // T x NS: C_i (row block) or B_j (column block)
+  float* sOwnP = sOwnN + T * NS;  // T x PS: dy_i or x_j of the head
+  float* sOthN = sOwnP + T * PS;  // T x NS: B_j or C_i of the other tile
+  float* sOthP = sOthN + T * NS;  // T x PS: x_j or dy_i of the other tile
+  float* sT1 = sOthP + T * PS;    // T x TS: dCB (row) or M^T (column)
+  float* sT2 = sT1 + T * TS;      // T x TS: dCB^T (column)
+  float* sDS = sOthN;             // P x NS: dS, over the work area in the state step
+  float* sCumOwn = sT2 + T * TS;
+  float* sDtOwn = sCumOwn + T;
+  float* sCumOth = sDtOwn + T;
+  float* sDtOth = sCumOth + T;
+  float* sW = sDtOth + T;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+
+  load_rows(sOwnN, NS, col ? Bm : Cm, (row0 + t0) * G + gi, G, N, nt);
+  float acc_n[4][NQ];  // dC_i or dB_j over the slice's heads
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) acc_n[a][q] = 0.f;
+  const int o_first = col ? tile : 0, o_last = col ? n_tiles - 1 : tile;
+
+  for (int hh = 0; hh < nh; ++hh) {
+    const int h = h0 + hh;
+    __syncthreads();  // the previous head's readers are done
+    if (col)
+      load_rows(sOwnP, PS, x, (row0 + t0) * H + h, H, P, nt);
+    else
+      load_rows(sOwnP, PS, dy, (row0 + t0) * H + h, H, P, nt);
+    for (int r = tid; r < T; r += NT) {
+      const size_t row = row0 + t0 + r;
+      sCumOwn[r] = r < nt ? cum[row * H + h] : 0.f;
+      sDtOwn[r] = r < nt ? dt[row * H + h] : 0.f;
+    }
+    float t_sum[4] = {}, g_sum[4] = {};  // sums of T; (column) of dAtt * M
+    float acc_p[4][KP] = {};             // (column) sum_i M_ij dy_i
+
+    for (int o = o_first; o <= o_last; ++o) {
+      const int o0 = o * T, no = min(T, L - o0);
+      __syncthreads();  // the previous tile's readers are done
+      load_rows(sOthN, NS, col ? Cm : Bm, (row0 + o0) * G + gi, G, N, no);
+      if (col)
+        load_rows(sOthP, PS, dy, (row0 + o0) * H + h, H, P, no);
+      else
+        load_rows(sOthP, PS, x, (row0 + o0) * H + h, H, P, no);
+      for (int r = tid; r < T; r += NT) {
+        const size_t row = row0 + o0 + r;
+        sCumOth[r] = r < no ? cum[row * H + h] : 0.f;
+        sDtOth[r] = r < no ? dt[row * H + h] : 0.f;
+      }
+      __syncthreads();
+
+      float s[4][4] = {}, d[4][4] = {};  // C.B and dy.x of rows ty*4+a, cols tx+16q
+      for (int n = 0; n < N; ++n) {
+        float u[4], v[4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) u[a] = sOwnN[(ty * 4 + a) * NS + n];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) v[q] = sOthN[(tx + 16 * q) * NS + n];
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) s[a][q] = fmaf(u[a], v[q], s[a][q]);
+      }
+      for (int p = 0; p < P; ++p) {
+        float u[4], v[4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) u[a] = sOwnP[(ty * 4 + a) * PS + p];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) v[q] = sOthP[(tx + 16 * q) * PS + p];
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) d[a][q] = fmaf(u[a], v[q], d[a][q]);
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int r = ty * 4 + a;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int c = tx + 16 * q;
+          const int i = col ? o0 + c : t0 + r, j = col ? t0 + r : o0 + c;
+          float m = 0.f, dcb = 0.f;
+          if (j <= i && r < nt && c < no) {  // the mask comes before exp
+            const float e = expf(col ? sCumOth[c] - sCumOwn[r] : sCumOwn[r] - sCumOth[c]);
+            m = s[a][q] * e;
+            dcb = d[a][q] * (col ? sDtOwn[r] : sDtOth[c]) * e;
+            t_sum[a] = fmaf(dcb, s[a][q], t_sum[a]);
+            g_sum[a] = fmaf(d[a][q], m, g_sum[a]);
+          }
+          sT1[r * TS + c] = col ? m : dcb;
+          sT2[r * TS + c] = dcb;
+        }
+      }
+      __syncthreads();
+
+      for (int cc = 0; cc < no; ++cc) {
+        float dv[4], nv[NQ];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) dv[a] = sT2[(ty * 4 + a) * TS + cc];
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+          const int n = tx + 16 * q;
+          nv[q] = n < N ? sOthN[cc * NS + n] : 0.f;
+        }
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int q = 0; q < NQ; ++q) acc_n[a][q] = fmaf(dv[a], nv[q], acc_n[a][q]);
+        if (col) {
+          float mv[4], pv[KP];
+#pragma unroll
+          for (int a = 0; a < 4; ++a) mv[a] = sT1[(ty * 4 + a) * TS + cc];
+#pragma unroll
+          for (int k = 0; k < KP; ++k) {
+            const int p = tx + 16 * k;
+            pv[k] = p < P ? sOthP[cc * PS + p] : 0.f;
+          }
+#pragma unroll
+          for (int a = 0; a < 4; ++a)
+#pragma unroll
+            for (int k = 0; k < KP; ++k) acc_p[a][k] = fmaf(mv[a], pv[k], acc_p[a][k]);
+        }
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      t_sum[a] = half_sum(t_sum[a]);
+      g_sum[a] = half_sum(g_sum[a]);
+    }
+    if (!col) {
+      if (tx == 0) {
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const int r = ty * 4 + a;
+          if (r < nt) row_t[(row0 + t0 + r) * H + h] = t_sum[a];
+        }
+      }
+      continue;
+    }
+
+    // the column block: the chunk end state's gradient, then dx, ddt
+    float s_j[4] = {};
+    if (dS != nullptr) {
+      __syncthreads();  // the tiles' readers are done: sDS overlays them
+      const float* ds = dS + (bc * H + h) * (size_t)P * N;
+      for (int e = tid; e < P * N; e += NT) {
+        const int p = e / N, n = e - p * N;
+        sDS[p * NS + n] = ds[e];
+      }
+      const float cum_last = cum[(row0 + L - 1) * H + h];
+      for (int r = tid; r < T; r += NT) sW[r] = r < nt ? expf(cum_last - sCumOwn[r]) : 0.f;
+      __syncthreads();
+      float u[4][KP] = {};  // dS B_j
+      for (int n = 0; n < N; ++n) {
+        float bv[4], sv[KP];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) bv[a] = sOwnN[(ty * 4 + a) * NS + n];
+#pragma unroll
+        for (int k = 0; k < KP; ++k) {
+          const int p = tx + 16 * k;
+          sv[k] = p < P ? sDS[p * NS + n] : 0.f;
+        }
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int k = 0; k < KP; ++k) u[a][k] = fmaf(sv[k], bv[a], u[a][k]);
+      }
+      float v[4][NQ] = {};  // dS^T x_j
+      for (int p = 0; p < P; ++p) {
+        float xv[4], sv[NQ];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) xv[a] = sOwnP[(ty * 4 + a) * PS + p];
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+          const int n = tx + 16 * q;
+          sv[q] = n < N ? sDS[p * NS + n] : 0.f;
+        }
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int q = 0; q < NQ; ++q) v[a][q] = fmaf(sv[q], xv[a], v[a][q]);
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int r = ty * 4 + a;
+        float xu = 0.f;
+#pragma unroll
+        for (int k = 0; k < KP; ++k) {
+          const int p = tx + 16 * k;
+          if (p < P) xu = fmaf(sOwnP[r * PS + p], u[a][k], xu);
+        }
+        xu = half_sum(xu);
+        const float w = sW[r], dtw = sDtOwn[r] * w;
+#pragma unroll
+        for (int k = 0; k < KP; ++k) acc_p[a][k] = fmaf(w, u[a][k], acc_p[a][k]);
+        g_sum[a] = fmaf(w, xu, g_sum[a]);
+        s_j[a] = dtw * xu;
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) acc_n[a][q] = fmaf(dtw, v[a][q], acc_n[a][q]);
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int r = ty * 4 + a;
+      if (r >= nt) continue;
+      const size_t row = row0 + t0 + r;
+      const float dtj = sDtOwn[r];
+      float* dxr = dx + (row * H + h) * (size_t)P;
+#pragma unroll
+      for (int k = 0; k < KP; ++k) {
+        const int p = tx + 16 * k;
+        if (p < P) dxr[p] = dtj * acc_p[a][k];
+      }
+      if (tx == 0) {
+        ddt[row * H + h] = g_sum[a];
+        col_t[row * H + h] = t_sum[a];
+        s_out[row * H + h] = s_j[a];
+      }
+    }
+  }
+  // this slice's share of dB (column block) or dC (row block)
+  float* part = (col ? dB_part : dC_part) + (size_t)sl * rows * G * N;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int r = ty * 4 + a;
+    if (r >= nt) continue;
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      const int n = tx + 16 * q;
+      if (n < N) part[((row0 + t0 + r) * G + gi) * N + n] = acc_n[a][q];
+    }
+  }
+}
+
+// dB and dC: the slices' partial sums added in slice order
+__global__ void __launch_bounds__(NT)
+    ssd_chunk_bwd_groups(const float* __restrict__ dB_part, const float* __restrict__ dC_part,
+                         float* __restrict__ dB, float* __restrict__ dC, size_t count, int ns) {
+  const size_t e = (size_t)blockIdx.x * NT + threadIdx.x;
+  if (e >= count) return;
+  float b = 0.f, c = 0.f;
+  for (int sl = 0; sl < ns; ++sl) {
+    b += dB_part[sl * count + e];
+    c += dC_part[sl * count + e];
+  }
+  dB[e] = b;
+  dC[e] = c;
+}
+
+// dcum per (batch x chunk, head), in row order: the row sums of T (already
+// in dcum) less the column sums and the state term, and the state term's
+// total on the chunk's last row
+__global__ void __launch_bounds__(NT)
+    ssd_chunk_bwd_dcum(const float* __restrict__ col_t, const float* __restrict__ s_in,
+                       float* __restrict__ dcum, int S, int H, int L, size_t count) {
+  const size_t e = (size_t)blockIdx.x * NT + threadIdx.x;
+  if (e >= count) return;
+  const size_t bc = e / H;
+  const int h = (int)(e % H), nc = S / L;
+  const size_t row0 = (bc / nc) * S + (bc % nc) * L;
+  float total = 0.f;
+  for (int i = 0; i < L; ++i) {
+    const size_t o = (row0 + i) * H + h;
+    total += s_in[o];
+    dcum[o] = dcum[o] - col_t[o] - s_in[o];
+  }
+  dcum[(row0 + L - 1) * H + h] += total;
+}
+
+template <typename Tp, int KP, int NQ>
+cudaError_t launch_main(const void* x, const void* dt, const void* cum, const void* Bm,
+                        const void* Cm, const void* dy, const void* dS, float* dx, float* ddt,
+                        float* dcum, float* col_t, float* s_buf, float* dB_part, float* dC_part,
+                        int B, int S, int H, int G, int N, int P, int L, cudaStream_t stream) {
+  const size_t bytes = smem_floats(N, P) * sizeof(float);
+  if (bytes > MAX_SMEM) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(ssd_chunk_bwd_kernel<Tp, KP, NQ>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid(2 * ((L + T - 1) / T), G * n_slices(H, G), B * (S / L));
+  ssd_chunk_bwd_kernel<Tp, KP, NQ><<<grid, NT, bytes, stream>>>(
+      static_cast<const Tp*>(x), static_cast<const float*>(dt), static_cast<const float*>(cum),
+      static_cast<const Tp*>(Bm), static_cast<const Tp*>(Cm), static_cast<const float*>(dy),
+      static_cast<const float*>(dS), dx, ddt, dcum, col_t, s_buf, dB_part, dC_part, S, H, G, N,
+      P, L, (size_t)B * S);
+  return cudaGetLastError();
+}
+
+template <typename Tp>
+cudaError_t launch_t(const void* x, const void* dt, const void* cum, const void* Bm,
+                     const void* Cm, const void* dy, const void* dS, float* dx, float* ddt,
+                     float* dcum, float* col_t, float* s_buf, float* dB_part, float* dC_part,
+                     int B, int S, int H, int G, int N, int P, int L, cudaStream_t s) {
+#define SSD_BWD(KP, NQ)                                                                       \
+  launch_main<Tp, KP, NQ>(x, dt, cum, Bm, Cm, dy, dS, dx, ddt, dcum, col_t, s_buf, dB_part, \
+                          dC_part, B, S, H, G, N, P, L, s)
+#define SSD_BWD_N(KP)              \
+  (N <= 16   ? SSD_BWD(KP, 1)      \
+   : N <= 32 ? SSD_BWD(KP, 2)      \
+   : N <= 64 ? SSD_BWD(KP, 4)      \
+             : SSD_BWD(KP, 8))
+  return P <= 64 ? SSD_BWD_N(4) : SSD_BWD_N(8);
+#undef SSD_BWD_N
+#undef SSD_BWD
+}
+
+}  // namespace bwd
+
 }  // namespace
 
 // x (B, S, H, P), B and C (B, S, G, N) in one dtype (f32 or bf16); dt and
@@ -693,6 +1113,57 @@ extern "C" int ssd_chunk_mma_launch(const void* x, const void* dt, const void* c
     default: return SSD_MMA(8);
   }
 #undef SSD_MMA
+}
+
+// The scratch of ssd_chunk_bwd_launch, in floats: dcum's column sums and
+// state term (B * S * H each) and the head slices' partial dB and dC
+// (slices * B * S * G * N each).
+extern "C" long long ssd_chunk_bwd_workspace_floats(int B, int S, int H, int G, int N) {
+  if (B <= 0 || S <= 0 || H <= 0 || G <= 0 || N <= 0 || H % G != 0) return -1;
+  const long long rows = (long long)B * S;
+  return 2 * rows * H + 2LL * bwd::n_slices(H, G) * rows * G * N;
+}
+
+// G', the backward of ssd_chunk_launch's y and states.  Inputs as there,
+// plus dy (B, S, H, P) f32 (the gradient of y) and dstates (B, S / L, H,
+// P, N) f32 or NULL (no state gradient); outputs dx (B, S, H, P), ddt and
+// dcum (B, S, H), dB and dC (B, S, G, N), all f32 and contiguous; ws holds
+// ssd_chunk_bwd_workspace_floats floats.  1 <= P <= 128, 1 <= N <= 128.
+// Three kernels on `stream`; returns the first cudaError_t (0 = launched).
+extern "C" int ssd_chunk_bwd_launch(const void* x, const void* dt, const void* cum,
+                                    const void* Bm, const void* Cm, const void* dy,
+                                    const void* dstates, void* dx, void* ddt, void* dcum,
+                                    void* dB, void* dC, void* ws, int B, int S, int H, int G,
+                                    int N, int P, int L, int is_bf16, void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || G <= 0 || N <= 0 || L <= 0) return (int)cudaErrorInvalidValue;
+  if (S % L != 0 || H % G != 0 || P < 1 || P > 128 || N > 128) return (int)cudaErrorInvalidValue;
+  const int ns = bwd::n_slices(H, G);
+  if ((long long)B * (S / L) > 65535 || (long long)G * ns > 65535)
+    return (int)cudaErrorInvalidValue;
+  if ((size_t)P * (N + 1) > bwd::work_floats(N, P)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t rows = (size_t)B * S;
+  float* col_t = static_cast<float*>(ws);
+  float* s_buf = col_t + rows * H;
+  float* dB_part = s_buf + rows * H;
+  float* dC_part = dB_part + (size_t)ns * rows * G * N;
+  float* dcum_f = static_cast<float*>(dcum);
+  cudaError_t err =
+      is_bf16 ? bwd::launch_t<__nv_bfloat16>(x, dt, cum, Bm, Cm, dy, dstates,
+                                             static_cast<float*>(dx), static_cast<float*>(ddt),
+                                             dcum_f, col_t, s_buf, dB_part, dC_part, B, S, H, G,
+                                             N, P, L, s)
+              : bwd::launch_t<float>(x, dt, cum, Bm, Cm, dy, dstates, static_cast<float*>(dx),
+                                     static_cast<float*>(ddt), dcum_f, col_t, s_buf, dB_part,
+                                     dC_part, B, S, H, G, N, P, L, s);
+  if (err != cudaSuccess) return (int)err;
+  const size_t n_group = rows * G * N, n_dcum = (size_t)B * (S / L) * H;
+  bwd::ssd_chunk_bwd_groups<<<(unsigned)((n_group + bwd::NT - 1) / bwd::NT), bwd::NT, 0, s>>>(
+      dB_part, dC_part, static_cast<float*>(dB), static_cast<float*>(dC), n_group, ns);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  bwd::ssd_chunk_bwd_dcum<<<(unsigned)((n_dcum + bwd::NT - 1) / bwd::NT), bwd::NT, 0, s>>>(
+      col_t, s_buf, dcum_f, S, H, L, n_dcum);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* ssd_chunk_error_string(int code) {

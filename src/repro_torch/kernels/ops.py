@@ -5,8 +5,7 @@ device launches the hand-written kernel, or raises.  There is no switch
 and no fallback: the device of the input decides.  The model's wrappers
 are differentiable: on the card through the kernels'
 ``autograd.Function``s, on the CPU through the plain versions' own
-autograd.  The wire codec's pair and the SSD scan are forward only (the
-SSD kernel raises where a gradient would be needed).
+autograd.  The wire codec's pair is forward only.
 """
 from __future__ import annotations
 
@@ -27,7 +26,7 @@ from repro_torch.kernels.quantize import (dequantize_rows_cuda,
                                           dequantize_rows_plain,
                                           quantize_rows_cuda,
                                           quantize_rows_plain)
-from repro_torch.kernels.ssd_scan import ssd_chunk_cuda, ssd_chunk_plain
+from repro_torch.kernels.ssd_scan import ssd_chunk_autograd, ssd_chunk_plain
 
 
 def attention(q, k, v, causal: bool = True, window: int = 0):
@@ -99,10 +98,13 @@ def ssd_chunked(x, dt, A, B_, C_, chunk: int, return_state: bool = False):
     ragged S is padded with zero rows (dt = 0 rows add nothing and keep the
     cumulative decay flat) and trimmed again.  The intra-chunk term and the
     chunk end states of all chunks and heads come from one call of the SSD
-    chunk kernel (its plain version on the CPU); the recurrence across
+    chunk kernel G (its plain version on the CPU); the recurrence across
     chunks and its output term are plain PyTorch, as the reference keeps
-    them in jnp.  Returns y (B,S,H,P) in x's dtype and, with
-    ``return_state``, the final state (B,H,P,N) f32."""
+    them in jnp.  Differentiable in x, dt, A, B_ and C_: on the card G's
+    backward is one launch of G′ (dcum reaches dt and A through the
+    cumsum), on the CPU the plain version's autograd.  Returns y (B,S,H,P)
+    in x's dtype and, with ``return_state``, the final state (B,H,P,N)
+    f32."""
     Bsz, S, H, P = x.shape
     G, N = B_.shape[2], B_.shape[3]
     pad = -S % chunk
@@ -115,7 +117,7 @@ def ssd_chunked(x, dt, A, B_, C_, chunk: int, return_state: bool = False):
     nc, L = Sp // chunk, chunk
     dt = dt.float().contiguous()
     cum = torch.cumsum((dt * A.float()).reshape(Bsz, nc, L, H), dim=2)
-    fn = ssd_chunk_cuda if x.is_cuda else ssd_chunk_plain
+    fn = ssd_chunk_autograd if x.is_cuda else ssd_chunk_plain
     y_intra, states = fn(x.contiguous(), dt, cum.reshape(Bsz, Sp, H),
                          B_.contiguous(), C_.contiguous(), chunk)
 

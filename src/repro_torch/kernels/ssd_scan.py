@@ -1,20 +1,27 @@
-"""Mamba2 SSD intra-chunk scan: the CUDA kernel ``csrc/ssd_chunk.cu`` and
-its plain PyTorch version.
+"""Mamba2 SSD intra-chunk scan: the CUDA kernels ``csrc/ssd_chunk.cu``
+(forward G and backward G′) and their plain PyTorch versions.
 
-The kernel replaces the TPU kernel ``repro.kernels.ssd_scan.ssd_chunk``.
-Unlike the TPU wrapper it takes the model layout: x (B, S, H, P), B and C
+G replaces the TPU kernel ``repro.kernels.ssd_scan.ssd_chunk``.  Unlike
+the TPU wrapper it takes the model layout: x (B, S, H, P), B and C
 (B, S, G, N) with head h reading group h // (H / G), dt and cum (B, S, H)
 f32, S a multiple of the chunk length.  It returns the intra-chunk output
 y (B, S, H, P) f32 and every chunk's end state (B, S / chunk, H, P, N) f32
-from one launch.  The kernel has two routes: bf16 at the shapes of
+from one launch.  G has two routes: bf16 at the shapes of
 :func:`ssd_chunk_route` takes the ``"mma"`` kernel (tensor cores, C.B^T
 once per slice of heads, the f32 operands as hi + lo bf16 pairs), every
 other input the ``"fma"`` kernel (f32 FMAs); ``route="fma"`` forces the
 latter.  :func:`ssd_chunk_cuda` counts its launches in
 ``ssd_chunk_cuda.launches`` and per route in ``.launches_by_route``;
 :func:`ssd_chunk_plain` is the same function in plain PyTorch (the CPU
-path and the kernel's oracle).  The kernel has no backward: a call that
-would need one raises.
+path and the kernel's oracle).
+
+G′ (:func:`ssd_chunk_bwd_cuda`, one FMA route) is the gradient of y and
+the end states with respect to x, dt, cum, B and C (the TPU takes it with
+``jax.grad`` of the reference's ``ssd_reference``); its oracle and CPU
+path is :func:`ssd_chunk_bwd_plain`, the explicit formulas.
+:func:`ssd_chunk_autograd` is G with G′ as its backward (the training
+path on the card).  The raw launcher :func:`ssd_chunk_cuda` has no
+autograd: it raises where a gradient would be needed.
 """
 from __future__ import annotations
 
@@ -25,12 +32,15 @@ import torch
 from repro_torch.kernels import _build, _route
 
 __all__ = ["ssd_chunk_cuda", "ssd_chunk_plain", "ssd_chunk_route",
+           "ssd_chunk_bwd_cuda", "ssd_chunk_bwd_plain", "ssd_chunk_autograd",
            "MAX_HEAD_DIM", "ROUTES"]
 
 MAX_HEAD_DIM = 128
 MMA_MAX_STATE = 128      # the mma route's largest N
 MMA_ROWS = 64            # the mma route's tile: L is a multiple of it
+BWD_MAX_STATE = 128      # G′'s largest N
 ROUTES = ("mma", "fma")
+BWD_ROUTES = ("fma",)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # the C functions of csrc/ssd_chunk.cu: argument types, return type
@@ -40,6 +50,10 @@ C_FUNCTIONS = {
         ctypes.c_int),
     "ssd_chunk_mma_launch": (
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+        ctypes.c_int),
+    "ssd_chunk_bwd_workspace_floats": ([ctypes.c_int] * 5, ctypes.c_longlong),
+    "ssd_chunk_bwd_launch": (
+        [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
         ctypes.c_int),
     "ssd_chunk_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
@@ -155,3 +169,165 @@ def ssd_chunk_cuda(x, dt, cum, B_, C_, chunk: int, route: str | None = None):
 
 ssd_chunk_cuda.launches = 0
 ssd_chunk_cuda.launches_by_route = dict.fromkeys(ROUTES, 0)
+
+
+# ---------------------------------------------------------------------------
+# G′: the backward
+
+
+def _bwd_check(x, dt, cum, B_, C_, dy, dstates, chunk: int):
+    """(Bsz, S, H, P, G, N, n_chunks) after checking G′'s inputs: G's,
+    plus dy shaped as x and dstates (B, S/chunk, H, P, N) or None, f32."""
+    shapes = _shapes(x, dt, cum, B_, C_, chunk)
+    Bsz, S, H, P, G, N, nc = shapes
+    if tuple(dy.shape) != tuple(x.shape):
+        raise ValueError(f"dy{tuple(dy.shape)} is not shaped as "
+                         f"x{tuple(x.shape)}")
+    if dstates is not None and tuple(dstates.shape) != (Bsz, nc, H, P, N):
+        raise ValueError(f"bad dstates shape {tuple(dstates.shape)}")
+    if dy.dtype != torch.float32 or (dstates is not None
+                                     and dstates.dtype != torch.float32):
+        raise TypeError("dy and dstates must be float32")
+    return shapes
+
+
+def ssd_chunk_bwd_plain(x, dt, cum, B_, C_, dy, dstates, chunk: int):
+    """G′ in plain PyTorch, the explicit formulas (the kernel's oracle and
+    the CPU path).  dy (B, S, H, P) is the gradient of y, dstates (B,
+    S/chunk, H, P, N) that of the end states (None: zero).  Per chunk and
+    head, with M_ij = (C_i·B_j) e^{cum_i − cum_j} (j ≤ i, else 0), dAtt =
+    dy xᵀ and w_j = e^{cum_L − cum_j}:
+
+      dx_j   = dt_j Σ_i M_ij dy_i + dt_j w_j dS B_j
+      ddt_j  = Σ_i dAtt_ij M_ij + w_j x_jᵀ dS B_j
+      dCB_ij = dAtt_ij dt_j e^{cum_i − cum_j},  dC_i = Σ_j dCB_ij B_j,
+      dB_j   = Σ_i dCB_ij C_i + dt_j w_j dSᵀ x_j
+      dcum_i = Σ_j T_ij − Σ_k T_ki − s_i  (T_ij = dCB_ij C_i·B_j,
+               s_j = dt_j w_j x_jᵀ dS B_j), and the last row + Σ_j s_j;
+
+    dB and dC summed over each group's heads.  The exp is taken of a
+    masked argument, as in :func:`ssd_chunk_plain`.  Returns (dx, ddt,
+    dcum, dB, dC), all f32."""
+    Bsz, S, H, P, G, N, nc = _bwd_check(x, dt, cum, B_, C_, dy, dstates,
+                                        chunk)
+    L, rep = chunk, H // G
+    xc = x.float().reshape(Bsz, nc, L, H, P)
+    dyc = dy.float().reshape(Bsz, nc, L, H, P)
+    dth = dt.float().reshape(Bsz, nc, L, H).permute(0, 1, 3, 2)   # (B,nc,H,L)
+    cumh = cum.float().reshape(Bsz, nc, L, H).permute(0, 1, 3, 2)
+    Bh = B_.float().reshape(Bsz, nc, L, G, N).repeat_interleave(rep, dim=3)
+    Ch = C_.float().reshape(Bsz, nc, L, G, N).repeat_interleave(rep, dim=3)
+    causal = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
+    diff = (cumh[..., :, None] - cumh[..., None, :]).masked_fill(~causal, 0.0)
+    decay = torch.exp(diff).masked_fill(~causal, 0.0)           # (B,nc,H,i,j)
+    cb = torch.einsum("bcihn,bcjhn->bchij", Ch, Bh)
+    m = cb * decay
+    datt = torch.einsum("bcihp,bcjhp->bchij", dyc, xc)
+    dcb = datt * dth[..., None, :] * decay
+    t = dcb * cb
+    dx = torch.einsum("bchij,bcihp->bcjhp", m, dyc)             # (B,nc,L,H,P)
+    ddt = (datt * m).sum(dim=-2)                                 # (B,nc,H,L)
+    dcum = t.sum(dim=-1) - t.sum(dim=-2)
+    dC = torch.einsum("bchij,bcjhn->bcihn", dcb, Bh)
+    dB = torch.einsum("bchij,bcihn->bcjhn", dcb, Ch)
+    if dstates is not None:
+        ds = dstates.float()                                      # (B,nc,H,P,N)
+        w = torch.exp(cumh[..., -1:] - cumh)                      # (B,nc,H,L)
+        u = torch.einsum("bchpn,bclhn->bclhp", ds, Bh)            # dS B_j
+        v = torch.einsum("bchpn,bclhp->bclhn", ds, xc)            # dSᵀ x_j
+        xu = (xc * u).sum(dim=-1).permute(0, 1, 3, 2)             # (B,nc,H,L)
+        wl = w.permute(0, 1, 3, 2)[..., None]                     # (B,nc,L,H,1)
+        dx = dx + wl * u
+        ddt = ddt + w * xu
+        s = dth * w * xu
+        dcum = dcum - s
+        dcum[..., -1] += s.sum(dim=-1)
+        dB = dB + (dth.permute(0, 1, 3, 2)[..., None] * wl) * v
+    dx = dx * dth.permute(0, 1, 3, 2)[..., None]
+
+    def heads(a):          # (B,nc,H,L) -> (B,S,H)
+        return a.permute(0, 1, 3, 2).reshape(Bsz, S, H)
+
+    def groups(a):         # (B,nc,L,H,N) -> (B,S,G,N), heads summed
+        return a.reshape(Bsz, nc, L, G, rep, N).sum(dim=4).reshape(
+            Bsz, S, G, N)
+    return (dx.reshape(Bsz, S, H, P), heads(ddt), heads(dcum), groups(dB),
+            groups(dC))
+
+
+def ssd_chunk_bwd_cuda(x, dt, cum, B_, C_, dy, dstates, chunk: int):
+    """Launch G′ (three kernels in one C call, counted once in
+    ``ssd_chunk_bwd_cuda.launches`` and ``.launches_by_route["fma"]``).
+    Inputs as :func:`ssd_chunk_bwd_plain`, all contiguous on one CUDA
+    device, x, B_, C_ in one of float32 / bfloat16, P <= 128, N <= 128.
+    Returns (dx, ddt, dcum, dB, dC), all f32.  Deterministic: no float
+    atomics, every sum in a fixed order."""
+    Bsz, S, H, P, G, N, nc = _bwd_check(x, dt, cum, B_, C_, dy, dstates,
+                                        chunk)
+    ssd_chunk_route(x, dt, cum, B_, C_, chunk)   # dtypes and P
+    if not 1 <= N <= BWD_MAX_STATE:
+        raise ValueError(f"state N={N} not in [1, {BWD_MAX_STATE}]")
+    tensors = [t for t in (x, dt, cum, B_, C_, dy, dstates) if t is not None]
+    if any(t.device != x.device for t in tensors) or x.device.type != "cuda":
+        raise ValueError("all inputs must lie on one CUDA device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("all inputs must be contiguous")
+    if Bsz * S == 0:
+        raise ValueError("empty input")
+    lib = _lib()
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty((Bsz, S, H, P), **f32)
+    ddt = torch.empty((Bsz, S, H), **f32)
+    dcum = torch.empty((Bsz, S, H), **f32)
+    dB = torch.empty((Bsz, S, G, N), **f32)
+    dC = torch.empty((Bsz, S, G, N), **f32)
+    ws = torch.empty((lib.ssd_chunk_bwd_workspace_floats(Bsz, S, H, G, N),),
+                     **f32)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.ssd_chunk_bwd_launch(
+            x.data_ptr(), dt.data_ptr(), cum.data_ptr(), B_.data_ptr(),
+            C_.data_ptr(), dy.data_ptr(),
+            None if dstates is None else dstates.data_ptr(),
+            dx.data_ptr(), ddt.data_ptr(), dcum.data_ptr(), dB.data_ptr(),
+            dC.data_ptr(), ws.data_ptr(), Bsz, S, H, G, N, P, chunk,
+            _DTYPES[x.dtype], stream)
+    if rc:
+        raise RuntimeError("ssd_chunk_bwd launch failed: "
+                           + lib.ssd_chunk_error_string(rc).decode())
+    ssd_chunk_bwd_cuda.launches += 1
+    ssd_chunk_bwd_cuda.launches_by_route["fma"] += 1
+    return dx, ddt, dcum, dB, dC
+
+
+ssd_chunk_bwd_cuda.launches = 0
+ssd_chunk_bwd_cuda.launches_by_route = dict.fromkeys(BWD_ROUTES, 0)
+
+
+class _SSDChunk(torch.autograd.Function):
+    """G forward, G′ backward: gradients for x, dt, cum, B and C."""
+
+    @staticmethod
+    def forward(ctx, x, dt, cum, B_, C_, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, cum, B_, C_)
+        ctx.chunk = chunk
+        return ssd_chunk_cuda(x, dt, cum, B_, C_, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dstates):
+        x, dt, cum, B_, C_ = ctx.saved_tensors
+        dy = torch.zeros(x.shape, dtype=torch.float32, device=x.device) \
+            if dy is None else dy.float().contiguous()
+        if dstates is not None:
+            dstates = dstates.float().contiguous()
+        dx, ddt, dcum, dB, dC = ssd_chunk_bwd_cuda(x, dt, cum, B_, C_, dy,
+                                                   dstates, ctx.chunk)
+        return dx.to(x.dtype), ddt, dcum, dB.to(B_.dtype), dC.to(C_.dtype), \
+            None
+
+
+def ssd_chunk_autograd(x, dt, cum, B_, C_, chunk: int):
+    """G with gradients (G′ in the backward): (y, states) as
+    :func:`ssd_chunk_cuda`."""
+    return _SSDChunk.apply(x, dt, cum, B_, C_, chunk)

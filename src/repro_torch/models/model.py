@@ -99,18 +99,16 @@ def build_model(cfg: ModelConfig) -> ModelBundle:
     def logits_stacked(params, batch):
         """G clients at once: ``params`` carries the LoRA leaves stacked
         (G, ...) over one backbone; ``batch`` leaves are (G, B, ...).  The
-        clients' rows go through the trunk as one batch of G·B rows (every
-        kernel launches once for the G clients).  Returns (logits (G, B,
-        P+S, V) f32, aux)."""
-        if cfg.family == "ssm":
-            raise NotImplementedError("stacked passes of the ssm family "
-                                      "are not ported")
+        clients' rows go through the trunk (``transformer.forward`` or, for
+        the ssm family, ``ssm.forward``, with ``clients=True``) as one
+        batch of G·B rows (every kernel launches once for the G clients).
+        Returns (logits (G, B, P+S, V) f32, aux)."""
         tokens = batch["tokens"]
         G, B, S = tokens.shape
         prefix = batch.get("prefix_embeds")
         if prefix is not None:
             prefix = prefix.reshape(G * B, *prefix.shape[2:])
-        logits, aux, _ = transformer.forward(
+        logits, aux, _ = trunk.forward(
             params, cfg, tokens.reshape(G * B, S), prefix, clients=True)
         return logits.reshape(G, B, *logits.shape[1:]), aux
 

@@ -176,8 +176,15 @@ def _layer(lp, cfg: ModelConfig, x):
 
 def forward(params, cfg: ModelConfig, tokens,
             prefix_embeds: Optional[torch.Tensor] = None,
-            collect_state: bool = False, return_hidden: bool = False):
-    """tokens: (B, S) int; prefix_embeds: (B, P, d) soft prompt.
+            collect_state: bool = False, return_hidden: bool = False,
+            clients: bool = False):
+    """tokens: (B, S) int; prefix_embeds: (B, P, d) soft prompt.  With
+    ``clients`` the LoRA leaves are stacked over G clients (leading axis)
+    and the batch holds the clients' rows in order, B / G each: ``in_proj``
+    and ``out_proj`` are one grouped launch each (as
+    ``transformer.forward``).  Under ``cfg.remat`` (with grad mode on) each
+    layer is recomputed in the backward (``torch.utils.checkpoint``), so a
+    trained step runs the SSD scan twice a layer and its backward once.
 
     Returns (logits (B, P+S, V) float32, aux (0.0), states|None) with
     states = (h (L,B,H,P,N) f32, conv (L,B,W-1,conv_dim)) when
@@ -189,7 +196,7 @@ def forward(params, cfg: ModelConfig, tokens,
     remat = cfg.remat and torch.is_grad_enabled() and not collect_state
     hs, convs = [], []
     for i in range(cfg.n_layers):
-        lp = L.layer_params(params["layers"], i)
+        lp = L.layer_params(params["layers"], i, clients)
         if collect_state:
             h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
             out, st = ssm_block(lp["ssm"], cfg, h, return_state=True)

@@ -39,8 +39,9 @@ from repro_torch.kernels.quantize import (BLOCKS_PER_SM, WARPS_PER_BLOCK,
                                           quantize_rows_grid,
                                           quantize_rows_plain)
 from repro_torch.kernels.ref import ssd_recurrent_ref
-from repro_torch.kernels.ssd_scan import (ssd_chunk_cuda, ssd_chunk_plain,
-                                          ssd_chunk_route)
+from repro_torch.kernels.ssd_scan import (ssd_chunk_bwd_cuda,
+                                          ssd_chunk_bwd_plain, ssd_chunk_cuda,
+                                          ssd_chunk_plain, ssd_chunk_route)
 from repro_torch.models.layers import BIG_WINDOW
 
 pytestmark = pytest.mark.cuda
@@ -1244,3 +1245,167 @@ def test_ssd_chunk_kernel_rejects_what_it_does_not_take(gen):
         ssd_chunk_cuda(big, dt, cum, Bm, Cm, 32)
     with pytest.raises(NotImplementedError, match="backward"):
         ssd_chunk_cuda(x.requires_grad_(True), dt, cum, Bm, Cm, 32)
+
+
+# ---------------------------------------------------------------------------
+# kernel G′: the SSD chunk scan's backward
+
+def _ssd_cotangents(gen, x, L, N, states=True):
+    B, S, H, P = x.shape
+    dy = torch.randn((B, S, H, P), generator=gen, device="cuda")
+    ds = torch.randn((B, S // L, H, P, N), generator=gen,
+                     device="cuda") * 0.5 if states else None
+    return dy, ds
+
+
+def _assert_grad_rows(got, want, name):
+    """Each row (the last axis) of a gradient against the larger of its own
+    largest |value| and a tenth of the tensor's, at SSD_TOL: a kernel that
+    writes zeros fails."""
+    w = want.reshape(-1, want.shape[-1])
+    scale = torch.maximum(w.abs().amax(dim=1, keepdim=True),
+                          0.1 * w.abs().max()).clamp(min=1e-30)
+    assert torch.isfinite(got).all(), name
+    torch.testing.assert_close(got.reshape(w.shape) / scale, w / scale,
+                               msg=name, **SSD_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,P,G,N,L", [
+    (2, 256, 16, 64, 1, 128, 256),     # mamba2's head shape, one chunk
+    (1, 768, 8, 64, 1, 128, 256),      # three chunks, the state branch
+    (1, 256, 10, 64, 1, 16, 256),      # hymba's N 16, a ragged slice
+    (2, 96, 8, 32, 2, 32, 32),         # G = 2
+    (1, 40, 3, 24, 1, 20, 40),         # ragged L, P and N
+])
+def test_ssd_bwd_kernel_matches_plain(gen, dtype, B, S, H, P, G, N, L):
+    x, dt, A, Bm, Cm = _ssd_inputs(gen, B, S, H, P, G, N, dtype)
+    cum = _chunk_cum(dt, A, L)
+    dy, ds = _ssd_cotangents(gen, x, L, N)
+    n = ssd_chunk_bwd_cuda.launches
+    got = ssd_chunk_bwd_cuda(x, dt, cum, Bm, Cm, dy, ds, L)
+    assert ssd_chunk_bwd_cuda.launches == n + 1
+    want = ssd_chunk_bwd_plain(x, dt, cum, Bm, Cm, dy, ds, L)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dx", "ddt", "dcum", "dB", "dC"), got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape, name
+        _assert_grad_rows(g, w, name)
+
+
+def test_ssd_bwd_kernel_without_state_gradient_and_strong_decay(gen):
+    """dstates absent (the one-chunk training round), and |A| dt up to 16 x
+    6 a row: exp of the unmasked argument would be inf; every output is
+    finite and matches the plain version."""
+    x, dt, A, Bm, Cm = _ssd_inputs(gen, 1, 512, 8, 64, 1, 128,
+                                   torch.bfloat16, dt_shift=5.0)
+    cum = _chunk_cum(dt, A, 256)
+    dy, _ = _ssd_cotangents(gen, x, 256, 128, states=False)
+    got = ssd_chunk_bwd_cuda(x, dt, cum, Bm, Cm, dy, None, 256)
+    want = ssd_chunk_bwd_plain(x, dt, cum, Bm, Cm, dy, None, 256)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dx", "ddt", "dcum", "dB", "dC"), got, want):
+        _assert_grad_rows(g, w, name)
+
+
+def test_ssd_bwd_kernel_is_deterministic(gen):
+    """No float atomics: two launches on the same inputs give the same
+    bits (dB and dC sum all 80 heads of mamba2's one group)."""
+    x, dt, A, Bm, Cm = _ssd_inputs(gen, 2, 512, 80, 64, 1, 128,
+                                   torch.bfloat16)
+    cum = _chunk_cum(dt, A, 256)
+    dy, ds = _ssd_cotangents(gen, x, 256, 128)
+    a = ssd_chunk_bwd_cuda(x, dt, cum, Bm, Cm, dy, ds, 256)
+    b = ssd_chunk_bwd_cuda(x, dt, cum, Bm, Cm, dy, ds, 256)
+    torch.cuda.synchronize()
+    for name, u, v in zip(("dx", "ddt", "dcum", "dB", "dC"), a, b):
+        assert torch.equal(u, v), name
+
+
+def test_ssd_bwd_launches_from_a_fresh_thread(gen):
+    """G′ runs on the autograd engine's thread: a thread whose first CUDA
+    work is its launch succeeds and matches the main thread's bits."""
+    import threading
+    x, dt, A, Bm, Cm = _ssd_inputs(gen, 1, 256, 16, 64, 1, 128,
+                                   torch.bfloat16)
+    cum = _chunk_cum(dt, A, 256)
+    dy, ds = _ssd_cotangents(gen, x, 256, 128)
+    want = ssd_chunk_bwd_cuda(x, dt, cum, Bm, Cm, dy, ds, 256)
+    torch.cuda.synchronize()
+    got, errors = [], []
+
+    def run():
+        try:
+            got.append(ssd_chunk_bwd_cuda(x, dt, cum, Bm, Cm, dy, ds, 256))
+            torch.cuda.synchronize()
+        except Exception as e:      # noqa: BLE001 — re-raised below
+            errors.append(e)
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    assert not errors, errors
+    for u, v in zip(got[0], want):
+        assert torch.equal(u, v)
+
+
+def test_ssd_chunked_backward_is_one_bwd_launch(gen):
+    """ops.ssd_chunked at a ragged S over three chunks, differentiated in
+    x, dt, A, B and C through G and G′ (one launch each), against the
+    plain path's autograd on the same inputs."""
+    x, dt, A, Bm, Cm = _ssd_inputs(gen, 2, 700, 16, 64, 1, 128,
+                                   torch.float32)
+    A = A / 8.0
+    wy = torch.randn(x.shape, generator=gen, device="cuda")
+    grads = []
+    for kernel in (True, False):
+        ins = [t.clone().requires_grad_(True) for t in (x, dt, A, Bm, Cm)]
+        n = (ssd_chunk_cuda.launches, ssd_chunk_bwd_cuda.launches)
+        if kernel:
+            y = ops.ssd_chunked(*ins, 256)
+        else:
+            with _plain_ssd():
+                y = ops.ssd_chunked(*ins, 256)
+        (y * wy).sum().backward()
+        assert (ssd_chunk_cuda.launches - n[0],
+                ssd_chunk_bwd_cuda.launches - n[1]) == (int(kernel),) * 2
+        grads.append([t.grad for t in ins])
+    torch.cuda.synchronize()
+    for name, g, w in zip(("x", "dt", "A", "B", "C"), *grads):
+        _assert_grad_rows(g, w, name)
+
+
+@contextlib.contextmanager
+def _plain_ssd():
+    """ops.ssd_chunked on the plain version (its autograd) for a CUDA
+    tensor."""
+    saved = ops.ssd_chunk_autograd
+    ops.ssd_chunk_autograd = ssd_chunk_plain
+    try:
+        yield
+    finally:
+        ops.ssd_chunk_autograd = saved
+
+
+def test_ssd_bwd_kernel_rejects_what_it_does_not_take(gen):
+    x, dt, A, Bm, Cm = _ssd_inputs(gen, 1, 64, 4, 16, 1, 8, torch.float32)
+    cum = _chunk_cum(dt, A, 32)
+    dy, ds = _ssd_cotangents(gen, x, 32, 8)
+    n = ssd_chunk_bwd_cuda.launches
+    with pytest.raises(ValueError, match="multiple"):
+        ssd_chunk_bwd_cuda(x, dt, cum, Bm, Cm, dy, None, 48)
+    with pytest.raises(TypeError):
+        ssd_chunk_bwd_cuda(x.half(), dt, cum, Bm.half(), Cm.half(), dy, ds,
+                           32)
+    with pytest.raises(TypeError, match="float32"):
+        ssd_chunk_bwd_cuda(x, dt, cum, Bm, Cm, dy.bfloat16(), ds, 32)
+    with pytest.raises(ValueError, match="dstates"):
+        ssd_chunk_bwd_cuda(x, dt, cum, Bm, Cm, dy, ds[:, :1], 32)
+    with pytest.raises(ValueError, match="head dim"):
+        big = torch.zeros((1, 64, 4, 136), device="cuda")
+        ssd_chunk_bwd_cuda(big, dt, cum, Bm, Cm, big, None, 32)
+    with pytest.raises(ValueError, match="state N"):
+        wide = torch.zeros((1, 64, 1, 136), device="cuda")
+        ssd_chunk_bwd_cuda(x, dt, cum, wide, wide, dy, None, 32)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_chunk_bwd_cuda(x, dt, cum, Bm, Cm, dy.transpose(2, 3)
+                           .contiguous().transpose(2, 3), None, 32)
+    assert ssd_chunk_bwd_cuda.launches == n
