@@ -42,10 +42,12 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    backward (G′) against its explicit formulas (``ssd_chunk_bwd_plain``)
    at mamba2's and hymba's training shapes (batch 8, one chunk of 256) and
    over two and three chunks with a state gradient, with two groups, bf16
-   and f32, every gradient row against its own size; strong decay (all
-   finite); two launches bit-equal; ``ops.ssd_chunked``'s whole backward
-   at a ragged S of three chunks against the plain path's autograd with
-   exactly one G and one G′ launch;
+   and f32, on each route that takes the case (bf16 at those shapes on
+   "mma" and on "fma", the rest on "fma"), every gradient row against its
+   own size; strong decay (all finite) and two launches bit-equal, on
+   both routes; ``ops.ssd_chunked``'s whole backward at a ragged S of
+   three chunks against the plain path's autograd with exactly one G and
+   one G′ launch (f32: G′ on "fma"; bf16: on "mma");
 5. serves 48 soft-prompted requests through ``ServingEngine`` at the full
    width of ``mlecs-slm-720m`` (bf16, random weights from a seed), checks
    every budget, the free lists and both launch counters, then checks the
@@ -1355,7 +1357,8 @@ TENSOR_CORE_ROUTES = {"paged_attention": "mma",
                       "lora_matmul_grouped": "wgmma",
                       "flash_attention": "mma",
                       "flash_attention_backward": "mma",
-                      "ssd_chunk": "mma"}
+                      "ssd_chunk": "mma",
+                      "ssd_chunk_bwd": "mma"}
 
 
 def zero_counters():
@@ -1370,8 +1373,8 @@ def read_counters():
 
 
 def check_tensor_core_routes(tag, fma=None):
-    """Every launch of A, C, B (forward and backward) and G since the last
-    ``zero_counters`` took the tensor-core route, except exactly ``fma``'s
+    """Every launch of A, C, B (forward and backward), G and G′ since the
+    last ``zero_counters`` took the tensor-core route, except exactly ``fma``'s
     count of FMA launches per kernel (C at a projection whose shape the
     wgmma route does not take: ``round_launch_plan``); returns the
     per-route counts."""
@@ -2813,78 +2816,107 @@ def phase_ssd_bwd_checks():
     """G′ against ``ssd_chunk_bwd_plain`` at mamba2's and hymba's training
     shapes (batch 8, one chunk of 256: no state gradient, as in the round)
     and over several chunks with a state gradient, a toy with two groups,
-    bf16 and f32; strong decay (every output finite); two launches
-    bit-equal; then ``ops.ssd_chunked``'s whole backward at a ragged S of
-    three chunks against the plain path's autograd, with exactly one G and
-    one G′ launch."""
+    bf16 and f32, on the route function's choice and on "fma" (bf16 at
+    the training shapes takes "mma"); strong decay (every output finite)
+    and two launches bit-equal on both routes; then ``ops.ssd_chunked``'s
+    whole backward at a ragged S of three chunks against the plain path's
+    autograd, with exactly one G and one G′ launch (f32 on "fma", bf16 on
+    "mma")."""
     import torch
     from repro_torch.kernels import ops, ssd_scan
     from repro_torch.kernels.ssd_scan import (ssd_chunk_bwd_cuda,
                                               ssd_chunk_bwd_plain,
+                                              ssd_chunk_bwd_route,
                                               ssd_chunk_cuda)
     gen = torch.Generator(device="cuda").manual_seed(13)
-    results = {}
+    results, routes = {}, {}
     for name, (B, S, H, P, G, N, L, st) in SSD_BWD_CASES.items():
         for dtype in (torch.bfloat16, torch.float32):
             ins = ssd_bwd_inputs(gen, B, S, H, P, G, N, L, st, dtype)
-            n = ssd_chunk_bwd_cuda.launches
-            got = ssd_chunk_bwd_cuda(*ins, L)
-            if ssd_chunk_bwd_cuda.launches != n + 1:
-                raise AssertionError(f"ssd bwd {name}: launches")
             want = ssd_chunk_bwd_plain(*ins, L)
-            torch.cuda.synchronize()
-            results.update(ssd_bwd_rows(f"{name}/{str(dtype)[6:]}", got,
-                                        want))
+            chosen = ssd_chunk_bwd_route(*ins, L)
+            routes[f"{name}/{str(dtype)[6:]}"] = chosen
+            for route in dict.fromkeys((chosen, "fma")):
+                n = ssd_chunk_bwd_cuda.launches
+                before = dict(ssd_chunk_bwd_cuda.launches_by_route)
+                got = ssd_chunk_bwd_cuda(*ins, L, route=route)
+                if ssd_chunk_bwd_cuda.launches != n + 1 or \
+                        route_delta(ssd_chunk_bwd_cuda, before) != {route: 1}:
+                    raise AssertionError(f"ssd bwd {name}: not one launch "
+                                         f"on {route}")
+                torch.cuda.synchronize()
+                results.update(ssd_bwd_rows(
+                    f"{name}/{str(dtype)[6:]}/{route}", got, want))
+    want_routes = {n: "mma" for n in SSD_BWD_CASES if n != "groups2"}
+    if any(routes[f"{n}/bfloat16"] != r for n, r in want_routes.items()) \
+            or any(r != "fma" for t, r in routes.items()
+                   if "float32" in t or t.startswith("groups2")):
+        raise AssertionError(f"ssd bwd routes {routes}")
     # |A| dt up to ~16 x 6 a row: exp above the diagonal would be inf
     ins = ssd_bwd_inputs(gen, 1, 512, 80, 64, 1, 128, 256, True,
                          torch.bfloat16, dt_shift=5.0)
-    got = ssd_chunk_bwd_cuda(*ins, 256)
-    torch.cuda.synchronize()
-    if not all(bool(torch.isfinite(g).all()) for g in got):
-        raise AssertionError("ssd bwd: non-finite output under strong "
-                             "decay")
-    strong = ssd_bwd_rows("strong_decay", got,
-                          ssd_chunk_bwd_plain(*ins, 256))
+    want = ssd_chunk_bwd_plain(*ins, 256)
+    strong = {}
+    for route in ssd_scan.BWD_ROUTES:
+        got = ssd_chunk_bwd_cuda(*ins, 256, route=route)
+        torch.cuda.synchronize()
+        if not all(bool(torch.isfinite(g).all()) for g in got):
+            raise AssertionError(f"ssd bwd {route}: non-finite output under "
+                                 "strong decay")
+        strong.update(ssd_bwd_rows(f"strong_decay/{route}", got, want))
     # no float atomics: the same bits twice (80 heads into one group)
     L = SSD_BWD_CASES["mamba2_chunks3"][6]
     ins = ssd_bwd_inputs(gen, *SSD_BWD_CASES["mamba2_chunks3"][:7], True,
                          torch.bfloat16)
-    a, b = (ssd_chunk_bwd_cuda(*ins, L) for _ in range(2))
-    torch.cuda.synchronize()
-    if not all(torch.equal(u, v) for u, v in zip(a, b)):
-        raise AssertionError("ssd bwd: two launches differ")
-    # the chunked SSD's backward: one G and one G′ launch
-    x, dt, A, Bm, Cm = ssd_inputs(gen, 2, 700, 80, 64, 1, 128,
-                                  torch.float32, a_div=8.0)
-    wy = torch.randn(x.shape, generator=gen, device="cuda")
-    wh = torch.randn((2, 80, 64, 128), generator=gen, device="cuda")
-    grads, counts = [], []
-    for fn in (ssd_scan.ssd_chunk_autograd, ssd_scan.ssd_chunk_plain):
-        saved, ops.ssd_chunk_autograd = ops.ssd_chunk_autograd, fn
-        try:
-            ins = [t.clone().requires_grad_(True) for t in (x, dt, A, Bm, Cm)]
-            n = (ssd_chunk_cuda.launches, ssd_chunk_bwd_cuda.launches)
-            y, h = ops.ssd_chunked(*ins, 256, return_state=True)
-            ((y * wy).sum() + (h * wh).sum()).backward()
-            counts.append((ssd_chunk_cuda.launches - n[0],
-                           ssd_chunk_bwd_cuda.launches - n[1]))
-            grads.append([t.grad for t in ins])
-        finally:
-            ops.ssd_chunk_autograd = saved
-    if counts != [(1, 1), (0, 0)]:
-        raise AssertionError(f"ssd_chunked backward launches {counts}")
-    torch.cuda.synchronize()
-    chunked = {n: rel_check(f"ssd_chunked grad {n}",
-                            g.reshape(-1, g.shape[-1]),
-                            w.reshape(-1, w.shape[-1]), F32_TOL,
-                            floor=SSD_BWD_FLOOR)
-               for n, g, w in zip(("x", "dt", "A", "B", "C"), *grads)}
+    for route in ssd_scan.BWD_ROUTES:
+        a, b = (ssd_chunk_bwd_cuda(*ins, L, route=route) for _ in range(2))
+        torch.cuda.synchronize()
+        if not all(torch.equal(u, v) for u, v in zip(a, b)):
+            raise AssertionError(f"ssd bwd {route}: two launches differ")
+    # the chunked SSD's backward: one G and one G′ launch, G′ on the route
+    # of the inputs' dtype; bf16 leaves get bf16 gradients (both paths
+    # round f32 values that agree to ~1e-5: BF16_TOL), dt and A stay f32
+    chunked, counts = {}, {}
+    for route, dtype in (("fma", torch.float32), ("mma", torch.bfloat16)):
+        x, dt, A, Bm, Cm = ssd_inputs(gen, 2, 700, 80, 64, 1, 128, dtype,
+                                      a_div=8.0)
+        wy = torch.randn(x.shape, generator=gen, device="cuda")
+        wh = torch.randn((2, 80, 64, 128), generator=gen, device="cuda")
+        grads, count = [], []
+        for fn in (ssd_scan.ssd_chunk_autograd, ssd_scan.ssd_chunk_plain):
+            saved, ops.ssd_chunk_autograd = ops.ssd_chunk_autograd, fn
+            try:
+                ins = [t.clone().requires_grad_(True)
+                       for t in (x, dt, A, Bm, Cm)]
+                n = (ssd_chunk_cuda.launches, ssd_chunk_bwd_cuda.launches)
+                before = dict(ssd_chunk_bwd_cuda.launches_by_route)
+                y, h = ops.ssd_chunked(*ins, 256, return_state=True)
+                ((y.float() * wy).sum() + (h * wh).sum()).backward()
+                count.append((ssd_chunk_cuda.launches - n[0],
+                              ssd_chunk_bwd_cuda.launches - n[1]))
+                moved = route_delta(ssd_chunk_bwd_cuda, before)
+                if moved not in ({route: 1}, {}):
+                    raise AssertionError(f"ssd_chunked backward on {moved}")
+                grads.append([t.grad for t in ins])
+            finally:
+                ops.ssd_chunk_autograd = saved
+        if count != [(1, 1), (0, 0)]:
+            raise AssertionError(f"ssd_chunked backward launches {count}")
+        counts[route] = count[0]
+        torch.cuda.synchronize()
+        for n, g, w in zip(("x", "dt", "A", "B", "C"), *grads):
+            chunked[f"{n}/{route}"] = rel_check(
+                f"ssd_chunked grad {n} {route}", g.reshape(-1, g.shape[-1]),
+                w.reshape(-1, w.shape[-1]),
+                BF16_TOL if g.dtype == torch.bfloat16 else F32_TOL,
+                floor=SSD_BWD_FLOOR)
     emit({"phase": "ssd_chunk_bwd_vs_plain", "cases": SSD_BWD_CASES,
-          "max_abs_err": results, "strong_decay": strong,
-          "bit_equal_twice": True,
-          "ssd_chunked_grads_vs_plain_autograd_f32": chunked,
-          "ssd_chunked_launches_G_Gbwd": counts[0],
-          "tolerance": {"rows": F32_TOL, "floor": SSD_BWD_FLOOR}})
+          "routes": routes, "max_abs_err": results, "strong_decay": strong,
+          "bit_equal_twice": list(ssd_scan.BWD_ROUTES),
+          "ssd_chunked_grads_vs_plain_autograd": chunked,
+          "ssd_chunked_launches_G_Gbwd": counts,
+          "tolerance": {"rows": F32_TOL, "floor": SSD_BWD_FLOOR,
+                        "bf16_grads": BF16_TOL}})
 
 
 # ---------------------------------------------------------------------------
@@ -3162,24 +3194,32 @@ def ssd_kernel_rows():
 def ssd_bwd_kernel_row():
     """Row G′ at mamba2's training shape (batch 8, one chunk of 256, 80
     heads, bf16, no state gradient: the round's launches), from CUDA-graph
-    replay, beside the plain version; hymba's training shape and three
-    chunks with a state gradient also timed.  The bound counts the bytes
-    of every input and output once and the products the causal triangle
-    needs (dy.x^T, sum_i M dy_i, and dCB times B and C per head; C.B^T
-    once per group; dS B_j and dS^T x_j per row and head where dS is
-    given) at the tensor cores' bf16 rate."""
+    replay, on the route function's choice ("mma") beside the FMA route
+    and the plain version on the same inputs in the same replays;
+    hymba's training shape and three chunks with a state gradient also
+    timed.  The bound counts the bytes of every input and output once and
+    the products the causal triangle needs (dy.x^T, sum_i M dy_i, and dCB
+    times B and C per head; C.B^T once per group; dS B_j and dS^T x_j per
+    row and head where dS is given) at the tensor cores' bf16 rate."""
     import torch
     from repro_torch.kernels.ssd_scan import (ssd_chunk_bwd_cuda,
-                                              ssd_chunk_bwd_plain)
+                                              ssd_chunk_bwd_plain,
+                                              ssd_chunk_bwd_route)
     gen = torch.Generator(device="cuda").manual_seed(14)
 
     def case(B, S, H, P, G, N, L, st):
         ins = ssd_bwd_inputs(gen, B, S, H, P, G, N, L, st, torch.bfloat16)
-        got = ssd_chunk_bwd_cuda(*ins, L)
-        err = max(r["max_rel_err"] for r in ssd_bwd_rows(
-            "row", got, ssd_chunk_bwd_plain(*ins, L)).values())
+        route = ssd_chunk_bwd_route(*ins, L)
+        if route != "mma":
+            raise AssertionError(f"ssd bwd row: route {route}")
+        want = ssd_chunk_bwd_plain(*ins, L)
+        err = max(max(r["max_rel_err"] for r in ssd_bwd_rows(
+            f"row/{rt}", ssd_chunk_bwd_cuda(*ins, L, route=rt),
+            want).values()) for rt in ("mma", "fma"))
         times = graphs_ms({
             "ms": lambda i: ssd_chunk_bwd_cuda(*ins, L),
+            "ms_fma_route": lambda i: ssd_chunk_bwd_cuda(*ins, L,
+                                                         route="fma"),
             "plain_ms": lambda i: ssd_chunk_bwd_plain(*ins, L)},
             n_calls=10)
         nc, es = S // L, ins[0].element_size()
@@ -3191,8 +3231,9 @@ def ssd_bwd_kernel_row():
         flops = 2 * B * nc * (G * tri * N + H * tri * (2 * P + 2 * N)
                               + (2 * H * L * P * N if st else 0))
         bound, by = _bound(bytes_, flops)
-        return {**times, "bound_ms": bound, "bound_by": by,
-                "max_abs_err": err, "bytes": bytes_, "flops": flops,
+        return {**times, "kernel_route": route, "bound_ms": bound,
+                "bound_by": by, "max_abs_err": err, "bytes": bytes_,
+                "flops": flops,
                 "shape": {"B": B, "S": S, "H": H, "P": P, "G": G, "N": N,
                           "chunk": L, "dstates": st,
                           "dtype": str(ins[0].dtype)}}
@@ -3208,11 +3249,12 @@ def ssd_bwd_kernel_row():
         "max_abs_err": max([main["max_abs_err"]]
                            + [o["max_abs_err"] for o in others.values()]),
         "max_abs_err_is": "the largest error of a gradient row divided by "
-                          "that row's scale (ssd_bwd_rows)",
+                          "that row's scale (ssd_bwd_rows), on either route",
         "tolerance": {"rows": F32_TOL, "floor": SSD_BWD_FLOOR},
-        "kernel_route": "fma",
-        **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+        **{k: main[k] for k in ("ms", "ms_fma_route", "kernel_route",
+                                "plain_ms", "bound_ms", "bound_by",
                                 "shape", "bytes", "flops")},
+        "ms_fma_route_is": "the FMA route on the same inputs in this run",
         "library_ms": None,
         "library_call": "none: no single PyTorch call computes the SSD "
                         "chunk scan's gradient",

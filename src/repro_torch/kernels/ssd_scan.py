@@ -15,10 +15,16 @@ latter.  :func:`ssd_chunk_cuda` counts its launches in
 :func:`ssd_chunk_plain` is the same function in plain PyTorch (the CPU
 path and the kernel's oracle).
 
-G′ (:func:`ssd_chunk_bwd_cuda`, one FMA route) is the gradient of y and
-the end states with respect to x, dt, cum, B and C (the TPU takes it with
-``jax.grad`` of the reference's ``ssd_reference``); its oracle and CPU
-path is :func:`ssd_chunk_bwd_plain`, the explicit formulas.
+G′ (:func:`ssd_chunk_bwd_cuda`) is the gradient of y and the end states
+with respect to x, dt, cum, B and C (the TPU takes it with ``jax.grad`` of
+the reference's ``ssd_reference``); its oracle and CPU path is
+:func:`ssd_chunk_bwd_plain`, the explicit formulas.  G′ has two routes,
+picked by :func:`ssd_chunk_bwd_route`: bf16 at G's mma shapes takes the
+``"mma"`` kernels (tensor cores; each tile pair's scores formed once, dCB
+summed over a slice of heads before its products with B and C, the f32
+operands as hi + lo bf16 pairs), every other input the ``"fma"`` kernel
+(f32 FMAs); ``route="fma"`` forces the latter.  Both are deterministic
+and count their launches in ``ssd_chunk_bwd_cuda.launches_by_route``.
 :func:`ssd_chunk_autograd` is G with G′ as its backward (the training
 path on the card).  The raw launcher :func:`ssd_chunk_cuda` has no
 autograd: it raises where a gradient would be needed.
@@ -32,15 +38,15 @@ import torch
 from repro_torch.kernels import _build, _route
 
 __all__ = ["ssd_chunk_cuda", "ssd_chunk_plain", "ssd_chunk_route",
-           "ssd_chunk_bwd_cuda", "ssd_chunk_bwd_plain", "ssd_chunk_autograd",
-           "MAX_HEAD_DIM", "ROUTES"]
+           "ssd_chunk_bwd_cuda", "ssd_chunk_bwd_plain", "ssd_chunk_bwd_route",
+           "ssd_chunk_autograd", "MAX_HEAD_DIM", "ROUTES", "BWD_ROUTES"]
 
 MAX_HEAD_DIM = 128
 MMA_MAX_STATE = 128      # the mma route's largest N
 MMA_ROWS = 64            # the mma route's tile: L is a multiple of it
 BWD_MAX_STATE = 128      # G′'s largest N
 ROUTES = ("mma", "fma")
-BWD_ROUTES = ("fma",)
+BWD_ROUTES = ("mma", "fma")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # the C functions of csrc/ssd_chunk.cu: argument types, return type
@@ -54,6 +60,11 @@ C_FUNCTIONS = {
     "ssd_chunk_bwd_workspace_floats": ([ctypes.c_int] * 5, ctypes.c_longlong),
     "ssd_chunk_bwd_launch": (
         [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+        ctypes.c_int),
+    "ssd_chunk_bwd_mma_workspace_floats": ([ctypes.c_int] * 7,
+                                           ctypes.c_longlong),
+    "ssd_chunk_bwd_mma_launch": (
+        [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
         ctypes.c_int),
     "ssd_chunk_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
@@ -255,18 +266,37 @@ def ssd_chunk_bwd_plain(x, dt, cum, B_, C_, dy, dstates, chunk: int):
             groups(dC))
 
 
-def ssd_chunk_bwd_cuda(x, dt, cum, B_, C_, dy, dstates, chunk: int):
-    """Launch G′ (three kernels in one C call, counted once in
-    ``ssd_chunk_bwd_cuda.launches`` and ``.launches_by_route["fma"]``).
-    Inputs as :func:`ssd_chunk_bwd_plain`, all contiguous on one CUDA
-    device, x, B_, C_ in one of float32 / bfloat16, P <= 128, N <= 128.
-    Returns (dx, ddt, dcum, dB, dC), all f32.  Deterministic: no float
-    atomics, every sum in a fixed order."""
-    Bsz, S, H, P, G, N, nc = _bwd_check(x, dt, cum, B_, C_, dy, dstates,
-                                        chunk)
-    ssd_chunk_route(x, dt, cum, B_, C_, chunk)   # dtypes and P
+def ssd_chunk_bwd_route(x, dt, cum, B_, C_, dy, dstates, chunk: int) -> str:
+    """The kernel that :func:`ssd_chunk_bwd_cuda` launches for these
+    inputs: ``"mma"`` where :func:`ssd_chunk_route` gives G the mma route
+    (bf16 x, B, C with P and N multiples of 16, P <= 128, N <= 128, the
+    chunk a multiple of 64; mamba2's and hymba's training shapes) and dy
+    and dstates also lie at 16-byte aligned offsets, else ``"fma"``.  Reads
+    only dtypes, shapes and offsets (CPU or meta tensors do); raises on
+    inputs no route takes."""
+    _, _, _, _, _, N, _ = _bwd_check(x, dt, cum, B_, C_, dy, dstates, chunk)
+    forward = ssd_chunk_route(x, dt, cum, B_, C_, chunk)   # dtypes and P
     if not 1 <= N <= BWD_MAX_STATE:
         raise ValueError(f"state N={N} not in [1, {BWD_MAX_STATE}]")
+    if forward == "mma" and all(_route.aligned16(t) for t in (dy, dstates)
+                                if t is not None):
+        return "mma"
+    return "fma"
+
+
+def ssd_chunk_bwd_cuda(x, dt, cum, B_, C_, dy, dstates, chunk: int,
+                       route: str | None = None):
+    """Launch G′ on :func:`ssd_chunk_bwd_route`'s choice, or on ``route``
+    ("fma" takes every input; "mma" only what the route function gives
+    it).  Inputs as :func:`ssd_chunk_bwd_plain`, all contiguous on one CUDA
+    device, x, B_, C_ in one of float32 / bfloat16, P <= 128, N <= 128.
+    One C call (the mma route's kernels or the FMA route's three) counts
+    once in ``ssd_chunk_bwd_cuda.launches`` and ``.launches_by_route``.
+    Returns (dx, ddt, dcum, dB, dC), all f32.  Deterministic: no float
+    atomics, every sum in a fixed order."""
+    route = _route.pick(ssd_chunk_bwd_route(x, dt, cum, B_, C_, dy, dstates,
+                                            chunk), route)
+    Bsz, S, H, P, G, N, nc = _shapes(x, dt, cum, B_, C_, chunk)
     tensors = [t for t in (x, dt, cum, B_, C_, dy, dstates) if t is not None]
     if any(t.device != x.device for t in tensors) or x.device.type != "cuda":
         raise ValueError("all inputs must lie on one CUDA device")
@@ -281,22 +311,28 @@ def ssd_chunk_bwd_cuda(x, dt, cum, B_, C_, dy, dstates, chunk: int):
     dcum = torch.empty((Bsz, S, H), **f32)
     dB = torch.empty((Bsz, S, G, N), **f32)
     dC = torch.empty((Bsz, S, G, N), **f32)
-    ws = torch.empty((lib.ssd_chunk_bwd_workspace_floats(Bsz, S, H, G, N),),
-                     **f32)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.ssd_chunk_bwd_launch(
-            x.data_ptr(), dt.data_ptr(), cum.data_ptr(), B_.data_ptr(),
+    if route == "mma":
+        n_ws = lib.ssd_chunk_bwd_mma_workspace_floats(
+            Bsz, S, H, G, N, chunk, int(dstates is not None))
+    else:
+        n_ws = lib.ssd_chunk_bwd_workspace_floats(Bsz, S, H, G, N)
+    ws = torch.empty((n_ws,), **f32)
+    args = (x.data_ptr(), dt.data_ptr(), cum.data_ptr(), B_.data_ptr(),
             C_.data_ptr(), dy.data_ptr(),
             None if dstates is None else dstates.data_ptr(),
             dx.data_ptr(), ddt.data_ptr(), dcum.data_ptr(), dB.data_ptr(),
-            dC.data_ptr(), ws.data_ptr(), Bsz, S, H, G, N, P, chunk,
-            _DTYPES[x.dtype], stream)
+            dC.data_ptr(), ws.data_ptr(), Bsz, S, H, G, N, P, chunk)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if route == "mma":
+            rc = lib.ssd_chunk_bwd_mma_launch(*args, stream)
+        else:
+            rc = lib.ssd_chunk_bwd_launch(*args, _DTYPES[x.dtype], stream)
     if rc:
-        raise RuntimeError("ssd_chunk_bwd launch failed: "
+        raise RuntimeError(f"ssd_chunk_bwd ({route}) launch failed: "
                            + lib.ssd_chunk_error_string(rc).decode())
     ssd_chunk_bwd_cuda.launches += 1
-    ssd_chunk_bwd_cuda.launches_by_route["fma"] += 1
+    ssd_chunk_bwd_cuda.launches_by_route[route] += 1
     return dx, ddt, dcum, dB, dC
 
 
@@ -305,7 +341,8 @@ ssd_chunk_bwd_cuda.launches_by_route = dict.fromkeys(BWD_ROUTES, 0)
 
 
 class _SSDChunk(torch.autograd.Function):
-    """G forward, G′ backward: gradients for x, dt, cum, B and C."""
+    """G forward, G′ backward (on :func:`ssd_chunk_bwd_route`'s choice):
+    gradients for x, dt, cum, B and C."""
 
     @staticmethod
     def forward(ctx, x, dt, cum, B_, C_, chunk):

@@ -40,7 +40,8 @@ from repro_torch.kernels.quantize import (BLOCKS_PER_SM, WARPS_PER_BLOCK,
                                           quantize_rows_plain)
 from repro_torch.kernels.ref import ssd_recurrent_ref
 from repro_torch.kernels.ssd_scan import (ssd_chunk_bwd_cuda,
-                                          ssd_chunk_bwd_plain, ssd_chunk_cuda,
+                                          ssd_chunk_bwd_plain,
+                                          ssd_chunk_bwd_route, ssd_chunk_cuda,
                                           ssd_chunk_plain, ssd_chunk_route)
 from repro_torch.models.layers import BIG_WINDOW
 
@@ -1258,18 +1259,38 @@ def _ssd_cotangents(gen, x, L, N, states=True):
     return dy, ds
 
 
-def _assert_grad_rows(got, want, name):
+def _assert_grad_rows(got, want, name, tol=SSD_TOL):
     """Each row (the last axis) of a gradient against the larger of its own
-    largest |value| and a tenth of the tensor's, at SSD_TOL: a kernel that
+    largest |value| and a tenth of the tensor's, at ``tol``: a kernel that
     writes zeros fails."""
-    w = want.reshape(-1, want.shape[-1])
+    w = want.float().reshape(-1, want.shape[-1])
     scale = torch.maximum(w.abs().amax(dim=1, keepdim=True),
                           0.1 * w.abs().max()).clamp(min=1e-30)
     assert torch.isfinite(got).all(), name
-    torch.testing.assert_close(got.reshape(w.shape) / scale, w / scale,
-                               msg=name, **SSD_TOL)
+    torch.testing.assert_close(got.float().reshape(w.shape) / scale,
+                               w / scale, msg=name, **tol)
 
 
+BWD_NAMES = ("dx", "ddt", "dcum", "dB", "dC")
+
+
+def _bwd_on(route, args, chunk):
+    """G′ on ``route`` (one launch, on that route), or, where the route
+    function refuses the mma route, None after checking that asking for
+    it raises before any launch."""
+    if route == "mma" and ssd_chunk_bwd_route(*args, chunk) != "mma":
+        with _routed(ssd_chunk_bwd_cuda, route, n=0), \
+                pytest.raises(ValueError, match="route 'mma'"):
+            ssd_chunk_bwd_cuda(*args, chunk, route=route)
+        return None
+    n = ssd_chunk_bwd_cuda.launches
+    with _routed(ssd_chunk_bwd_cuda, route):
+        got = ssd_chunk_bwd_cuda(*args, chunk, route=route)
+    assert ssd_chunk_bwd_cuda.launches == n + 1
+    return got
+
+
+@pytest.mark.parametrize("route", ["mma", "fma"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,H,P,G,N,L", [
     (2, 256, 16, 64, 1, 128, 256),     # mamba2's head shape, one chunk
@@ -1277,22 +1298,28 @@ def _assert_grad_rows(got, want, name):
     (1, 256, 10, 64, 1, 16, 256),      # hymba's N 16, a ragged slice
     (2, 96, 8, 32, 2, 32, 32),         # G = 2
     (1, 40, 3, 24, 1, 20, 40),         # ragged L, P and N
+    (2, 256, 8, 64, 2, 64, 128),       # G = 2 at chunk 128 (mma)
+    (1, 192, 3, 128, 1, 32, 64),       # P 128, 3 heads, chunk 64 (mma)
+    (1, 128, 5, 48, 1, 16, 64),        # P 48, a slice of 1 head (mma)
 ])
-def test_ssd_bwd_kernel_matches_plain(gen, dtype, B, S, H, P, G, N, L):
+def test_ssd_bwd_kernel_matches_plain(gen, route, dtype, B, S, H, P, G, N,
+                                      L):
     x, dt, A, Bm, Cm = _ssd_inputs(gen, B, S, H, P, G, N, dtype)
     cum = _chunk_cum(dt, A, L)
     dy, ds = _ssd_cotangents(gen, x, L, N)
-    n = ssd_chunk_bwd_cuda.launches
-    got = ssd_chunk_bwd_cuda(x, dt, cum, Bm, Cm, dy, ds, L)
-    assert ssd_chunk_bwd_cuda.launches == n + 1
-    want = ssd_chunk_bwd_plain(x, dt, cum, Bm, Cm, dy, ds, L)
+    args = (x, dt, cum, Bm, Cm, dy, ds)
+    got = _bwd_on(route, args, L)
+    if got is None:
+        return
+    want = ssd_chunk_bwd_plain(*args, L)
     torch.cuda.synchronize()
-    for name, g, w in zip(("dx", "ddt", "dcum", "dB", "dC"), got, want):
+    for name, g, w in zip(BWD_NAMES, got, want):
         assert g.dtype == torch.float32 and g.shape == w.shape, name
         _assert_grad_rows(g, w, name)
 
 
-def test_ssd_bwd_kernel_without_state_gradient_and_strong_decay(gen):
+@pytest.mark.parametrize("route", ["mma", "fma"])
+def test_ssd_bwd_kernel_without_state_gradient_and_strong_decay(gen, route):
     """dstates absent (the one-chunk training round), and |A| dt up to 16 x
     6 a row: exp of the unmasked argument would be inf; every output is
     finite and matches the plain version."""
@@ -1300,28 +1327,33 @@ def test_ssd_bwd_kernel_without_state_gradient_and_strong_decay(gen):
                                    torch.bfloat16, dt_shift=5.0)
     cum = _chunk_cum(dt, A, 256)
     dy, _ = _ssd_cotangents(gen, x, 256, 128, states=False)
-    got = ssd_chunk_bwd_cuda(x, dt, cum, Bm, Cm, dy, None, 256)
+    with _routed(ssd_chunk_bwd_cuda, route):
+        got = ssd_chunk_bwd_cuda(x, dt, cum, Bm, Cm, dy, None, 256,
+                                 route=route)
     want = ssd_chunk_bwd_plain(x, dt, cum, Bm, Cm, dy, None, 256)
     torch.cuda.synchronize()
-    for name, g, w in zip(("dx", "ddt", "dcum", "dB", "dC"), got, want):
+    for name, g, w in zip(BWD_NAMES, got, want):
         _assert_grad_rows(g, w, name)
 
 
-def test_ssd_bwd_kernel_is_deterministic(gen):
+@pytest.mark.parametrize("route", ["mma", "fma"])
+def test_ssd_bwd_kernel_is_deterministic(gen, route):
     """No float atomics: two launches on the same inputs give the same
     bits (dB and dC sum all 80 heads of mamba2's one group)."""
     x, dt, A, Bm, Cm = _ssd_inputs(gen, 2, 512, 80, 64, 1, 128,
                                    torch.bfloat16)
     cum = _chunk_cum(dt, A, 256)
     dy, ds = _ssd_cotangents(gen, x, 256, 128)
-    a = ssd_chunk_bwd_cuda(x, dt, cum, Bm, Cm, dy, ds, 256)
-    b = ssd_chunk_bwd_cuda(x, dt, cum, Bm, Cm, dy, ds, 256)
+    with _routed(ssd_chunk_bwd_cuda, route, n=2):
+        a = ssd_chunk_bwd_cuda(x, dt, cum, Bm, Cm, dy, ds, 256, route=route)
+        b = ssd_chunk_bwd_cuda(x, dt, cum, Bm, Cm, dy, ds, 256, route=route)
     torch.cuda.synchronize()
-    for name, u, v in zip(("dx", "ddt", "dcum", "dB", "dC"), a, b):
+    for name, u, v in zip(BWD_NAMES, a, b):
         assert torch.equal(u, v), name
 
 
-def test_ssd_bwd_launches_from_a_fresh_thread(gen):
+@pytest.mark.parametrize("route", ["mma", "fma"])
+def test_ssd_bwd_launches_from_a_fresh_thread(gen, route):
     """G′ runs on the autograd engine's thread: a thread whose first CUDA
     work is its launch succeeds and matches the main thread's bits."""
     import threading
@@ -1329,48 +1361,59 @@ def test_ssd_bwd_launches_from_a_fresh_thread(gen):
                                    torch.bfloat16)
     cum = _chunk_cum(dt, A, 256)
     dy, ds = _ssd_cotangents(gen, x, 256, 128)
-    want = ssd_chunk_bwd_cuda(x, dt, cum, Bm, Cm, dy, ds, 256)
+    want = ssd_chunk_bwd_cuda(x, dt, cum, Bm, Cm, dy, ds, 256, route=route)
     torch.cuda.synchronize()
     got, errors = [], []
 
     def run():
         try:
-            got.append(ssd_chunk_bwd_cuda(x, dt, cum, Bm, Cm, dy, ds, 256))
+            got.append(ssd_chunk_bwd_cuda(x, dt, cum, Bm, Cm, dy, ds, 256,
+                                          route=route))
             torch.cuda.synchronize()
         except Exception as e:      # noqa: BLE001 — re-raised below
             errors.append(e)
-    t = threading.Thread(target=run)
-    t.start()
-    t.join()
+    with _routed(ssd_chunk_bwd_cuda, route):
+        t = threading.Thread(target=run)
+        t.start()
+        t.join()
     assert not errors, errors
     for u, v in zip(got[0], want):
         assert torch.equal(u, v)
 
 
-def test_ssd_chunked_backward_is_one_bwd_launch(gen):
+# ops.ssd_chunked's backward on each route of G′: f32 inputs take the FMA
+# route, bf16 ones the mma route.  bf16 leaves get bf16 gradients, which
+# both paths round from f32 values that agree to ~1e-5: TOL[bf16] for x, B
+# and C; dt and A stay f32.
+SSD_CHUNKED_DTYPE = {"fma": torch.float32, "mma": torch.bfloat16}
+
+
+@pytest.mark.parametrize("route", ["mma", "fma"])
+def test_ssd_chunked_backward_is_one_bwd_launch(gen, route):
     """ops.ssd_chunked at a ragged S over three chunks, differentiated in
-    x, dt, A, B and C through G and G′ (one launch each), against the
-    plain path's autograd on the same inputs."""
-    x, dt, A, Bm, Cm = _ssd_inputs(gen, 2, 700, 16, 64, 1, 128,
-                                   torch.float32)
+    x, dt, A, B and C through G and G′ (one launch each, G′ on ``route``),
+    against the plain path's autograd on the same inputs."""
+    dtype = SSD_CHUNKED_DTYPE[route]
+    x, dt, A, Bm, Cm = _ssd_inputs(gen, 2, 700, 16, 64, 1, 128, dtype)
     A = A / 8.0
     wy = torch.randn(x.shape, generator=gen, device="cuda")
     grads = []
     for kernel in (True, False):
         ins = [t.clone().requires_grad_(True) for t in (x, dt, A, Bm, Cm)]
         n = (ssd_chunk_cuda.launches, ssd_chunk_bwd_cuda.launches)
-        if kernel:
-            y = ops.ssd_chunked(*ins, 256)
-        else:
-            with _plain_ssd():
+        with _routed(ssd_chunk_bwd_cuda, route, n=int(kernel)):
+            if kernel:
                 y = ops.ssd_chunked(*ins, 256)
-        (y * wy).sum().backward()
+            else:
+                with _plain_ssd():
+                    y = ops.ssd_chunked(*ins, 256)
+            (y.float() * wy).sum().backward()
         assert (ssd_chunk_cuda.launches - n[0],
                 ssd_chunk_bwd_cuda.launches - n[1]) == (int(kernel),) * 2
         grads.append([t.grad for t in ins])
     torch.cuda.synchronize()
     for name, g, w in zip(("x", "dt", "A", "B", "C"), *grads):
-        _assert_grad_rows(g, w, name)
+        _assert_grad_rows(g, w, name, TOL[g.dtype])
 
 
 @contextlib.contextmanager

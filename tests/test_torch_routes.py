@@ -1,8 +1,8 @@
 """Which kernel route the port's wrappers pick, and the build cache's key.
 
 Kernels C (``lora_matmul``), B (forward and backward), G (``ssd_chunk``)
-and A (``paged_attention``) each have a tensor-core route and an f32 FMA
-route.  A pure function of dtypes, shapes and offsets picks one before
+and its backward G′, and A (``paged_attention``) each have a tensor-core
+route and an f32 FMA route.  A pure function of dtypes, shapes and offsets picks one before
 the launch; A's and D's (``gram_log_volume``) splits and E's
 (``quantize_rows``) grid are pure functions of shapes, and D and E check
 their inputs before anything else.  These
@@ -29,7 +29,8 @@ from repro_torch.kernels.gram_volume import (SPLITS as GRAM_SPLITS,
 from repro_torch.kernels.quantize import (BLOCKS_PER_SM, WARPS_PER_BLOCK,
                                           quantize_rows_cuda,
                                           quantize_rows_grid)
-from repro_torch.kernels.ssd_scan import ssd_chunk_route
+from repro_torch.kernels.ssd_scan import (ssd_chunk_bwd_cuda,
+                                          ssd_chunk_bwd_route, ssd_chunk_route)
 
 BF16, F32 = torch.bfloat16, torch.float32
 
@@ -224,6 +225,96 @@ def test_ssd_misaligned_offset_takes_fma():
 def test_ssd_route_raises_on_bad_inputs(args, err):
     with pytest.raises(err):
         ssd_chunk_route(*args())
+
+
+def ssd_bwd_args(B, S, H, P, G, N, chunk, states=False, dtype=BF16):
+    """G′'s arguments: G's, dy (f32, shaped as x), dstates (f32) or None,
+    and the chunk."""
+    dy = meta(B, S, H, P, dtype=F32)
+    ds = meta(B, S // chunk, H, P, N, dtype=F32) if states else None
+    return (*ssd_args(B, S, H, P, G, N, dtype), dy, ds, chunk)
+
+
+@pytest.mark.parametrize("states", [False, True])
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", [
+    (8, 256, 80, 64, 1, 128, 256),     # mamba2-2.7b's training pass
+    (8, 256, 50, 64, 1, 16, 256),      # hymba-1.5b's training pass
+    (1, 768, 80, 64, 1, 128, 256),     # mamba2, three chunks
+    (2, 256, 8, 64, 2, 64, 128),       # two groups, chunk 128
+    (1, 192, 3, 128, 1, 32, 64),       # P 128, odd heads, chunk 64
+])
+def test_ssd_bwd_bf16_takes_mma(B, S, H, P, G, N, chunk, states):
+    assert ssd_chunk_bwd_route(
+        *ssd_bwd_args(B, S, H, P, G, N, chunk, states)) == "mma"
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk,dtype", [
+    (8, 256, 80, 64, 1, 128, 256, F32),    # f32 keeps the FMA kernel
+    (1, 256, 4, 64, 1, 24, 256, BF16),     # N not a multiple of 16
+    (1, 256, 4, 40, 1, 64, 256, BF16),     # P not a multiple of 16
+    (1, 96, 4, 64, 1, 64, 48, BF16),       # a chunk of 48
+    (1, 16, 4, 16, 1, 8, 8, BF16),         # the toy shapes
+])
+def test_ssd_bwd_other_inputs_take_fma(B, S, H, P, G, N, chunk, dtype):
+    for states in (False, True):
+        args = ssd_bwd_args(B, S, H, P, G, N, chunk, states, dtype)
+        assert ssd_chunk_bwd_route(*args) == "fma"
+
+
+def test_ssd_bwd_misaligned_offsets_take_fma():
+    x, dt, cum, Bm, Cm, dy, ds, chunk = ssd_bwd_args(1, 256, 4, 64, 1, 128,
+                                                     256, True)
+    assert ssd_chunk_bwd_route(x, dt, cum, Bm, Cm, dy, ds, chunk) == "mma"
+    xm = meta(256 * 4 * 64 + 1)[1:].view(1, 256, 4, 64)     # 2 bytes in
+    dym = meta(256 * 4 * 64 + 1, dtype=F32)[1:].view(1, 256, 4, 64)
+    dsm = meta(4 * 64 * 128 + 1, dtype=F32)[1:].view(1, 1, 4, 64, 128)
+    for args in ((xm, dt, cum, Bm, Cm, dy, ds), (x, dt, cum, Bm, Cm, dym, ds),
+                 (x, dt, cum, Bm, Cm, dy, dsm)):
+        assert ssd_chunk_bwd_route(*args, chunk) == "fma"
+
+
+@pytest.mark.parametrize("args,err,match", [
+    (lambda: ssd_bwd_args(1, 64, 4, 16, 1, 16, 48), ValueError,
+     "multiple"),                                             # S % chunk
+    (lambda: ssd_bwd_args(1, 64, 6, 16, 4, 16, 32), ValueError,
+     "multiple"),                                             # H % G
+    (lambda: (*ssd_bwd_args(1, 64, 4, 16, 1, 16, 32)[:5],
+              meta(1, 64, 4, 32, dtype=F32), None, 32), ValueError,
+     "shaped"),                                               # dy's shape
+    (lambda: (*ssd_bwd_args(1, 64, 4, 16, 1, 16, 32)[:5],
+              meta(1, 64, 4, 16), None, 32), TypeError,
+     "float32"),                                              # bf16 dy
+    (lambda: (*ssd_bwd_args(1, 64, 4, 16, 1, 16, 32)[:6],
+              meta(1, 1, 4, 16, 16, dtype=F32), 32), ValueError,
+     "dstates"),                                              # dS's shape
+    (lambda: ssd_bwd_args(1, 64, 4, 16, 1, 144, 32), ValueError,
+     "state N"),                                              # N > 128
+    (lambda: ssd_bwd_args(1, 64, 4, 144, 1, 16, 32, dtype=F32), ValueError,
+     "head dim"),                                             # P > 128
+    (lambda: ssd_bwd_args(1, 64, 4, 16, 1, 16, 32, dtype=torch.float16),
+     TypeError, "share"),                                     # no fp16
+])
+def test_ssd_bwd_route_raises_on_bad_inputs(args, err, match):
+    with pytest.raises(err, match=match):
+        ssd_chunk_bwd_route(*args())
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk,dtype", [
+    (8, 256, 80, 64, 1, 128, 256, F32),    # f32
+    (1, 96, 4, 64, 1, 64, 48, BF16),       # a chunk of 48
+    (1, 256, 4, 40, 1, 64, 256, BF16),     # P 40
+])
+def test_ssd_bwd_forced_mma_raises_before_any_launch(B, S, H, P, G, N,
+                                                      chunk, dtype):
+    """Asking for the mma route on inputs it does not take raises before
+    any launch (meta tensors: nothing could launch)."""
+    before = (ssd_chunk_bwd_cuda.launches,
+              dict(ssd_chunk_bwd_cuda.launches_by_route))
+    with pytest.raises(ValueError, match="route 'mma'"):
+        ssd_chunk_bwd_cuda(*ssd_bwd_args(B, S, H, P, G, N, chunk, True,
+                                         dtype), route="mma")
+    assert (ssd_chunk_bwd_cuda.launches,
+            ssd_chunk_bwd_cuda.launches_by_route) == before
 
 
 def paged_args(B, H, K, D, ps=16, M=32, dtype=BF16):
