@@ -174,7 +174,33 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    and leaves against each other; prints an ``{"ssm_training": ...}``
    line (round wall time, ms per step per cohort, peak memory,
    ``avg_ce`` / ``server_ce`` before and after, launches per route);
-15. prints ``{"phase_seconds": ...}`` and a ``{"kernels": [...]}`` line
+15. serves on the ring cache through ``launch/serve.py:generate`` at full
+   width and published depth (bf16, random weights from a seed):
+   ``mlecs-slm-720m`` (8 rows of 256 tokens), ``mamba2-2.7b`` (8 of 300)
+   and ``hymba-1.5b`` (4 of 1,100: its 1024 window bites), 32 tokens a
+   row, once with merge=True on the unmerged weights and once counted on
+   the merged ones (equal tokens), each beside ``ServingEngine`` on the
+   same prompts (greedy agreement printed); exact launches (B and G once
+   a layer of a prefill, A once an attention layer of a decode step) on
+   the tensor-core routes; tokens/s, decode-step and prefill ms; then, on
+   one row, prefill -> 8 teacher-forced decode steps on the ring path and
+   on the paged path against one full forward, on the weights upcast to
+   f32 (``E2E_TOL``; ring against paged ``RING_PAGED_TOL_F32``) and on
+   the bf16 weights (ring against paged ``E2E_TOL``); then A on the SLM's
+   full ring of 288 slots against the same keys as pages of 16 (the same
+   capacity); prints a ``{"ring_serving": ...}`` line;
+16. serves the registry's ``gemma-2b`` (8 / 1 heads of 256: every A
+   launch on the FMA walk, which ``check_tensor_core_routes`` expects
+   exactly), ``gemma3-1b`` (window 512), ``internvl2-1b`` (256 frontend
+   tokens of 1024 from a seed) and ``granite-20b`` (40.6 GB of weights,
+   after every earlier phase's memory is released) at full width and
+   published depth as phase 15 does (4 rows of 590 tokens, 24 new; f32
+   consistency on granite's first 13 layers), each model's peak memory,
+   granite's decode step beside the bound of reading its weights once;
+   A at gemma-2b's and granite's fullest engine step and B at gemma3's
+   local layers (SDPA with the window as a mask beside it); prints a
+   ``{"registry_serving": ...}`` line;
+17. prints ``{"phase_seconds": ...}`` and a ``{"kernels": [...]}`` line
    (times from CUDA-graph replay, bounds from this run's inputs; rows
    A-G and G′, each with its launches on the main paths; the rows of the five
    two-route kernels, A, B, B's backward, C and G, also time their FMA
@@ -183,8 +209,10 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    ``launch_floor_ms``, replayed in turn with it (D's rows also one wide
    sample, at the split the rule picks for it); row A, at the SLM's,
    hymba's and qwen3's fullest decode step (``at_other_shapes``), also
-   times every forced cluster size, ``ms_by_splits`` and ``ms_splits1``;
-   rows B, B's backward and C also at qwen3's training shapes, C also at
+   times every forced cluster size, ``ms_by_splits`` and ``ms_splits1``,
+   and at the SLM's ring, gemma-2b's and granite-20b's shapes;
+   rows B, B's backward and C also at qwen3's training shapes, B at
+   gemma3-1b's windowed local layers, C also at
    mamba2's and hymba's in_proj (the latter on the FMA route); the row
    of C's grouped form at G 3 x 1088 x 1280 x 1280 beside three ungrouped
    launches of the same work, ``ungrouped_x3_ms``).
@@ -1376,7 +1404,8 @@ def check_tensor_core_routes(tag, fma=None):
     """Every launch of A, C, B (forward and backward), G and G′ since the
     last ``zero_counters`` took the tensor-core route, except exactly ``fma``'s
     count of FMA launches per kernel (C at a projection whose shape the
-    wgmma route does not take: ``round_launch_plan``); returns the
+    wgmma route does not take: ``round_launch_plan``; A at D 256, whose
+    decode the mma walk does not take: ``d256_fma``); returns the
     per-route counts."""
     fns = counters()
     fma = fma or {}
@@ -4660,6 +4689,529 @@ def phase_ssm_training():
     return result, total
 
 
+# ---------------------------------------------------------------------------
+# phase 16 / 17: ring-cache serving (generate), and the registry's dense
+# and vlm configs at full width
+
+# the ring decode against the paged decode on the same weights and tokens:
+# at f32 both paths run the same kernels on the same keys and differ only
+# in how A splits each key walk; at bf16 as the paged decode against the
+# forward (E2E_TOL)
+RING_PAGED_TOL_F32 = dict(atol=1e-3, rtol=1e-3)
+CONSISTENCY_K = 8          # teacher-forced decode steps held per model
+
+
+def served_params(bundle, seed=0):
+    """Random params of ``bundle`` on the card from ``seed``, LoRA B filled
+    too, so that merging is real work."""
+    import torch
+    from repro_torch.core.lora import flatten
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = bundle.init(gen)
+    for path, leaf in flatten(params).items():
+        if path.endswith("_lora_b"):
+            leaf.copy_(torch.randn(leaf.shape, generator=gen,
+                                   device="cuda") * 0.02)
+    return params
+
+
+def decode_weight_bytes(bundle, params):
+    """Bytes of the served weights a decode step reads: all of them but an
+    untied embedding table, of which a step gathers one row a slot."""
+    from repro_torch.core.lora import flatten
+    skip = "" if bundle.cfg.tie_embeddings else "tok/embed"
+    return sum(v.numel() * v.element_size()
+               for k, v in flatten(params).items() if k != skip)
+
+
+def path_launches(cfg, prefills, steps):
+    """The exact launches of a serving run: B (attention families) and G
+    (ssm, hybrid) once a layer of each prefill, A once an attention layer
+    of each decode step."""
+    L = cfg.n_layers
+    attn, ssd = cfg.family != "ssm", cfg.family in ("ssm", "hybrid")
+    return {"flash_attention": L * attn * prefills,
+            "ssd_chunk": L * ssd * prefills,
+            "paged_attention": L * attn * steps}
+
+
+def d256_fma(cfg, steps):
+    """A's FMA launches a run must make: every one at D 256 (gemma),
+    whose decode the mma walk does not take (``paged_attention.
+    MMA_HEAD_DIMS``), none elsewhere."""
+    from repro_torch.kernels.paged_attention import MMA_HEAD_DIMS
+    if cfg.family == "ssm" or cfg.head_dim in MMA_HEAD_DIMS:
+        return None
+    return {"paged_attention": cfg.n_layers * steps}
+
+
+def counted(tag, cfg, want, fma):
+    """The counters since ``zero_counters``: exactly ``want``, every other
+    kernel idle, and the tensor-core routes but ``fma``'s.  Returns
+    (launches, the routes that took launches)."""
+    launches = read_counters()
+    full = dict.fromkeys(launches, 0)
+    full.update(want)
+    if launches != full:
+        raise AssertionError(f"{tag} launches {launches} != {full}")
+    routes = check_tensor_core_routes(tag, fma)
+    return launches, {n: r for n, r in routes.items() if any(r.values())}
+
+
+def generate_run(bundle, params, prompts, extra, max_new, tag):
+    """One counted ``generate`` call on the served weights (merge=False):
+    B rows of S tokens, ``max_new`` tokens each (the last sampled without
+    a decode), after a warm-up call (max_new 2) and one prefill timed
+    alone.  Returns (tokens, metrics, launches)."""
+    import torch
+    from repro_torch.launch.serve import generate, make_prefill
+    from repro_torch.models.layers import padded_vocab
+    cfg = bundle.cfg
+    B, S = prompts.shape
+    with torch.no_grad():
+        generate(bundle, params, prompts, max_new=2, batch_extra=extra,
+                 merge=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        make_prefill(bundle)(params, {"tokens": prompts, **extra})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+    zero_counters()
+    t0 = time.perf_counter()
+    toks = generate(bundle, params, prompts, max_new=max_new,
+                    batch_extra=extra, merge=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = max_new - 1
+    launches, routes = counted(f"{tag} generate", cfg,
+                               path_launches(cfg, 1, steps),
+                               d256_fma(cfg, steps))
+    if tuple(toks.shape) != (B, max_new) or toks.device != prompts.device \
+            or int(toks.min()) < 0 or int(toks.max()) >= padded_vocab(cfg):
+        raise AssertionError(f"{tag} generate: bad tokens {toks.shape}")
+    return toks, {
+        "rows": B, "prompt_tokens": S, "max_new": max_new,
+        "tokens": B * max_new, "wall_s": wall,
+        "tokens_per_s": B * max_new / wall, "prefill_ms": 1e3 * prefill_s,
+        "decode_step_ms_mean": 1e3 * (wall - prefill_s) / steps,
+        "decode_step_ms_is": "(the counted call's wall - one prefill's "
+                             "wall) / (max_new - 1)",
+        "launches": {n: v for n, v in launches.items() if v},
+        "launches_by_route": routes}, launches
+
+
+def engine_run(bundle, params, prompts, extra_rows, max_new, econf, tag):
+    """The same prompts through ``ServingEngine`` on the served weights
+    (merge=False), one request a row, after one short warm-up request.
+    Returns (each row's tokens, metrics, launches, the engine, the block
+    tables, lengths and active slots of its step with the most cached
+    tokens)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve_engine import ServingEngine
+    cfg = bundle.cfg
+    engine = ServingEngine(bundle, params, econf, merge=False)
+    rows = prompts.cpu().numpy()
+    engine.submit(rows[0][:32], max_new=2, **extra_rows[0])
+    engine.run()
+    torch.cuda.synchronize()
+    base = dict(steps=engine.n_steps, prefills=engine.n_prefills,
+                dec=engine.decode_seconds, pre=engine.prefill_seconds)
+    zero_counters()
+    t0 = time.perf_counter()
+    rids = [engine.submit(r, max_new=max_new, **x)
+            for r, x in zip(rows, extra_rows)]
+    snap, best = None, -1
+    while engine.busy:
+        engine.tick()
+        sd = engine.sched
+        total = int(torch.where(sd["active"], sd["seq_lens"] + 1, 0).sum())
+        if total > best:
+            best = total
+            snap = (sd["block_tables"].clone(), sd["seq_lens"].clone(),
+                    sd["active"].clone())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = engine.n_steps - base["steps"]
+    prefills = engine.n_prefills - base["prefills"]
+    launches, routes = counted(f"{tag} engine", cfg,
+                               path_launches(cfg, prefills, steps),
+                               d256_fma(cfg, steps))
+    outs = [engine.finished[r].out for r in rids]
+    if prefills != len(rows) or any(len(o) != max_new for o in outs):
+        raise AssertionError(f"{tag} engine: {prefills} prefills, "
+                             f"{[len(o) for o in outs]} tokens")
+    if sorted(engine._free_pages) != list(range(1, econf.n_pages)) \
+            or sorted(engine._free_slots) != list(range(econf.n_slots)):
+        raise AssertionError(f"{tag} engine: free lists not restored")
+    n_tokens = sum(len(o) for o in outs)
+    return np.stack(outs), {
+        "requests": len(rows), "tokens": n_tokens, "wall_s": wall,
+        "tokens_per_s": n_tokens / wall, "decode_steps": steps,
+        "decode_step_ms_mean": 1e3 * (engine.decode_seconds - base["dec"])
+        / steps,
+        "prefill_ms_mean": 1e3 * (engine.prefill_seconds - base["pre"])
+        / prefills,
+        "launches": {n: v for n, v in launches.items() if v},
+        "launches_by_route": routes}, launches, engine, snap
+
+
+def ring_paged_consistency(bundle, params, toks, extra, tol, rp_tol):
+    """Teacher-forced decode of the last ``CONSISTENCY_K`` tokens of
+    ``toks`` (one row) after a prefill of the rest, on the ring path
+    (``prefill`` + ``decode_step``) and on the paged path
+    (``prefill_paged`` at exact length + ``insert_paged`` +
+    ``decode_paged``): every step's logits, the prefill's included,
+    against one full forward over the same tokens (``tol``; None:
+    measured only), and the ring's against the paged path's (``rp_tol``).
+    Returns the largest errors."""
+    import torch
+    from repro_torch.launch.serve import _reseat_cache
+    from repro_torch.models.paged import pages_for
+    K = CONSISTENCY_K
+    S = toks.shape[1] - K
+    ps = 16
+    with torch.no_grad():
+        full, _ = bundle.logits(params, {"tokens": toks, **extra})
+        P = full.shape[1] - S - K
+        pre = {"tokens": toks[:, :S], **extra}
+        last, cache = bundle.prefill(params, pre)
+        cache = _reseat_cache(bundle.init_cache(1, P + S + K, "cuda"), cache)
+        n_pg = pages_for(P + S + K, ps)
+        pstate = bundle.init_paged(1, n_pg + 1, ps, "cuda")
+        plast, pack, kv_len = bundle.prefill_paged(params, pre, S)
+        pstate = bundle.insert_paged(
+            pstate, pack, 0, torch.arange(1, 1 + pages_for(kv_len, ps),
+                                          device="cuda"))
+        del pack
+        bt = torch.arange(1, 1 + n_pg, dtype=torch.int32,
+                          device="cuda")[None]
+        lens = torch.full((1,), kv_len, dtype=torch.int32, device="cuda")
+        active = torch.ones((1,), dtype=torch.bool, device="cuda")
+        pairs = [(last[0], plast[0], full[0, P + S - 1])]
+        for i in range(K):
+            tok = toks[:, S + i:S + i + 1]
+            ring, cache = bundle.decode_step(params, cache, tok, P + S + i)
+            paged, pstate = bundle.decode_paged(params, pstate, bt, lens,
+                                                tok, active)
+            pairs.append((ring[0], paged[0], full[0, P + S + i]))
+            lens = lens + 1
+    out = dict.fromkeys(("ring_vs_forward", "paged_vs_forward",
+                         "ring_vs_paged"), 0.0)
+    for i, (ring, paged, want) in enumerate(pairs):
+        for key, got, ref, t in (("ring_vs_forward", ring, want, tol),
+                                 ("paged_vs_forward", paged, want, tol),
+                                 ("ring_vs_paged", ring, paged, rp_tol)):
+            out[key] = max(out[key], check_close(f"{key} step {i}", got, ref,
+                                                 t or NO_TOL))
+    out.update(prompt_tokens=S, prefix_tokens=P, decode_steps=K,
+               tolerance_vs_forward=tol or "measured only",
+               tolerance_ring_vs_paged=rp_tol)
+    return out
+
+
+def upcast_f32(bundle, params, n_layers=None):
+    """The bundle and weights upcast to f32 (TF32 is off); only the first
+    ``n_layers`` layers when given."""
+    from repro_torch.core.lora import flatten, unflatten
+    from repro_torch.models.model import build_model, with_overrides
+    cut = {} if n_layers is None else {"n_layers": n_layers}
+    b32 = build_model(with_overrides(bundle.cfg, dtype="float32", **cut))
+    p32 = unflatten({
+        k: (v[:n_layers] if n_layers and k.startswith("layers/") else v)
+        .float() for k, v in flatten(params).items()})
+    return b32, p32
+
+
+def consistency(bundle, params, toks, extra, f32_layers=None):
+    """``ring_paged_consistency`` on the weights upcast to f32 (against
+    the forward at ``E2E_TOL``, ring against paged at
+    ``RING_PAGED_TOL_F32``; the first ``f32_layers`` layers only where
+    the model would not fit twice in f32), then on the served bf16
+    weights (the forward measured only, ring against paged at
+    ``E2E_TOL``).  The f32 runs launch on the FMA routes, counted in no
+    path."""
+    b32, p32 = upcast_f32(bundle, params, f32_layers)
+    f32 = ring_paged_consistency(
+        b32, p32, toks, {k: v.float() for k, v in extra.items()}, E2E_TOL,
+        RING_PAGED_TOL_F32)
+    del p32
+    if f32_layers:
+        f32["layers"] = f32_layers
+    release()
+    bf16 = ring_paged_consistency(bundle, params, toks, extra, None,
+                                  E2E_TOL)
+    return {"f32": f32, "bf16": bf16}
+
+
+def ring_row(cfg, B, S_c, gen):
+    """Row A on a ring at ``cfg``'s decode shape: B rows, a full ring of
+    S_c slots a layer (the ring run's fullest step), each layer's (B, S_c,
+    K, D) ring read as B pages of S_c entries; against the same keys read
+    as pages of 16 (S_c / 16 a row: the same capacity, so the split rule
+    picks the same cluster), their replays taken in turn; the bound from
+    the bytes of the keys kept."""
+    import torch
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_cuda, paged_attention_plain, paged_attention_splits)
+    from repro_torch.models.layers import BIG_WINDOW
+    H, K, D, L = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.n_layers
+    if S_c % 16:
+        raise AssertionError(f"ring capacity {S_c} is no multiple of 16")
+    M = S_c // 16
+    dt = cfg.torch_dtype
+    kv = torch.randn((L, 2, B, S_c, K, D), generator=gen,
+                     device="cuda").to(dt)
+    qs = torch.randn((L, B, 1, H, D), generator=gen, device="cuda").to(dt)
+    tables = torch.arange(B, dtype=torch.int32, device="cuda")[:, None]
+    bt = torch.arange(B * M, dtype=torch.int32, device="cuda").reshape(B, M)
+    lens = torch.full((B,), S_c, dtype=torch.int32, device="cuda")
+
+    def ring(i, fn=paged_attention_cuda):
+        return fn(qs[i % L], kv[i % L, 0], kv[i % L, 1], tables, lens,
+                  BIG_WINDOW)
+
+    def pages(i):
+        return paged_attention_cuda(
+            qs[i % L], kv[i % L, 0].view(B * M, 16, K, D),
+            kv[i % L, 1].view(B * M, 16, K, D), bt, lens, BIG_WINDOW)
+
+    err = 0.0
+    for i in range(L):
+        got = ring(i)
+        err = max(err, check_close(f"ring layer {i}", got,
+                                   ring(i, paged_attention_plain), BF16_TOL),
+                  check_close(f"ring vs pages layer {i}", got, pages(i),
+                              BF16_TOL))
+    t = graphs_ms({"ring": ring, "pages": pages,
+                   "plain": lambda i: ring(i, paged_attention_plain)},
+                  n_calls=L, reps=7)
+    esz = kv.element_size()
+    bytes_ = 2 * B * S_c * K * D * esz + 2 * B * H * D * esz + 8 * B
+    bound, by = _bound(bytes_, 4 * B * S_c * H * D)
+    return {"max_abs_err": err, "ms": t["ring"],
+            "ms_pages_same_capacity": t["pages"], "plain_ms": t["plain"],
+            "bound_ms": bound, "bound_by": by,
+            "splits": paged_attention_splits(B, K, H // K, 1, S_c),
+            "shape": {"rows": B, "ring_slots": S_c, "H": H, "K": K, "D": D,
+                      "dtype": str(dt), "pages_same_capacity": [M, 16]}}
+
+
+def flash_window_row(cfg, B, S, gen):
+    """Row B at ``cfg``'s local layers (gemma3-1b: 4 / 1 heads of 256,
+    window 512), a prefill of B rows of S: the kernel, its FMA route, the
+    plain version and SDPA with the window as a mask, replayed in turn;
+    the bound from the pairs the window keeps."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain,
+                                                     flash_attention_route)
+    H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    w = cfg.sliding_window
+    dt = cfg.torch_dtype
+    q = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dt)
+    k, v = (torch.randn((B, S, K, D), generator=gen, device="cuda").to(dt)
+            for _ in range(2))
+    route = flash_attention_route(q, k, v)
+    if route != "mma":
+        raise AssertionError(f"flash window row: route {route}")
+    err = check_close("flash window row",
+                      flash_attention_cuda(q, k, v, causal=True, window=w),
+                      flash_attention_plain(q, k, v, causal=True, window=w),
+                      BF16_TOL)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    pos = torch.arange(S, device="cuda")
+    mask = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < w)
+    t = graphs_ms({
+        "kernel": lambda i: flash_attention_cuda(q, k, v, True, w),
+        "fma": lambda i: flash_attention_cuda(q, k, v, True, w, route="fma"),
+        "plain": lambda i: flash_attention_plain(q, k, v, True, w),
+        "sdpa": lambda i: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)})
+    pairs = sum(min(i + 1, w) for i in range(S))
+    bound, by = _bound((2 * B * S * H * D + 2 * B * S * K * D)
+                       * q.element_size(), 4 * D * B * H * pairs)
+    return {"ms": t["kernel"], "ms_fma_route": t["fma"],
+            "plain_ms": t["plain"], "library_ms": t["sdpa"],
+            "library_call": "scaled_dot_product_attention(attn_mask=the "
+                            "window, enable_gqa=True) on (B, H, S, D) copies",
+            "bound_ms": bound, "bound_by": by, "max_abs_err": err,
+            "kernel_route": route,
+            "shape": {"B": B, "S": S, "H": H, "K": K, "D": D, "window": w,
+                      "dtype": str(dt)}}
+
+
+def serve_both(cfg, rows, S, max_new, extra=None, f32_layers=None,
+               at_fullest=None):
+    """``cfg`` at full width and published depth (bf16, random weights
+    from a seed): ``generate`` with merge=True on the unmerged weights
+    (max_new 4), then the counted ``generate_run`` on the merged weights
+    (its first tokens must equal those), the same prompts through
+    ``ServingEngine``, the two's greedy tokens compared, then
+    ``consistency`` on one row.  ``extra(rows, gen)``: the batch extras
+    (the vlm family's frontend features).  Returns (metrics, the launches
+    of the counted runs, ``at_fullest(engine, snap)`` or None)."""
+    import torch
+    from repro_torch.core.lora import flatten, is_lora_leaf, merge_lora
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.serve_engine import EngineConfig
+    from repro_torch.models.model import build_model
+    from repro_torch.models.paged import pages_for
+    from repro_torch.models.transformer import window_array
+    tag = cfg.name
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bundle = build_model(cfg)
+    params = served_params(bundle)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    prompts = torch.randint(0, cfg.vocab_size, (rows, S + CONSISTENCY_K),
+                            generator=gen, device="cuda")
+    batch_extra = extra(rows, gen) if extra else {}
+    by_merge = generate(bundle, params, prompts[:, :S], max_new=4,
+                        batch_extra=batch_extra)
+    with torch.no_grad():
+        merged = merge_lora(params, cfg)
+    del params
+    if any(is_lora_leaf(p) for p in flatten(merged)):
+        raise AssertionError(f"{tag}: merged params still carry adapters")
+    toks, gen_metrics, gen_launches = generate_run(
+        bundle, merged, prompts[:, :S], batch_extra, max_new, tag)
+    if not torch.equal(by_merge, toks[:, :4]):
+        raise AssertionError(f"{tag}: generate(merge=True) tokens differ "
+                             "from the merged weights'")
+    P = cfg.frontend_tokens if cfg.frontend else 0
+    M = pages_for(P + S + max_new, 16)
+    econf = EngineConfig(n_slots=rows, page_size=16, n_pages=rows * M + 1,
+                         max_pages_per_seq=M, max_out=max_new, buckets=(S,))
+    extra_rows = [{k: v[i] for k, v in batch_extra.items()}
+                  for i in range(rows)]
+    etoks, eng_metrics, eng_launches, engine, snap = engine_run(
+        bundle, merged, prompts[:, :S], extra_rows, max_new, econf, tag)
+    same = etoks == toks.cpu().numpy()
+    row = at_fullest(engine, snap) if at_fullest else None
+    del engine
+    release()
+    metrics = {
+        "model": cfg.name, "family": cfg.family, "dtype": cfg.dtype,
+        "params": cfg.n_params(), "prefix_tokens": P,
+        "decode_weight_bytes": decode_weight_bytes(bundle, merged),
+        "init_s": init_s, "generate": gen_metrics, "engine": eng_metrics,
+        "greedy_tokens_equal_share": float(same.mean()),
+        "greedy_first_token_equal_share": float(same[:, 0].mean()),
+        "windows": [] if cfg.family == "ssm"
+        else sorted(set(window_array(cfg))),
+        "consistency": consistency(
+            bundle, merged, prompts[:1],
+            {k: v[:1] for k, v in batch_extra.items()}, f32_layers),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    launches = {n: gen_launches[n] + eng_launches[n] for n in gen_launches}
+    return metrics, launches, row
+
+
+RING_CASES = (      # (config module, rows, prompt tokens, tokens generated)
+    ("mlecs_paper", 8, 256, 32),     # a ring of 288 slots: 18 pages of 16
+    ("mamba2_2p7b", 8, 300, 32),
+    ("hymba_1p5b", 4, 1100, 32),     # past the 1024 window
+)
+
+
+def phase_ring_serving():
+    """``generate`` on the ring cache at full width and published depth:
+    ``mlecs-slm-720m``, ``mamba2-2.7b`` and ``hymba-1.5b`` (prompts past
+    its window), each beside ``ServingEngine`` on the same prompts
+    (``serve_both``); then row A on the SLM's ring against pages of the
+    same capacity.  Returns (metrics, launches, the ring row)."""
+    import importlib
+    import torch
+    out, total = {}, None
+    for mod, rows, S, new in RING_CASES:
+        m = importlib.import_module(f"repro_torch.configs.{mod}")
+        cfg = getattr(m, "SLM", None) or m.CONFIG
+        out[cfg.name], launches, _ = serve_both(cfg, rows, S, new)
+        total = launches if total is None else \
+            {n: total[n] + launches[n] for n in total}
+        release()
+    from repro_torch.configs.mlecs_paper import SLM
+    rows, S, new = RING_CASES[0][1:]
+    row = ring_row(SLM, rows, S + new,
+                   torch.Generator(device="cuda").manual_seed(12))
+    release()
+    return out, total, row
+
+
+def vlm_frontend(cfg):
+    """The vlm family's stubbed vision features, (rows, T, F) in the model
+    dtype from the seeded generator (256 patches of 1024 for
+    internvl2-1b)."""
+    def make(rows, gen):
+        import torch
+        return {"frontend_embeds": (torch.randn(
+            (rows, cfg.frontend_tokens, cfg.frontend_dim), generator=gen,
+            device="cuda") * 0.5).to(cfg.torch_dtype)}
+    return make
+
+
+REGISTRY_CASES = (  # (config module, rows, prompt tokens, tokens generated)
+    ("gemma_2b", 4, 590, 24),       # 8 / 1 heads of 256: A on the FMA walk
+    ("gemma3_1b", 4, 590, 24),      # the 512 window bites in 5 of 6 layers
+    ("internvl2_1b", 4, 590, 24),   # behind 256 frontend tokens of 1024
+    ("granite_20b", 4, 590, 24),    # 40.6 GB of bf16 weights
+)
+GRANITE_F32_LAYERS = 13            # a quarter of its 52 layers: 21 GB in f32
+
+
+def phase_registry_serving():
+    """gemma-2b, gemma3-1b, internvl2-1b and granite-20b at full width and
+    published depth, each through ``generate`` and ``ServingEngine``
+    (``serve_both``), each after the memory of what ran before is
+    released; granite's decode step beside the bound of reading its
+    weights once.  Returns (metrics, launches, row A at gemma-2b's and
+    granite's engine's fullest decode step, row B at gemma3-1b's local
+    layers)."""
+    import importlib
+    import torch
+    from repro_torch.models.transformer import window_array
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    out, total, rows_a = {}, None, {}
+    for mod, rows, S, new in REGISTRY_CASES:
+        cfg = importlib.import_module(f"repro_torch.configs.{mod}").CONFIG
+        release()
+        before = torch.cuda.memory_allocated()
+        grab = None
+        if mod in ("gemma_2b", "granite_20b"):
+            def grab(engine, snap):
+                return paged_row(engine, snap, window_array(engine.cfg), gen)
+        metrics, launches, row = serve_both(
+            cfg, rows, S, new,
+            extra=vlm_frontend(cfg) if cfg.frontend else None,
+            f32_layers=GRANITE_F32_LAYERS if mod == "granite_20b" else None,
+            at_fullest=grab)
+        metrics["memory_allocated_before_gb"] = before / 2**30
+        if row is not None:
+            rows_a[cfg.name] = row
+        if mod == "granite_20b":
+            bound = metrics["decode_weight_bytes"] / HBM_BYTES_PER_S * 1e3
+            metrics["decode_step_bound_ms"] = bound
+            metrics["decode_step_bound_is"] = (
+                "the bytes of the weights a step reads, once, over 3.35 TB/s")
+            for run in ("generate", "engine"):
+                if metrics[run]["decode_step_ms_mean"] < bound:
+                    raise AssertionError(f"granite {run}: a decode step "
+                                         f"under its {bound:.2f} ms bound")
+        out[cfg.name] = metrics
+        total = launches if total is None else \
+            {n: total[n] + launches[n] for n in total}
+    release()
+    from repro_torch.configs.gemma3_1b import CONFIG as GEMMA3
+    row_b = flash_window_row(GEMMA3, 4, 590, gen)
+    release()
+    return out, total, rows_a, row_b
+
+
 def release():
     """Free what the last phase left: its objects hold reference cycles
     (a runner's step closures refer back to it), so collect them before
@@ -4748,6 +5300,21 @@ def main() -> int:
     emit({"ssm_training": ssm_training})
     release()
     lap("ssm_training")
+    ring, ring_launches, ring_a = phase_ring_serving()
+    emit({"ring_serving": ring})
+    release()
+    lap("ring_serving")
+    registry, registry_launches, registry_a, registry_b = \
+        phase_registry_serving()
+    emit({"registry_serving": registry})
+    row_a["at_other_shapes"].update(ring_slm=ring_a, **registry_a)
+    kernels[1]["at_other_shapes"]["gemma3_local"] = registry_b
+    for row, extra in ((row_a, [ring_a, *registry_a.values()]),
+                       (kernels[1], [registry_b])):
+        row["max_abs_err"] = max([row["max_abs_err"]]
+                                 + [e["max_abs_err"] for e in extra])
+    release()
+    lap("registry_serving")
     kernels += training_kernel_rows()
     kernels.append(grouped_lora_row())
     kernels += channel_kernel_rows()
@@ -4764,7 +5331,9 @@ def main() -> int:
              "population_rounds": pop_launches,
              "overlap_rounds": overlap_launches,
              "ssm_serving": ssm_launches, "hybrid_serving": hybrid_launches,
-             "ssm_training": ssm_train_launches}
+             "ssm_training": ssm_train_launches,
+             "ring_serving": ring_launches,
+             "registry_serving": registry_launches}
     for row in kernels:
         by_path = {p: n[row["name"]] for p, n in paths.items()
                    if n[row["name"]]}

@@ -3,10 +3,16 @@
 The fields are the reference's, one for one, so a reference config converts
 with ``ModelConfig(**dataclasses.asdict(ref_cfg))``.  The only change is the
 dtype accessor: :attr:`ModelConfig.torch_dtype` in place of ``param_dtype``.
+
+The registry (``ARCH_IDS``, :func:`get_config`) names the same configs as
+the reference's.  The reference's ``INPUT_SHAPES`` / ``InputShape`` are
+left out: they serve only its XLA dry-run (``launch/dryrun.py``), which
+parses HLO and has no counterpart here.
 """
 from __future__ import annotations
 
 import dataclasses
+import importlib
 from typing import Tuple
 
 import torch
@@ -41,7 +47,7 @@ class ModelConfig:
     # attention pattern ----------------------------------------------------
     sliding_window: int = 0          # 0 = full attention
     global_every: int = 0            # >0: every Nth layer uses full attention
-    attn_impl: str = "masked"        # masked | banded (banded: not ported)
+    attn_impl: str = "masked"        # masked | banded (the same function)
 
     # mixture of experts ----------------------------------------------------
     n_experts: int = 0
@@ -154,6 +160,41 @@ class ModelConfig:
                           + self.n_heads * self.head_dim * d)
         return int(total)
 
+    def n_active_params(self) -> int:
+        """Active params per token (MoE: only top_k experts count)."""
+        if not self.is_moe:
+            return self.n_params()
+        mult = 3 if self.activation in ("silu", "geglu") else 2
+        inactive = (self.n_experts - self.top_k) * mult * self.d_model \
+            * self.d_ff_expert * self.n_layers
+        return int(self.n_params() - inactive)
+
+    def n_lora_params(self) -> int:
+        """Communicated parameter volume per round: the adapters' (the
+        paper's share-of-parameters claim)."""
+        r = self.lora_rank
+        per_target = {
+            "wq": self.d_model * r + r * self.n_heads * self.head_dim,
+            "wk": self.d_model * r + r * self.n_kv_heads * self.head_dim,
+            "wv": self.d_model * r + r * self.n_kv_heads * self.head_dim,
+            "wo": self.n_heads * self.head_dim * r + r * self.d_model,
+            "in_proj": self.d_model * r + r * (
+                2 * self.d_inner + 2 * self.ssm_groups * self.ssm_state
+                + self.ssm_heads),
+            "out_proj": self.d_inner * r + r * self.d_model,
+        }
+        n_attn_layers = self.n_layers + self.n_enc_layers
+        total = 0
+        for t in self.lora_targets:
+            if t in ("wq", "wk", "wv", "wo"):
+                if self.family == "ssm":
+                    continue
+                total += n_attn_layers * per_target[t]
+            elif t in ("in_proj", "out_proj") \
+                    and self.family in ("ssm", "hybrid"):
+                total += self.n_layers * per_target[t]
+        return int(total)
+
     def reduced(self) -> "ModelConfig":
         """Small variant for CPU smoke tests (same cuts as the reference)."""
         return dataclasses.replace(
@@ -182,3 +223,47 @@ class ModelConfig:
             n_soft_tokens=4,
             remat=False,
         )
+
+
+# ---------------------------------------------------------------------------
+# registry
+
+ARCH_IDS = (
+    "mamba2-2.7b",
+    "gemma-2b",
+    "gemma3-1b",
+    "qwen3-moe-235b-a22b",
+    "granite-20b",
+    "qwen3-1.7b",
+    "whisper-medium",
+    "internvl2-1b",
+    "phi3.5-moe-42b-a6.6b",
+    "hymba-1.5b",
+    # the paper's own backbones
+    "mlecs-slm-720m",
+    "mlecs-llm-6b",
+)
+
+_MODULE_FOR = {
+    "mamba2-2.7b": "mamba2_2p7b",
+    "gemma-2b": "gemma_2b",
+    "gemma3-1b": "gemma3_1b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
+    "granite-20b": "granite_20b",
+    "qwen3-1.7b": "qwen3_1p7b",
+    "whisper-medium": "whisper_medium",
+    "internvl2-1b": "internvl2_1b",
+    "phi3.5-moe-42b-a6.6b": "phi3p5_moe_42b_a6p6b",
+    "hymba-1.5b": "hymba_1p5b",
+    "mlecs-slm-720m": "mlecs_paper",
+    "mlecs-llm-6b": "mlecs_paper",
+}
+
+
+def get_config(arch: str) -> ModelConfig:
+    """The config of ``arch`` (one of ``ARCH_IDS``); raises ``KeyError``
+    on an unknown id."""
+    if arch not in _MODULE_FOR:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_MODULE_FOR)}")
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULE_FOR[arch]}")
+    return mod.CONFIGS[arch] if hasattr(mod, "CONFIGS") else mod.CONFIG

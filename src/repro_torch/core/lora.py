@@ -178,8 +178,18 @@ def merge_lora(params: dict, cfg) -> dict:
             continue
         a = flat.get(s + "_lora_a")
         if a is not None:
-            b = flat[s + "_lora_b"]
-            leaf = (leaf.float() + scale * (a.float() @ b.float())
-                    ).to(leaf.dtype)
+            leaf = _merged(leaf, a, flat[s + "_lora_b"], scale)
         new[s] = leaf
     return unflatten(new)
+
+
+def _merged(w, a, b, scale: float):
+    """W + scale A B in float32, cast back; a leaf stacked over layers is
+    merged one layer at a time (granite-20b's stacked wq is 7.9 GB in
+    float32)."""
+    if w.dim() > 2:
+        out = torch.empty_like(w)
+        for i in range(w.shape[0]):
+            out[i] = _merged(w[i], a[i], b[i], scale)
+        return out
+    return (w.float() + scale * (a.float() @ b.float())).to(w.dtype)

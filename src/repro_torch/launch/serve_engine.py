@@ -68,6 +68,7 @@ class Request:
     """One generation request and, once served, its output."""
     tokens: np.ndarray               # (S,) int32 prompt
     max_new: int = 16
+    frontend_embeds: Optional[torch.Tensor] = None  # (T, F) vlm stub features
     prefix_embeds: Optional[torch.Tensor] = None   # (P, d) ML-ECS soft prompt
                                                    # (tensor or array)
     rid: int = -1
@@ -95,7 +96,7 @@ def _resolve_device(name) -> torch.device:
 
 
 class ServingEngine:
-    """Continuous batching for one dense, ssm or hybrid model.
+    """Continuous batching for one dense, vlm, ssm or hybrid model.
 
     ``params`` must already lie on ``econf.device``; with ``merge`` the
     LoRA adapters are folded into the weights first.  Besides the
@@ -189,15 +190,27 @@ class ServingEngine:
     # ------------------------------------------------------------------
     # admission
 
-    def submit(self, tokens, max_new: int = 16, prefix_embeds=None) -> int:
-        """Queue a prompt (with an optional (P, d) soft prompt); returns
-        the request id."""
+    def submit(self, tokens, max_new: int = 16, frontend_embeds=None,
+               prefix_embeds=None) -> int:
+        """Queue a prompt (with the vlm family's (T, F) frontend features,
+        which it requires, and an optional (P, d) soft prompt); returns the
+        request id."""
+        if self.cfg.frontend and frontend_embeds is None:
+            raise ValueError(f"{self.cfg.name} needs frontend_embeds")
         req = Request(np.array(tokens, np.int32).reshape(-1),
-                      min(max_new, self.econf.max_out), prefix_embeds,
-                      rid=next(self._rids))
+                      min(max_new, self.econf.max_out), frontend_embeds,
+                      prefix_embeds, rid=next(self._rids))
         req.t_submit = time.perf_counter()
         self.pending.append(req)
         return req.rid
+
+    def _prefix_len(self, req: Request) -> int:
+        """Cache entries ahead of the prompt: the frontend's tokens and
+        the soft prompt's."""
+        P = self.cfg.frontend_tokens if self.cfg.frontend else 0
+        if req.prefix_embeds is not None:
+            P += int(req.prefix_embeds.shape[0])
+        return P
 
     def _bucket_len(self, n: int) -> int:
         if self.exact_len:
@@ -214,7 +227,7 @@ class ServingEngine:
         while self.pending and self._free_slots:
             req = self.pending[0]
             S = int(req.tokens.shape[0])
-            P = 0 if req.prefix_embeds is None else int(req.prefix_embeds.shape[0])
+            P = self._prefix_len(req)
             S_pad = self._bucket_len(S)
             ctx = P + S_pad + req.max_new
             if ctx > ec.max_pages_per_seq * ec.page_size:
@@ -233,6 +246,9 @@ class ServingEngine:
             toks = np.zeros((1, S_pad), np.int64)
             toks[0, :S] = req.tokens
             batch = {"tokens": torch.from_numpy(toks).to(dev)}
+            if req.frontend_embeds is not None:
+                batch["frontend_embeds"] = torch.as_tensor(
+                    req.frontend_embeds, device=dev)[None]
             if req.prefix_embeds is not None:
                 batch["prefix_embeds"] = torch.as_tensor(
                     req.prefix_embeds, device=dev)[None]

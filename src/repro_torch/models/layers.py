@@ -47,6 +47,25 @@ def _dense_init(gen: torch.Generator, shape, dtype,
                         dtype=torch.float32) * std).to(dtype)
 
 
+def stack_layers(gen: torch.Generator, n: int, init_one) -> dict:
+    """``n`` layers of ``init_one(gen)`` stacked on axis 0, drawn in order
+    and copied one at a time into the stack (the peak is the stack and one
+    layer: granite-20b's 40 GB would not fit twice)."""
+    def put(dst, src, i):
+        for k, v in src.items():
+            if isinstance(v, dict):
+                put(dst.setdefault(k, {}), v, i)
+            else:
+                if i == 0:
+                    dst[k] = v.new_empty((n, *v.shape))
+                dst[k][i] = v
+
+    stack = {}
+    for i in range(n):
+        put(stack, init_one(gen), i)
+    return stack
+
+
 def init_lora(gen: torch.Generator, p: dict, name: str, in_dim: int,
               out_dim: int, cfg: ModelConfig) -> None:
     """Attach LoRA A/B leaves for target ``name`` to ``p`` (Eq. 1); B
@@ -153,6 +172,45 @@ def self_attention(p, cfg: ModelConfig, x, positions, window: int):
     q, k, v = _qkv(p, cfg, x, x, positions, positions)
     out = ops.attention(q, k, v, causal=True, window=window)
     return proj(p, "wo", out, cfg), (k, v)
+
+
+def decode_attention(p, cfg: ModelConfig, x, pos: int, cache_k, cache_v,
+                     cache_positions, window: int):
+    """One-token decode against a (possibly ring-buffered) KV cache.
+
+    x: (B, 1, d);  cache_k / cache_v: (B, S_c, K, hd), already rope'd;
+    cache_positions: (S_c,) the absolute position held in each slot (-1 =
+    empty);  pos: the new token's absolute position, one for every row.
+    The new K and V go into slot ``pos % S_c`` and its position into
+    ``cache_positions``, in place; then the query attends through
+    ``ops.paged_attention`` (kernel A on the card), the ring read as one
+    page per row: the pool is ``cache_k`` itself (B pages of S_c entries),
+    row b's block table is [b], and every row holds min(pos + 1, S_c)
+    entries.  That is the reference's mask (``valid = 0 <= cache_pos <=
+    pos and pos - cache_pos < window``) exactly:
+
+    * until the ring wraps, slot = position, so A's window test
+      ``len - 1 - slot < window`` is ``pos - cache_pos < window``, and the
+      slots past ``len`` are the empty ones;
+    * a ring wraps only where ``transformer.cache_len`` made S_c the
+      window (a pure sliding-window model, ``global_every == 0``).  Then
+      every slot is live and within the window, so A keeps all S_c keys,
+      and softmax does not depend on the order of the keys.
+
+    Returns the attention output (B, 1, d)."""
+    B = x.shape[0]
+    posvec = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
+    q, k_new, v_new = _qkv(p, cfg, x, x, posvec, posvec)
+    S_c = cache_k.shape[1]
+    slot = pos % S_c
+    cache_k[:, slot] = k_new[:, 0]
+    cache_v[:, slot] = v_new[:, 0]
+    cache_positions[slot] = pos
+    tables = torch.arange(B, dtype=torch.int32, device=x.device)[:, None]
+    lens = torch.full((B,), min(pos + 1, S_c), dtype=torch.int32,
+                      device=x.device)
+    out = ops.paged_attention(q, cache_k, cache_v, tables, lens, window)
+    return proj(p, "wo", out, cfg)
 
 
 # ---------------------------------------------------------------------------

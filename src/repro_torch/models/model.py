@@ -1,8 +1,11 @@
 """Model factory (port of ``repro.models.model``): config -> ModelBundle,
-for the dense, ssm (mamba2) and hybrid (hymba) families.
+for the dense, vlm, ssm (mamba2) and hybrid (hymba) families.
 
   bundle.init(gen)                                      -> params
   bundle.logits(params, batch)                          -> (logits, aux)
+  bundle.prefill(params, batch)                         -> (last_logits, cache)
+  bundle.decode_step(params, cache, tokens, pos)        -> (logits, cache)
+  bundle.init_cache(batch_size, seq_len, device)        -> cache
   bundle.hidden(params, batch)                          -> (hidden, aux)
   bundle.lm_loss(params, batch)                         -> (loss, metrics)
   bundle.logits_stacked(params, batch)                  -> (logits (G, B, ...), aux)
@@ -14,10 +17,13 @@ for the dense, ssm (mamba2) and hybrid (hymba) families.
                       seq_lens, tokens, active)         -> (logits, pstate)
 
 ``batch`` is a dict with 'tokens' (B, S) and optionally 'prefix_embeds'
-(B, P, d), the ML-ECS soft prompt.
+(B, P, d), the ML-ECS soft prompt, and 'frontend_embeds' (B, T,
+frontend_dim), the vlm family's stubbed vision features (required there).
+The ring cache (``prefill`` / ``decode_step``) is written in place.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Any, Callable, Dict, NamedTuple
 
@@ -34,18 +40,33 @@ class ModelBundle(NamedTuple):
     init: Callable
     logits: Callable
     lm_loss: Callable
+    prefill: Callable
+    decode_step: Callable
+    init_cache: Callable
+    hidden: Callable      # (params, batch) -> final-norm states (B, P+S, d)
     init_paged: Callable
     prefill_paged: Callable
     insert_paged: Callable
     decode_paged: Callable
-    hidden: Callable      # (params, batch) -> final-norm states (B, P+S, d)
     logits_stacked: Callable    # G clients' (G, B, ...) batch at once
     lm_loss_stacked: Callable   # the same -> (G,) losses
 
 
 def _prefix(params, cfg: ModelConfig, batch: Dict[str, Any]):
-    """The embedding prefix: the ML-ECS soft prompt, if present."""
-    return batch.get("prefix_embeds")
+    """The embedding prefix: the projected frontend (vlm), then the ML-ECS
+    soft prompt, each if present."""
+    parts = []
+    if cfg.frontend:
+        if batch.get("frontend_embeds") is None:
+            raise ValueError(f"{cfg.name}: a {cfg.frontend} frontend needs "
+                             "batch['frontend_embeds']")
+        parts.append(transformer.frontend_prefix(params, cfg,
+                                                 batch["frontend_embeds"]))
+    if batch.get("prefix_embeds") is not None:
+        parts.append(batch["prefix_embeds"].to(cfg.torch_dtype))
+    if not parts:
+        return None
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
 
 def cross_entropy(logits, targets, mask, vocab_size: int, dims=None):
@@ -62,8 +83,8 @@ def cross_entropy(logits, targets, mask, vocab_size: int, dims=None):
 
 
 def build_model(cfg: ModelConfig) -> ModelBundle:
-    """The bundle for a dense, ssm or hybrid config; other families raise
-    ``NotImplementedError``."""
+    """The bundle for a dense, vlm, ssm or hybrid config; the moe and
+    encdec families raise ``NotImplementedError``."""
     transformer.require_ported(cfg)
     trunk = ssm if cfg.family == "ssm" else transformer
 
@@ -105,9 +126,10 @@ def build_model(cfg: ModelConfig) -> ModelBundle:
         Returns (logits (G, B, P+S, V) f32, aux)."""
         tokens = batch["tokens"]
         G, B, S = tokens.shape
-        prefix = batch.get("prefix_embeds")
-        if prefix is not None:
-            prefix = prefix.reshape(G * B, *prefix.shape[2:])
+        prefix = _prefix(params, cfg, {
+            k: batch[k].reshape(G * B, *batch[k].shape[2:])
+            for k in ("prefix_embeds", "frontend_embeds")
+            if batch.get(k) is not None})
         logits, aux, _ = trunk.forward(
             params, cfg, tokens.reshape(G * B, S), prefix, clients=True)
         return logits.reshape(G, B, *logits.shape[1:]), aux
@@ -131,6 +153,16 @@ def build_model(cfg: ModelConfig) -> ModelBundle:
         loss = ce + cfg.router_aux_weight * aux
         return loss, {"ce": ce, "aux": aux}
 
+    def prefill_fn(params, batch):
+        return trunk.prefill(params, cfg, batch["tokens"],
+                             _prefix(params, cfg, batch))
+
+    def decode_fn(params, cache, tokens, pos):
+        return trunk.decode_step(params, cfg, cache, tokens, pos)
+
+    def cache_fn(batch_size: int, seq_len: int, device="cuda"):
+        return trunk.init_cache(cfg, batch_size, seq_len, device)
+
     def prefill_paged_fn(params, batch, true_len):
         return paged.prefill_paged(params, cfg, batch, true_len)
 
@@ -139,9 +171,17 @@ def build_model(cfg: ModelConfig) -> ModelBundle:
         return paged.decode_paged(params, cfg, pstate, block_tables,
                                   seq_lens, tokens, active)
 
-    return ModelBundle(cfg, init, logits_fn, lm_loss,
-                       functools.partial(paged.init_paged, cfg),
-                       prefill_paged_fn,
-                       functools.partial(paged.insert_paged, cfg),
-                       decode_paged_fn, hidden_fn, logits_stacked,
-                       lm_loss_stacked)
+    return ModelBundle(
+        cfg=cfg, init=init, logits=logits_fn, lm_loss=lm_loss,
+        prefill=prefill_fn, decode_step=decode_fn, init_cache=cache_fn,
+        hidden=hidden_fn,
+        init_paged=functools.partial(paged.init_paged, cfg),
+        prefill_paged=prefill_paged_fn,
+        insert_paged=functools.partial(paged.insert_paged, cfg),
+        decode_paged=decode_paged_fn, logits_stacked=logits_stacked,
+        lm_loss_stacked=lm_loss_stacked)
+
+
+def with_overrides(cfg: ModelConfig, **kw) -> ModelConfig:
+    """``cfg`` with the given fields replaced."""
+    return dataclasses.replace(cfg, **kw)

@@ -1,5 +1,5 @@
-"""Paged (blocked) KV-cache serving contract for the dense, ssm and hybrid
-families (port of ``repro.models.paged``).
+"""Paged (blocked) KV-cache serving contract for the dense, vlm, ssm and
+hybrid families (port of ``repro.models.paged``).
 
   k_pages / v_pages : (L, n_pages, page_size, K, hd)   physical pool
   block_tables      : (n_slots, max_pages) int32        logical -> physical
@@ -53,23 +53,23 @@ def init_paged(cfg: ModelConfig, n_slots: int, n_pages: int, page_size: int,
             pstate[name] = torch.zeros(shape, dtype=cfg.torch_dtype,
                                        device=device)
     if cfg.family in ("ssm", "hybrid"):
-        st = ssm_lib.init_ssm_state(cfg, n_slots, device)
-        pstate["ssm_h"] = st["h"][None].repeat(cfg.n_layers, 1, 1, 1, 1)
-        pstate["ssm_conv"] = st["conv"][None].repeat(cfg.n_layers, 1, 1, 1)
+        pstate.update(ssm_lib.init_cache(cfg, n_slots, 0, device))
     return pstate
 
 
 def prefill_paged(params, cfg: ModelConfig, batch: dict, true_len: int):
-    """Full forward over a prompt (right-padded for the dense family,
-    exact for ssm and hybrid).
+    """Full forward over a prompt (right-padded for the dense and vlm
+    families, exact for ssm and hybrid) behind its prefix: the vlm
+    family's projected ``frontend_embeds``, then the soft prompt.
 
     Returns (last_logits (B, V) at the TRUE last position, the pack of
     per-request cache leaves: {"k", "v"} of (L, B, P+S_pad, K, hd) entries
     and/or {"ssm_h", "ssm_conv"} per-layer state, and kv_len = P +
     true_len, the entries the request owns after insertion).
     """
+    from repro_torch.models.model import _prefix
     tokens = batch["tokens"]
-    prefix = batch.get("prefix_embeds")
+    prefix = _prefix(params, cfg, batch)
     if cfg.family == "ssm":
         h, _, states = ssm_lib.forward(params, cfg, tokens, prefix,
                                        collect_state=True, return_hidden=True)
@@ -132,7 +132,7 @@ def decode_paged(params, cfg: ModelConfig, pstate: dict, block_tables,
     (n_slots, V) float32, pstate updated in place)."""
     transformer.require_ported(cfg)
     if cfg.family == "ssm":
-        return ssm_lib.decode_step(params, cfg, pstate, tokens)
+        return ssm_lib.decode_step(params, cfg, pstate, tokens, seq_lens)
     x = L.embed(params["tok"], cfg, tokens)
     pos_vec = seq_lens.long()
     lens_incl = torch.where(active, seq_lens + 1,

@@ -24,7 +24,6 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.lora import stack_trees
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
@@ -164,8 +163,8 @@ def init_block(gen: torch.Generator, cfg: ModelConfig) -> dict:
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
     """Backbone params on ``gen``'s device, layers stacked on axis 0."""
     return {"tok": L.init_embedding(gen, cfg),
-            "layers": stack_trees([init_block(gen, cfg)
-                                   for _ in range(cfg.n_layers)]),
+            "layers": L.stack_layers(gen, cfg.n_layers,
+                                     lambda g: init_block(g, cfg)),
             "final_norm": torch.zeros((cfg.d_model,), dtype=cfg.torch_dtype,
                                       device=gen.device)}
 
@@ -214,10 +213,34 @@ def forward(params, cfg: ModelConfig, tokens,
     return out, aux, states
 
 
-def decode_step(params, cfg: ModelConfig, cache: dict, tokens):
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
+               device="cuda") -> dict:
+    """Zero recurrent state for ``batch`` rows: ssm_h (L, B, H, P, N) f32,
+    ssm_conv (L, B, W-1, conv_dim).  Its size does not depend on
+    ``seq_len``."""
+    st = init_ssm_state(cfg, batch, device)
+    return {"ssm_h": st["h"][None].repeat(cfg.n_layers, 1, 1, 1, 1),
+            "ssm_conv": st["conv"][None].repeat(cfg.n_layers, 1, 1, 1)}
+
+
+def prefill(params, cfg: ModelConfig, tokens,
+            prefix_embeds: Optional[torch.Tensor] = None):
+    """One forward over the prompt that also returns the recurrent state;
+    only the last position is unembedded.  Returns (last-token logits
+    (B, V) float32, cache)."""
+    h, _, states = forward(params, cfg, tokens, prefix_embeds,
+                           collect_state=True, return_hidden=True)
+    last = L.unembed(params["tok"], cfg, h[:, -1])
+    return last, {"ssm_h": states[0], "ssm_conv": states[1]}
+
+
+def decode_step(params, cfg: ModelConfig, cache: dict, tokens, pos=None):
     """One token for every row.  tokens: (B, 1); cache: {"ssm_h"
     (L,B,H,P,N) f32, "ssm_conv" (L,B,W-1,conv_dim)}, updated in place (a
     new copy of mamba2-2.7b's 16-slot state per token would be 2.7 GB).
+    ``pos`` is accepted and not used, as in the reference (the state
+    carries the position).  The ring path (``bundle.decode_step``) and
+    the paged path (``paged.decode_paged``) both call it.
     Returns (logits (B, V) float32, cache)."""
     x = L.embed(params["tok"], cfg, tokens)
     for i in range(cfg.n_layers):

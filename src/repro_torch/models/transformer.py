@@ -1,4 +1,4 @@
-"""Decoder-only transformer trunk, dense and hybrid families (port of
+"""Decoder-only transformer trunk, dense, vlm and hybrid families (port of
 ``repro.models.transformer``).
 
 Per-layer params stay stacked on a leading layer axis, as the reference's
@@ -6,36 +6,40 @@ Per-layer params stay stacked on a leading layer axis, as the reference's
 forward is a Python loop over layers that indexes that axis (a view, no
 copy).  The per-layer sliding window is a plain int per layer.  A hybrid
 layer (hymba) runs attention and an SSD mixer in parallel on the same
-normed input and averages them, ``0.5 * (attn + ssm)``.
+normed input and averages them, ``0.5 * (attn + ssm)``.  The vlm family is
+the dense trunk behind a projected frontend prefix (``frontend_prefix``).
+
+``attn_impl="banded"`` computes the same function as ``"masked"``: every
+layer's attention goes through ``ops.attention`` with the layer's window,
+and kernel B starts each query tile's key walk at the window's first key,
+so it does the reference's banded work (``models/banded.py``) and no more.
+
+Serving from a ring cache (``init_cache``, ``prefill``, ``decode_step``)
+keeps the reference's layout: k / v (L, B, S_c, K, hd), pos (L, S_c).
+``decode_step`` writes the cache in place.
 """
 from __future__ import annotations
 
 from typing import List, Optional
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.lora import stack_trees
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as ssm_lib
 
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "vlm", "ssm", "hybrid")
 
 
 def require_ported(cfg: ModelConfig) -> None:
-    """Raise for what the port does not cover yet: the moe, encdec and vlm
-    families, modality frontends and banded attention."""
+    """Raise for what the port does not cover yet: the moe and encdec
+    families."""
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"model family {cfg.family!r} is not ported yet "
             f"(ported: {', '.join(PORTED_FAMILIES)})")
-    if cfg.attn_impl != "masked":
-        raise NotImplementedError(
-            f"attn_impl={cfg.attn_impl!r} is not ported yet")
-    if cfg.frontend:
-        raise NotImplementedError(
-            f"frontend={cfg.frontend!r} is not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -56,19 +60,37 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
-    """Backbone params on ``gen``'s device, layers stacked on axis 0."""
+    """Backbone params on ``gen``'s device, layers stacked on axis 0 (and
+    the vlm family's frontend projector)."""
     require_ported(cfg)
     tok = L.init_embedding(gen, cfg)
-    layers = stack_trees([init_layer(gen, cfg) for _ in range(cfg.n_layers)])
-    return {"tok": tok, "layers": layers,
-            "final_norm": torch.zeros((cfg.d_model,), dtype=cfg.torch_dtype,
-                                      device=gen.device)}
+    layers = L.stack_layers(gen, cfg.n_layers, lambda g: init_layer(g, cfg))
+    params = {"tok": tok, "layers": layers,
+              "final_norm": torch.zeros((cfg.d_model,), dtype=cfg.torch_dtype,
+                                        device=gen.device)}
+    if cfg.frontend:            # the vision stub's projector
+        params["frontend"] = {
+            "fp_w1": L._dense_init(gen, (cfg.frontend_dim, cfg.d_model),
+                                   cfg.torch_dtype),
+            "fp_w2": L._dense_init(gen, (cfg.d_model, cfg.d_model),
+                                   cfg.torch_dtype)}
+    return params
 
 
 def window_array(cfg: ModelConfig) -> List[int]:
     """Per-layer window as plain ints (BIG_WINDOW = full attention)."""
     return [cfg.window_for_layer(i) or L.BIG_WINDOW
             for i in range(cfg.n_layers)]
+
+
+def frontend_prefix(params, cfg: ModelConfig, frontend_embeds):
+    """Project stubbed frontend embeddings (B, T, frontend_dim) into the
+    LM space (B, T, d): gelu in its tanh form (as ``jax.nn.gelu``), in the
+    param dtype."""
+    fp = params["frontend"]
+    h = F.gelu(frontend_embeds.to(cfg.torch_dtype) @ fp["fp_w1"],
+               approximate="tanh")
+    return h @ fp["fp_w2"]
 
 
 # ---------------------------------------------------------------------------
@@ -128,3 +150,89 @@ def forward(params, cfg: ModelConfig, tokens,
     if return_hidden:
         return x, aux, kv
     return L.unembed(params["tok"], cfg, x), aux, kv
+
+
+# ---------------------------------------------------------------------------
+# ring KV cache: prefill and one-token decode
+
+def cache_len(cfg: ModelConfig, seq_len: int) -> int:
+    """Per-layer cache capacity, one for every layer.  A pure
+    sliding-window model ring-buffers to the window; any global layer
+    (the gemma3 / hymba pattern, or full attention) needs the whole
+    length."""
+    if cfg.sliding_window > 0 and cfg.global_every == 0:
+        return min(seq_len, cfg.sliding_window)
+    return seq_len
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
+               device="cuda") -> dict:
+    """An empty cache for ``batch`` rows of up to ``seq_len`` positions:
+    k / v (L, B, S_c, K, hd) zeros, pos (L, S_c) -1; for the hybrid family
+    also ssm_h (L, B, H, P, N) f32 and ssm_conv (L, B, W-1, conv_dim)."""
+    S_c = cache_len(cfg, seq_len)
+    shape = (cfg.n_layers, batch, S_c, cfg.n_kv_heads, cfg.head_dim)
+    cache = {"k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
+             "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
+             "pos": torch.full((cfg.n_layers, S_c), -1, dtype=torch.long,
+                               device=device)}
+    if cfg.family == "hybrid":
+        cache.update(ssm_lib.init_cache(cfg, batch, seq_len, device))
+    return cache
+
+
+def prefill(params, cfg: ModelConfig, tokens,
+            prefix_embeds: Optional[torch.Tensor] = None):
+    """One forward over the prompt (and its prefix) that also fills a
+    cache ready for decoding at position P + S.  Only the last position
+    is unembedded, from the hidden states (gemma3's 262,144-token vocab
+    would make a whole prompt's logits gigabytes).  Ring semantics: the
+    last S_c positions survive, position p in slot p % S_c.
+
+    Returns (last-token logits (B, V) float32, cache)."""
+    h, _, kv = forward(params, cfg, tokens, prefix_embeds, collect_kv=True,
+                       return_hidden=True)
+    last = L.unembed(params["tok"], cfg, h[:, -1])
+    k_stack, v_stack = kv[0], kv[1]                 # (L, B, S, K, hd)
+    S = k_stack.shape[2]
+    S_c = cache_len(cfg, S)
+    kept = torch.arange(S - S_c, S, device=h.device)
+    slots = kept % S_c
+    cache = {"k": torch.empty_like(k_stack[:, :, :S_c]),
+             "v": torch.empty_like(v_stack[:, :, :S_c]),
+             "pos": torch.empty((cfg.n_layers, S_c), dtype=torch.long,
+                                device=h.device)}
+    cache["k"][:, :, slots] = k_stack[:, :, S - S_c:]
+    cache["v"][:, :, slots] = v_stack[:, :, S - S_c:]
+    cache["pos"][:, slots] = kept
+    if cfg.family == "hybrid":
+        cache["ssm_h"], cache["ssm_conv"] = kv[2], kv[3]
+    return last, cache
+
+
+def decode_step(params, cfg: ModelConfig, cache: dict, tokens, pos: int):
+    """One token for every row at absolute position ``pos`` (an int).
+    tokens: (B, 1).  The cache is updated in place (a new copy of it per
+    token would cost more than the step) and returned.
+
+    Returns (logits (B, V) float32, cache)."""
+    pos = int(pos)
+    x = L.embed(params["tok"], cfg, tokens)
+    hybrid = cfg.family == "hybrid"
+    for i, w in enumerate(window_array(cfg)):
+        lp = L.layer_params(params["layers"], i)
+        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+        attn_out = L.decode_attention(lp["attn"], cfg, h, pos, cache["k"][i],
+                                      cache["v"][i], cache["pos"][i], w)
+        if hybrid:
+            ssm_out, st = ssm_lib.ssm_decode_step(
+                lp["ssm"], cfg, {"h": cache["ssm_h"][i],
+                                 "conv": cache["ssm_conv"][i]}, h)
+            cache["ssm_h"][i].copy_(st["h"])
+            cache["ssm_conv"][i].copy_(st["conv"])
+            attn_out = 0.5 * (attn_out + ssm_out)
+        y = x + attn_out
+        h2 = L.rms_norm(y, lp["ln2"], cfg.norm_eps)
+        x = y + L.mlp(lp["mlp"], cfg, h2)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return L.unembed(params["tok"], cfg, x)[:, 0], cache

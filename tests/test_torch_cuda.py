@@ -184,6 +184,109 @@ def test_paged_kernel_in_a_cuda_graph(gen):
             **TOL[torch.bfloat16])
 
 
+def _ring_attention_ref(q, ck, cv, cache_pos, pos, window):
+    """The reference's ring decode (repro/models/layers.py:
+    decode_attention): softmax over the slots whose position p has
+    0 <= p <= pos and pos - p < window, f32."""
+    B, _, H, D = q.shape
+    G = H // ck.shape[2]
+    k = ck.float().repeat_interleave(G, dim=2)
+    v = cv.float().repeat_interleave(G, dim=2)
+    s = torch.einsum("bhd,bshd->bhs", q[:, 0].float(), k) / D ** 0.5
+    valid = (cache_pos >= 0) & (cache_pos <= pos) & (pos - cache_pos < window)
+    s = s.masked_fill(~valid[None, None], float("-inf"))
+    return torch.einsum("bhs,bshd->bhd", torch.softmax(s, -1), v)[:, None]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S_c,pos,window,D", [
+    (600, 300, BIG_WINDOW, 64),     # not wrapped, full attention
+    (1400, 1299, 1024, 64),         # not wrapped, hymba's window bites
+    (600, 577, 512, 256),           # gemma3's local layer (D 256: FMA)
+    (32, 100, 32, 128),             # wrapped: S_c = window
+    (512, 2047, 512, 64),
+])
+def test_paged_kernel_on_a_ring(gen, dtype, S_c, pos, window, D):
+    """A over a ring cache read as one page per row (``layers.
+    decode_attention``): the pool is the (B, S_c, K, D) cache, row b's
+    block table [b], lens min(pos + 1, S_c); against the plain version
+    and against the reference's mask on the slots' positions, before
+    and after the ring wraps."""
+    B, H, K = 3, 8, 2
+    q = torch.randn((B, 1, H, D), generator=gen, device="cuda").to(dtype)
+    ck = torch.randn((B, S_c, K, D), generator=gen, device="cuda").to(dtype)
+    cv = torch.randn((B, S_c, K, D), generator=gen, device="cuda").to(dtype)
+    first = max(0, pos + 1 - S_c)         # the oldest position kept
+    cache_pos = torch.full((S_c,), -1, dtype=torch.long, device="cuda")
+    kept = torch.arange(first, pos + 1, device="cuda")
+    cache_pos[kept % S_c] = kept
+    tables = torch.arange(B, dtype=torch.int32, device="cuda")[:, None]
+    lens = torch.full((B,), min(pos + 1, S_c), dtype=torch.int32,
+                      device="cuda")
+    got = paged_attention_cuda(q, ck, cv, tables, lens, window)
+    want = paged_attention_plain(q, ck, cv, tables, lens, window)
+    ref = _ring_attention_ref(q, ck, cv, cache_pos, pos, window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    torch.testing.assert_close(got.float(), ref.reshape(got.shape),
+                               **TOL[dtype])
+
+
+@pytest.mark.parametrize("H,window", [(8, BIG_WINDOW), (4, 512)])
+def test_paged_kernel_head_dim_256_takes_the_fma_walk(gen, H, window):
+    """gemma-2b's (8 heads over 1 KV head of 256) and gemma3-1b's (4
+    over 1, window 512) decode in bf16: the mma walk takes D 64 and 128
+    only, so A launches its FMA walk."""
+    lens = [0, 1, 300, 513, 600, 17, 1100, 64]
+    args = _paged_inputs(gen, H, 1, 256, 16, 70, torch.bfloat16, lens)
+    n = dict(paged_attention_cuda.launches_by_route)
+    _paged_check(args, window, torch.bfloat16)
+    assert paged_attention_cuda.launches_by_route["fma"] == n["fma"] + 1
+    assert paged_attention_cuda.launches_by_route["mma"] == n["mma"]
+
+
+@pytest.mark.parametrize("family", ["dense_swa", "hybrid", "vlm"])
+def test_generate_on_the_card_matches_the_cpu(gen, family):
+    """``generate`` at a toy size in float32 (TF32 off) gives the same
+    greedy tokens on the card, through kernels A, B and G, as on the CPU
+    through their plain versions; the window-8 ring wraps."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.core.lora import flatten, unflatten
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.model import build_model
+    kw = {"dense_swa": dict(sliding_window=8),
+          "hybrid": dict(family="hybrid", ssm_state=16, ssm_head_dim=16,
+                         ssm_chunk=16, sliding_window=8, global_every=2),
+          "vlm": dict(family="vlm", frontend="vision", frontend_tokens=8,
+                      frontend_dim=24)}[family]
+    cfg = ModelConfig(name="t", n_layers=2, d_model=64, n_heads=4,
+                      n_kv_heads=2, head_dim=32, d_ff=128, vocab_size=128,
+                      lora_rank=4, remat=False, dtype="float32", **kw)
+    bundle = build_model(cfg)
+    params = bundle.init(torch.Generator().manual_seed(0))
+    for k, v in flatten(params).items():
+        if k.endswith("_lora_b"):
+            v.copy_(torch.randn(v.shape, generator=torch.Generator()
+                                .manual_seed(1)) * 0.05)
+    on_card = unflatten({k: v.cuda() for k, v in flatten(params).items()})
+    toks = torch.randint(0, 128, (2, 12), generator=torch.Generator()
+                         .manual_seed(2))
+    extra = {}
+    if cfg.frontend:
+        extra["frontend_embeds"] = torch.randn(
+            2, 8, 24, generator=torch.Generator().manual_seed(3))
+    want = generate(bundle, params, toks, max_new=10, batch_extra=extra)
+    n = {k: f.launches for k, f in (("A", paged_attention_cuda),
+                                    ("B", flash_attention_cuda),
+                                    ("G", ssd_chunk_cuda))}
+    got = generate(bundle, on_card, toks.cuda(), max_new=10,
+                   batch_extra={k: v.cuda() for k, v in extra.items()})
+    assert got.is_cuda and got.cpu().tolist() == want.tolist()
+    assert paged_attention_cuda.launches - n["A"] == 2 * 9
+    assert flash_attention_cuda.launches - n["B"] == 2
+    assert ssd_chunk_cuda.launches - n["G"] == 2 * (family == "hybrid")
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,K,Sq,Sk,D,window", [
     (2, 4, 2, 1, 1, 32, 0),
