@@ -200,7 +200,23 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    A at gemma-2b's and granite's fullest engine step and B at gemma3's
    local layers (SDPA with the window as a mask beside it); prints a
    ``{"registry_serving": ...}`` line;
-17. prints ``{"phase_seconds": ...}`` and a ``{"kernels": [...]}`` line
+17. serves the moe and encdec families as phase 16 does, each after the
+   memory of what ran before is released: ``phi3.5-moe-42b-a6.6b`` (16 of
+   its 32 layers, 21.1 B parameters) and ``qwen3-moe-235b-a22b`` (8 of
+   94, 21.2 B; 64 / 4 heads of 128) at full width, 4 rows of 590 tokens,
+   24 new, at their own capacity factor; their f32 and bf16 consistency
+   checks on ``no_drop`` (capacity_factor = n_experts / top_k: a call
+   drops nothing, so paths with different token counts compute the same
+   function), f32 on their first 4 and 2 layers; their decode steps
+   beside the bound of reading every expert's weights once;
+   ``whisper-medium`` at full width and depth (24 + 24 layers) behind
+   1,536 stub frames of 1024 from a seed, 4 rows of 128 tokens (B once an
+   encoder layer and twice a decoder layer of a prefill, A twice a
+   decoder layer of a step: self- and cross-attention); A at qwen3-moe's
+   fullest engine step, whisper's decode cross-attention on A (the
+   path's) against B at Sq = 1, and B at whisper's encoder (no mask, 4 x
+   1,536 frames); prints a ``{"moe_encdec_serving": ...}`` line;
+18. prints ``{"phase_seconds": ...}`` and a ``{"kernels": [...]}`` line
    (times from CUDA-graph replay, bounds from this run's inputs; rows
    A-G and G′, each with its launches on the main paths; the rows of the five
    two-route kernels, A, B, B's backward, C and G, also time their FMA
@@ -210,9 +226,10 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    sample, at the split the rule picks for it); row A, at the SLM's,
    hymba's and qwen3's fullest decode step (``at_other_shapes``), also
    times every forced cluster size, ``ms_by_splits`` and ``ms_splits1``,
-   and at the SLM's ring, gemma-2b's and granite-20b's shapes;
+   and at the SLM's ring, gemma-2b's, granite-20b's and qwen3-moe's
+   shapes and whisper-medium's cross cache (beside B at Sq = 1);
    rows B, B's backward and C also at qwen3's training shapes, B at
-   gemma3-1b's windowed local layers, C also at
+   gemma3-1b's windowed local layers and whisper's encoder, C also at
    mamba2's and hymba's in_proj (the latter on the FMA route); the row
    of C's grouped form at G 3 x 1088 x 1280 x 1280 beside three ungrouped
    launches of the same work, ``ungrouped_x3_ms``).
@@ -4717,22 +4734,33 @@ def served_params(bundle, seed=0):
 
 def decode_weight_bytes(bundle, params):
     """Bytes of the served weights a decode step reads: all of them but an
-    untied embedding table, of which a step gathers one row a slot."""
+    untied embedding table, of which a step gathers one row a slot, and
+    (encdec) but the encoder, its frontend and the cross-attention's K / V
+    projections, which only a prefill runs.  A moe step reads every
+    expert (the E x C form)."""
     from repro_torch.core.lora import flatten
-    skip = "" if bundle.cfg.tie_embeddings else "tok/embed"
+    skip = ("enc_layers/", "enc_norm", "frontend/", "dec_layers/xattn/wk",
+            "dec_layers/xattn/wv")
+    if not bundle.cfg.tie_embeddings:
+        skip += ("tok/embed",)
     return sum(v.numel() * v.element_size()
-               for k, v in flatten(params).items() if k != skip)
+               for k, v in flatten(params).items() if not k.startswith(skip))
 
 
 def path_launches(cfg, prefills, steps):
     """The exact launches of a serving run: B (attention families) and G
     (ssm, hybrid) once a layer of each prefill, A once an attention layer
-    of each decode step."""
+    of each decode step.  encdec: B once an encoder layer and twice a
+    decoder layer (self- and cross-attention) of each prefill, A twice a
+    decoder layer of each step (``layers.cross_attention_decode``)."""
     L = cfg.n_layers
     attn, ssd = cfg.family != "ssm", cfg.family in ("ssm", "hybrid")
-    return {"flash_attention": L * attn * prefills,
+    per_prefill, per_step = L * attn, L * attn
+    if cfg.family == "encdec":
+        per_prefill, per_step = cfg.n_enc_layers + 2 * L, 2 * L
+    return {"flash_attention": per_prefill * prefills,
             "ssd_chunk": L * ssd * prefills,
-            "paged_attention": L * attn * steps}
+            "paged_attention": per_step * steps}
 
 
 def d256_fma(cfg, steps):
@@ -4997,64 +5025,80 @@ def ring_row(cfg, B, S_c, gen):
                       "dtype": str(dt), "pages_same_capacity": [M, 16]}}
 
 
-def flash_window_row(cfg, B, S, gen):
-    """Row B at ``cfg``'s local layers (gemma3-1b: 4 / 1 heads of 256,
-    window 512), a prefill of B rows of S: the kernel, its FMA route, the
-    plain version and SDPA with the window as a mask, replayed in turn;
-    the bound from the pairs the window keeps."""
+def flash_row(cfg, B, S, gen, causal=True):
+    """Row B at a prefill of ``cfg``, B rows of S: causal within
+    ``cfg.sliding_window`` (gemma3-1b's local layers: 4 / 1 heads of 256,
+    window 512) or, with ``causal=False``, unmasked (whisper-medium's
+    encoder: 16 heads of 64 over 1,536 frames): the kernel, its FMA route,
+    the plain version and SDPA (the window as a mask), replayed in turn;
+    the bound from the pairs the mask keeps."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      flash_attention_plain,
                                                      flash_attention_route)
     H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    w = cfg.sliding_window
+    w = cfg.sliding_window if causal else 0
     dt = cfg.torch_dtype
     q = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dt)
     k, v = (torch.randn((B, S, K, D), generator=gen, device="cuda").to(dt)
             for _ in range(2))
     route = flash_attention_route(q, k, v)
     if route != "mma":
-        raise AssertionError(f"flash window row: route {route}")
-    err = check_close("flash window row",
-                      flash_attention_cuda(q, k, v, causal=True, window=w),
-                      flash_attention_plain(q, k, v, causal=True, window=w),
-                      BF16_TOL)
+        raise AssertionError(f"flash row {cfg.name}: route {route}")
+    err = check_close(f"flash row {cfg.name}",
+                      flash_attention_cuda(q, k, v, causal, w),
+                      flash_attention_plain(q, k, v, causal, w), BF16_TOL)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     pos = torch.arange(S, device="cuda")
-    mask = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < w)
+    mask = ((pos[None, :] <= pos[:, None])
+            & (pos[:, None] - pos[None, :] < (w or S))) if causal else None
     t = graphs_ms({
-        "kernel": lambda i: flash_attention_cuda(q, k, v, True, w),
-        "fma": lambda i: flash_attention_cuda(q, k, v, True, w, route="fma"),
-        "plain": lambda i: flash_attention_plain(q, k, v, True, w),
+        "kernel": lambda i: flash_attention_cuda(q, k, v, causal, w),
+        "fma": lambda i: flash_attention_cuda(q, k, v, causal, w,
+                                              route="fma"),
+        "plain": lambda i: flash_attention_plain(q, k, v, causal, w),
         "sdpa": lambda i: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=True)})
-    pairs = sum(min(i + 1, w) for i in range(S))
+    pairs = sum(min(i + 1, w or S) for i in range(S)) if causal else S * S
     bound, by = _bound((2 * B * S * H * D + 2 * B * S * K * D)
                        * q.element_size(), 4 * D * B * H * pairs)
     return {"ms": t["kernel"], "ms_fma_route": t["fma"],
             "plain_ms": t["plain"], "library_ms": t["sdpa"],
-            "library_call": "scaled_dot_product_attention(attn_mask=the "
-                            "window, enable_gqa=True) on (B, H, S, D) copies",
+            "library_call": "scaled_dot_product_attention("
+                            + ("attn_mask=the window, " if causal else "")
+                            + "enable_gqa=True) on (B, H, S, D) copies",
             "bound_ms": bound, "bound_by": by, "max_abs_err": err,
             "kernel_route": route,
-            "shape": {"B": B, "S": S, "H": H, "K": K, "D": D, "window": w,
-                      "dtype": str(dt)}}
+            "shape": {"B": B, "S": S, "H": H, "K": K, "D": D,
+                      "causal": causal, "window": w, "dtype": str(dt)}}
+
+
+def no_drop(cfg):
+    """``cfg`` with an expert capacity that holds every token of a call
+    (capacity_factor = n_experts / top_k, so C = T): the consistency
+    checks compare paths whose calls hold different numbers of tokens (a
+    prefill, a decode step, a forward), which the config's own capacity
+    would make drop different assignments (ROADMAP, reference fault
+    3.9)."""
+    from repro_torch.models.model import with_overrides
+    return with_overrides(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
 
 
 def serve_both(cfg, rows, S, max_new, extra=None, f32_layers=None,
                at_fullest=None):
-    """``cfg`` at full width and published depth (bf16, random weights
-    from a seed): ``generate`` with merge=True on the unmerged weights
-    (max_new 4), then the counted ``generate_run`` on the merged weights
-    (its first tokens must equal those), the same prompts through
-    ``ServingEngine``, the two's greedy tokens compared, then
-    ``consistency`` on one row.  ``extra(rows, gen)``: the batch extras
-    (the vlm family's frontend features).  Returns (metrics, the launches
-    of the counted runs, ``at_fullest(engine, snap)`` or None)."""
+    """``cfg`` at full width (bf16, random weights from a seed):
+    ``generate`` with merge=True on the unmerged weights (max_new 4), then
+    the counted ``generate_run`` on the merged weights (its first tokens
+    must equal those), the same prompts through ``ServingEngine``, the
+    two's greedy tokens compared, then ``consistency`` on one row (a moe
+    model's on ``no_drop(cfg)``).  ``extra(rows, gen)``: the batch extras
+    (the vlm family's frontend features, the encdec family's frames).
+    Returns (metrics, the launches of the counted runs,
+    ``at_fullest(engine, snap)`` or None)."""
     import torch
     from repro_torch.core.lora import flatten, is_lora_leaf, merge_lora
-    from repro_torch.launch.serve import generate
+    from repro_torch.launch.serve import _prefix_len, generate
     from repro_torch.launch.serve_engine import EngineConfig
     from repro_torch.models.model import build_model
     from repro_torch.models.paged import pages_for
@@ -5082,7 +5126,7 @@ def serve_both(cfg, rows, S, max_new, extra=None, f32_layers=None,
     if not torch.equal(by_merge, toks[:, :4]):
         raise AssertionError(f"{tag}: generate(merge=True) tokens differ "
                              "from the merged weights'")
-    P = cfg.frontend_tokens if cfg.frontend else 0
+    P = _prefix_len(cfg, batch_extra)
     M = pages_for(P + S + max_new, 16)
     econf = EngineConfig(n_slots=rows, page_size=16, n_pages=rows * M + 1,
                          max_pages_per_seq=M, max_out=max_new, buckets=(S,))
@@ -5104,8 +5148,11 @@ def serve_both(cfg, rows, S, max_new, extra=None, f32_layers=None,
         "windows": [] if cfg.family == "ssm"
         else sorted(set(window_array(cfg))),
         "consistency": consistency(
-            bundle, merged, prompts[:1],
-            {k: v[:1] for k, v in batch_extra.items()}, f32_layers),
+            build_model(no_drop(cfg)) if cfg.is_moe else bundle, merged,
+            prompts[:1], {k: v[:1] for k, v in batch_extra.items()},
+            f32_layers),
+        "consistency_capacity_factor": (no_drop(cfg) if cfg.is_moe
+                                        else cfg).capacity_factor,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
     }
     launches = {n: gen_launches[n] + eng_launches[n] for n in gen_launches}
@@ -5143,10 +5190,11 @@ def phase_ring_serving():
     return out, total, row
 
 
-def vlm_frontend(cfg):
-    """The vlm family's stubbed vision features, (rows, T, F) in the model
-    dtype from the seeded generator (256 patches of 1024 for
-    internvl2-1b)."""
+def stub_frontend(cfg):
+    """The stubbed frontend features, (rows, T, F) in the model dtype from
+    the seeded generator: the vlm family's vision patches (256 of 1024 for
+    internvl2-1b), the encdec family's audio frames (1,536 of 1024 for
+    whisper-medium)."""
     def make(rows, gen):
         import torch
         return {"frontend_embeds": (torch.randn(
@@ -5187,7 +5235,7 @@ def phase_registry_serving():
                 return paged_row(engine, snap, window_array(engine.cfg), gen)
         metrics, launches, row = serve_both(
             cfg, rows, S, new,
-            extra=vlm_frontend(cfg) if cfg.frontend else None,
+            extra=stub_frontend(cfg) if cfg.frontend else None,
             f32_layers=GRANITE_F32_LAYERS if mod == "granite_20b" else None,
             at_fullest=grab)
         metrics["memory_allocated_before_gb"] = before / 2**30
@@ -5207,9 +5255,135 @@ def phase_registry_serving():
             {n: total[n] + launches[n] for n in total}
     release()
     from repro_torch.configs.gemma3_1b import CONFIG as GEMMA3
-    row_b = flash_window_row(GEMMA3, 4, 590, gen)
+    row_b = flash_row(GEMMA3, 4, 590, gen)
     release()
     return out, total, rows_a, row_b
+
+
+def cross_row(cfg, B, gen):
+    """The decode cross-attention of ``cfg`` (whisper-medium: 16 heads of
+    64 over 1,536 frames), one token a row against each decoder layer's
+    own cross cache (L x 25 MB at B 4, past the 50 MB L2): A with the
+    cache read as one page a row (``layers.cross_attention_decode``, the
+    path's choice) against B at Sq = 1 with ``causal=False``, the plain
+    version and SDPA, their replays taken in turn; the bound from the
+    bytes of the keys read."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_route)
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_cuda, paged_attention_plain, paged_attention_route,
+        paged_attention_splits)
+    H, K, D, L, T = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                     cfg.n_layers, cfg.frontend_tokens)
+    dt = cfg.torch_dtype
+    kv = torch.randn((L, 2, B, T, K, D), generator=gen,
+                     device="cuda").to(dt)
+    qs = torch.randn((L, B, 1, H, D), generator=gen, device="cuda").to(dt)
+    tables = torch.arange(B, dtype=torch.int32, device="cuda")[:, None]
+    lens = torch.full((B,), T, dtype=torch.int32, device="cuda")
+    qt = qs.transpose(2, 3).contiguous()                    # (L, B, H, 1, D)
+    kvt = kv.transpose(3, 4).contiguous()                   # (L, 2, B, K, T, D)
+
+    def a(i, fn=paged_attention_cuda):
+        return fn(qs[i % L], kv[i % L, 0], kv[i % L, 1], tables, lens, 0)
+
+    def b(i):
+        return flash_attention_cuda(qs[i % L], kv[i % L, 0], kv[i % L, 1],
+                                    causal=False)
+
+    err = 0.0
+    for i in range(L):
+        want = a(i, paged_attention_plain)
+        err = max(err, check_close(f"cross A layer {i}", a(i), want,
+                                   BF16_TOL),
+                  check_close(f"cross B layer {i}", b(i), want, BF16_TOL))
+    t = graphs_ms({
+        "a": a, "b": b, "plain": lambda i: a(i, paged_attention_plain),
+        "sdpa": lambda i: F.scaled_dot_product_attention(
+            qt[i % L], kvt[i % L, 0], kvt[i % L, 1], enable_gqa=True)},
+        n_calls=L, reps=7)
+    esz = kv.element_size()
+    bound, by = _bound(2 * B * T * K * D * esz + 2 * B * H * D * esz + 8 * B,
+                       4 * B * T * H * D)
+    return {"max_abs_err": err, "ms": t["a"], "ms_b_sq1": t["b"],
+            "plain_ms": t["plain"], "library_ms": t["sdpa"],
+            "library_call": "scaled_dot_product_attention(enable_gqa=True) "
+                            "on (B, H, 1, D) / (B, K, T, D) copies",
+            "faster": "A" if t["a"] <= t["b"] else "B",
+            "path_takes": "A (layers.cross_attention_decode)",
+            "bound_ms": bound, "bound_by": by,
+            "a_route": paged_attention_route(qs[0], kv[0, 0], kv[0, 1]),
+            "a_splits": paged_attention_splits(B, K, H // K, 1, T),
+            "b_route": flash_attention_route(qs[0], kv[0, 0], kv[0, 1]),
+            "shape": {"rows": B, "frames": T, "H": H, "K": K, "D": D,
+                      "layers": L, "dtype": str(dt)}}
+
+
+MOE_ENCDEC_CASES = (  # (config module, layers kept, rows, prompt, generated)
+    ("phi3p5_moe_42b_a6p6b", 16, 4, 590, 24),   # 16 of 32: 21.1 B params
+    ("qwen3_moe_235b_a22b", 8, 4, 590, 24),     # 8 of 94: 21.2 B params
+    ("whisper_medium", None, 4, 128, 24),       # 24 + 24 layers, 1536 frames
+)
+# f32 consistency on the first layers only: a layer in f32 is 5.2 GB
+# (phi3.5-moe) and 10 GB (qwen3-moe) beside ~42 GB of bf16 weights
+MOE_F32_LAYERS = {"phi3p5_moe_42b_a6p6b": 4, "qwen3_moe_235b_a22b": 2}
+
+
+def phase_moe_encdec_serving():
+    """phi3.5-moe (16 of 32 layers) and qwen3-moe (8 of 94) at full width,
+    and whisper-medium at full width and depth behind 1,536 stub frames,
+    each through ``generate`` and ``ServingEngine`` (``serve_both``) after
+    the memory of what ran before is released; the moe models' decode
+    steps beside the bound of reading their weights once (every expert:
+    the E x C form), their consistency checks on ``no_drop``.  Returns
+    (metrics, launches, row A at qwen3-moe's fullest engine step, whisper's
+    cross-attention A-against-B row, row B at whisper's encoder)."""
+    import importlib
+    import torch
+    from repro_torch.models.model import with_overrides
+    from repro_torch.models.transformer import window_array
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    out, total, row_a = {}, None, None
+    for mod, layers, rows, S, new in MOE_ENCDEC_CASES:
+        full = importlib.import_module(f"repro_torch.configs.{mod}").CONFIG
+        cfg = with_overrides(full, n_layers=layers) if layers else full
+        release()
+        before = torch.cuda.memory_allocated()
+        grab = None
+        if mod == "qwen3_moe_235b_a22b":
+            def grab(engine, snap):
+                return paged_row(engine, snap, window_array(engine.cfg), gen)
+        metrics, launches, row = serve_both(
+            cfg, rows, S, new,
+            extra=stub_frontend(cfg) if cfg.frontend else None,
+            f32_layers=MOE_F32_LAYERS.get(mod), at_fullest=grab)
+        metrics.update(memory_allocated_before_gb=before / 2**30,
+                       layers=cfg.n_layers, published_layers=full.n_layers,
+                       published_params=full.n_params())
+        if row is not None:
+            row_a = row
+        if cfg.is_moe:
+            bound = metrics["decode_weight_bytes"] / HBM_BYTES_PER_S * 1e3
+            metrics["decode_step_bound_ms"] = bound
+            metrics["decode_step_bound_is"] = (
+                "the bytes of the weights a step reads (every expert), "
+                "once, over 3.35 TB/s")
+            for run in ("generate", "engine"):
+                if metrics[run]["decode_step_ms_mean"] < bound:
+                    raise AssertionError(f"{cfg.name} {run}: a decode step "
+                                         f"under its {bound:.2f} ms bound")
+        out[cfg.name] = metrics
+        total = launches if total is None else \
+            {n: total[n] + launches[n] for n in total}
+    release()
+    from repro_torch.configs.whisper_medium import CONFIG as WHISPER
+    cross = cross_row(WHISPER, 4, gen)
+    release()
+    enc = flash_row(WHISPER, 4, WHISPER.frontend_tokens, gen, causal=False)
+    release()
+    return out, total, row_a, cross, enc
 
 
 def release():
@@ -5309,12 +5483,21 @@ def main() -> int:
     emit({"registry_serving": registry})
     row_a["at_other_shapes"].update(ring_slm=ring_a, **registry_a)
     kernels[1]["at_other_shapes"]["gemma3_local"] = registry_b
-    for row, extra in ((row_a, [ring_a, *registry_a.values()]),
-                       (kernels[1], [registry_b])):
+    release()
+    lap("registry_serving")
+    moe_encdec, moe_encdec_launches, qwen3_moe_a, cross_a, whisper_b = \
+        phase_moe_encdec_serving()
+    emit({"moe_encdec_serving": moe_encdec})
+    row_a["at_other_shapes"].update(qwen3_moe=qwen3_moe_a,
+                                    whisper_cross=cross_a)
+    kernels[1]["at_other_shapes"]["whisper_encoder"] = whisper_b
+    for row, extra in ((row_a, [ring_a, *registry_a.values(), qwen3_moe_a,
+                                cross_a]),
+                       (kernels[1], [registry_b, whisper_b])):
         row["max_abs_err"] = max([row["max_abs_err"]]
                                  + [e["max_abs_err"] for e in extra])
     release()
-    lap("registry_serving")
+    lap("moe_encdec_serving")
     kernels += training_kernel_rows()
     kernels.append(grouped_lora_row())
     kernels += channel_kernel_rows()
@@ -5333,7 +5516,8 @@ def main() -> int:
              "ssm_serving": ssm_launches, "hybrid_serving": hybrid_launches,
              "ssm_training": ssm_train_launches,
              "ring_serving": ring_launches,
-             "registry_serving": registry_launches}
+             "registry_serving": registry_launches,
+             "moe_encdec_serving": moe_encdec_launches}
     for row in kernels:
         by_path = {p: n[row["name"]] for p, n in paths.items()
                    if n[row["name"]]}

@@ -6,9 +6,10 @@ The exchange format is a flat ``{path: np.ndarray}`` dict keyed by the
 layers stacked on axis 0).  bfloat16 travels as its ``uint16`` bit pattern
 and is reinterpreted with ``.view``, never through a float round trip.
 
-Every floating leaf has the tree's dtype, with one named exception: the
-SSM's ``A_log``, ``dt_bias`` and ``D_skip`` stay float32 inside a bf16
-model (``repro.models.ssm.init_ssm`` keeps them so on purpose).
+Every floating leaf has the tree's dtype, with named exceptions: the
+SSM's ``A_log``, ``dt_bias`` and ``D_skip`` and the moe ``router`` stay
+float32 inside a bf16 model (``repro.models.ssm.init_ssm`` and
+``repro.models.moe.init_moe`` keep them so on purpose).
 """
 from __future__ import annotations
 
@@ -20,8 +21,8 @@ import torch
 from repro_torch.core.lora import flatten, unflatten
 
 # leaves (by the last component of their path) that stay float32 in a tree
-# of any dtype: the SSM's decay, step bias and skip
-F32_LEAVES = ("A_log", "dt_bias", "D_skip")
+# of any dtype: the SSM's decay, step bias and skip, the experts' router
+F32_LEAVES = ("A_log", "dt_bias", "D_skip", "router")
 
 
 def params_from_numpy(flat: Dict[str, np.ndarray], device="cuda",

@@ -145,12 +145,15 @@ def ssd_chunk_cuda(x, dt, cum, B_, C_, chunk: int, route: str | None = None):
     function gives it).  Inputs as :func:`ssd_chunk_plain`: x, B_, C_ in
     one of float32 / bfloat16, dt and cum float32, all contiguous on one
     CUDA device; P <= 128.  No autograd: raises if an input requires a
-    gradient while grad mode is on."""
+    gradient while grad mode is on (:func:`ssd_chunk_autograd` is the
+    training path)."""
     route = _route.pick(ssd_chunk_route(x, dt, cum, B_, C_, chunk), route)
     Bsz, S, H, P, G, N, nc = _shapes(x, dt, cum, B_, C_, chunk)
     tensors = (x, dt, cum, B_, C_)
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError("the SSD chunk kernel has no backward yet")
+        raise NotImplementedError(
+            "ssd_chunk_cuda records no backward: train through "
+            "ssd_chunk_autograd, whose backward is G' (ssd_chunk_bwd_cuda)")
     if any(t.device != x.device for t in tensors) or x.device.type != "cuda":
         raise ValueError("all inputs must lie on one CUDA device")
     if not all(t.is_contiguous() for t in tensors):

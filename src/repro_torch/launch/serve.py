@@ -24,7 +24,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.core.lora import merge_lora
-from repro_torch.models.model import ModelBundle
+from repro_torch.models.model import ModelBundle, frontend_prefix_len
 
 
 def make_serve_step(bundle: ModelBundle):
@@ -43,7 +43,9 @@ def make_prefill(bundle: ModelBundle):
 
 
 def _prefix_len(cfg, batch: Dict) -> int:
-    P = cfg.frontend_tokens if cfg.frontend else 0
+    """Cache entries ahead of the prompt: the frontend's
+    (``frontend_prefix_len``) and the soft prompt's."""
+    P = frontend_prefix_len(cfg)
     if batch.get("prefix_embeds") is not None:
         P += batch["prefix_embeds"].shape[1]
     return P
@@ -57,7 +59,8 @@ def generate(bundle: ModelBundle, params, prompt_tokens, max_new: int = 32,
     """Greedy (or, with ``generator``, temperature) sampling of
     ``max_new`` tokens after each row of ``prompt_tokens`` (B, S), on the
     device the prompt lies on.  ``batch_extra`` may hold
-    'frontend_embeds' (B, T, F) and 'prefix_embeds' (B, P, d).  With
+    'frontend_embeds' (B, T, F) (the vlm family's prefix, the encdec
+    family's encoder input) and 'prefix_embeds' (B, P, d).  With
     ``merge`` the LoRA adapters are folded into the weights first
     (``merge_lora``, which drops the adapter leaves).  Returns (B,
     max_new) int64 tokens."""
@@ -89,8 +92,9 @@ def generate(bundle: ModelBundle, params, prompt_tokens, max_new: int = 32,
 
 
 # per-sequence state leaves whose shape never depends on the cache's
-# capacity: the recurrent SSM state (hybrid, ssm)
-_STATE_KEYS = ("ssm_h", "ssm_conv")
+# capacity: the recurrent SSM state (hybrid, ssm) and the encoder's cross
+# K/V (encdec)
+_STATE_KEYS = ("ssm_h", "ssm_conv", "cross_k", "cross_v")
 
 
 def _reseat_cache(big: Dict, small: Dict) -> Dict:

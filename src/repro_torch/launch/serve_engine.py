@@ -9,8 +9,9 @@
   and eviction returns them as soon as a sequence finishes.
 * **Admission control**: pending requests are admitted whenever a slot and
   enough pages are free; prompts are right-padded to prefill buckets for
-  the dense family, and prefilled at exact length for the recurrent
-  families (ssm, hybrid), whose state would fold padding in.  An ssm
+  the attention families (dense, moe, vlm, encdec), and prefilled at
+  exact length for the recurrent families (ssm, hybrid), whose state
+  would fold padding in.  An ssm
   request takes no pages.
 * **Mid-flight eviction**: a sequence that reaches its budget (or
   ``eos_id``) has its block-table row zeroed on the device, so later
@@ -37,7 +38,8 @@ import torch
 
 from repro_torch.core.lora import flatten, merge_lora
 from repro_torch.models import paged
-from repro_torch.models.model import ModelBundle, build_model
+from repro_torch.models.model import (ModelBundle, build_model,
+                                      frontend_prefix_len)
 
 
 @dataclasses.dataclass
@@ -68,7 +70,7 @@ class Request:
     """One generation request and, once served, its output."""
     tokens: np.ndarray               # (S,) int32 prompt
     max_new: int = 16
-    frontend_embeds: Optional[torch.Tensor] = None  # (T, F) vlm stub features
+    frontend_embeds: Optional[torch.Tensor] = None  # (T, F) vlm / encdec stub
     prefix_embeds: Optional[torch.Tensor] = None   # (P, d) ML-ECS soft prompt
                                                    # (tensor or array)
     rid: int = -1
@@ -96,7 +98,7 @@ def _resolve_device(name) -> torch.device:
 
 
 class ServingEngine:
-    """Continuous batching for one dense, vlm, ssm or hybrid model.
+    """Continuous batching for one model of any family.
 
     ``params`` must already lie on ``econf.device``; with ``merge`` the
     LoRA adapters are folded into the weights first.  Besides the
@@ -192,11 +194,15 @@ class ServingEngine:
 
     def submit(self, tokens, max_new: int = 16, frontend_embeds=None,
                prefix_embeds=None) -> int:
-        """Queue a prompt (with the vlm family's (T, F) frontend features,
-        which it requires, and an optional (P, d) soft prompt); returns the
+        """Queue a prompt (with the vlm family's (T, F) frontend features
+        or the encdec family's audio frames, which they require, and an
+        optional (P, d) soft prompt, which encdec refuses); returns the
         request id."""
         if self.cfg.frontend and frontend_embeds is None:
             raise ValueError(f"{self.cfg.name} needs frontend_embeds")
+        if self.cfg.family == "encdec" and prefix_embeds is not None:
+            raise ValueError(f"{self.cfg.name}: the encdec family takes no "
+                             "soft prompt")
         req = Request(np.array(tokens, np.int32).reshape(-1),
                       min(max_new, self.econf.max_out), frontend_embeds,
                       prefix_embeds, rid=next(self._rids))
@@ -205,9 +211,9 @@ class ServingEngine:
         return req.rid
 
     def _prefix_len(self, req: Request) -> int:
-        """Cache entries ahead of the prompt: the frontend's tokens and
-        the soft prompt's."""
-        P = self.cfg.frontend_tokens if self.cfg.frontend else 0
+        """Cache entries ahead of the prompt: the frontend's
+        (``frontend_prefix_len``) and the soft prompt's."""
+        P = frontend_prefix_len(self.cfg)
         if req.prefix_embeds is not None:
             P += int(req.prefix_embeds.shape[0])
         return P

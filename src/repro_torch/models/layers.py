@@ -164,14 +164,54 @@ def causal_window_mask(positions_q, positions_kv, window):
     return (dk <= dq) & (dq - dk < window)
 
 
-def self_attention(p, cfg: ModelConfig, x, positions, window: int):
+def self_attention(p, cfg: ModelConfig, x, positions, window: int,
+                   bidirectional: bool = False, use_rope: bool = True):
     """Causal self-attention over a whole sequence (prefill).  ``positions``
     must be ``arange(S)`` per row (the rope angles; the causal / window
-    mask is the kernel's, with queries and keys aligned).  Returns
+    mask is the kernel's, with queries and keys aligned).  With
+    ``bidirectional`` every query sees every key (the encoder's: no mask,
+    ``window`` unused); without ``use_rope`` no rotation.  Returns
     (out, (k, v))."""
-    q, k, v = _qkv(p, cfg, x, x, positions, positions)
-    out = ops.attention(q, k, v, causal=True, window=window)
+    q, k, v = _qkv(p, cfg, x, x, positions, positions, use_rope)
+    if bidirectional:
+        out = ops.attention(q, k, v, causal=False)
+    else:
+        out = ops.attention(q, k, v, causal=True, window=window)
     return proj(p, "wo", out, cfg), (k, v)
+
+
+def cross_attention(p, cfg: ModelConfig, x, enc_k, enc_v):
+    """Decoder cross-attention of x (B, S, d) over precomputed encoder K/V
+    (B, T, K, hd) each: no mask, no rope, no qk-norm (the reference's),
+    through kernel B with ``causal=False``."""
+    H, hd = cfg.n_heads, cfg.head_dim
+    q = proj(p, "wq", x, cfg).reshape(*x.shape[:-1], H, hd)
+    return proj(p, "wo", ops.attention(q, enc_k, enc_v, causal=False), cfg)
+
+
+def cross_attention_decode(p, cfg: ModelConfig, x, enc_k, enc_v):
+    """:func:`cross_attention` for one token a row, x (B, 1, d), through
+    ``ops.paged_attention`` (kernel A on the card): the (B, T, K, hd)
+    cross cache read as one page of T entries a row (block table [b],
+    every row T keys, no window), as ``decode_attention`` reads a ring.
+    The same function as kernel B at Sq = 1 with ``causal=False``; the
+    smoke script times both at whisper-medium's decode shape."""
+    B, T = enc_k.shape[:2]
+    H, hd = cfg.n_heads, cfg.head_dim
+    q = proj(p, "wq", x, cfg).reshape(B, 1, H, hd)
+    tables = torch.arange(B, dtype=torch.int32, device=x.device)[:, None]
+    lens = torch.full((B,), T, dtype=torch.int32, device=x.device)
+    out = ops.paged_attention(q, enc_k, enc_v, tables, lens, 0)
+    return proj(p, "wo", out, cfg)
+
+
+def encode_kv(p, cfg: ModelConfig, enc_x):
+    """The cross-attention's K and V of the encoder output enc_x (B, T,
+    d): (B, T, K, hd) each, no rope."""
+    K, hd = cfg.n_kv_heads, cfg.head_dim
+    k = proj(p, "wk", enc_x, cfg).reshape(*enc_x.shape[:-1], K, hd)
+    v = proj(p, "wv", enc_x, cfg).reshape(*enc_x.shape[:-1], K, hd)
+    return k, v
 
 
 def decode_attention(p, cfg: ModelConfig, x, pos: int, cache_k, cache_v,

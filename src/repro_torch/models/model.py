@@ -1,5 +1,6 @@
 """Model factory (port of ``repro.models.model``): config -> ModelBundle,
-for the dense, vlm, ssm (mamba2) and hybrid (hymba) families.
+for all six families: dense, moe, vlm, ssm (mamba2), hybrid (hymba) and
+encdec (whisper).
 
   bundle.init(gen)                                      -> params
   bundle.logits(params, batch)                          -> (logits, aux)
@@ -18,19 +19,24 @@ for the dense, vlm, ssm (mamba2) and hybrid (hymba) families.
 
 ``batch`` is a dict with 'tokens' (B, S) and optionally 'prefix_embeds'
 (B, P, d), the ML-ECS soft prompt, and 'frontend_embeds' (B, T,
-frontend_dim), the vlm family's stubbed vision features (required there).
-The ring cache (``prefill`` / ``decode_step``) is written in place.
+frontend_dim), the vlm family's stubbed vision features or the encdec
+family's audio frames (required there).  The encdec family feeds its
+frames to the encoder, has no prefix and refuses a soft prompt; its
+``hidden`` is None (as the reference's).  The stacked forms
+(``logits_stacked``, ``lm_loss_stacked``) raise ``NotImplementedError``
+for the moe and encdec families.  The ring cache (``prefill`` /
+``decode_step``) is written in place.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Callable, Dict, NamedTuple
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import paged, ssm, transformer
+from repro_torch.models import encdec, paged, ssm, transformer
 from repro_torch.models.layers import padded_vocab
 
 
@@ -43,13 +49,22 @@ class ModelBundle(NamedTuple):
     prefill: Callable
     decode_step: Callable
     init_cache: Callable
-    hidden: Callable      # (params, batch) -> final-norm states (B, P+S, d)
+    hidden: Optional[Callable]  # (params, batch) -> final-norm states
+                                # (B, P+S, d); None for encdec
     init_paged: Callable
     prefill_paged: Callable
     insert_paged: Callable
     decode_paged: Callable
     logits_stacked: Callable    # G clients' (G, B, ...) batch at once
     lm_loss_stacked: Callable   # the same -> (G,) losses
+
+
+def frontend_prefix_len(cfg: ModelConfig) -> int:
+    """Cache entries the frontend puts ahead of the prompt: the vlm
+    family's projected features; the encdec family's frames feed its
+    encoder, not the decoder's cache."""
+    return cfg.frontend_tokens if cfg.frontend and cfg.family != "encdec" \
+        else 0
 
 
 def _prefix(params, cfg: ModelConfig, batch: Dict[str, Any]):
@@ -69,6 +84,20 @@ def _prefix(params, cfg: ModelConfig, batch: Dict[str, Any]):
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
 
+def encdec_frames(cfg: ModelConfig, batch: Dict[str, Any]):
+    """The encdec family's encoder input, ``batch['frontend_embeds']``
+    (B, T, frontend_dim), required.  A soft prompt has no place in this
+    family: the reference's bundle drops 'prefix_embeds' unread, the port
+    refuses it."""
+    if batch.get("prefix_embeds") is not None:
+        raise ValueError(f"{cfg.name}: the encdec family takes no soft "
+                         "prompt (batch['prefix_embeds'])")
+    if batch.get("frontend_embeds") is None:
+        raise ValueError(f"{cfg.name}: the encoder needs "
+                         "batch['frontend_embeds']")
+    return batch["frontend_embeds"]
+
+
 def cross_entropy(logits, targets, mask, vocab_size: int, dims=None):
     """Token-level CE in f32 over the padded vocab, averaged over the
     positions where ``mask`` is set (at least 1): over all of them, or
@@ -83,17 +112,23 @@ def cross_entropy(logits, targets, mask, vocab_size: int, dims=None):
 
 
 def build_model(cfg: ModelConfig) -> ModelBundle:
-    """The bundle for a dense, vlm, ssm or hybrid config; the moe and
-    encdec families raise ``NotImplementedError``."""
-    transformer.require_ported(cfg)
-    trunk = ssm if cfg.family == "ssm" else transformer
+    """The bundle for a config of any family."""
+    fam = cfg.family
+    trunk = {"ssm": ssm, "encdec": encdec}.get(fam, transformer)
 
     def init(gen):
         return trunk.init_params(gen, cfg)
 
+    def inputs(params, batch):
+        """The trunk's second input: the encoder's frames, or the
+        prefix."""
+        if fam == "encdec":
+            return encdec_frames(cfg, batch)
+        return _prefix(params, cfg, batch)
+
     def logits_fn(params, batch):
         out, aux, _ = trunk.forward(params, cfg, batch["tokens"],
-                                    _prefix(params, cfg, batch))
+                                    inputs(params, batch))
         return out, aux
 
     def hidden_fn(params, batch):
@@ -123,7 +158,12 @@ def build_model(cfg: ModelConfig) -> ModelBundle:
         clients' rows go through the trunk (``transformer.forward`` or, for
         the ssm family, ``ssm.forward``, with ``clients=True``) as one
         batch of G·B rows (every kernel launches once for the G clients).
-        Returns (logits (G, B, P+S, V) f32, aux)."""
+        Returns (logits (G, B, P+S, V) f32, aux).  The moe and encdec
+        families raise: their stacked forms are not ported."""
+        if fam in ("moe", "encdec"):
+            raise NotImplementedError(
+                f"the {fam} family's stacked forward (G clients at once) "
+                "is not ported")
         tokens = batch["tokens"]
         G, B, S = tokens.shape
         prefix = _prefix(params, cfg, {
@@ -155,7 +195,7 @@ def build_model(cfg: ModelConfig) -> ModelBundle:
 
     def prefill_fn(params, batch):
         return trunk.prefill(params, cfg, batch["tokens"],
-                             _prefix(params, cfg, batch))
+                             inputs(params, batch))
 
     def decode_fn(params, cache, tokens, pos):
         return trunk.decode_step(params, cfg, cache, tokens, pos)
@@ -174,7 +214,7 @@ def build_model(cfg: ModelConfig) -> ModelBundle:
     return ModelBundle(
         cfg=cfg, init=init, logits=logits_fn, lm_loss=lm_loss,
         prefill=prefill_fn, decode_step=decode_fn, init_cache=cache_fn,
-        hidden=hidden_fn,
+        hidden=None if fam == "encdec" else hidden_fn,
         init_paged=functools.partial(paged.init_paged, cfg),
         prefill_paged=prefill_paged_fn,
         insert_paged=functools.partial(paged.insert_paged, cfg),

@@ -1,0 +1,94 @@
+"""Mixture-of-Experts FFN with capacity-based dispatch (port of
+``repro.models.moe``).
+
+Top-k routing over ``n_experts``, each expert holding at most C tokens of
+a call: C = max(4, int(T * top_k * capacity_factor) // n_experts), T every
+row times position of the call.  An assignment's slot in its expert is its
+rank among the earlier assignments to that expert, token-major then k
+(the reference's one-hot cumsum); assignments ranked C or later are
+dropped and add nothing.  So the output of a token depends on the other
+tokens of the call: in a paged decode step, the idle slots' rows route
+too and take capacity ahead of the later slots (ROADMAP, reference fault
+3.9), as in the reference.
+
+The router runs in float32 on x cast to float32 (the router leaf stays
+float32 in a bf16 model).  The expert FFN, silu(x W_gate) * (x W_up)
+then W_down, runs on the (E, C, d) buffers for every expert, as the
+reference's three einsums do outside any Pallas kernel: here three
+``torch.bmm``.  The kept assignments are written into the buffers with
+no accumulation (their (expert, slot) pairs are unique) and the dropped
+ones into a spare row that is never read, so the buffers are the
+reference's without atomics and without a host sync.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import _dense_init
+
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    """The router (d, E) float32 and the experts' stacked gate / up (E, d,
+    f) and down (E, f, d) in the param dtype (the reference's fan-in rule:
+    std 1/sqrt(shape[0]))."""
+    d, f, E = cfg.d_model, cfg.d_ff_expert, cfg.n_experts
+    dt = cfg.torch_dtype
+    return {"router": _dense_init(gen, (d, E), torch.float32),
+            "we_gate": _dense_init(gen, (E, d, f), dt),
+            "we_up": _dense_init(gen, (E, d, f), dt),
+            "we_down": _dense_init(gen, (E, f, d), dt)}
+
+
+def capacity(cfg: ModelConfig, n_tokens: int) -> int:
+    """Tokens an expert holds in a call of ``n_tokens`` tokens."""
+    return max(4, int(n_tokens * cfg.top_k * cfg.capacity_factor)
+               // cfg.n_experts)
+
+
+def route(p, cfg: ModelConfig, xf):
+    """Top-k routing of xf (T, d): (probs (T, E) f32, gates (T, K) f32
+    renormalised over the picks, expert ids (T, K), descending by
+    probability as ``jax.lax.top_k``)."""
+    probs = torch.softmax(xf.float() @ p["router"], dim=-1)
+    gate, idx = torch.topk(probs, cfg.top_k, dim=-1)
+    return probs, gate / gate.sum(dim=-1, keepdim=True), idx
+
+
+def slots(idx, n_experts: int):
+    """Each assignment's rank among the earlier assignments to its expert,
+    token-major then k: idx (T, K) -> (T*K,) int64."""
+    flat = idx.reshape(-1)
+    onehot = F.one_hot(flat, n_experts)
+    return torch.cumsum(onehot, dim=0).gather(1, flat[:, None])[:, 0] - 1
+
+
+def moe_mlp(p, cfg: ModelConfig, x):
+    """x: (B, S, d) -> (y (B, S, d) in x's dtype, aux f32 scalar), the
+    Switch load-balance loss E * sum(mean probs * mean assignment
+    counts)."""
+    Bsz, S, d = x.shape
+    T = Bsz * S
+    E, K = cfg.n_experts, cfg.top_k
+    C = capacity(cfg, T)
+    xf = x.reshape(T, d)
+    probs, gate, idx = route(p, cfg, xf)
+    counts = F.one_hot(idx, E).float().sum(dim=1)                # (T, E)
+    aux = E * torch.sum(probs.mean(dim=0) * counts.mean(dim=0))
+
+    e = idx.reshape(T * K)
+    pos = slots(idx, E)
+    keep = pos < C
+    row = e * C + pos.clamp(max=C - 1)                    # (expert, slot)
+    # the kept rows are unique; every dropped one goes to the spare row
+    buf = xf.new_zeros((E * C + 1, d))
+    buf[torch.where(keep, row, E * C)] = xf.repeat_interleave(K, dim=0)
+    buf = buf[:E * C].view(E, C, d)
+
+    h = F.silu(torch.bmm(buf, p["we_gate"])) * torch.bmm(buf, p["we_up"])
+    out = torch.bmm(h, p["we_down"]).view(E * C, d)
+
+    w = (keep.float() * gate.reshape(T * K)).to(out.dtype)
+    y = (out[row] * w[:, None]).view(T, K, d).sum(dim=1)
+    return y.view(Bsz, S, d), aux

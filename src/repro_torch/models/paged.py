@@ -1,5 +1,5 @@
-"""Paged (blocked) KV-cache serving contract for the dense, vlm, ssm and
-hybrid families (port of ``repro.models.paged``).
+"""Paged (blocked) KV-cache serving contract for every family (port of
+``repro.models.paged``).
 
   k_pages / v_pages : (L, n_pages, page_size, K, hd)   physical pool
   block_tables      : (n_slots, max_pages) int32        logical -> physical
@@ -12,6 +12,12 @@ Per-family state beyond the pages (keyed per slot, not per page):
 
   hybrid   ssm_h (L, n_slots, H, P, N) f32 + ssm_conv (L, n_slots, W-1, C)
   ssm      the same recurrent state only: no pages, the block table unused
+  encdec   cross_k / cross_v (L, n_slots, T, K, hd), T = frontend_tokens:
+           the encoder's cross K/V, dense per slot
+
+A moe layer routes every slot's row, idle ones included, through
+``moe_mlp`` as one call of n_slots tokens, as the reference does: the
+idle rows take capacity too (ROADMAP, reference fault 3.9).
 
 The recurrent families must be prefilled at exact length: padded tokens
 would be folded into the SSM state (the serving engine sees to it).
@@ -28,11 +34,12 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.models import encdec as encdec_lib
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import transformer
 
-SLOT_STATE = ("ssm_h", "ssm_conv")
+SLOT_STATE = ("ssm_h", "ssm_conv", "cross_k", "cross_v")
 
 
 def pages_for(length: int, page_size: int) -> int:
@@ -42,9 +49,8 @@ def pages_for(length: int, page_size: int) -> int:
 
 def init_paged(cfg: ModelConfig, n_slots: int, n_pages: int, page_size: int,
                device="cuda") -> dict:
-    """Zeroed K/V page pools (not for the ssm family) and zeroed per-slot
-    recurrent state (ssm and hybrid)."""
-    transformer.require_ported(cfg)
+    """Zeroed K/V page pools (not for the ssm family), zeroed per-slot
+    recurrent state (ssm and hybrid) and cross K/V (encdec)."""
     pstate = {}
     if cfg.family != "ssm":
         shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads,
@@ -54,21 +60,32 @@ def init_paged(cfg: ModelConfig, n_slots: int, n_pages: int, page_size: int,
                                        device=device)
     if cfg.family in ("ssm", "hybrid"):
         pstate.update(ssm_lib.init_cache(cfg, n_slots, 0, device))
+    if cfg.family == "encdec":
+        pstate.update(encdec_lib.init_cross(cfg, n_slots, device))
     return pstate
 
 
 def prefill_paged(params, cfg: ModelConfig, batch: dict, true_len: int):
-    """Full forward over a prompt (right-padded for the dense and vlm
+    """Full forward over a prompt (right-padded for the attention
     families, exact for ssm and hybrid) behind its prefix: the vlm
-    family's projected ``frontend_embeds``, then the soft prompt.
+    family's projected ``frontend_embeds``, then the soft prompt.  The
+    encdec family encodes ``frontend_embeds`` instead and has no prefix.
 
     Returns (last_logits (B, V) at the TRUE last position, the pack of
     per-request cache leaves: {"k", "v"} of (L, B, P+S_pad, K, hd) entries
-    and/or {"ssm_h", "ssm_conv"} per-layer state, and kv_len = P +
-    true_len, the entries the request owns after insertion).
+    and/or {"ssm_h", "ssm_conv"} per-layer state or {"cross_k",
+    "cross_v"}, and kv_len = P + true_len, the entries the request owns
+    after insertion).
     """
-    from repro_torch.models.model import _prefix
+    from repro_torch.models.model import _prefix, encdec_frames
     tokens = batch["tokens"]
+    if cfg.family == "encdec":
+        enc_x = encdec_lib.encode(params, cfg, encdec_frames(cfg, batch))
+        h, kv = encdec_lib.decode_forward(params, cfg, tokens, enc_x,
+                                          collect_kv=True, return_hidden=True)
+        pack = dict(zip(("k", "v", "cross_k", "cross_v"), kv))
+        return L.unembed(params["tok"], cfg, h[:, true_len - 1]), pack, \
+            true_len
     prefix = _prefix(params, cfg, batch)
     if cfg.family == "ssm":
         h, _, states = ssm_lib.forward(params, cfg, tokens, prefix,
@@ -77,7 +94,7 @@ def prefill_paged(params, cfg: ModelConfig, batch: dict, true_len: int):
     else:
         h, _, kv = transformer.forward(params, cfg, tokens, prefix,
                                        collect_kv=True, return_hidden=True)
-        pack = dict(zip(("k", "v") + SLOT_STATE, kv))
+        pack = dict(zip(("k", "v", "ssm_h", "ssm_conv"), kv))
     P = h.shape[1] - tokens.shape[1]
     last = L.unembed(params["tok"], cfg, h[:, P + true_len - 1])
     return last, pack, P + true_len
@@ -87,7 +104,7 @@ def insert_paged(cfg: ModelConfig, pstate: dict, pack: dict, slot: int,
                  page_ids: torch.Tensor) -> dict:
     """Seat a B=1 prefill pack, in place: its KV scattered into
     ``page_ids`` (a count covering the padded prompt), its recurrent state
-    written at ``slot``."""
+    or cross K/V written at ``slot``."""
     if "k" in pack:
         n_used = page_ids.shape[0]
         for src, dst in (("k", "k_pages"), ("v", "v_pages")):
@@ -128,15 +145,30 @@ def decode_paged(params, cfg: ModelConfig, pstate: dict, block_tables,
     (n_slots,) cached entries per slot (the new token lands at that
     position); active: (n_slots,) bool; block_tables: (n_slots, M) int32.
     The recurrent state of every slot, idle ones included, advances (as in
-    the reference; insertion overwrites an idle slot's).  Returns (logits
-    (n_slots, V) float32, pstate updated in place)."""
-    transformer.require_ported(cfg)
+    the reference; insertion overwrites an idle slot's), and a moe layer
+    routes every slot's row.  Returns (logits (n_slots, V) float32, pstate
+    updated in place)."""
     if cfg.family == "ssm":
         return ssm_lib.decode_step(params, cfg, pstate, tokens, seq_lens)
     x = L.embed(params["tok"], cfg, tokens)
     pos_vec = seq_lens.long()
     lens_incl = torch.where(active, seq_lens + 1,
                             torch.zeros_like(seq_lens)).int()
+    if cfg.family == "encdec":
+        window = cfg.sliding_window or L.BIG_WINDOW
+        for i in range(cfg.n_layers):
+            lp = L.layer_params(params["dec_layers"], i)
+            h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+            y = x + _paged_decode_attention(
+                lp["attn"], cfg, h, pos_vec, pstate["k_pages"][i],
+                pstate["v_pages"][i], block_tables, lens_incl, window)
+            y = y + L.cross_attention_decode(
+                lp["xattn"], cfg, L.rms_norm(y, lp["ln_x"], cfg.norm_eps),
+                pstate["cross_k"][i], pstate["cross_v"][i])
+            x = y + L.mlp(lp["mlp"], cfg,
+                          L.rms_norm(y, lp["ln2"], cfg.norm_eps))
+        x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return L.unembed(params["tok"], cfg, x)[:, 0], pstate
     hybrid = cfg.family == "hybrid"
     for i, w in enumerate(transformer.window_array(cfg)):
         lp = L.layer_params(params["layers"], i)
@@ -152,7 +184,7 @@ def decode_paged(params, cfg: ModelConfig, pstate: dict, block_tables,
             pstate["ssm_conv"][i].copy_(st["conv"])
             attn_out = 0.5 * (attn_out + ssm_out)
         y = x + attn_out
-        h2 = L.rms_norm(y, lp["ln2"], cfg.norm_eps)
-        x = y + L.mlp(lp["mlp"], cfg, h2)
+        x = y + transformer.ffn(lp, cfg,
+                                L.rms_norm(y, lp["ln2"], cfg.norm_eps))[0]
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return L.unembed(params["tok"], cfg, x)[:, 0], pstate

@@ -1,5 +1,5 @@
-"""Decoder-only transformer trunk, dense, vlm and hybrid families (port of
-``repro.models.transformer``).
+"""Decoder-only transformer trunk, dense, moe, vlm and hybrid families
+(port of ``repro.models.transformer``).
 
 Per-layer params stay stacked on a leading layer axis, as the reference's
 ``vmap``-ed init leaves them, so carrying weights across is a copy; the
@@ -8,6 +8,9 @@ copy).  The per-layer sliding window is a plain int per layer.  A hybrid
 layer (hymba) runs attention and an SSD mixer in parallel on the same
 normed input and averages them, ``0.5 * (attn + ssm)``.  The vlm family is
 the dense trunk behind a projected frontend prefix (``frontend_prefix``).
+A moe layer (phi3.5-moe, qwen3-moe) takes :func:`repro_torch.models.moe.
+moe_mlp` in place of the MLP, and the forward sums its layers' auxiliary
+load-balance losses.
 
 ``attn_impl="banded"`` computes the same function as ``"masked"``: every
 layer's attention goes through ``ops.attention`` with the layer's window,
@@ -28,18 +31,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
-
-PORTED_FAMILIES = ("dense", "vlm", "ssm", "hybrid")
-
-
-def require_ported(cfg: ModelConfig) -> None:
-    """Raise for what the port does not cover yet: the moe and encdec
-    families."""
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet "
-            f"(ported: {', '.join(PORTED_FAMILIES)})")
 
 
 # ---------------------------------------------------------------------------
@@ -47,7 +40,7 @@ def require_ported(cfg: ModelConfig) -> None:
 
 def init_layer(gen: torch.Generator, cfg: ModelConfig) -> dict:
     """One block: two norms, attention (+LoRA), an SSD mixer for the
-    hybrid family, MLP."""
+    hybrid family, the experts (moe) or an MLP."""
     d = cfg.d_model
     zeros = dict(dtype=cfg.torch_dtype, device=gen.device)
     p = {"ln1": torch.zeros((d,), **zeros),
@@ -55,14 +48,16 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig) -> dict:
          "attn": L.init_attention(gen, cfg)}
     if cfg.family == "hybrid":
         p["ssm"] = ssm_lib.init_ssm(gen, cfg)
-    p["mlp"] = L.init_mlp(gen, cfg)
+    if cfg.is_moe:
+        p["moe"] = moe_lib.init_moe(gen, cfg)
+    else:
+        p["mlp"] = L.init_mlp(gen, cfg)
     return p
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
     """Backbone params on ``gen``'s device, layers stacked on axis 0 (and
     the vlm family's frontend projector)."""
-    require_ported(cfg)
     tok = L.init_embedding(gen, cfg)
     layers = L.stack_layers(gen, cfg.n_layers, lambda g: init_layer(g, cfg))
     params = {"tok": tok, "layers": layers,
@@ -93,12 +88,23 @@ def frontend_prefix(params, cfg: ModelConfig, frontend_embeds):
     return h @ fp["fp_w2"]
 
 
+def ffn(lp, cfg: ModelConfig, h):
+    """The layer's feed-forward on its normed input: (y, aux), aux the
+    experts' load-balance loss for a moe layer (``moe_impl="sharded"``
+    too: the reference's sharded form is this function outside a mesh,
+    and the port has no mesh yet), else None."""
+    if cfg.is_moe:
+        return moe_lib.moe_mlp(lp["moe"], cfg, h)
+    return L.mlp(lp["mlp"], cfg, h), None
+
+
 # ---------------------------------------------------------------------------
 # full-sequence forward (prefill)
 
 def _block(lp, cfg: ModelConfig, x, positions, window: int):
-    """One layer.  Returns (x, (k, v), state): for the hybrid family the
-    SSD mixer's (h, conv) state, else ()."""
+    """One layer.  Returns (x, (k, v), state, aux): for the hybrid family
+    the SSD mixer's (h, conv) state, else (); aux the moe layer's
+    load-balance loss, else None."""
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
     attn_out, kv = L.self_attention(lp["attn"], cfg, h, positions, window)
     state = ()
@@ -107,8 +113,8 @@ def _block(lp, cfg: ModelConfig, x, positions, window: int):
         attn_out = 0.5 * (attn_out + ssm_out)
         state = (st["h"], st["conv"])
     x = x + attn_out
-    h2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + L.mlp(lp["mlp"], cfg, h2), kv, state
+    y, aux = ffn(lp, cfg, L.rms_norm(x, lp["ln2"], cfg.norm_eps))
+    return x + y, kv, state, aux
 
 
 def forward(params, cfg: ModelConfig, tokens,
@@ -126,24 +132,30 @@ def forward(params, cfg: ModelConfig, tokens,
     With ``return_hidden`` the first element is the final-norm hidden
     states (B, P+S, d) instead.
     """
-    require_ported(cfg)
+    if clients and cfg.is_moe:
+        raise NotImplementedError(
+            "the moe family's stacked (clients=True) forward is not ported: "
+            "each client routes with its own capacity and aux in the "
+            "reference")
     x = L.embed(params["tok"], cfg, tokens)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     collected = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     for i, w in enumerate(window_array(cfg)):
         lp = L.layer_params(params["layers"], i, clients)
         if remat:      # jax.checkpoint of the scanned layer body
-            x, kv, state = checkpoint(_block, lp, cfg, x, positions, w,
-                                      use_reentrant=False)
+            x, kv, state, a = checkpoint(_block, lp, cfg, x, positions, w,
+                                         use_reentrant=False)
         else:
-            x, kv, state = _block(lp, cfg, x, positions, w)
+            x, kv, state, a = _block(lp, cfg, x, positions, w)
+        if a is not None:
+            aux = aux + a
         if collect_kv:
             collected.append(kv + state)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     kv = tuple(torch.stack(leaves) for leaves in zip(*collected)) \
         if collect_kv else None
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -165,17 +177,39 @@ def cache_len(cfg: ModelConfig, seq_len: int) -> int:
     return seq_len
 
 
+def empty_ring(cfg: ModelConfig, batch: int, S_c: int, device) -> dict:
+    """An empty ring of S_c slots a layer: k / v (L, B, S_c, K, hd) zeros,
+    pos (L, S_c) -1."""
+    shape = (cfg.n_layers, batch, S_c, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
+            "pos": torch.full((cfg.n_layers, S_c), -1, dtype=torch.long,
+                              device=device)}
+
+
+def ring_of(k, v, S_c: int) -> dict:
+    """The ring of S_c slots a layer that a prefill leaves from its keys
+    and values k / v (L, B, S, K, hd): the last S_c positions survive,
+    position p in slot p % S_c."""
+    S = k.shape[2]
+    kept = torch.arange(S - S_c, S, device=k.device)
+    slots = kept % S_c
+    ring = {"k": torch.empty_like(k[:, :, :S_c]),
+            "v": torch.empty_like(v[:, :, :S_c]),
+            "pos": torch.empty((k.shape[0], S_c), dtype=torch.long,
+                               device=k.device)}
+    ring["k"][:, :, slots] = k[:, :, S - S_c:]
+    ring["v"][:, :, slots] = v[:, :, S - S_c:]
+    ring["pos"][:, slots] = kept
+    return ring
+
+
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                device="cuda") -> dict:
     """An empty cache for ``batch`` rows of up to ``seq_len`` positions:
     k / v (L, B, S_c, K, hd) zeros, pos (L, S_c) -1; for the hybrid family
     also ssm_h (L, B, H, P, N) f32 and ssm_conv (L, B, W-1, conv_dim)."""
-    S_c = cache_len(cfg, seq_len)
-    shape = (cfg.n_layers, batch, S_c, cfg.n_kv_heads, cfg.head_dim)
-    cache = {"k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
-             "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
-             "pos": torch.full((cfg.n_layers, S_c), -1, dtype=torch.long,
-                               device=device)}
+    cache = empty_ring(cfg, batch, cache_len(cfg, seq_len), device)
     if cfg.family == "hybrid":
         cache.update(ssm_lib.init_cache(cfg, batch, seq_len, device))
     return cache
@@ -193,18 +227,7 @@ def prefill(params, cfg: ModelConfig, tokens,
     h, _, kv = forward(params, cfg, tokens, prefix_embeds, collect_kv=True,
                        return_hidden=True)
     last = L.unembed(params["tok"], cfg, h[:, -1])
-    k_stack, v_stack = kv[0], kv[1]                 # (L, B, S, K, hd)
-    S = k_stack.shape[2]
-    S_c = cache_len(cfg, S)
-    kept = torch.arange(S - S_c, S, device=h.device)
-    slots = kept % S_c
-    cache = {"k": torch.empty_like(k_stack[:, :, :S_c]),
-             "v": torch.empty_like(v_stack[:, :, :S_c]),
-             "pos": torch.empty((cfg.n_layers, S_c), dtype=torch.long,
-                                device=h.device)}
-    cache["k"][:, :, slots] = k_stack[:, :, S - S_c:]
-    cache["v"][:, :, slots] = v_stack[:, :, S - S_c:]
-    cache["pos"][:, slots] = kept
+    cache = ring_of(kv[0], kv[1], cache_len(cfg, h.shape[1]))
     if cfg.family == "hybrid":
         cache["ssm_h"], cache["ssm_conv"] = kv[2], kv[3]
     return last, cache
@@ -232,7 +255,6 @@ def decode_step(params, cfg: ModelConfig, cache: dict, tokens, pos: int):
             cache["ssm_conv"][i].copy_(st["conv"])
             attn_out = 0.5 * (attn_out + ssm_out)
         y = x + attn_out
-        h2 = L.rms_norm(y, lp["ln2"], cfg.norm_eps)
-        x = y + L.mlp(lp["mlp"], cfg, h2)
+        x = y + ffn(lp, cfg, L.rms_norm(y, lp["ln2"], cfg.norm_eps))[0]
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return L.unembed(params["tok"], cfg, x)[:, 0], cache

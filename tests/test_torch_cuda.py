@@ -367,6 +367,61 @@ def test_flash_forward_fma_route_takes_f32_and_d32(gen):
         torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq", [1, 64, 128])
+def test_flash_kernel_without_a_mask_at_whisper_shapes(gen, dtype, Sq):
+    """B with ``causal=False`` at Sq != Sk (whisper-medium's cross- and
+    encoder attention: 16 heads of 64 over 1,536 frames) against the plain
+    version; one launch."""
+    q = torch.randn((2, Sq, 16, 64), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((2, 1536, 16, 64), generator=gen,
+                        device="cuda").to(dtype) for _ in range(2))
+    n = flash_attention_cuda.launches
+    got = ops.attention(q, k, v, causal=False)
+    assert flash_attention_cuda.launches == n + 1
+    want = flash_attention_plain(q, k, v, False, 0).reshape(got.shape)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_over_a_cross_cache(gen, dtype):
+    """``layers.cross_attention_decode``'s call of A: a (B, 1536, K, D)
+    cross cache read as one page a row, every row all 1,536 keys, no
+    window, against the plain version and against B at Sq = 1."""
+    B, T, H, D = 4, 1536, 16, 64
+    q = torch.randn((B, 1, H, D), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((B, T, H, D), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    tables = torch.arange(B, dtype=torch.int32, device="cuda")[:, None]
+    lens = torch.full((B,), T, dtype=torch.int32, device="cuda")
+    got = paged_attention_cuda(q, k, v, tables, lens, 0)
+    want = paged_attention_plain(q, k, v, tables, lens, 0)
+    by_b = flash_attention_cuda(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    torch.testing.assert_close(by_b.float(), want.float(), **TOL[dtype])
+
+
+def test_moe_mlp_on_the_card_matches_the_cpu(gen):
+    """``moe.moe_mlp`` (routing, capacity slots, the scatter and gather,
+    the expert products) on the card against the same call on the CPU, at
+    float32 with TF32 off and a capacity that drops assignments."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.models import moe
+    cfg = ModelConfig(family="moe", d_model=64, n_experts=8, top_k=2,
+                      d_ff_expert=96, capacity_factor=0.5, dtype="float32")
+    p = moe.init_moe(gen, cfg)
+    x = torch.randn((3, 40, 64), generator=gen, device="cuda")
+    _, _, idx = moe.route(p, cfg, x.reshape(120, 64))
+    assert int((moe.slots(idx, 8) >= moe.capacity(cfg, 120)).sum()) > 0
+    y, aux = moe.moe_mlp(p, cfg, x)
+    cpu = {k: v.cpu() for k, v in p.items()}
+    y_cpu, aux_cpu = moe.moe_mlp(cpu, cfg, x.cpu())
+    torch.testing.assert_close(y.cpu(), y_cpu, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(aux.cpu(), aux_cpu, atol=1e-6, rtol=1e-6)
+
+
 def test_kernels_reject_what_they_do_not_take(gen):
     q = torch.randn((1, 1, 2, 48), device="cuda")
     with pytest.raises(ValueError, match="head_dim"):

@@ -391,8 +391,21 @@ def test_engine_admission_overflow_raises():
                     frontend_dim=24)),
 ])
 def test_unported_configs_raise(family, kw):
+    """What the port still refuses of the moe and encdec families: their
+    stacked forms, G clients' batches at once (the moe trunk's
+    ``forward(clients=True)`` too); each builds and serves otherwise."""
     cfg = ModelConfig(**dataclasses.asdict(serving_cfg(family=family, **kw)))
+    bundle = build_model(cfg)
+    params = bundle.init(torch.Generator().manual_seed(0))
+    batch = {"tokens": torch.zeros((2, 1, 4), dtype=torch.long)}
+    if cfg.frontend:
+        batch["frontend_embeds"] = torch.zeros(
+            (2, 1, cfg.frontend_tokens, cfg.frontend_dim))
     with pytest.raises(NotImplementedError, match=family):
-        build_model(cfg)
-    with pytest.raises(NotImplementedError):
-        transformer.init_params(torch.Generator().manual_seed(0), cfg)
+        bundle.logits_stacked(params, batch)
+    with pytest.raises(NotImplementedError, match=family):
+        bundle.lm_loss_stacked(params, batch)
+    if family == "moe":
+        with pytest.raises(NotImplementedError, match="clients"):
+            transformer.forward(params, cfg, batch["tokens"][0],
+                                clients=True)

@@ -35,15 +35,19 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import ccl as jccl
+from repro.core import lora as jlora
 from repro.kernels import ref as jref
 from repro.models import ssm as jssm
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import ccl, lora
 from repro_torch.core.lora import is_lora_leaf
 from repro_torch.kernels import ops
 from repro_torch.kernels import ssd_scan
 from repro_torch.kernels.ssd_scan import ssd_chunk_bwd_plain, ssd_chunk_plain
 from repro_torch.models import ssm
 from repro_torch.models.model import build_model
+from test_torch_moe import rows_close
 from test_torch_serving import port_pair, serving_cfg
 from test_torch_ssm import _ssm_layer, chunk_cum, ssd_inputs
 
@@ -318,3 +322,35 @@ def test_ssm_logits_stacked_match_per_client_logits():
                 torch.testing.assert_close(
                     v.grad[g], per[g]["layers"]["ssm"][k].grad,
                     atol=1e-5, rtol=1e-4, msg=k)
+
+
+def test_soft_prompt_gradients_match_reference():
+    """The gradients of the device loss (``mlecs_loss``: the LM loss
+    behind the connector's soft prompt, plus the contrastive term) of a
+    toy ssm model with respect to the soft-prompt generator's
+    ``spg_scale`` and ``spg_bias``, against ``jax.grad`` of the
+    reference's, row by row (1e-4 of each row's largest |value|): the
+    port differentiates the soft prompt as the reference does."""
+    jcfg = _ssm_cfg(n_modalities=3, modality_dim=16, n_soft_tokens=4)
+    jb, jp, tb, tp = port_pair(jcfg, unified=True)
+    rng = np.random.RandomState(21)
+    toks = rng.randint(0, jcfg.vocab_size, (2, 11)).astype(np.int32)
+    feats = rng.randn(2, 3, 16).astype(np.float32)
+    mask = np.array([[True, False, True], [True, True, False]])
+    jbatch = {"tokens": jnp.asarray(toks), "modality_feats":
+              jnp.asarray(feats), "modality_mask": jnp.asarray(mask)}
+    tbatch = {"tokens": torch.from_numpy(toks).long(), "modality_feats":
+              torch.from_numpy(feats), "modality_mask":
+              torch.from_numpy(mask)}
+    jtrain = jlora.partition(jp)
+
+    def jfn(t):
+        return jccl.mlecs_loss(jlora.combine(jp, t), jb, jbatch)[0]
+    jg = jax.jit(jax.grad(jfn))(jtrain)
+    train = {k: v.detach().requires_grad_(True)
+             for k, v in lora.partition(tp).items()}
+    loss, _ = ccl.mlecs_loss(lora.combine(tp, train), tb, tbatch)
+    tg = ccl.grads_of(loss, train)
+    for k in ("connector/spg_scale", "connector/spg_bias"):
+        assert np.abs(np.asarray(jg[k])).max() > 0, k
+        rows_close(tg[k], jg[k], k)
