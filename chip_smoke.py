@@ -216,7 +216,31 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    fullest engine step, whisper's decode cross-attention on A (the
    path's) against B at Sq = 1, and B at whisper's encoder (no mask, 4 x
    1,536 frames); prints a ``{"moe_encdec_serving": ...}`` line;
-18. prints ``{"phase_seconds": ...}`` and a ``{"kernels": [...]}`` line
+18. trains through the trainer (``launch/train.py``) at full width,
+   bf16, each model after the memory of what ran before is released:
+   the paper's SLM (36 layers, connector latent 1280) through
+   ``run_training`` over ``batches`` of the corpus (8 x 256 tokens,
+   modality features), 8 LoRA-only AdamW steps (the CE on the first batch
+   falls; every frozen leaf bit-unchanged) and 3 of a full fine-tune
+   (every leaf moved; C's dW a ``torch.matmul``), each run's peak memory
+   and step lines; gemma-2b (18 layers, vocab 256,000) from one set of
+   params and two batches of 4 x 1,024 tokens, 2 steps on the full CE and
+   2 on the chunked CE (``loss_chunk`` 512): losses within 1e-3, the
+   LoRA / connector gradients row by row within 2e-2, each path's peak
+   memory; phi3.5-moe (8 of 32 layers, 10.7 B parameters; 4 x 512, 4
+   steps on one batch: aux > 0, the batch's CE falls) and whisper-medium
+   (24 + 24 layers, 4 x 128 tokens behind 1,536 stub frames, modality
+   features, 4 steps on one batch: the CE falls, the encoder's LoRA
+   leaves move, the soft-prompt leaves the family does not read do
+   not); then one stacked step (``ccl.make_stacked_step``, SGD) of 3
+   clients x 2 x 256 against their 3 loop steps at f32 on qwen3-moe (2
+   of 94 layers: each client routes alone) and whisper (2 + 2): every
+   updated leaf row by row within 1e-4; exact launches of every case
+   (bf16 on the tensor-core routes, f32 on FMAs); then B and B' at
+   whisper's encoder and cross-attention and gemma-2b's training shape
+   beside SDPA, C at gemma-2b's q projection beside the dW matmul, D at
+   the SLM trainer's CCL loss; prints a ``{"trainer": ...}`` line;
+19. prints ``{"phase_seconds": ...}`` and a ``{"kernels": [...]}`` line
    (times from CUDA-graph replay, bounds from this run's inputs; rows
    A-G and G′, each with its launches on the main paths; the rows of the five
    two-route kernels, A, B, B's backward, C and G, also time their FMA
@@ -5386,6 +5410,670 @@ def phase_moe_encdec_serving():
     return out, total, row_a, cross, enc
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the trainer (launch/train.py) at full width
+
+TRAIN_LR = 1e-3             # run_training's default
+SLM_TRAIN = dict(rows=8, seq=256, lora_steps=8, full_steps=3)
+GEMMA_TRAIN = dict(rows=4, seq=1024, steps=2)
+# AdamW moves every element of a trainable (d_in, d_out) matrix by ~lr
+# against its gradient's sign, so a pre-activation moves by ~lr ||x||_1:
+# ~3 at lr 1e-3 for phi3.5's 4096-wide soft-prompt generator, where the
+# CE of the one batch trained on rose (10.68 -> 10.76 over 4 steps on an
+# H100 80GB HBM3 at 700 W).  The wide models train at 1e-4.
+PHI_TRAIN = dict(layers=8, rows=4, seq=512, steps=4, lr=1e-4)  # 8 of 32
+WHISPER_TRAIN = dict(rows=4, seq=128, steps=4, lr=1e-4)
+# chunked against full CE on gemma-2b (bf16, the same params and batches):
+# losses to 1e-3 relative; the LoRA / connector gradients row by row within
+# 2e-2 of the row's largest |value| (floored at STEP_GRAD_FLOOR of the
+# leaf's, as every bf16 gradient row of this script: a row of rounding
+# noise has no size of its own)
+CHUNKED_LOSS_RTOL = 1e-3
+CHUNKED_GRAD_TOL = 2e-2
+# the stacked steps against the loop steps at f32 (TF32 off), SGD at lr 1
+# (an updated leaf is p - g, so the check holds each client's gradient):
+# every updated personal leaf row by row within 1e-4 of the row's largest
+# |value|, losses to 1e-5 relative
+STACKED_TRAIN = dict(G=3, rows=2, seq=256)
+STACKED_LR = 1.0
+STACKED_LEAF_TOL = 1e-4
+STACKED_LOSS_RTOL = 1e-5
+
+
+def trainer_corpus(seq_len, vocab):
+    """``round_corpus``'s corpus at ``seq_len`` tokens a row over a vocab
+    the model holds."""
+    from repro_torch.data.synthetic import synthetic_multimodal_corpus
+    return synthetic_multimodal_corpus(
+        0, 256, seq_len, min(vocab, CORPUS["vocab_size"]),
+        n_classes=CORPUS["n_classes"], n_modalities=CORPUS["n_modalities"],
+        modality_dim=CORPUS["modality_dim"],
+        template_len=CORPUS["template_len"])
+
+
+def trainer_batches(mc, rows, seq, n, seed, gen):
+    """``n`` batches of the trainer's stream (``pipeline.batches`` of
+    :func:`trainer_corpus`) on the card; the frontend's stub features
+    (vlm patches, encdec frames) from ``gen`` where ``mc`` has one."""
+    from repro_torch.data.pipeline import batches
+    it = batches(trainer_corpus(seq, mc.vocab_size), rows, seed=seed,
+                 device="cuda")
+    out = [next(it) for _ in range(n)]
+    if mc.frontend:
+        for b in out:
+            b.update(stub_frontend(mc)(rows, gen))
+    return out
+
+
+def trainer_launches(mc, steps, stacked=False):
+    """The exact launches of ``steps`` trained passes of ``mc`` through the
+    trainer's loss (each pass: forward and backward, every adapted
+    projection's C on ``projection_routes``' route; one D forward and
+    backward per CCL loss), with C's grouped form for a stacked pass, and
+    the FMA launches among them: ({kernel: n}, {kernel: FMA n}).
+
+    A decoder-only pass behind the soft prompt launches what
+    ``pass_launches`` counts.  An encdec pass (no prefix: the frames feed
+    the encoder) launches, per encoder layer (no remat), B and each
+    adapted projection's C once forward, B' once and C's dx once (the
+    projector's output needs a gradient); per decoder layer, B twice
+    (self- and cross-attention) forward and again under remat, B' twice,
+    the self-attention's adapted projections' C forward (twice under
+    remat) and dx but at layer 0, whose input is the frozen embedding.
+    At f32 every C, B and B' launch takes the FMA route."""
+    import torch
+    routes = projection_routes(mc)
+    c = {"wgmma": 0, "fma": 0}
+    if mc.family == "encdec":
+        Le, L = mc.n_enc_layers, mc.n_layers
+        rem = 2 if mc.remat else 1
+        for t, (fwd, dx) in routes.items():
+            c[fwd] += Le + L * rem
+            c[dx] += Le + L - (1 if t in ENTRY_PROJECTIONS else 0)
+        p = {"c": c, "b": Le + 2 * L * rem, "b_bwd": Le + 2 * L}
+    else:
+        p = pass_launches(mc, True)
+        c = p["c"]
+    cname = "lora_matmul_grouped" if stacked else "lora_matmul"
+    want = {cname: steps * (c["wgmma"] + c["fma"]),
+            "flash_attention": steps * p["b"],
+            "flash_attention_backward": steps * p["b_bwd"],
+            "gram_log_volume": steps, "gram_log_volume_backward": steps}
+    fma = {cname: steps * c["fma"]}
+    if mc.torch_dtype == torch.float32:
+        fma.update({k: want[k] for k in (cname, "flash_attention",
+                                         "flash_attention_backward")})
+    return want, fma
+
+
+def summed(*counts):
+    """The sum of launch dicts, key by key."""
+    out = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def active_routes(tag, fma):
+    """``check_tensor_core_routes``: the routes that took launches."""
+    return {n: r for n, r in check_tensor_core_routes(tag, fma).items()
+            if any(r.values())}
+
+
+def exact(tag, got, want):
+    full = dict.fromkeys(got, 0)
+    full.update(want)
+    if got != full:
+        raise AssertionError(f"{tag} launches {got} != {full}")
+    return got
+
+
+def eval_ce(bundle, params, batch):
+    """The trainer loss's CE on ``batch`` at ``params`` (no gradient)."""
+    import torch
+    from repro_torch.launch.train import mlecs_train_loss
+    with torch.no_grad():
+        return float(mlecs_train_loss(params, bundle, batch)[1]["ce"])
+
+
+def moved(before, after):
+    """The leaves of ``after`` that differ from ``before``'s, and those
+    that do not: ([moved], [unmoved])."""
+    import torch
+    from repro_torch.core.lora import flatten
+    b, a = flatten(before), flatten(after)
+    same = [k for k in a if torch.equal(a[k], b[k])]
+    return [k for k in a if k not in same], same
+
+
+def timed_steps(step, params, opt_state, batches):
+    """Run ``step`` over ``batches``: (params, opt_state, [metrics], [ms a
+    step, host clock to a synchronize])."""
+    import torch
+    out, ms = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        out.append({k: float(v) for k, v in m.items()})
+    return params, opt_state, out, ms
+
+
+def train_slm(total):
+    """The paper's SLM at full width and depth (bf16, remat, connector
+    latent 1280 as ``round_models``): ``run_training`` over ``batches`` of
+    the trainer corpus, 8 LoRA-only AdamW steps, then 3 of a full
+    fine-tune, each from the seed's params (drawn again here to compare)."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.core.ccl import init_unified
+    from repro_torch.core.lora import default_trainable, flatten
+    from repro_torch.data.pipeline import batches
+    from repro_torch.launch.train import run_training
+    from repro_torch.models.model import build_model
+    slm, _ = round_models()
+    bundle = build_model(slm)
+    rows, seq = SLM_TRAIN["rows"], SLM_TRAIN["seq"]
+    corpus = trainer_corpus(seq, slm.vocab_size)
+    first = next(batches(corpus, rows, seed=0, device="cuda"))
+    out = {}
+    for mode, steps, ff in (("lora", SLM_TRAIN["lora_steps"], False),
+                            ("full_finetune", SLM_TRAIN["full_steps"], True)):
+        release()
+        # run_training's params: the unified model from its seed
+        init = init_unified(torch.Generator(device="cuda").manual_seed(0),
+                            bundle)
+        ce0 = eval_ce(bundle, init, first)
+        torch.cuda.reset_peak_memory_stats()
+        zero_counters()
+        log = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            params, hist = run_training(
+                bundle, batches(corpus, rows, seed=0, device="cuda"), steps,
+                lr=TRAIN_LR, log_every=1, seed=0, full_finetune=ff,
+                device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        want, fma = trainer_launches(slm, steps)
+        got = exact(f"slm {mode}", read_counters(), want)
+        routes = active_routes(f"slm {mode}", fma)
+        total = summed(total, got)
+        lines = log.getvalue().splitlines()
+        if len(lines) != steps or not lines[-1].startswith(
+                f"step {steps - 1:5d}  aux="):
+            raise AssertionError(f"slm {mode}: step lines {lines[-2:]}")
+        ce1 = eval_ce(bundle, params, first)
+        if not (math.isfinite(ce1) and ce1 < ce0):
+            raise AssertionError(f"slm {mode}: CE on the first batch {ce0} "
+                                 f"-> {ce1}")
+        mv, same = moved(init, params)
+        # a leaf whose every element is over 2^9 lr (spg_scale's ones) does
+        # not move in bf16: an AdamW step of ~lr rounds back to it
+        fine = {k for k, v in flatten(init).items()
+                if float(v.float().abs().min()) * 2.0 ** -9 > TRAIN_LR}
+        if ff and set(same) - fine:
+            raise AssertionError(f"slm full fine-tune: unmoved "
+                                 f"{sorted(set(same) - fine)[:8]}")
+        if not ff:
+            bad = [k for k in mv if not default_trainable(k)]
+            if bad:
+                raise AssertionError(f"slm lora: frozen leaves moved {bad}")
+        out[mode] = {"steps": steps, "first_batch_ce_before": ce0,
+                     "first_batch_ce_after": ce1, "history": hist,
+                     "last_line": lines[-1], "wall_s": wall,
+                     "ms_per_step": wall * 1e3 / steps,
+                     "peak_mem_bytes": peak, "leaves_moved": len(mv),
+                     "leaves_unmoved": same if ff else len(same),
+                     "launches": got,
+                     "launches_by_route": routes}
+        del init, params
+    out["config"] = {"layers": slm.n_layers, "rows": rows, "seq": seq,
+                     "lr": TRAIN_LR, "connector_dim": slm.connector_dim}
+    return out, total
+
+
+def train_grads(bundle, params, batch):
+    """d mlecs_train_loss / d (LoRA + connector) at ``params``."""
+    from repro_torch.core.ccl import grads_of
+    from repro_torch.core.lora import combine, partition
+    from repro_torch.launch.train import mlecs_train_loss
+    train = {k: v.detach().requires_grad_(True)
+             for k, v in partition(params).items()}
+    loss, _ = mlecs_train_loss(combine(params, train), bundle, batch)
+    return float(loss.detach()), grads_of(loss, train)
+
+
+def train_gemma(total, gen):
+    """gemma-2b at full width and depth (bf16, remat, vocab 256,000, tied):
+    from one set of params and two batches of 4 x 1,024 tokens (+ 8 soft
+    tokens), 2 AdamW steps on the full CE, then 2 on the chunked CE
+    (``loss_chunk`` 512), each path's peak memory; the losses and, on the
+    first batch, the LoRA / connector gradients of the two paths against
+    each other."""
+    import torch
+    from repro_torch.configs.gemma_2b import CONFIG
+    from repro_torch.core.lora import partition
+    from repro_torch.launch.train import init_train_state, make_train_step
+    from repro_torch.models.model import build_model, with_overrides
+    from repro_torch.optim.adamw import adamw
+    release()
+    opt = adamw(TRAIN_LR)
+    paths = {impl: build_model(with_overrides(CONFIG, loss_impl=impl))
+             for impl in ("full", "chunked")}
+    params, _ = init_train_state(paths["full"], opt, gen)
+    bs = trainer_batches(CONFIG, GEMMA_TRAIN["rows"], GEMMA_TRAIN["seq"],
+                         GEMMA_TRAIN["steps"], 1, gen)
+    out, losses, grads = {}, {}, {}
+    for impl, bundle in paths.items():
+        release()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counters()
+        p, st, ms_hist, ms = timed_steps(
+            make_train_step(bundle, opt), params,
+            opt.init(partition(params)), bs)
+        peak = torch.cuda.max_memory_allocated()
+        want, fma = trainer_launches(CONFIG, GEMMA_TRAIN["steps"])
+        got = exact(f"gemma {impl}", read_counters(), want)
+        routes = active_routes(f"gemma {impl}", fma)
+        total = summed(total, got)
+        losses[impl] = [m["loss"] for m in ms_hist]
+        if not all(math.isfinite(v) for v in losses[impl]):
+            raise AssertionError(f"gemma {impl}: losses {losses[impl]}")
+        del p, st
+        release()
+        grads[impl] = train_grads(bundle, params, bs[0])
+        out[impl] = {"metrics": ms_hist, "ms_per_step": ms,
+                     "peak_mem_bytes": peak,
+                     "peak_above_start_bytes": peak - base,
+                     "launches": got, "launches_by_route": routes}
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["chunked"],
+                                                losses["full"])]
+    if max(rel) > CHUNKED_LOSS_RTOL:
+        raise AssertionError(f"gemma chunked vs full losses {losses}")
+    (lf, gf), (lc, gc) = grads["full"], grads["chunked"]
+    errs = {k: rel_check(f"gemma chunked d{k}", gc[k].reshape(
+        -1, gc[k].shape[-1]), gf[k].reshape(-1, gf[k].shape[-1]),
+        dict(atol=CHUNKED_GRAD_TOL, rtol=0.0),
+        floor=STEP_GRAD_FLOOR)["max_rel_err"] for k in gf}
+    out.update(
+        loss_rel_err=rel, grad_row_rel_err=max(errs.values()),
+        grad_row_rel_err_by_leaf=errs,
+        peak_gap_bytes=out["full"]["peak_mem_bytes"]
+        - out["chunked"]["peak_mem_bytes"],
+        tolerance={"loss_rtol": CHUNKED_LOSS_RTOL,
+                   "grad_rows": CHUNKED_GRAD_TOL,
+                   "grad_floor": STEP_GRAD_FLOOR},
+        config={"rows": GEMMA_TRAIN["rows"], "seq": GEMMA_TRAIN["seq"],
+                "soft_tokens": CONFIG.n_soft_tokens,
+                "loss_chunk": CONFIG.loss_chunk,
+                "vocab": CONFIG.vocab_size})
+    del params
+    return out, total
+
+
+def train_model(tag, mc, spec, total, gen, checks):
+    """``spec['steps']`` AdamW steps of ``make_train_step`` on ``mc``
+    (bf16) from ``init_train_state``, every step on one batch of the
+    trainer's stream, whose CE must fall (on a stream of new batches four
+    steps of a random phi3.5-moe raised the first batch's CE on an H100,
+    10.83 to 11.19: the steps the other batches take outweigh what one
+    step learned); ``checks(init, trained leaves, metrics)`` on the
+    result."""
+    import torch
+    from repro_torch.core.lora import partition
+    from repro_torch.launch.train import init_train_state, make_train_step
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import adamw
+    release()
+    bundle = build_model(mc)
+    opt = adamw(spec["lr"])
+    params, st = init_train_state(bundle, opt, gen)
+    init = {k: v.clone() for k, v in partition(params).items()}
+    bs = trainer_batches(mc, spec["rows"], spec["seq"], 1, 2,
+                         gen) * spec["steps"]
+    ce0 = eval_ce(bundle, params, bs[0])
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    new, st, hist, ms = timed_steps(make_train_step(bundle, opt), params,
+                                    st, bs)
+    peak = torch.cuda.max_memory_allocated()
+    want, fma = trainer_launches(mc, spec["steps"])
+    got = exact(tag, read_counters(), want)
+    routes = active_routes(tag, fma)
+    ce1 = eval_ce(bundle, new, bs[0])
+    if not (all(math.isfinite(m["loss"]) for m in hist) and ce1 < ce0):
+        raise AssertionError(f"{tag}: losses {hist}, CE on the batch "
+                             f"{ce0} -> {ce1}")
+    extra = checks(init, partition(new), hist)
+    out = {"layers": mc.n_layers, "steps": spec["steps"], "rows":
+           spec["rows"], "seq": spec["seq"], "lr": spec["lr"],
+           "metrics": hist,
+           "batch_ce_before": ce0, "batch_ce_after": ce1,
+           "ms_per_step": ms, "peak_mem_bytes": peak, "launches": got,
+           "launches_by_route": routes, **extra}
+    del params, new, st
+    return out, summed(total, got)
+
+
+def check_moe(init, new, hist):
+    aux = [m["aux"] for m in hist]
+    if not all(a > 0 for a in aux):
+        raise AssertionError(f"moe aux {aux}")
+    return {"aux": aux}
+
+
+def check_whisper(init, new, hist):
+    """Every encoder LoRA leaf moved (the encoder's gradient is the sum
+    of every decoder layer's cross K/V), the soft-prompt leaves not (the
+    family takes no soft prompt: their gradient is 0, so AdamW's update
+    is exactly 0)."""
+    import torch
+    enc = [k for k in new if k.startswith("enc_layers/") and "_lora_" in k]
+    still = [k for k in enc if torch.equal(new[k], init[k])]
+    spg = [k for k in ("connector/spg_scale", "connector/spg_bias",
+                       "connector/spg_w1")
+           if not torch.equal(new[k], init[k])]
+    if not enc or still or spg:
+        raise AssertionError(f"whisper: encoder LoRA unmoved {still} of "
+                             f"{enc}; soft-prompt leaves moved {spg}")
+    return {"encoder_lora_leaves_moved": len(enc)}
+
+
+def stacked_against_loop(tag, mc, gen, total):
+    """One stacked step of G clients (``ccl.make_stacked_step``, SGD at
+    lr 1) against each client's loop step (``ccl.make_local_step``) at
+    f32, from one backbone and G clients' own adapters, connectors (and
+    projector), batches and anchors: the per-client losses and every
+    updated personal leaf, row by row; the launches of both, exact (f32:
+    every C and B launch on the FMA route)."""
+    import torch
+    from repro_torch.core import ccl
+    from repro_torch.core.lora import (combine, partition, stack_clients,
+                                       stack_trees)
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import sgd
+    release()
+    G, rows, seq = (STACKED_TRAIN[k] for k in ("G", "rows", "seq"))
+    bundle = build_model(mc)
+    params = ccl.init_unified(gen, bundle)
+    pers = [{k: (0.02 * torch.randn(v.shape, generator=gen, device="cuda")
+                 if k.endswith("_lora_b") else v + 0.02 * torch.randn(
+                     v.shape, generator=gen, device="cuda"))
+             for k, v in partition(params).items()} for _ in range(G)]
+    bs = [trainer_batches(mc, rows, seq, 1, 10 + g, gen)[0]
+          for g in range(G)]
+    masks = torch.tensor([[1, 0, 1], [1, 1, 1], [0, 1, 1]], dtype=torch.bool,
+                         device="cuda")
+    for g, b in enumerate(bs):
+        b["modality_mask"] = masks[g].expand_as(b["modality_mask"]).clone()
+        b["modality_feats"] = b["modality_feats"] * b["modality_mask"][
+            ..., None]
+    batch = {k: torch.stack([b[k] for b in bs]) for k in bs[0]}
+    c = mc.connector_dim or mc.d_model
+    anchor = torch.randn((G, rows, c), generator=gen, device="cuda")
+    opt = sgd(STACKED_LR)
+    zero_counters()
+    new, _, m = ccl.make_stacked_step(bundle, opt)(
+        combine(params, stack_clients(pers)),
+        stack_trees([opt.init(p) for p in pers]), batch, anchor)
+    loop_step = ccl.make_local_step(bundle, opt)
+    loop, loss = [], []
+    for g in range(G):
+        ng, _, mg = loop_step(combine(params, pers[g]), opt.init(pers[g]),
+                              bs[g], anchor[g])
+        loop.append(partition(ng))
+        loss.append(float(mg["loss"]))
+    (ws, fs), (wl, fl) = (trainer_launches(mc, 1, stacked=True),
+                          trainer_launches(mc, G))
+    got = exact(tag, read_counters(), summed(ws, wl))
+    routes = active_routes(tag, summed(fs, fl))
+    torch.cuda.synchronize()
+    rel = [abs(float(m["loss"][g]) - loss[g]) / abs(loss[g])
+           for g in range(G)]
+    stacked = partition(new)
+    errs = {}
+    for g in range(G):
+        for k, w in loop[g].items():
+            e = rel_check(f"{tag} client {g} {k}",
+                          stacked[k][g].reshape(-1, w.shape[-1]),
+                          w.reshape(-1, w.shape[-1]),
+                          dict(atol=STACKED_LEAF_TOL, rtol=0.0))
+            errs[k] = max(errs.get(k, 0.0), e["max_rel_err"])
+    if max(rel) > STACKED_LOSS_RTOL:
+        raise AssertionError(f"{tag}: stacked losses {m['loss'].tolist()} "
+                             f"vs loop {loss}")
+    aux = m["aux"].tolist()
+    del params, new, loop, stacked
+    return {"layers": mc.n_layers, "G": G, "rows": rows, "seq": seq,
+            "losses_stacked": m["loss"].tolist(), "losses_loop": loss,
+            "aux": aux, "loss_rel_err": rel,
+            "leaf_row_rel_err": max(errs.values()),
+            "leaf_row_rel_err_by_leaf": errs, "launches": got,
+            "launches_by_route": routes,
+            "tolerance": {"leaf_rows": STACKED_LEAF_TOL,
+                          "loss_rtol": STACKED_LOSS_RTOL,
+                          "optimizer": f"sgd(lr={STACKED_LR})"}}, \
+        summed(total, got)
+
+
+def attn_rows(B, Sq, Sk, H, K, D, causal, gen):
+    """B and B' at one of the trainer's attention shapes (bf16), each
+    against its plain version and SDPA (B': its forward + backward less
+    its forward), replayed in turn; bounds from the pairs the mask keeps.
+    Returns (forward row, backward row)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward_cuda, flash_attention_backward_plain,
+        flash_attention_backward_route, flash_attention_cuda,
+        flash_attention_plain, flash_attention_route)
+    dt = torch.bfloat16
+    q, do = (torch.randn((B, Sq, H, D), generator=gen, device="cuda").to(dt)
+             for _ in range(2))
+    k, v = (torch.randn((B, Sk, K, D), generator=gen, device="cuda").to(dt)
+            for _ in range(2))
+    if flash_attention_route(q, k, v) != "mma" or \
+            flash_attention_backward_route(q, k, v) != "mma":
+        raise AssertionError("trainer attention rows: not on mma")
+    err = check_close("trainer flash row",
+                      flash_attention_cuda(q, k, v, causal, 0),
+                      flash_attention_plain(q, k, v, causal, 0), BF16_TOL)
+    o, lse = flash_attention_cuda(q, k, v, causal, 0, with_lse=True)
+    args = (q, k, v, o, do, lse, causal, 0)
+    berr = max((grad_rows("trainer flash bwd row", g, w, BF16_TOL)
+                for g, w in zip(flash_attention_backward_cuda(*args),
+                                flash_attention_backward_plain(*args))),
+               key=lambda e: e["max_rel_err"])
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+
+    def sdpa(i):
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                              enable_gqa=True)
+    t = graphs_ms({
+        "fwd": lambda i: flash_attention_cuda(q, k, v, causal, 0),
+        "fwd_plain": lambda i: flash_attention_plain(q, k, v, causal, 0),
+        "sdpa": sdpa,
+        "bwd": lambda i: flash_attention_backward_cuda(*args),
+        "bwd_plain": lambda i: flash_attention_backward_plain(*args),
+        "sdpa_both": lambda i: torch.autograd.grad(sdpa(i), (qt, kt, vt),
+                                                   dot)})
+    pairs = sum(min(Sk - Sq + i + 1, Sk) for i in range(Sq)) if causal \
+        else Sq * Sk
+    es = q.element_size()
+    nq, nk = B * Sq * H * D, B * Sk * K * D
+    fb, fby = _bound((2 * nq + 2 * nk) * es, 4 * D * B * H * pairs)
+    bb, bby = _bound((3 * nq + 2 * nk) * es + B * H * Sq * 4
+                     + (nq + 2 * nk) * es, 10 * D * B * H * pairs)
+    shape = {"B": B, "Sq": Sq, "Sk": Sk, "H": H, "K": K, "D": D,
+             "causal": causal, "dtype": str(dt)}
+    return ({"ms": t["fwd"], "plain_ms": t["fwd_plain"],
+             "library_ms": t["sdpa"], "bound_ms": fb, "bound_by": fby,
+             "max_abs_err": err, "kernel_route": "mma", "shape": shape},
+            {"ms": t["bwd"], "plain_ms": t["bwd_plain"],
+             "library_ms": t["sdpa_both"] - t["sdpa"],
+             "library_fwd_bwd_ms": t["sdpa_both"],
+             "library_fwd_ms": t["sdpa"], "bound_ms": bb, "bound_by": bby,
+             "max_abs_err": berr["max_abs_err"],
+             "max_rel_err": berr["max_rel_err"], "kernel_route": "mma",
+             "shape": shape})
+
+
+# the trainer's new shapes for rows B / B' (B, Sq, Sk, H, K, D, causal),
+# C (M, K, N, r: gemma-2b's q projection) and D (B, k, d: the SLM
+# trainer's CCL loss)
+TRAINER_ATTN_SHAPES = {
+    "whisper_encoder": (4, 1536, 1536, 16, 16, 64, False),
+    "whisper_cross": (4, 128, 1536, 16, 16, 64, False),
+    "gemma2b_train": (4, 1032, 1032, 8, 1, 256, True)}
+TRAINER_C_SHAPE = (4 * 1032, 2048, 2048, 8)
+TRAINER_D_SHAPE = (128, 4, 1280)
+
+
+def trainer_kernel_rows(gen):
+    """The trainer's new shapes for rows B, B', C and D (bf16): B and B'
+    at whisper-medium's encoder (4 x 1,536 frames, no mask) and
+    cross-attention (128 queries over 1,536 frames) and at gemma-2b's
+    training shape (4 x 1,032, 8 / 1 heads of 256, causal); C at gemma-2b's
+    q projection with a full fine-tune's dW (x^T dy, one ``torch.matmul``)
+    timed beside it; D and its backward at the SLM trainer's CCL loss (8
+    rows: 2 x (1 + 7) candidate sets, 128 samples of 4 x 1280)."""
+    import torch
+    from repro_torch.kernels.gram_volume import (
+        gram_log_volume_backward_cuda, gram_log_volume_cuda,
+        gram_log_volume_plain)
+    from repro_torch.kernels.lora_matmul import (lora_matmul_cuda,
+                                                 lora_matmul_plain,
+                                                 lora_matmul_route)
+    rows = {"flash_attention": {}, "flash_attention_backward": {}}
+    for name, shape in TRAINER_ATTN_SHAPES.items():
+        fwd, bwd = attn_rows(*shape, gen)
+        rows["flash_attention"][f"trainer_{name}"] = fwd
+        rows["flash_attention_backward"][f"trainer_{name}"] = bwd
+        release()
+
+    M, K, N, r = TRAINER_C_SHAPE
+    dt = torch.bfloat16
+    x, w, a, b = lora_inputs(gen, M, K, N, r, dt)
+    dy = torch.randn((M, N), generator=gen, device="cuda").to(dt)
+    if lora_matmul_route(x, w, a, b) != "wgmma":
+        raise AssertionError("trainer C row: not on wgmma")
+    err = check_close("trainer lora row", lora_matmul_cuda(x, w, a, b, 2.0),
+                      lora_matmul_plain(x, w, a, b, 2.0), BF16_TOL)
+    xt = x.t()
+    t = graphs_ms({"kernel": lambda i: lora_matmul_cuda(x, w, a, b, 2.0),
+                   "plain": lambda i: lora_matmul_plain(x, w, a, b, 2.0),
+                   "library": lambda i: torch.matmul(x, w),
+                   "dw": lambda i: torch.matmul(xt, dy)})
+    es = x.element_size()
+    bound, by = _bound((M * K + K * N + K * r + r * N + M * N) * es,
+                       2 * M * K * N + 2 * M * K * r + 2 * M * r * N)
+    dw_bound, dw_by = _bound((M * K + M * N + K * N) * es, 2 * M * K * N)
+    rows["lora_matmul"] = {"trainer_gemma2b_q_forward": {
+        "ms": t["kernel"], "plain_ms": t["plain"], "library_ms":
+        t["library"], "bound_ms": bound, "bound_by": by, "max_abs_err": err,
+        "kernel_route": "wgmma", "dw_ms": t["dw"], "dw_bound_ms": dw_bound,
+        "dw_bound_by": dw_by, "dw_is": "a full fine-tune's dW = x^T dy, "
+        "one bf16 torch.matmul (no kernel of the port)",
+        "shape": {"M": M, "K": K, "N": N, "r": r, "dtype": str(dt)}}}
+
+    Bg, k, d = TRAINER_D_SHAPE
+    vs, mask = gram_inputs(gen, Bg, k, d, dt)
+    gout = torch.randn((Bg,), generator=gen, device="cuda")
+    y, dots = gram_log_volume_cuda(vs, mask, return_dots=True)
+    err = check_close("trainer gram row", y, gram_log_volume_plain(vs, mask),
+                      GRAM_TOL)
+    vg = vs.clone().requires_grad_(True)
+    want = torch.autograd.grad(gram_log_volume_plain(vg, mask), vg, gout)[0]
+    berr = rel_check("trainer gram bwd row", gram_log_volume_backward_cuda(
+        vs, mask, gout, dots), want, BF16_TOL, floor=GRAM_GRAD_FLOOR)
+    t = graphs_ms({"fwd": lambda i: gram_log_volume_cuda(vs, mask),
+                   "bwd": lambda i: gram_log_volume_backward_cuda(
+                       vs, mask, gout, dots)})
+    fb, fby = _bound(Bg * k * d * es + Bg * k + Bg * 4,
+                     Bg * (k * (k + 1) // 2 * 2 * d + k ** 3),
+                     F32_FLOP_PER_S)
+    bb, bby = _bound(2 * Bg * k * d * es + Bg * k + Bg * 4,
+                     Bg * (k * (k + 1) * d + 2 * k * k * d + 3 * k ** 3),
+                     F32_FLOP_PER_S)
+    shape = {"B": Bg, "k": k, "d": d, "dtype": str(dt)}
+    rows["gram_log_volume"] = {"trainer_slm_ccl": {
+        "ms": t["fwd"], "bound_ms": fb, "bound_by": fby,
+        "max_abs_err": err, "shape": shape}}
+    rows["gram_log_volume_backward"] = {"trainer_slm_ccl": {
+        "ms": t["bwd"], "bound_ms": bb, "bound_by": bby,
+        "max_abs_err": berr["max_abs_err"],
+        "max_rel_err": berr["max_rel_err"], "shape": shape}}
+    return rows
+
+
+def phase_trainer():
+    """The trainer (``repro_torch.launch.train``) on the card, each case
+    after the memory of what ran before is released: the paper's SLM
+    (LoRA-only, then a full fine-tune) through ``run_training``;
+    gemma-2b's chunked CE against its full CE; phi3.5-moe (8 of 32
+    layers) and whisper-medium (full depth, modality features: the
+    connector feeds CCL) through ``make_train_step``; then the moe and
+    encdec stacked steps against the loop steps at f32 (qwen3-moe 2 of 94
+    layers, whisper 2 + 2).  Returns (metrics, launches, the trainer's
+    kernel rows at its new shapes)."""
+    import torch
+    from repro_torch.configs.phi3p5_moe_42b_a6p6b import CONFIG as PHI
+    from repro_torch.configs.qwen3_moe_235b_a22b import CONFIG as QWEN3_MOE
+    from repro_torch.configs.whisper_medium import CONFIG as WHISPER
+    from repro_torch.models.model import with_overrides
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    total = dict.fromkeys(read_counters(), 0)
+    out = {}
+    seconds = {}
+    t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        t1 = time.perf_counter()
+        seconds[name] = t1 - t0
+        t0 = t1
+    out["slm"], total = train_slm(total)
+    lap("slm")
+    out["gemma-2b"], total = train_gemma(total, gen)
+    lap("gemma-2b")
+    phi = with_overrides(PHI, n_layers=PHI_TRAIN["layers"])
+    out["phi3.5-moe"], total = train_model("phi3.5-moe", phi, PHI_TRAIN,
+                                           total, gen, check_moe)
+    out["phi3.5-moe"].update(published_layers=PHI.n_layers,
+                             params=phi.n_params())
+    lap("phi3.5-moe")
+    out["whisper-medium"], total = train_model(
+        "whisper-medium", WHISPER, WHISPER_TRAIN, total, gen, check_whisper)
+    lap("whisper-medium")
+    out["stacked"] = {}
+    for name, mc in (
+            ("qwen3-moe", with_overrides(QWEN3_MOE, n_layers=2,
+                                         dtype="float32")),
+            ("whisper-medium", with_overrides(WHISPER, n_layers=2,
+                                              n_enc_layers=2,
+                                              dtype="float32"))):
+        out["stacked"][name], total = stacked_against_loop(
+            f"stacked {name}", mc, gen, total)
+    lap("stacked")
+    release()
+    rows = trainer_kernel_rows(gen)
+    lap("kernel_rows")
+    out["seconds"] = seconds
+    release()
+    return out, total, rows
+
+
 def release():
     """Free what the last phase left: its objects hold reference cycles
     (a runner's step closures refer back to it), so collect them before
@@ -5498,11 +6186,20 @@ def main() -> int:
                                  + [e["max_abs_err"] for e in extra])
     release()
     lap("moe_encdec_serving")
+    trainer, trainer_counts, trainer_rows = phase_trainer()
+    emit({"trainer": trainer})
+    release()
+    lap("trainer")
     kernels += training_kernel_rows()
     kernels.append(grouped_lora_row())
     kernels += channel_kernel_rows()
     kernels += ssd_kernel_rows()
     kernels.append(ssd_bwd_kernel_row())
+    for row in kernels:     # the trainer's shapes
+        extra = trainer_rows.get(row["name"], {})
+        row.setdefault("at_other_shapes", {}).update(extra)
+        row["max_abs_err"] = max([row["max_abs_err"]] + [
+            e["max_abs_err"] for e in extra.values()])
     lap("kernel_rows")
     emit({"phase_seconds": seconds})
     # each row's launches: the counted runs of the main paths
@@ -5517,7 +6214,8 @@ def main() -> int:
              "ssm_training": ssm_train_launches,
              "ring_serving": ring_launches,
              "registry_serving": registry_launches,
-             "moe_encdec_serving": moe_encdec_launches}
+             "moe_encdec_serving": moe_encdec_launches,
+             "trainer": trainer_counts}
     for row in kernels:
         by_path = {p: n[row["name"]] for p, n in paths.items()
                    if n[row["name"]]}

@@ -1,6 +1,5 @@
 """phi3.5-moe-42b-a6.6b: 16 experts, top-2
-[hf:microsoft/Phi-3.5-MoE-instruct].  The moe family is not ported:
-``build_model`` raises ``NotImplementedError`` (copied from
+[hf:microsoft/Phi-3.5-MoE-instruct] (copied from
 ``repro.configs.phi3p5_moe_42b_a6p6b``).  Shapes match the published model; weights are
 random."""
 from repro_torch.configs.base import ModelConfig

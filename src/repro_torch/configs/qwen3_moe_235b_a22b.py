@@ -1,6 +1,5 @@
 """qwen3-moe-235b-a22b: 128 experts, top-8, GQA with 4 KV heads
-[hf:Qwen/Qwen3-30B-A3B scaled per assignment].  The moe family is not
-ported: ``build_model`` raises ``NotImplementedError`` (copied from
+[hf:Qwen/Qwen3-30B-A3B scaled per assignment] (copied from
 ``repro.configs.qwen3_moe_235b_a22b``).  Shapes match the published model; weights are
 random."""
 from repro_torch.configs.base import ModelConfig

@@ -1,7 +1,5 @@
 """whisper-medium: encoder-decoder, the conv/mel frontend a stub
-[arXiv:2212.04356].  The encdec family is not ported: ``build_model``
-raises ``NotImplementedError`` (copied from
-``repro.configs.whisper_medium``).  Shapes match the published model; weights are
+[arXiv:2212.04356] (copied from ``repro.configs.whisper_medium``).  Shapes match the published model; weights are
 random."""
 from repro_torch.configs.base import ModelConfig
 

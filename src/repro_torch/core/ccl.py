@@ -34,7 +34,9 @@ def mlecs_loss(params, bundle, batch: Dict,
     omni-modal reps), f_amt with ``ccl_weight=0``.  Without an anchor the
     model's own fused representation anchors.  With ``stacked`` the
     personal leaves and the batch carry a leading client axis and the loss
-    is one value per client, (G,).  Returns (loss, (metrics, fused))."""
+    is one value per client, (G,).  The encdec family takes no soft
+    prompt (:func:`soft_prompt_batch`).  Returns (loss, (metrics,
+    fused))."""
     cfg = bundle.cfg
     lm_loss = bundle.lm_loss_stacked if stacked else bundle.lm_loss
     fused = None
@@ -42,7 +44,7 @@ def mlecs_loss(params, bundle, batch: Dict,
         soft, mods, fused = conn.connector_prefix(
             params["connector"], cfg, batch["modality_feats"],
             batch["modality_mask"])
-        batch = dict(batch, prefix_embeds=soft)
+        batch = soft_prompt_batch(cfg, batch, soft)
         loss, metrics = lm_loss(params, batch)
         if ccl_weight > 0.0:
             anc = anchor if anchor is not None else fused
@@ -55,6 +57,15 @@ def mlecs_loss(params, bundle, batch: Dict,
         loss, metrics = lm_loss(params, batch)
     metrics = dict(metrics, loss=loss)
     return loss, (metrics, fused)
+
+
+def soft_prompt_batch(cfg, batch: Dict, soft) -> Dict:
+    """``batch`` with the connector's soft prompt as its 'prefix_embeds',
+    but for the encdec family, whose bundle takes none: the reference's
+    drops it unread, so its soft-prompt leaves get no gradient and
+    only the modality reps and the fused anchor feed CCL."""
+    return batch if cfg.family == "encdec" else dict(batch,
+                                                     prefix_embeds=soft)
 
 
 def grads_of(loss, train: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

@@ -55,6 +55,11 @@ def default_trainable(path: str) -> bool:
             or path.startswith("frontend"))
 
 
+def all_trainable(path: str) -> bool:
+    """Full fine-tune (the Multi-FedAvg baseline): every leaf."""
+    return True
+
+
 def partition(params: dict,
               predicate: Callable[[str], bool] = default_trainable
               ) -> Dict[str, torch.Tensor]:

@@ -1,12 +1,14 @@
-"""Batching for the loop and vectorized engines (port of the parts of
-``repro.data.pipeline`` they use): numpy index streams and gathers, copied
-as they are, and batches handed over as tensors on the runner's device.
+"""Batching for the trainer and the loop and vectorized engines (port of
+``repro.data.pipeline``): numpy index streams and gathers, copied as they
+are, and batches handed over as tensors on the runner's device.
 
 * :func:`_index_stream` — infinite per-epoch-shuffled index batches;
 * :func:`_gather_np` — host batch assembly with the device's modality
   mask applied in numpy (unobservable features zeroed);
-* :func:`np_eval_batches` — finite, in-order eval batches padded to the
-  batch size, with a ``row_valid`` mask;
+* :func:`batches` / :func:`np_batches` — infinite shuffled train batches
+  (tensors on a device / numpy), the trainer's ``data_iter``;
+* :func:`np_eval_batches` / :func:`eval_batches` — finite, in-order eval
+  batches padded to the batch size, with a ``row_valid`` mask;
 * :func:`stacked_batches` / :func:`stack_steps`,
   :func:`stacked_eval_batches` / :func:`stack_eval_steps` — the same
   streams stacked on a leading client axis (and a leading step axis), for
@@ -59,6 +61,23 @@ def _gather_np(data: Dict[str, np.ndarray], idx,
     # zero features the device cannot observe
     b["modality_feats"] = b["modality_feats"] * mm[..., None]
     return b
+
+
+def batches(data: Dict[str, np.ndarray], batch_size: int, seed: int = 0,
+            modality_mask: Optional[np.ndarray] = None, device="cuda"
+            ) -> Iterator[Dict[str, torch.Tensor]]:
+    """Infinite shuffled batches as tensors on ``device``."""
+    for b in np_batches(data, batch_size, seed, modality_mask):
+        yield to_tensors(b, device)
+
+
+def np_batches(data: Dict[str, np.ndarray], batch_size: int, seed: int = 0,
+               modality_mask: Optional[np.ndarray] = None
+               ) -> Iterator[Dict[str, np.ndarray]]:
+    """Numpy twin of :func:`batches` (the same index stream)."""
+    n = data["tokens"].shape[0]
+    for idx in _index_stream(n, batch_size, seed):
+        yield _gather_np(data, idx, modality_mask)
 
 
 def stacked_batches(datas: Sequence[Dict[str, np.ndarray]], batch_size: int,
@@ -132,6 +151,14 @@ def np_eval_batches(data: Dict[str, np.ndarray], batch_size: int,
         b = _gather_np(data, idx, modality_mask)
         b["row_valid"] = valid
         yield b
+
+
+def eval_batches(data: Dict[str, np.ndarray], batch_size: int,
+                 modality_mask: Optional[np.ndarray] = None, device="cuda"
+                 ) -> Iterator[Dict[str, torch.Tensor]]:
+    """:func:`np_eval_batches` as tensors on ``device``."""
+    for b in np_eval_batches(data, batch_size, modality_mask):
+        yield to_tensors(b, device)
 
 
 def stacked_eval_batches(datas: Sequence[Dict[str, np.ndarray]],

@@ -4,9 +4,11 @@
 The kernel replaces the TPU kernel ``repro.kernels.lora_matmul.
 lora_matmul``.  Unlike the TPU kernel it masks ragged M, N and K, and it
 reads W transposed in place for the backward's dx = dy @ W^T +
-s * (dy @ B^T) @ A^T.  W is frozen: it gets no gradient.  dA and dB are
-rank-r products (no TPU counterpart) computed with ``torch.matmul`` in
-float32.
+s * (dy @ B^T) @ A^T.  dA and dB are rank-r products (no TPU counterpart)
+computed with ``torch.matmul`` in float32.  A W that needs a gradient (a
+full fine-tune) gets dW = x^T @ dy from ``torch.matmul`` in W's dtype, as
+the reference takes it from ``jax.grad`` of its jnp projection outside
+any Pallas kernel; the LoRA term adds nothing to dW.
 
 Two routes (``csrc/lora_matmul.cu``): bf16 operands whose K, N and r are
 multiples of 8 take the ``"wgmma"`` kernel (TMA-fed tiles, tensor cores);
@@ -150,12 +152,11 @@ lora_matmul_cuda.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 class _LoraMatmul(torch.autograd.Function):
-    """Forward and dx through the kernel; dA, dB as f32 rank-r products."""
+    """Forward and dx through the kernel; dA, dB as f32 rank-r products;
+    dW (a full fine-tune) as x^T @ dy in W's dtype."""
 
     @staticmethod
     def forward(ctx, x, w, a, b, scale):
-        if w.requires_grad:
-            raise NotImplementedError("lora_matmul: W is frozen (no dW)")
         ctx.save_for_backward(x, w, a, b)
         ctx.scale = scale
         return lora_matmul_cuda(x, w, a, b, scale)
@@ -174,11 +175,13 @@ class _LoraMatmul(torch.autograd.Function):
                 da = (s * (xf.t() @ (dyf @ b.float().t()))).to(a.dtype)
             if ctx.needs_input_grad[3]:
                 db = (s * ((xf @ a.float()).t() @ dyf)).to(b.dtype)
-        return dx, None, da, db, None
+        dw = x.t() @ dy if ctx.needs_input_grad[1] else None
+        return dx, dw, da, db, None
 
 
 def lora_matmul_autograd(x, w, a, b, scale: float):
-    """The kernel with gradients for x, A and B (W frozen)."""
+    """The kernel with gradients for x, A, B and, where it asks for one,
+    W."""
     return _LoraMatmul.apply(x, w, a, b, scale)
 
 
@@ -237,7 +240,9 @@ class _LoraMatmulGrouped(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, a, b, scale):
         if w.requires_grad:
-            raise NotImplementedError("lora_matmul: W is frozen (no dW)")
+            raise NotImplementedError(
+                "lora_matmul_grouped: the shared W is frozen (no dW): no "
+                "path trains a cohort's stacked backbone")
         ctx.save_for_backward(x, w, a, b)
         ctx.scale = scale
         return lora_matmul_grouped_cuda(x, w, a, b, scale)

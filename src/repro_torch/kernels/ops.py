@@ -40,8 +40,9 @@ def attention(q, k, v, causal: bool = True, window: int = 0):
 
 
 def lora_matmul(x, w, a, b, scale: float):
-    """y = x @ w + scale * (x @ a) @ b for x (M, K), w (K, N) frozen,
-    a (K, r), b (r, N): f32 sums, rounded once to x's dtype."""
+    """y = x @ w + scale * (x @ a) @ b for x (M, K), w (K, N) (with a
+    gradient in a full fine-tune), a (K, r), b (r, N): f32 sums, rounded
+    once to x's dtype."""
     fn = lora_matmul_autograd if x.is_cuda else lora_matmul_plain
     return fn(x, w, a, b, scale)
 

@@ -88,14 +88,16 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
 # ---------------------------------------------------------------------------
 # encoder
 
-def encode(params, cfg: ModelConfig, frontend_embeds):
-    """frontend_embeds: (B, T, frontend_dim) stub frames -> (B, T, d)."""
+def encode(params, cfg: ModelConfig, frontend_embeds, clients: bool = False):
+    """frontend_embeds: (B, T, frontend_dim) stub frames -> (B, T, d).
+    With ``clients`` the LoRA and projector leaves are stacked over G
+    clients and the rows are the clients' in order, B / G each."""
     x = frontend_prefix(params, cfg, frontend_embeds)
     B, T, _ = x.shape
     x = x + sinusoid(T, cfg.d_model, x.dtype, x.device)[None]
     positions = torch.arange(T, device=x.device).expand(B, T)
     for i in range(cfg.n_enc_layers):
-        lp = L.layer_params(params["enc_layers"], i)
+        lp = L.layer_params(params["enc_layers"], i, clients)
         h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
         out, _ = L.self_attention(lp["attn"], cfg, h, positions, 0,
                                   bidirectional=True, use_rope=False)
@@ -129,10 +131,13 @@ def _dec_block(lp, cfg: ModelConfig, x, positions, enc_x):
 
 
 def decode_forward(params, cfg: ModelConfig, tokens, enc_x,
-                   collect_kv: bool = False, return_hidden: bool = False):
+                   collect_kv: bool = False, return_hidden: bool = False,
+                   clients: bool = False):
     """The teacher-forced decoder over tokens (B, S) against enc_x (B, T,
-    d).  Returns (logits (B, S, V) float32, kv|None) with kv = (k, v,
-    cross_k, cross_v): the self-attention's (L, B, S, K, hd) each and the
+    d); with ``clients`` the self-attention's adapters are stacked over G
+    clients (the cross-attention has none and stays shared).  Returns
+    (logits (B, S, V) float32, kv|None) with kv = (k, v, cross_k,
+    cross_v): the self-attention's (L, B, S, K, hd) each and the
     cross-attention's (L, B, T, K, hd) each.  With ``return_hidden`` the
     first element is the final-norm hidden states (B, S, d) instead."""
     x = L.embed(params["tok"], cfg, tokens)
@@ -141,7 +146,7 @@ def decode_forward(params, cfg: ModelConfig, tokens, enc_x,
     remat = cfg.remat and torch.is_grad_enabled()
     collected = []
     for i in range(cfg.n_layers):
-        lp = L.layer_params(params["dec_layers"], i)
+        lp = L.layer_params(params["dec_layers"], i, clients)
         if remat:      # jax.checkpoint of the scanned decoder body
             x, kv, xkv = checkpoint(_dec_block, lp, cfg, x, positions, enc_x,
                                     use_reentrant=False)
@@ -158,11 +163,12 @@ def decode_forward(params, cfg: ModelConfig, tokens, enc_x,
 
 
 def forward(params, cfg: ModelConfig, tokens, frontend_embeds,
-            collect_kv: bool = False):
+            collect_kv: bool = False, clients: bool = False):
     """Encoder then decoder: (logits (B, S, V) float32, aux (0.0), kv|None
-    as :func:`decode_forward`'s)."""
-    enc_x = encode(params, cfg, frontend_embeds)
-    logits, kv = decode_forward(params, cfg, tokens, enc_x, collect_kv)
+    as :func:`decode_forward`'s); ``clients`` as :func:`encode`'s."""
+    enc_x = encode(params, cfg, frontend_embeds, clients)
+    logits, kv = decode_forward(params, cfg, tokens, enc_x, collect_kv,
+                                clients=clients)
     return logits, torch.zeros((), dtype=torch.float32,
                                device=logits.device), kv
 

@@ -23,9 +23,8 @@ frontend_dim), the vlm family's stubbed vision features or the encdec
 family's audio frames (required there).  The encdec family feeds its
 frames to the encoder, has no prefix and refuses a soft prompt; its
 ``hidden`` is None (as the reference's).  The stacked forms
-(``logits_stacked``, ``lm_loss_stacked``) raise ``NotImplementedError``
-for the moe and encdec families.  The ring cache (``prefill`` /
-``decode_step``) is written in place.
+(``logits_stacked``, ``lm_loss_stacked``) take every family.  The ring
+cache (``prefill`` / ``decode_step``) is written in place.
 """
 from __future__ import annotations
 
@@ -153,25 +152,22 @@ def build_model(cfg: ModelConfig) -> ModelBundle:
         return loss, {"ce": ce, "aux": aux}
 
     def logits_stacked(params, batch):
-        """G clients at once: ``params`` carries the LoRA leaves stacked
-        (G, ...) over one backbone; ``batch`` leaves are (G, B, ...).  The
-        clients' rows go through the trunk (``transformer.forward`` or, for
-        the ssm family, ``ssm.forward``, with ``clients=True``) as one
-        batch of G·B rows (every kernel launches once for the G clients).
-        Returns (logits (G, B, P+S, V) f32, aux).  The moe and encdec
-        families raise: their stacked forms are not ported."""
-        if fam in ("moe", "encdec"):
-            raise NotImplementedError(
-                f"the {fam} family's stacked forward (G clients at once) "
-                "is not ported")
+        """G clients at once: ``params`` carries the personal leaves (LoRA,
+        frontend projector) stacked (G, ...) over one backbone; ``batch``
+        leaves are (G, B, ...).  The clients' rows go through the trunk
+        (``transformer``, ``ssm`` or ``encdec.forward`` with
+        ``clients=True``) as one batch of G·B rows (every kernel launches
+        once for the G clients; a moe layer routes each client's rows as a
+        call of their own).  Returns (logits (G, B, P+S, V) f32, aux: a
+        moe trunk's (G,), else the scalar 0.0)."""
         tokens = batch["tokens"]
         G, B, S = tokens.shape
-        prefix = _prefix(params, cfg, {
-            k: batch[k].reshape(G * B, *batch[k].shape[2:])
-            for k in ("prefix_embeds", "frontend_embeds")
-            if batch.get(k) is not None})
+        rows = {k: batch[k].reshape(G * B, *batch[k].shape[2:])
+                for k in ("prefix_embeds", "frontend_embeds")
+                if batch.get(k) is not None}
         logits, aux, _ = trunk.forward(
-            params, cfg, tokens.reshape(G * B, S), prefix, clients=True)
+            params, cfg, tokens.reshape(G * B, S), inputs(params, rows),
+            clients=True)
         return logits.reshape(G, B, *logits.shape[1:]), aux
 
     def lm_loss_stacked(params, batch):
@@ -189,7 +185,8 @@ def build_model(cfg: ModelConfig) -> ModelBundle:
             else mask[:, :, 1:]
         ce = cross_entropy(pred, targets, mask, padded_vocab(cfg),
                            dims=(1, 2))
-        aux = aux.expand(G)
+        if aux.dim() == 0:      # no moe layer: the scalar 0.0
+            aux = aux.expand(G)
         loss = ce + cfg.router_aux_weight * aux
         return loss, {"ce": ce, "aux": aux}
 

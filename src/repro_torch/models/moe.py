@@ -6,8 +6,10 @@ a call: C = max(4, int(T * top_k * capacity_factor) // n_experts), T every
 row times position of the call.  An assignment's slot in its expert is its
 rank among the earlier assignments to that expert, token-major then k
 (the reference's one-hot cumsum); assignments ranked C or later are
-dropped and add nothing.  So the output of a token depends on the other
-tokens of the call: in a paged decode step, the idle slots' rows route
+dropped and add nothing.  In a stacked call (``clients`` = G: a cohort's
+rows at once) every client is its own call, as under the reference's
+``vmap``.  So the output of a token depends on the other tokens of the
+call: in a paged decode step, the idle slots' rows route
 too and take capacity ahead of the later slots (ROADMAP, reference fault
 3.9), as in the reference.
 
@@ -58,37 +60,51 @@ def route(p, cfg: ModelConfig, xf):
 
 def slots(idx, n_experts: int):
     """Each assignment's rank among the earlier assignments to its expert,
-    token-major then k: idx (T, K) -> (T*K,) int64."""
-    flat = idx.reshape(-1)
+    token-major then k: idx ([G,] T, K) -> ([G,] T*K,) int64, counted
+    within each client's tokens."""
+    flat = idx.reshape(*idx.shape[:-2], -1)
     onehot = F.one_hot(flat, n_experts)
-    return torch.cumsum(onehot, dim=0).gather(1, flat[:, None])[:, 0] - 1
+    ranks = torch.cumsum(onehot, dim=-2).gather(-1, flat[..., None])
+    return ranks[..., 0] - 1
 
 
-def moe_mlp(p, cfg: ModelConfig, x):
+def moe_mlp(p, cfg: ModelConfig, x, clients: int | None = None):
     """x: (B, S, d) -> (y (B, S, d) in x's dtype, aux f32 scalar), the
     Switch load-balance loss E * sum(mean probs * mean assignment
-    counts)."""
+    counts).
+
+    With ``clients`` = G, x holds G clients' rows in order, B / G each,
+    and each client routes as the reference's ``vmap`` routes it: over its
+    own T = B / G * S tokens, with its own capacity C, its slots ranked
+    within its own assignments, and its own aux, so aux is (G,).  All G
+    clients' experts run as one set of three ``torch.bmm`` on (E, G * C,
+    d) buffers, client g's slots at rows g * C .. g * C + C - 1 of each
+    expert."""
     Bsz, S, d = x.shape
-    T = Bsz * S
+    G = clients or 1
+    T = Bsz * S // G
     E, K = cfg.n_experts, cfg.top_k
     C = capacity(cfg, T)
-    xf = x.reshape(T, d)
+    xf = x.reshape(G * T, d)
     probs, gate, idx = route(p, cfg, xf)
-    counts = F.one_hot(idx, E).float().sum(dim=1)                # (T, E)
-    aux = E * torch.sum(probs.mean(dim=0) * counts.mean(dim=0))
+    counts = F.one_hot(idx, E).float().sum(dim=1)                # (GT, E)
+    aux = E * torch.sum(probs.view(G, T, E).mean(dim=1)
+                        * counts.view(G, T, E).mean(dim=1), dim=1)
 
-    e = idx.reshape(T * K)
-    pos = slots(idx, E)
+    e = idx.reshape(G, T * K)
+    pos = slots(idx.view(G, T, K), E)
     keep = pos < C
-    row = e * C + pos.clamp(max=C - 1)                    # (expert, slot)
+    client = torch.arange(G, device=x.device)[:, None]
+    row = (e * G + client) * C + pos.clamp(max=C - 1)   # (expert, slot)
+    keep, row = keep.reshape(-1), row.reshape(-1)
     # the kept rows are unique; every dropped one goes to the spare row
-    buf = xf.new_zeros((E * C + 1, d))
-    buf[torch.where(keep, row, E * C)] = xf.repeat_interleave(K, dim=0)
-    buf = buf[:E * C].view(E, C, d)
+    buf = xf.new_zeros((E * G * C + 1, d))
+    buf[torch.where(keep, row, E * G * C)] = xf.repeat_interleave(K, dim=0)
+    buf = buf[:E * G * C].view(E, G * C, d)
 
     h = F.silu(torch.bmm(buf, p["we_gate"])) * torch.bmm(buf, p["we_up"])
-    out = torch.bmm(h, p["we_down"]).view(E * C, d)
+    out = torch.bmm(h, p["we_down"]).view(E * G * C, d)
 
-    w = (keep.float() * gate.reshape(T * K)).to(out.dtype)
-    y = (out[row] * w[:, None]).view(T, K, d).sum(dim=1)
-    return y.view(Bsz, S, d), aux
+    w = (keep.float() * gate.reshape(G * T * K)).to(out.dtype)
+    y = (out[row] * w[:, None]).view(G * T, K, d).sum(dim=1)
+    return y.view(Bsz, S, d), aux if clients else aux[0]

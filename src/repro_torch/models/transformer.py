@@ -81,30 +81,51 @@ def window_array(cfg: ModelConfig) -> List[int]:
 def frontend_prefix(params, cfg: ModelConfig, frontend_embeds):
     """Project stubbed frontend embeddings (B, T, frontend_dim) into the
     LM space (B, T, d): gelu in its tanh form (as ``jax.nn.gelu``), in the
-    param dtype."""
+    param dtype.  A per-client projector (a cohort's stacked leaves,
+    fp_w1 (G, F, d)) projects each client's B / G rows, in order, with its
+    own leaves."""
     fp = params["frontend"]
-    h = F.gelu(frontend_embeds.to(cfg.torch_dtype) @ fp["fp_w1"],
-               approximate="tanh")
-    return h @ fp["fp_w2"]
+    x = frontend_embeds.to(cfg.torch_dtype)
+    w1, w2 = fp["fp_w1"], fp["fp_w2"]
+    if w1.dim() == 3:
+        G = w1.shape[0]
+        h = F.gelu(torch.bmm(x.reshape(G, -1, x.shape[-1]), w1),
+                   approximate="tanh")
+        return torch.bmm(h, w2).reshape(*x.shape[:-1], w2.shape[-1])
+    return F.gelu(x @ w1, approximate="tanh") @ w2
 
 
-def ffn(lp, cfg: ModelConfig, h):
+def n_clients(layers: dict) -> int:
+    """G of a stack whose LoRA leaves carry a leading client axis."""
+    for k, v in layers.items():
+        if isinstance(v, dict):
+            g = n_clients(v)
+            if g:
+                return g
+        elif "_lora_" in k:
+            return v.shape[0]
+    return 0
+
+
+def ffn(lp, cfg: ModelConfig, h, clients: int | None = None):
     """The layer's feed-forward on its normed input: (y, aux), aux the
     experts' load-balance loss for a moe layer (``moe_impl="sharded"``
     too: the reference's sharded form is this function outside a mesh,
-    and the port has no mesh yet), else None."""
+    and the port has no mesh yet), each of the ``clients``' own, (G,),
+    in a stacked call; else None."""
     if cfg.is_moe:
-        return moe_lib.moe_mlp(lp["moe"], cfg, h)
+        return moe_lib.moe_mlp(lp["moe"], cfg, h, clients)
     return L.mlp(lp["mlp"], cfg, h), None
 
 
 # ---------------------------------------------------------------------------
 # full-sequence forward (prefill)
 
-def _block(lp, cfg: ModelConfig, x, positions, window: int):
+def _block(lp, cfg: ModelConfig, x, positions, window: int,
+           clients: int | None = None):
     """One layer.  Returns (x, (k, v), state, aux): for the hybrid family
     the SSD mixer's (h, conv) state, else (); aux the moe layer's
-    load-balance loss, else None."""
+    load-balance loss (per client, (G,), with ``clients``), else None."""
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
     attn_out, kv = L.self_attention(lp["attn"], cfg, h, positions, window)
     state = ()
@@ -113,7 +134,7 @@ def _block(lp, cfg: ModelConfig, x, positions, window: int):
         attn_out = 0.5 * (attn_out + ssm_out)
         state = (st["h"], st["conv"])
     x = x + attn_out
-    y, aux = ffn(lp, cfg, L.rms_norm(x, lp["ln2"], cfg.norm_eps))
+    y, aux = ffn(lp, cfg, L.rms_norm(x, lp["ln2"], cfg.norm_eps), clients)
     return x + y, kv, state, aux
 
 
@@ -124,19 +145,18 @@ def forward(params, cfg: ModelConfig, tokens,
     """tokens: (B, S) int; prefix_embeds: (B, P, d) soft prompt.  With
     ``clients`` the LoRA leaves are stacked over G clients (leading axis)
     and the batch holds the clients' rows in order, B / G each: every
-    adapted projection is one grouped launch.
+    adapted projection is one grouped launch, and a moe layer routes each
+    client's rows as a call of their own.
 
-    Returns (logits (B, P+S, V) float32, aux (0.0), kv|None) with
+    Returns (logits (B, P+S, V) float32, aux, kv|None), aux the moe
+    layers' summed load-balance losses (a scalar; with ``clients`` one a
+    client, (G,)), else the scalar 0.0, with
     kv = (k, v), each (L, B, P+S, K, hd); for the hybrid family kv =
     (k, v, ssm_h (L, B, H, P, N) f32, ssm_conv (L, B, W-1, conv_dim)).
     With ``return_hidden`` the first element is the final-norm hidden
     states (B, P+S, d) instead.
     """
-    if clients and cfg.is_moe:
-        raise NotImplementedError(
-            "the moe family's stacked (clients=True) forward is not ported: "
-            "each client routes with its own capacity and aux in the "
-            "reference")
+    G = n_clients(params["layers"]) if clients and cfg.is_moe else None
     x = L.embed(params["tok"], cfg, tokens)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
@@ -149,9 +169,9 @@ def forward(params, cfg: ModelConfig, tokens,
         lp = L.layer_params(params["layers"], i, clients)
         if remat:      # jax.checkpoint of the scanned layer body
             x, kv, state, a = checkpoint(_block, lp, cfg, x, positions, w,
-                                         use_reentrant=False)
+                                         G, use_reentrant=False)
         else:
-            x, kv, state, a = _block(lp, cfg, x, positions, w)
+            x, kv, state, a = _block(lp, cfg, x, positions, w, G)
         if a is not None:
             aux = aux + a
         if collect_kv:

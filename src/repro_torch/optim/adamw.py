@@ -1,7 +1,9 @@
-"""AdamW over flat dicts of tensors (port of ``repro.optim.adamw``):
-decoupled weight decay, bias correction, global-norm clipping, float32
-moments whatever the param dtype.  Functional, as the reference: ``update``
-returns new updates and a new state and changes nothing in place.
+"""AdamW and SGD over flat dicts of tensors (port of
+``repro.optim.adamw``).  AdamW: decoupled weight decay, bias correction,
+global-norm clipping; SGD: plain or with heavy-ball momentum; float32
+moments whatever the param dtype.  Functional, as the reference:
+``update`` returns new updates and a new state and changes nothing in
+place.
 
 ``update_stacked`` is ``vmap(update)`` over a leading client axis: every
 leaf, gradient and moment is (G, ...), the step count is (G,), and the
@@ -35,6 +37,14 @@ def clip_by_global_norm(tree: Dict[str, torch.Tensor], max_norm: float):
 def _per_client(v: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
     """A (G,) vector shaped to broadcast over a (G, ...) leaf."""
     return v.reshape(v.shape[:1] + (1,) * (leaf.dim() - 1))
+
+
+def _client_col(v, leaf):
+    """A per-step value shaped to broadcast over a (G, ...) leaf: a (G,)
+    tensor per client, a scalar as it is."""
+    if isinstance(v, torch.Tensor) and v.dim():
+        return _per_client(v, leaf)
+    return v
 
 
 def stacked_global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -96,12 +106,43 @@ def adamw(lr: Callable | float, b1: float = 0.9, b2: float = 0.95,
             scale = torch.clamp(clip_norm / (stacked_global_norm(grads)
                                              + 1e-9), max=1.0)
             grads = {k: g * _per_client(scale, g) for k, g in grads.items()}
+        return apply(grads, state, params, _client_col)
 
-        def col(v, leaf):
-            if isinstance(v, torch.Tensor) and v.dim():
-                return _per_client(v, leaf)
-            return v
-        return apply(grads, state, params, col)
+    return Optimizer(init, update, update_stacked)
+
+
+def sgd(lr: Callable | float, momentum: float = 0.0) -> Optimizer:
+    """SGD: u = -lr * g, or with ``momentum`` m = momentum * m + g in f32
+    and u = -lr * m; the update cast to the param's dtype."""
+    lr_fn = lr if callable(lr) else (lambda _: lr)
+
+    def init(params: Dict[str, torch.Tensor]):
+        dev = next(iter(params.values())).device
+        st = {"step": torch.zeros((), dtype=torch.int32, device=dev)}
+        if momentum:
+            st["mu"] = {k: torch.zeros(p.shape, dtype=torch.float32,
+                                       device=p.device)
+                        for k, p in params.items()}
+        return st
+
+    def apply(grads, state, params, col):
+        step = state["step"] + 1
+        lr_t = lr_fn(step)
+        if momentum:
+            mu = {k: momentum * state["mu"][k] + g.float()
+                  for k, g in grads.items()}
+            return ({k: (-col(lr_t, m) * m).to(params[k].dtype)
+                     for k, m in mu.items()}, {"step": step, "mu": mu})
+        return ({k: (-col(lr_t, g) * g.float()).to(params[k].dtype)
+                 for k, g in grads.items()}, {"step": step})
+
+    def update(grads, state, params):
+        return apply(grads, state, params, lambda v, leaf: v)
+
+    def update_stacked(grads, state, params):
+        """``update`` for G clients: (G, ...) leaves, ``state["step"]``
+        (G,)."""
+        return apply(grads, state, params, _client_col)
 
     return Optimizer(init, update, update_stacked)
 

@@ -422,6 +422,27 @@ def test_moe_mlp_on_the_card_matches_the_cpu(gen):
     torch.testing.assert_close(aux.cpu(), aux_cpu, atol=1e-6, rtol=1e-6)
 
 
+def test_moe_mlp_per_client_on_the_card_matches_the_cpu(gen):
+    """``moe.moe_mlp(clients=3)`` (each client routes its own rows with
+    its own capacity, slots and aux; one set of expert products for all)
+    on the card against the same call on the CPU, f32, TF32 off, at a
+    capacity that drops assignments."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.models import moe
+    cfg = ModelConfig(family="moe", d_model=64, n_experts=8, top_k=2,
+                      d_ff_expert=96, capacity_factor=0.5, dtype="float32")
+    p = moe.init_moe(gen, cfg)
+    x = torch.randn((6, 40, 64), generator=gen, device="cuda")
+    _, _, idx = moe.route(p, cfg, x.reshape(3, 80, 64)[0])
+    assert int((moe.slots(idx, 8) >= moe.capacity(cfg, 80)).sum()) > 0
+    y, aux = moe.moe_mlp(p, cfg, x, clients=3)
+    assert aux.shape == (3,)
+    cpu = {k: v.cpu() for k, v in p.items()}
+    y_cpu, aux_cpu = moe.moe_mlp(cpu, cfg, x.cpu(), clients=3)
+    torch.testing.assert_close(y.cpu(), y_cpu, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(aux.cpu(), aux_cpu, atol=1e-6, rtol=1e-6)
+
+
 def test_kernels_reject_what_they_do_not_take(gen):
     q = torch.randn((1, 1, 2, 48), device="cuda")
     with pytest.raises(ValueError, match="head_dim"):
@@ -491,6 +512,28 @@ def test_lora_kernel_gradients_match_plain_autograd(gen, dtype):
     tol = TOL[dtype] if dtype == torch.float32 else dict(atol=5e-2, rtol=2e-2)
     for got, want in zip(*grads):
         torch.testing.assert_close(got, want, **tol)
+
+
+@pytest.mark.parametrize("M,K,N", [(67, 96, 80), (2048, 1280, 1280)])
+def test_lora_kernel_dw_matches_plain_autograd(gen, M, K, N):
+    """A full fine-tune's C: W asks for a gradient too.  bf16 through
+    ``ops.lora_matmul`` (forward and dx on the kernel, dW = x^T dy as one
+    bf16 ``torch.matmul``) against the plain version's autograd (f32
+    products rounded once): every gradient, dW row by row."""
+    x, w, a, b = _lora_inputs(gen, M, K, N, 8, torch.bfloat16)
+    dy = torch.randn((M, N), generator=gen, device="cuda").to(torch.bfloat16)
+    grads = []
+    for fn in (ops.lora_matmul, lora_matmul_plain):
+        ins = [t.clone().requires_grad_(True) for t in (x, w, a, b)]
+        n = lora_matmul_cuda.launches
+        fn(*ins, 2.0).backward(dy)
+        if fn is ops.lora_matmul:
+            assert lora_matmul_cuda.launches == n + 2     # forward and dx
+        grads.append([t.grad.float() for t in ins])
+    torch.cuda.synchronize()
+    for got, want in zip(*grads):
+        torch.testing.assert_close(*_row_scaled(got, want), atol=2e-2,
+                                   rtol=1e-2)
 
 
 @contextlib.contextmanager
@@ -1074,6 +1117,38 @@ def test_flash_backward_mma_route_matches_plain(gen, B, H, K, Sq, Sk, D,
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         torch.testing.assert_close(*_row_scaled(g, w), **TOL[dt])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,K,Sq,Sk,D,causal", [
+    (2, 16, 16, 128, 1536, 64, False),   # whisper's cross-attention
+    (2, 16, 16, 1536, 1536, 64, False),  # whisper's encoder
+    (2, 8, 1, 1032, 1032, 256, True),    # gemma-2b: 8 / 1 heads of 256
+])
+def test_flash_backward_at_the_trainers_shapes(gen, dtype, B, H, K, Sq, Sk,
+                                                D, causal):
+    """The backward kernels where the trainer first runs them: without a
+    mask at Sq != Sk and Sq = Sk (whisper-medium) and at gemma-2b's GQA 8
+    over head_dim 256, against the explicit formulas on the kernel's own
+    output and log-sum-exp, row-scaled; one launch (bf16 on the mma
+    route)."""
+    q = torch.randn((B, Sq, H, D), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((B, Sk, K, D), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    do = torch.randn((B, Sq, H, D), generator=gen, device="cuda").to(dtype)
+    o, lse = flash_attention_cuda(q, k, v, causal, 0, with_lse=True)
+    _, want_lse = flash_attention_plain(q, k, v, causal, 0, with_lse=True)
+    assert flash_attention_backward_route(q, k, v) == (
+        "mma" if dtype == torch.bfloat16 else "fma")
+    n = flash_attention_backward_cuda.launches
+    got = flash_attention_backward_cuda(q, k, v, o, do, lse, causal, 0)
+    assert flash_attention_backward_cuda.launches == n + 1
+    want = flash_attention_backward_plain(q, k, v, o, do, lse, causal, 0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype
+        torch.testing.assert_close(*_row_scaled(g, w), **TOL[dtype])
 
 
 @pytest.mark.parametrize("B,H,K,S,D,window", [

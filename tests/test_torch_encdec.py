@@ -1,6 +1,7 @@
 """Port parity for the encdec family (whisper): ``sinusoid``, the encoder,
 the cross K/V, the teacher-forced decoder, the forward and ``lm_loss``
-with their LoRA gradients, the ring ``prefill`` / ``decode_step`` and
+with their LoRA gradients, a local step with modality features (CCL on
+the connector, no soft prompt) and the stacked step, the ring ``prefill`` / ``decode_step`` and
 ``generate``, the paged contract and the engine, each against the JAX
 package on the same weights (made by the JAX init, LoRA B filled from a
 numpy seed, carried over by ``interop``) at the toy size of
@@ -22,17 +23,23 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_stacked_cases import (client_batches, multimodal,
+                                  stacked_step_against_reference)
+from repro.core import ccl as jccl
 from repro.core import lora as jlora
 from repro.launch import serve as jserve
 from repro.launch.serve_engine import EngineConfig as JEngineConfig
 from repro.launch.serve_engine import ServingEngine as JEngine
 from repro.models import encdec as jencdec
+from repro.optim.adamw import adamw as jadamw
 from repro_torch.core import ccl, lora
 from repro_torch.launch import serve
 from repro_torch.launch.serve_engine import EngineConfig, ServingEngine
 from repro_torch.models import encdec
+from repro_torch.optim.adamw import adamw
 from test_torch_moe import rows_close
-from test_torch_serving import port_pair, serving_cfg, strip_adapters
+from test_torch_serving import (flat_numpy, port_pair, serving_cfg,
+                                strip_adapters)
 from test_torch_ssm import f32_reference, hold
 
 torch.set_num_threads(1)
@@ -170,20 +177,79 @@ def test_lora_grads_match_reference(remat):
 
 
 def test_bundle_refuses_what_encdec_does_not_take():
-    """No stacked form, no soft prompt, frames required; no hidden."""
+    """No soft prompt, frames required; no hidden.  The stacked forms take
+    the family: one client's stack equals the unstacked call."""
     _, _, tb, tp = port_pair(encdec_cfg())
     toks, fe = inputs(encdec_cfg())
     t, f = torch.from_numpy(toks).long(), torch.from_numpy(fe)
     assert tb.hidden is None
-    with pytest.raises(NotImplementedError, match="encdec"):
-        tb.logits_stacked(tp, {"tokens": t[None], "frontend_embeds": f[None]})
-    with pytest.raises(NotImplementedError, match="encdec"):
-        tb.lm_loss_stacked(tp, {"tokens": t[None], "frontend_embeds": f[None]})
+    pers = lora.stack_clients([lora.partition(tp)])
+    stacked = lora.combine(tp, pers)
+    got, aux = tb.logits_stacked(stacked, {"tokens": t[None],
+                                           "frontend_embeds": f[None]})
+    want, _ = tb.logits(tp, {"tokens": t, "frontend_embeds": f})
+    np.testing.assert_allclose(_np(got[0]), _np(want), atol=1e-6)
+    loss, m = tb.lm_loss_stacked(stacked, {"tokens": t[None],
+                                           "frontend_embeds": f[None]})
+    assert loss.shape == m["aux"].shape == (1,)
     with pytest.raises(ValueError, match="soft"):
         tb.logits(tp, {"tokens": t, "frontend_embeds": f,
                        "prefix_embeds": torch.zeros((B, 2, 32))})
+    with pytest.raises(ValueError, match="soft"):
+        tb.logits_stacked(stacked, {"tokens": t[None],
+                                    "frontend_embeds": f[None],
+                                    "prefix_embeds": torch.zeros((1, B, 2,
+                                                                  32))})
     with pytest.raises(ValueError, match="frontend_embeds"):
         tb.logits(tp, {"tokens": t})
+
+
+def test_local_step_with_modality_features_matches_reference():
+    """One ``make_local_step`` CCL step (server anchor) on the encdec toy
+    with modality features against the reference's (whose bundle drops
+    the soft prompt unread): the loss and CCL term (1e-5 relative), every
+    trainable leaf after the AdamW step (1e-5); the soft-prompt leaves
+    (``spg_scale``, ``spg_bias``, ``spg_w1``) take a zero gradient and stay
+    where they were, in both packages, while the modality projectors
+    move."""
+    jcfg = multimodal(encdec_cfg())
+    jb, jp, tb, tp = port_pair(jcfg, unified=True)
+    b, anchor = client_batches(jcfg, 1, B, S, seed=5)
+    b, anchor = {k: v[0] for k, v in b.items()}, anchor[0]
+    jstep = jccl.make_local_step(jb, jadamw(1e-3), n_negatives=1)
+    tstep = ccl.make_local_step(tb, adamw(1e-3), n_negatives=1)
+    jnew, _, jm = jstep(jp, jadamw(1e-3).init(jlora.partition(jp)),
+                        {k: jnp.asarray(v) for k, v in b.items()},
+                        jnp.asarray(anchor))
+    tnew, _, tm = tstep(tp, adamw(1e-3).init(lora.partition(tp)),
+                        {k: torch.as_tensor(v) for k, v in b.items()},
+                        torch.from_numpy(anchor))
+    for k in ("loss", "ccl", "ce"):
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-5,
+                                   err_msg=k)
+    jflat, tflat = flat_numpy(jlora.partition(jnew)), lora.partition(tnew)
+    before = lora.partition(tp)
+    assert sorted(jflat) == sorted(tflat)
+    for k in jflat:
+        np.testing.assert_allclose(_np(tflat[k]), jflat[k], atol=1e-5,
+                                   err_msg=k)
+    for k in ("spg_scale", "spg_bias", "spg_w1"):
+        k = f"connector/{k}"
+        assert torch.equal(tflat[k], before[k]), k
+        np.testing.assert_array_equal(jflat[k],
+                                      flat_numpy(jlora.partition(jp))[k])
+    assert not torch.equal(tflat["connector/proj_w"],
+                           before["connector/proj_w"])
+
+
+def test_stacked_step_matches_reference():
+    """One ``make_stacked_step`` of G = 3 clients (own adapters,
+    projectors, connectors, frames and modality features) against the
+    reference's (tests/_torch_stacked_cases.py): the encoder's and the
+    decoder's adapters and the frontend projector per client, the cross-
+    attention shared."""
+    m = stacked_step_against_reference(multimodal(encdec_cfg()))
+    assert m["aux"].tolist() == [0.0] * 3
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,9 @@
 """Port parity for the moe family: ``capacity``, ``moe_mlp`` (routing,
 capacity slots, dropped assignments, the Switch aux loss), the moe trunk's
-forward, ``lm_loss`` and its LoRA gradients, ring ``generate`` and decode,
-the paged contract and the engine, each against the JAX package on the
+forward, ``lm_loss`` and its LoRA gradients, per-client routing
+(``moe_mlp(clients=G)`` against ``vmap``, the stacked step against the
+reference's ``make_stacked_step``), ring ``generate`` and decode, the
+paged contract and the engine, each against the JAX package on the
 same weights (made by the JAX init, LoRA B filled from a numpy seed,
 carried over by ``interop``) at the toy sizes of tests/test_serving.py
 (2 layers, d 32, 4 experts, top-2, float32).
@@ -20,6 +22,7 @@ Capacity makes a token's output depend on the other tokens of its call:
 ``test_idle_slots_take_capacity_in_both_packages`` shows it for a paged
 decode step (ROADMAP, reference fault 3.9).
 """
+import dataclasses
 import functools
 
 import jax
@@ -38,6 +41,7 @@ from repro_torch.core import ccl, lora
 from repro_torch.launch.serve import _reseat_cache, generate
 from repro_torch.launch.serve_engine import EngineConfig, ServingEngine
 from repro_torch.models import moe, transformer
+from _torch_stacked_cases import multimodal, stacked_step_against_reference
 from test_torch_serving import port_pair, serving_cfg, strip_adapters
 
 torch.set_num_threads(1)
@@ -231,15 +235,86 @@ def test_lm_loss_lora_grads_match_reference(cf, remat):
         rows_close(tg[k], jg[k], k)
 
 
-def test_stacked_forms_refuse_the_moe_family():
-    _, _, tb, tp = port_pair(moe_cfg())
-    toks = torch.zeros((2, 1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="moe"):
-        tb.logits_stacked(tp, {"tokens": toks})
-    with pytest.raises(NotImplementedError, match="moe"):
-        tb.lm_loss_stacked(tp, {"tokens": toks})
-    with pytest.raises(NotImplementedError, match="moe"):
-        transformer.forward(tp, tb.cfg, toks[0], clients=True)
+@pytest.mark.parametrize("cf", CFS)
+def test_moe_mlp_routes_each_client_as_its_own_call(cf):
+    """``moe_mlp(clients=G)`` on G = 3 clients' rows (G x 2 rows of 16):
+    each client's output and aux equal its own call (1e-6) and the
+    reference's ``vmap`` of ``moe_mlp`` over the clients (1e-5), with its
+    own capacity (at 0.5 every client drops assignments, counted within
+    its own rows); ``clients=1`` is bit-equal to the unstacked call."""
+    jcfg = moe_cfg(cf)
+    _, jp, tb, tp = port_pair(jcfg)
+    jm, tm = layer0(jp, tp)
+    G = 3
+    x = np.random.RandomState(2).randn(G, 2, 16, jcfg.d_model).astype(
+        np.float32)
+    xt = torch.from_numpy(x)
+    got, aux = moe.moe_mlp(tm, tb.cfg, xt.reshape(G * 2, 16, -1), clients=G)
+    assert aux.shape == (G,)
+    got = got.reshape(G, 2, 16, -1)
+    want, waux = jax.vmap(lambda xx: jmoe.moe_mlp(jm, jcfg, xx))(
+        jnp.asarray(x))
+    np.testing.assert_allclose(_np(got), _np(want), **MOE_F32)
+    np.testing.assert_allclose(_np(aux), _np(waux), **MOE_F32)
+    for g in range(G):
+        yg, ag = moe.moe_mlp(tm, tb.cfg, xt[g])
+        np.testing.assert_allclose(_np(got[g]), _np(yg), atol=1e-6)
+        np.testing.assert_allclose(float(aux[g]), float(ag), atol=1e-6)
+        if cf < 1:
+            assert dropped(tb.cfg, tp, xt[g]) > 0
+    one, aux1 = moe.moe_mlp(tm, tb.cfg, xt[0], clients=1)
+    alone, aux0 = moe.moe_mlp(tm, tb.cfg, xt[0])
+    assert torch.equal(one, alone) and aux1.shape == (1,)
+    assert torch.equal(aux1[0], aux0) and aux0.dim() == 0
+
+
+@pytest.mark.parametrize("cf", CFS)
+def test_stacked_step_matches_reference(cf, monkeypatch):
+    """One ``make_stacked_step`` of G = 3 clients (own adapters,
+    connectors and batches, modality features, a server anchor) against
+    the reference's: each client routes, drops and takes its aux alone
+    (tests/_torch_stacked_cases.py).  At 0.5 the stacked forward drops
+    assignments; the clients' aux differ."""
+    ranks = []
+
+    def recording(idx, n_experts):
+        out = slots(idx, n_experts)
+        ranks.append(out)
+        return out
+    slots = moe.slots
+    monkeypatch.setattr(moe, "slots", recording)
+    jcfg = multimodal(moe_cfg(cf))
+    m = stacked_step_against_reference(jcfg)
+    assert len(set(m["aux"].tolist())) == 3 and float(m["aux"].min()) > 0
+    G, T = ranks[0].shape[0], ranks[0].shape[1] // jcfg.top_k
+    assert G == 3
+    C = moe.capacity(jcfg, T)
+    drops = sum(int((r >= C).sum()) for r in ranks)
+    assert drops > 0 if cf < 1 else True
+
+
+def test_vectorized_engine_matches_loop_on_a_moe_cohort():
+    """One evaluated round of a toy moe cohort (3 clients, capacity factor
+    0.5, so tokens drop) on the vectorized engine (the stacked moe pass:
+    each client routes alone) and on the loop engine from the same seed:
+    summaries and every LoRA leaf within 1e-6."""
+    from _torch_cohort_cases import SLM, make_specs
+    from _torch_cohort_cases import corpus as make_corpus
+    from repro_torch.core.federated import FederatedRunner
+    from test_torch_vectorized import assert_engines_agree
+    model = dataclasses.replace(SLM, name="coh-moe", family="moe",
+                                n_experts=4, top_k=2, d_ff_expert=32,
+                                capacity_factor=0.5)
+    _, tspec = make_specs(((model, dict(n_clients=3, name="M")),), None, 1,
+                          {})
+    corpus = make_corpus()
+    runs = {}
+    for engine in ("loop", "vectorized"):
+        r = FederatedRunner(tspec, corpus, engine=engine, device="cpu")
+        runs[engine] = (r, [r.run_round()["summary"]])
+    (loop, sl), (vec, sv) = runs["loop"], runs["vectorized"]
+    assert vec.cohorts[0].stacked_params is not None
+    assert_engines_agree(loop, vec, sl, sv, tol=1e-6)
 
 
 # ---------------------------------------------------------------------------

@@ -24,6 +24,7 @@ from repro_torch.configs.base import ARCH_IDS, ModelConfig, get_config
 from repro_torch.launch.serve_engine import EngineConfig, ServingEngine
 from repro_torch.models.layers import padded_vocab
 from repro_torch.models.model import build_model, with_overrides
+from _torch_stacked_cases import multimodal, stacked_step_against_reference
 from test_torch_serving import port_pair, serving_cfg, strip_adapters
 from test_torch_ssm import f32_reference, hold
 
@@ -117,6 +118,15 @@ def test_vlm_logits_with_frontend_match_reference(dtype):
     np.testing.assert_allclose(got.numpy(), _np(want), **TOL[dtype])
     with pytest.raises(ValueError, match="frontend_embeds"):
         tb.logits(tp, {"tokens": torch.from_numpy(toks).long()})
+
+
+def test_vlm_stacked_step_matches_reference():
+    """One ``make_stacked_step`` of G = 3 vlm clients, B = 2 rows each,
+    every client with its own adapters, connector and frontend projector
+    (fp_w1 (G, F, d)), against the reference's ``vmap`` of its local step
+    (tests/_torch_stacked_cases.py): each client projects its own frames
+    with its own projector."""
+    stacked_step_against_reference(multimodal(serving_cfg(**VLM)), G=3, B=2)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -31,9 +31,9 @@ from repro.models.model import build_model as jbuild
 from repro_torch import interop
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import connector
-from repro_torch.core.lora import flatten, is_lora_leaf, merge_lora
+from repro_torch.core.lora import (combine, flatten, is_lora_leaf,
+                                   merge_lora, stack_clients)
 from repro_torch.launch.serve_engine import EngineConfig, ServingEngine
-from repro_torch.models import transformer
 from repro_torch.models.model import build_model
 from repro_torch.models.paged import pages_for
 
@@ -386,26 +386,49 @@ def test_engine_admission_overflow_raises():
 
 
 @pytest.mark.parametrize("family,kw", [
-    ("moe", dict(n_experts=4, top_k=2, d_ff_expert=64)),
+    ("moe", dict(n_experts=4, top_k=2, d_ff_expert=64,
+                 capacity_factor=0.5)),
     ("encdec", dict(n_enc_layers=2, frontend="audio", frontend_tokens=16,
                     frontend_dim=24)),
 ])
-def test_unported_configs_raise(family, kw):
-    """What the port still refuses of the moe and encdec families: their
-    stacked forms, G clients' batches at once (the moe trunk's
-    ``forward(clients=True)`` too); each builds and serves otherwise."""
+def test_stacked_forward_matches_per_client_loop(family, kw):
+    """The moe and encdec families' stacked forms: two clients' adapters
+    (LoRA B filled per client) stacked over one backbone, each client with
+    its own rows; ``logits_stacked`` and ``lm_loss_stacked`` (loss, ce and
+    aux per client) equal each client's own ``logits`` / ``lm_loss``
+    (1e-5).  The moe toy drops assignments at capacity factor 0.5, each
+    client within its own call."""
     cfg = ModelConfig(**dataclasses.asdict(serving_cfg(family=family, **kw)))
     bundle = build_model(cfg)
-    params = bundle.init(torch.Generator().manual_seed(0))
-    batch = {"tokens": torch.zeros((2, 1, 4), dtype=torch.long)}
+    gen = torch.Generator().manual_seed(0)
+    params = bundle.init(gen)
+    G, B, S = 2, 2, 6
+    pers = []
+    for _ in range(G):
+        pers.append({k: (0.1 * torch.randn(v.shape, generator=gen)
+                         if k.endswith("_lora_b") else v + 0.05 * torch.randn(
+                             v.shape, generator=gen))
+                     for k, v in flatten(params).items()
+                     if is_lora_leaf(k) or k.startswith("frontend")})
+    stacked = combine(params, stack_clients(pers))
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (G, B, S),
+                                     generator=gen)}
     if cfg.frontend:
-        batch["frontend_embeds"] = torch.zeros(
-            (2, 1, cfg.frontend_tokens, cfg.frontend_dim))
-    with pytest.raises(NotImplementedError, match=family):
-        bundle.logits_stacked(params, batch)
-    with pytest.raises(NotImplementedError, match=family):
-        bundle.lm_loss_stacked(params, batch)
+        batch["frontend_embeds"] = torch.randn(
+            (G, B, cfg.frontend_tokens, cfg.frontend_dim), generator=gen)
+    logits, aux = bundle.logits_stacked(stacked, batch)
+    loss, m = bundle.lm_loss_stacked(stacked, batch)
+    assert m["aux"].shape == loss.shape == (G,)
+    assert aux.shape == ((G,) if family == "moe" else ())
+    for g in range(G):
+        own = combine(params, pers[g])
+        b = {k: v[g] for k, v in batch.items()}
+        want, waux = bundle.logits(own, b)
+        wl, wm = bundle.lm_loss(own, b)
+        np.testing.assert_allclose(logits[g].numpy(), want.numpy(),
+                                   atol=1e-5)
+        for got, ref in ((m["aux"][g], waux), (loss[g], wl),
+                         (m["ce"][g], wm["ce"])):
+            np.testing.assert_allclose(float(got), float(ref), atol=1e-5)
     if family == "moe":
-        with pytest.raises(NotImplementedError, match="clients"):
-            transformer.forward(params, cfg, batch["tokens"][0],
-                                clients=True)
+        assert float(aux.min()) > 0 and float(aux[0]) != float(aux[1])

@@ -540,8 +540,9 @@ def test_kernel_autograd_wrappers_with_plain_launches(monkeypatch):
     backward from them, by the closed form; B's forward
     with its log-sum-exp and B's backward entry), driven on the CPU with
     every launch replaced by the plain version: their gradients equal the
-    plain versions' autograd (f32, 1e-5), and a frozen W that asks for a
-    gradient is refused."""
+    plain versions' autograd (f32, 1e-5), and the grouped form's shared W
+    that asks for a gradient is refused (no path trains a stacked
+    backbone; the ungrouped form's dW: tests/test_torch_train.py)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gram_volume as gv
     from repro_torch.kernels import lora_matmul as lm
@@ -573,7 +574,8 @@ def test_kernel_autograd_wrappers_with_plain_launches(monkeypatch):
     for got, want in zip(*grads):
         np.testing.assert_allclose(_np(got), _np(want), atol=1e-5)
     with pytest.raises(NotImplementedError, match="frozen"):
-        lm.lora_matmul_autograd(x, w.clone().requires_grad_(True), a, b, 2.0)
+        lm.lora_matmul_grouped_autograd(x, w.clone().requires_grad_(True),
+                                        a[None], b[None], 2.0)
 
     vs, mask = _gram_np(6, 4, 20, seed=5)
     gout = _t(np.random.RandomState(6).randn(6))

@@ -367,13 +367,14 @@ def _leaves(trees):
     return [lora.partition(t, lora.is_lora_leaf) for t in trees]
 
 
-def assert_engines_agree(loop, vec, sums_loop, sums_vec):
+def assert_engines_agree(loop, vec, sums_loop, sums_vec, tol=ENGINE_TOL):
     """Summaries and every device's and server model's LoRA leaves within
-    the engine tolerance; ``comm_stats`` and ``comm_log`` equal."""
+    ``tol`` (the engine tolerance); ``comm_stats`` and ``comm_log``
+    equal."""
     for a, b in zip(sums_loop, sums_vec):
         assert set(a) == set(b)
         for k in a:
-            np.testing.assert_allclose(b[k], a[k], rtol=0, atol=ENGINE_TOL,
+            np.testing.assert_allclose(b[k], a[k], rtol=0, atol=tol,
                                        err_msg=k)
     trees_l = loop.device_params + [loop.server_slm, loop.server_llm]
     trees_v = vec.device_params + [vec.server_slm, vec.server_llm]
@@ -381,7 +382,7 @@ def assert_engines_agree(loop, vec, sums_loop, sums_vec):
         assert sorted(la) == sorted(lb)
         for k in la:
             np.testing.assert_allclose(_np(lb[k]), _np(la[k]), rtol=0,
-                                       atol=ENGINE_TOL, err_msg=k)
+                                       atol=tol, err_msg=k)
     assert vec.comm_stats == loop.comm_stats
     assert vec.comm_log == loop.comm_log
 
