@@ -109,7 +109,21 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    anchors (TF32 off); prints a ``{"vectorized_round": ...}`` line (round
    wall time, ms per step and peak memory per engine, launches per kernel
    per engine);
-11. drives the registered population on the vectorized engine: one
+11. runs the port's distribution at world size 1: an NCCL process group
+   (``file://`` store in a temporary directory, ``NCCL_SOCKET_IFNAME=lo``)
+   and ``make_federated_mesh()``; one evaluated round of the training
+   configuration on the vectorized engine without and with ``mesh=``,
+   then the overlap engine (staleness 0) on two cohorts at reduced depth
+   (6 SLM' layers x 2 clients, 4 QWEN' layers x 2, 4 LLM' layers) without
+   and with ``make_cohort_meshes(2)``: each pair bit-equal (summaries and
+   every leaf) with equal launches by kernel and route, exact counts;
+   ``moe_mlp_sharded`` in a sharding context against ``moe_mlp`` on one
+   phi3.5-moe layer at full width (4 x 512 tokens): equal at f32, the
+   bf16 gap printed; ``mma_psum_weights`` over the data group against its
+   single-shard value; prints a ``{"distribution": ...}`` line (round
+   seconds with and without the mesh, the bytes gathered a round) and
+   destroys the group;
+12. drives the registered population on the vectorized engine: one
    cohort of 24 ``mlecs-slm-720m`` clients registered in the client store,
    3 sampled a round (``ParticipantSampler``), ``mlecs-llm-6b`` on the
    server, trimmed-mean MMA under the heterogeneous phase's faults, the
@@ -128,7 +142,7 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    vectorized phase's bounds); every round's exact launches (counted over
    the working set) and tensor-core routes; prints a
    ``{"population_rounds": ...}`` line;
-12. drives the overlap engine on the training configuration at 1 CCL + 1
+13. drives the overlap engine on the training configuration at 1 CCL + 1
    AMT + 1 SE-CCL step a round: a vectorized runner and an
    ``engine="overlap", staleness=0`` runner from one seed run two
    evaluated rounds each and are held against each other (bit-equal, else
@@ -145,7 +159,7 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    (the vectorized engine's count) and tensor-core routes, its wall time
    to ``sync()`` and to ``drain()``; prints an ``{"overlap_rounds":
    ...}`` line (the server stream's use, the drain time);
-13. serves 24 soft-prompted requests each on ``mamba2-2.7b`` (prompts of
+14. serves 24 soft-prompted requests each on ``mamba2-2.7b`` (prompts of
    20-700 tokens, no pages) and ``hymba-1.5b`` (20-1200, the window
    bites) at full width, checks budgets, free lists and exact launch
    counts (G 64 per mamba2 admission; B and G 32 per hymba admission,
@@ -157,7 +171,7 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    profiles an
    admission tick and four decode steps, and prints ``{"ssm_serving":
    ...}`` and ``{"hybrid_serving": ...}`` lines;
-14. trains the ssm and hybrid families: one ``FederationSpec`` at full
+15. trains the ssm and hybrid families: one ``FederationSpec`` at full
    width (bf16, remat, identity wire) of 3 ``mamba2-2.7b`` clients on
    modalities 0-1 and 2 ``hymba-1.5b`` clients on modality 2,
    ``mlecs-llm-6b`` on the server (the server SLM is the mamba2 model, so
@@ -174,7 +188,7 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    and leaves against each other; prints an ``{"ssm_training": ...}``
    line (round wall time, ms per step per cohort, peak memory,
    ``avg_ce`` / ``server_ce`` before and after, launches per route);
-15. serves on the ring cache through ``launch/serve.py:generate`` at full
+16. serves on the ring cache through ``launch/serve.py:generate`` at full
    width and published depth (bf16, random weights from a seed):
    ``mlecs-slm-720m`` (8 rows of 256 tokens), ``mamba2-2.7b`` (8 of 300)
    and ``hymba-1.5b`` (4 of 1,100: its 1024 window bites), 32 tokens a
@@ -189,18 +203,18 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    the bf16 weights (ring against paged ``E2E_TOL``); then A on the SLM's
    full ring of 288 slots against the same keys as pages of 16 (the same
    capacity); prints a ``{"ring_serving": ...}`` line;
-16. serves the registry's ``gemma-2b`` (8 / 1 heads of 256: every A
+17. serves the registry's ``gemma-2b`` (8 / 1 heads of 256: every A
    launch on the FMA walk, which ``check_tensor_core_routes`` expects
    exactly), ``gemma3-1b`` (window 512), ``internvl2-1b`` (256 frontend
    tokens of 1024 from a seed) and ``granite-20b`` (40.6 GB of weights,
    after every earlier phase's memory is released) at full width and
-   published depth as phase 15 does (4 rows of 590 tokens, 24 new; f32
+   published depth as phase 16 does (4 rows of 590 tokens, 24 new; f32
    consistency on granite's first 13 layers), each model's peak memory,
    granite's decode step beside the bound of reading its weights once;
    A at gemma-2b's and granite's fullest engine step and B at gemma3's
    local layers (SDPA with the window as a mask beside it); prints a
    ``{"registry_serving": ...}`` line;
-17. serves the moe and encdec families as phase 16 does, each after the
+18. serves the moe and encdec families as phase 17 does, each after the
    memory of what ran before is released: ``phi3.5-moe-42b-a6.6b`` (16 of
    its 32 layers, 21.1 B parameters) and ``qwen3-moe-235b-a22b`` (8 of
    94, 21.2 B; 64 / 4 heads of 128) at full width, 4 rows of 590 tokens,
@@ -216,7 +230,7 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    fullest engine step, whisper's decode cross-attention on A (the
    path's) against B at Sq = 1, and B at whisper's encoder (no mask, 4 x
    1,536 frames); prints a ``{"moe_encdec_serving": ...}`` line;
-18. trains through the trainer (``launch/train.py``) at full width,
+19. trains through the trainer (``launch/train.py``) at full width,
    bf16, each model after the memory of what ran before is released:
    the paper's SLM (36 layers, connector latent 1280) through
    ``run_training`` over ``batches`` of the corpus (8 x 256 tokens,
@@ -240,7 +254,7 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    whisper's encoder and cross-attention and gemma-2b's training shape
    beside SDPA, C at gemma-2b's q projection beside the dW matmul, D at
    the SLM trainer's CCL loss; prints a ``{"trainer": ...}`` line;
-19. prints ``{"phase_seconds": ...}`` and a ``{"kernels": [...]}`` line
+20. prints ``{"phase_seconds": ...}`` and a ``{"kernels": [...]}`` line
    (times from CUDA-graph replay, bounds from this run's inputs; rows
    A-G and G′, each with its launches on the main paths; the rows of the five
    two-route kernels, A, B, B's backward, C and G, also time their FMA
@@ -279,9 +293,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
-BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor-core peak
-F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
+# the H100 SXM's data-sheet rates (700 W): device memory, dense bf16 on
+# the tensor cores, f32 outside them
+from repro_torch.launch.mesh import (  # noqa: E402
+    HBM_BW as HBM_BYTES_PER_S, PEAK_FLOPS_BF16 as BF16_FLOP_PER_S,
+    PEAK_FLOPS_F32 as F32_FLOP_PER_S)
 F32_TOL = dict(atol=2e-4, rtol=2e-4)
 # kernel and plain version both round one f32 result to bf16: <= 1-2 ulp
 BF16_TOL = dict(atol=2e-2, rtol=1e-2)
@@ -3880,6 +3896,224 @@ def phase_vectorized_round():
 
 
 # ---------------------------------------------------------------------------
+# phase: distribution (torch.distributed: an NCCL group of world size 1)
+
+DIST_DEPTH = dict(slm=6, qwen=4, llm=4)     # the overlap part's layers
+DIST_MOE_TOKENS = (4, 512)                  # one phi3.5-moe layer's rows
+
+
+def nccl_world1():
+    """An NCCL process group of world size 1 from a ``file://`` store in a
+    temporary directory (no network: NCCL's bootstrap socket on the
+    loopback interface).  Returns the directory; raises where NCCL does
+    not start (no CPU fallback)."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    store = tempfile.mkdtemp()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store}/store",
+                            world_size=1, rank=0)
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"process group on {dist.get_backend()}")
+    return store
+
+
+def dist_overlap_spec():
+    """Two cohorts at reduced depth (``DIST_DEPTH``) of the heterogeneous
+    phase's models: 2 SLM' clients on modalities 0-1 and 2 QWEN' clients
+    on modality 2, LLM' on the server; the overlap engine at staleness 0,
+    1 CCL + 1 AMT + 1 SE-CCL step."""
+    from repro_torch.core.spec import ClientCohort, FederationSpec
+    slm, qwen, llm = het_models()
+    d = DIST_DEPTH
+    return FederationSpec(
+        cohorts=(ClientCohort(dataclasses.replace(slm, n_layers=d["slm"]), 2,
+                              "av-edge", modalities=(0, 1)),
+                 ClientCohort(dataclasses.replace(qwen, n_layers=d["qwen"]),
+                              2, "qwen-edge", modalities=(2,))),
+        server_llm=dataclasses.replace(llm, n_layers=d["llm"]), rounds=1,
+        local_steps_ccl=1, local_steps_amt=1, server_steps=1,
+        engine="overlap", staleness=0, seed=0)
+
+
+def dist_round(make, mesh, tag, total):
+    """One evaluated round of ``make(mesh)``'s runner, counted and timed
+    to ``drain()``: exact launches and tensor-core routes, finite metrics;
+    (record, summary, every client's LoRA leaves and the server models'
+    trainables on the host)."""
+    import torch
+    runner = make(mesh)
+    zero_counters()
+    torch.cuda.synchronize()
+    b0 = runner.exchanged_bytes
+    t0 = time.perf_counter()
+    out = runner.run_round()
+    runner.drain()
+    wall = time.perf_counter() - t0
+    moved = runner.exchanged_bytes - b0
+    launches = read_counters()
+    want, fma = round_launch_plan(runner)
+    routes = check_tensor_core_routes(tag, fma)
+    if launches != want:
+        raise AssertionError(f"{tag}: launches {launches} != expected "
+                             f"{want}")
+    for n, v in launches.items():
+        total[n] = total.get(n, 0) + v
+    for m in [out["summary"]] + out["client"] + [out["server"]]:
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"{tag}: non-finite {m}")
+    leaves = trained_on_host(runner)
+    runner.close()
+    del runner
+    release()
+    return ({"wall_s": wall, "exchanged_bytes": moved, "launches": launches,
+             "launches_by_route": routes}, out["summary"], leaves)
+
+
+def dist_pair(name, make, mesh, total):
+    """The round without a mesh, then with ``mesh``: bit-equal summaries
+    and leaves, equal launches by kernel and route."""
+    plain, s0, l0 = dist_round(make, None, f"{name} without a mesh", total)
+    meshed, s1, l1 = dist_round(make, mesh, f"{name} on the mesh", total)
+    if s0 != s1:
+        raise AssertionError(f"{name}: summaries differ: {s0} vs {s1}")
+    differ = [f"{n}:{k}" for n, leaves in l0.items()
+              for k, v in leaves.items() if not bits_equal(v, l1[n][k])]
+    if differ or l0.keys() != l1.keys():
+        raise AssertionError(f"{name}: leaves differ: {differ[:8]}")
+    for key in ("launches", "launches_by_route"):
+        if plain[key] != meshed[key]:
+            raise AssertionError(f"{name}: {key} {plain[key]} vs "
+                                 f"{meshed[key]}")
+    if meshed["exchanged_bytes"] <= 0 or plain["exchanged_bytes"]:
+        raise AssertionError(f"{name}: gathered bytes {plain} / {meshed}")
+    return {"round_wall_s": {"without_mesh": plain["wall_s"],
+                             "with_mesh": meshed["wall_s"]},
+            "all_gathered_bytes_per_round": meshed["exchanged_bytes"],
+            "bit_equal": True,
+            "leaves_compared": sum(len(v) for v in l0.values()),
+            "launches": meshed["launches"],
+            "launches_by_route": meshed["launches_by_route"],
+            "summary": s1}
+
+
+def dist_moe(mesh):
+    """``moe_mlp_sharded`` in a sharding context on ``mesh`` against
+    ``moe_mlp`` on one phi3.5-moe layer at full width: equal at f32, the
+    bf16 gap printed."""
+    import torch
+    from repro_torch.configs.phi3p5_moe_42b_a6p6b import CONFIG as PHI
+    from repro_torch.models import moe
+    from repro_torch.sharding.partition import sharding_context
+    from repro_torch.sharding.rules import rules_for
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    f32 = dataclasses.replace(PHI, dtype="float32")
+    p = moe.init_moe(gen, f32)
+    x = torch.randn((*DIST_MOE_TOKENS, PHI.d_model), generator=gen,
+                    device="cuda")
+    out = {}
+    with torch.no_grad():
+        for tag, cfg, pt, xt in (
+                ("float32", f32, p, x),
+                ("bfloat16", PHI, {k: v if k == "router" else
+                                   v.to(torch.bfloat16)
+                                   for k, v in p.items()},
+                 x.to(torch.bfloat16))):
+            want = moe.moe_mlp(pt, cfg, xt)
+            with sharding_context(mesh, rules_for("train", False)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = moe.moe_mlp_sharded(pt, cfg, xt)
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t0)
+            out[tag] = {"y_max_abs_err": float((got[0].float()
+                                                - want[0].float()).abs()
+                                               .max()),
+                        "aux_abs_err": abs(float(got[1]) - float(want[1])),
+                        "aux": float(got[1]), "ms": ms,
+                        "y": got[0].float()}
+            if not all(torch.isfinite(t).all() for t in got):
+                raise AssertionError(f"moe_mlp_sharded {tag}: non-finite")
+    if not (out["float32"]["y_max_abs_err"] == 0.0
+            and out["float32"]["aux_abs_err"] == 0.0):
+        raise AssertionError(f"moe_mlp_sharded at f32: {out['float32']}")
+    y32 = out["float32"].pop("y")
+    gap = float((out["bfloat16"].pop("y") - y32).abs().max())
+    return {"config": PHI.name, "rows_x_tokens": list(DIST_MOE_TOKENS),
+            "experts": PHI.n_experts, "top_k": PHI.top_k,
+            "capacity_factor": PHI.capacity_factor, **out,
+            "bf16_vs_f32_y_max_abs": gap,
+            "f32_y_max_abs": float(y32.abs().max())}
+
+
+def phase_distribution():
+    """The port's distribution at world size 1 on the card: an NCCL
+    process group, ``make_federated_mesh()``; the vectorized round of the
+    training configuration without and with ``mesh=``, then the overlap
+    engine (staleness 0) on a two-cohort spec without and with
+    ``make_cohort_meshes(2)``, each pair bit-equal with equal launches;
+    ``moe_mlp_sharded`` on one phi3.5-moe layer against ``moe_mlp``;
+    ``mma_psum_weights`` against its single-shard value.  Destroys the
+    group at the end."""
+    import shutil
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.federated import (FederatedConfig,
+                                            FederatedRunner)
+    from repro_torch.core.mma import mma_psum_weights
+    from repro_torch.launch.mesh import (make_cohort_meshes,
+                                         make_federated_mesh,
+                                         mesh_axis_sizes)
+    from repro_torch.models.model import build_model
+    store = nccl_world1()
+    try:
+        mesh = make_federated_mesh()
+        total, res = {}, {
+            "process_group": {"backend": dist.get_backend(),
+                              "world_size": dist.get_world_size(),
+                              "NCCL_SOCKET_IFNAME":
+                                  os.environ.get("NCCL_SOCKET_IFNAME"),
+                              "nccl": ".".join(map(str, torch.cuda.nccl
+                                                   .version()))},
+            "mesh": mesh_axis_sizes(mesh)}
+        slm_cfg, llm_cfg = round_models()
+
+        def vectorized(m):
+            return FederatedRunner(
+                FederatedConfig(**dict(ROUND, engine="vectorized")),
+                build_model(slm_cfg), build_model(llm_cfg), round_corpus(),
+                mesh=m, device="cuda")
+        res["vectorized_round"] = dist_pair("vectorized round", vectorized,
+                                            mesh, total)
+        res["vectorized_round"]["config"] = {
+            "slm": slm_cfg.name, "llm": llm_cfg.name,
+            "round": dict(ROUND, engine="vectorized")}
+
+        def overlap(m):
+            return FederatedRunner(dist_overlap_spec(), round_corpus(),
+                                   mesh=m, device="cuda")
+        meshes = make_cohort_meshes(2)
+        res["overlap_cohort_meshes"] = dist_pair("overlap(0) two cohorts",
+                                                 overlap, meshes, total)
+        res["overlap_cohort_meshes"]["depth"] = dict(DIST_DEPTH)
+        res["moe_mlp_sharded"] = dist_moe(mesh)
+        release()
+        counts = torch.tensor([2, 3, 1], dtype=torch.int32, device="cuda")
+        w = mma_psum_weights(counts, mesh.get_group("data"))
+        single = mma_psum_weights(counts)
+        if not torch.equal(w, single):
+            raise AssertionError(f"mma_psum_weights {w} vs {single}")
+        res["mma_psum_weights"] = {"group": float(w),
+                                   "single_shard": float(single)}
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    return res, total
+
+
+# ---------------------------------------------------------------------------
 # phase: the registered population (a sampler, the client store) and
 # checkpoint / resume
 
@@ -6137,6 +6371,10 @@ def main() -> int:
     emit({"vectorized_round": vectorized})
     release()
     lap("vectorized_round")
+    distribution, dist_launches = phase_distribution()
+    emit({"distribution": distribution})
+    release()
+    lap("distribution")
     population, pop_launches = phase_population_rounds()
     emit({"population_rounds": population})
     release()
@@ -6208,6 +6446,7 @@ def main() -> int:
              "heterogeneous_rounds": het_launches,
              "cohort_serving": cohort_launches,
              "vectorized_round": vec_launches,
+             "distribution": dist_launches,
              "population_rounds": pop_launches,
              "overlap_rounds": overlap_launches,
              "ssm_serving": ssm_launches, "hybrid_serving": hybrid_launches,

@@ -89,6 +89,21 @@ round counter, the server, the population) in the reference's format;
 a restore replays the sampler's draws and the data streams from the round
 counter, so the resumed rounds are bit-identical.
 
+**A mesh.**  ``mesh=`` (a ``torch.distributed`` DeviceMesh from
+:mod:`repro_torch.launch.mesh`, or the overlap engine's per-cohort list)
+splits the stacked engines' client axis over the mesh's "data" ranks, one
+process a rank (SPMD).  Each rank trains its block of every cohort on its
+mesh (the whole cohort where the data size does not divide it); the
+uploads' LoRA leaves are all-gathered over the data group in client order
+(and broadcast from a cohort mesh to the ranks it leaves out), so every
+rank runs the same server side on the same N uploads: the wire, the
+scan-ordered MMA, SE-CCL, the residuals and the server evaluation are
+computed whole on every rank.  Deliveries land in each rank's block, and
+the per-client eval sums are gathered, so a round's metrics are the same
+on every rank.  At data size 1 the placement is a no-op and the gathers
+are copies: the round is bit for bit the one without a mesh.  The loop
+engine runs every client on every rank (the mesh replicates it).
+
 Covered: the loop and vectorized engines, the modes mlecs / fedavg /
 standalone, the ablations ``use_mma`` / ``use_seccl`` / ``use_ccl``, both
 CCL scores, ``prox_weight``, the three reductions, client faults,
@@ -105,12 +120,14 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import math
 import threading
 import weakref
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import interop
 from repro_torch.core import ccl as ccl_lib
@@ -130,6 +147,8 @@ from repro_torch.data.pipeline import (ClientStreams, RoundPrefetcher,
                                        stacked_eval_batches, to_tensors)
 from repro_torch.models.model import build_model
 from repro_torch.optim.adamw import adamw, apply_updates
+from repro_torch.sharding import partition as shard_part
+from repro_torch.sharding.rules import TRAIN_RULES
 
 
 def _do_ccl(cfg: "FederatedConfig") -> bool:
@@ -169,6 +188,12 @@ def _record_stream(tree, stream) -> None:
         if isinstance(t, torch.Tensor):
             t.record_stream(stream)
     map_pytree(mark, tree)
+
+
+def _meta(tree):
+    """A pytree's tensors as meta tensors: its shapes and dtypes, no
+    data."""
+    return map_pytree(lambda t: t.to("meta"), tree)
 
 
 def _scale_uploads(uploads: Dict[str, torch.Tensor], scale: np.ndarray
@@ -273,6 +298,18 @@ class _Cohort:
         # work_slice
         self.work_n = spec.n_clients
         self.work_offset = offset
+        # the cohort's placement on its mesh (:meth:`FederatedRunner.
+        # _place_on_mesh`): this rank's block of the stacked client axis
+        # (an index; the whole axis without a split), whether this rank
+        # holds any of it, the data group the blocks are gathered over
+        # (None: no split), the rank that broadcasts the gathered stacks to
+        # the ranks the mesh leaves out (None: it leaves none out), and the
+        # full stacks' meta templates for those gathers
+        self.blk: tuple = (slice(None),)
+        self.member = True
+        self.group = None
+        self.root: Optional[int] = None
+        self.like: Optional[Dict] = None
 
     @property
     def slice(self) -> slice:
@@ -290,8 +327,8 @@ class FederatedRunner:
     """A federation of cohorts and the cloud server, on the loop, the
     vectorized or the overlap engine (``engine``, default the spec's):
 
-        ``FederatedRunner(spec, corpus, engine=None, device="cuda",
-        init_state=None, store_dir=None)``
+        ``FederatedRunner(spec, corpus, mesh=None, engine=None,
+        device="cuda", init_state=None, store_dir=None)``
 
     or through the legacy single-cohort shim:
 
@@ -305,16 +342,20 @@ class FederatedRunner:
     ``"server_slm"`` and ``"server_llm"``.  Under a sampler the population
     is registered in a :class:`ClientStore` (``store_dir`` spills it to
     one file a client).  The runner runs on the card; ``device="cpu"``
-    asks for the CPU.  An overlap runner owns threads: call
-    :meth:`close` when done with it."""
+    asks for the CPU.  ``mesh`` (a DeviceMesh of ``device``'s type, built
+    after the process group) splits the stacked engines' client axis over
+    its "data" ranks; a per-cohort list of meshes (the overlap engine
+    only) puts each cohort on its own ranks.  Every rank builds the runner
+    with the same arguments and runs the same rounds.  An overlap runner
+    owns threads: call :meth:`close` when done with it."""
 
-    def __init__(self, spec, *args, engine: Optional[str] = None,
+    def __init__(self, spec, *args, mesh=None, engine: Optional[str] = None,
                  device="cuda", init_state: Optional[Dict] = None,
                  store_dir: Optional[str] = None):
         if isinstance(spec, FederationSpec):
             if len(args) != 1:
-                raise TypeError("FederatedRunner(spec, corpus, engine=..., "
-                                "device=..., init_state=...)")
+                raise TypeError("FederatedRunner(spec, corpus, mesh=..., "
+                                "engine=..., device=..., init_state=...)")
             (corpus,) = args
             bundles = [build_model(c.model) for c in spec.cohorts]
             llm_bundle = build_model(spec.server_llm)
@@ -342,6 +383,24 @@ class FederatedRunner:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("CUDA is not available; pass device='cpu' "
                                "to run the round on the CPU")
+        if isinstance(mesh, (list, tuple)):
+            if len(mesh) != spec.n_cohorts:
+                raise ValueError(
+                    f"per-cohort mesh list has {len(mesh)} entries for "
+                    f"{spec.n_cohorts} cohorts")
+            if self.engine != "overlap":
+                raise ValueError(
+                    "per-cohort meshes need engine='overlap'; pass a single "
+                    "shared mesh for the other engines")
+            self._meshes: Optional[Tuple] = tuple(mesh)
+            self.mesh = None
+        else:
+            self._meshes = None
+            self.mesh = mesh
+        for m in self._meshes or (mesh,):
+            if m is not None and m.device_type != self.device.type:
+                raise ValueError(f"a {m.device_type!r} mesh for a runner on "
+                                 f"{self.device}")
         self.channel = (spec.channel or ChannelSpec()).make()
         self.slm = bundles[0]        # legacy alias: cohort 0's bundle
         self.llm = llm_bundle
@@ -536,6 +595,10 @@ class FederatedRunner:
         self.llm_eval_step = seccl.make_eval_step(self.llm)
         self._server_eval_fn = seccl.make_eval_fn(self.llm)
         self._server_eval_steps = None
+        self.exchanged_bytes = 0     # bytes the client-axis gathers received
+        self._partitioned = False
+        if self._stacked:
+            self._place_on_mesh()
         self.refresh_eval_shards()
         self.history: List[Dict] = []
         self._srv_q: collections.deque = collections.deque()
@@ -636,6 +699,127 @@ class FederatedRunner:
         return step
 
     # ------------------------------------------------------------------
+    # placement on a mesh
+
+    def _mesh_for(self, idx: int):
+        """The mesh cohort ``idx`` lives on (shared, per-cohort, or None)."""
+        return self._meshes[idx] if self._meshes is not None else self.mesh
+
+    def _placement_key(self, rt: _Cohort):
+        """Identity of cohort ``rt``'s client placement: cohorts with the
+        same key share downloaded server products (the anchor base)."""
+        m = self._mesh_for(rt.idx)
+        return id(m) if m is not None else None
+
+    def _to_client_placement(self, rt: _Cohort, tree):
+        """A server product where cohort ``rt``'s clients live: whole on
+        its mesh's device (the same tensors where they are there
+        already)."""
+        m = self._mesh_for(rt.idx)
+        return tree if m is None else shard_part.replicated(tree, m)
+
+    def _place_on_mesh(self) -> None:
+        """Each cohort's client stack (personal leaves, AdamW state) to this
+        rank's block of its mesh's "data" axis (the whole stack where the
+        data size does not divide it, an empty one on a rank the mesh
+        leaves out), and the server state whole on every rank: an exact
+        no-op at data size 1 (the leaves stay the same tensors).  Records
+        each cohort's block, data group and broadcast root, and the meta
+        templates of its full stacks for :meth:`_exchange`."""
+        meshes = {}
+        for rt in self._cohorts:
+            m = self._mesh_for(rt.idx)
+            if m is None:
+                continue
+            meshes[id(m)] = m
+            n = rt.work_n
+            axes = shard_part.client_axes(n, m, TRAIN_RULES)
+            if len(axes) > 1:
+                raise NotImplementedError("a client axis over several mesh "
+                                          "axes")
+            blk = shard_part.client_block(n, m, TRAIN_RULES)
+            personal = lora.partition(rt.stacked_params)
+            rt.like = {"personal": _meta(personal),
+                       "opt": _meta(rt.stacked_opt),
+                       "up": _meta(lora.partition(personal,
+                                                  lora.is_lora_leaf)),
+                       "eval": {k: torch.empty((n,), dtype=torch.float32,
+                                               device="meta")
+                                for k in seccl.EVAL_SUM_KEYS}}
+            rt.member = blk is not None
+            rt.root = (None if m.mesh.numel() == dist.get_world_size()
+                       else int(m.mesh.min()))
+            if rt.member:
+                rt.blk = blk
+                if axes:
+                    rt.group = m.get_group(axes[0])
+                place = (lambda t, _m=m: shard_part.place_stacked(
+                    t, _m, TRAIN_RULES))
+            else:
+                rt.blk = (slice(0, 0),)
+                place = (lambda t: map_pytree(lambda v: v[:0], t))
+            rt.stacked_params = lora.combine(rt.stacked_params,
+                                             place(personal))
+            rt.stacked_opt = place(rt.stacked_opt)
+            rt.last_global = self._to_client_placement(rt, rt.last_global)
+            rt.weights = self._to_client_placement(rt, rt.weights)
+            self._partitioned |= (rt.root is not None
+                                  or shard_part.mesh_sizes(m)["data"] > 1)
+        for m in meshes.values():
+            for name in ("server_llm", "server_slm", "server_llm_opt",
+                         "server_slm_opt"):
+                setattr(self, name, shard_part.replicated(getattr(self, name),
+                                                          m))
+        if self._partitioned and self._schedule is not None:
+            raise NotImplementedError(
+                "a sampler on a mesh whose data size is over 1 or that leaves "
+                "out a rank")
+
+    def _exchange(self, rt: _Cohort, local, kind: str):
+        """The cohort's whole client stack on every rank, from this rank's
+        block ``local`` (a dict of (n_block, ...) leaves, nested dicts
+        allowed; None on a rank the cohort's mesh leaves out): the blocks
+        all-gathered over the data group in client order, one packed
+        tensor a dtype, then broadcast from the mesh's first rank to the
+        ranks it leaves out.  ``kind`` names the template of the whole
+        stack in ``rt.like`` ("personal", "opt", "up", "eval").  ``local``
+        itself where nothing needs moving (no mesh, or the whole stack on
+        every rank of a mesh that covers them all)."""
+        if rt.like is None or (rt.group is None and rt.root is None):
+            return local
+        return self._exchange_tree(rt, local, rt.like[kind])
+
+    def _exchange_tree(self, rt: _Cohort, local, like) -> Dict:
+        out = {k: self._exchange_tree(rt, None if local is None else local[k],
+                                      v)
+               for k, v in like.items() if isinstance(v, dict)}
+        groups: Dict = {}
+        for k in sorted(k for k, v in like.items()
+                        if not isinstance(v, dict)):
+            groups.setdefault(like[k].dtype, []).append(k)
+        for dtype, keys in groups.items():
+            tails = [tuple(like[k].shape[1:]) for k in keys]
+            widths = [math.prod(t) for t in tails]
+            if local is not None:
+                buf = torch.cat([local[k].reshape(local[k].shape[0], -1)
+                                 for k in keys], dim=1)
+                if rt.group is not None:
+                    parts = [torch.empty_like(buf) for _ in
+                             range(dist.get_world_size(rt.group))]
+                    dist.all_gather(parts, buf, group=rt.group)
+                    buf = torch.cat(parts, dim=0)
+            else:
+                buf = torch.empty((rt.work_n, sum(widths)), dtype=dtype,
+                                  device=self.device)
+            if rt.root is not None:
+                dist.broadcast(buf, src=rt.root)
+            self.exchanged_bytes += buf.numel() * buf.element_size()
+            for k, t, col in zip(keys, tails,
+                                 torch.split(buf, widths, dim=1)):
+                out[k] = col.reshape((rt.work_n, *t)).contiguous()
+        return out
+
+    # ------------------------------------------------------------------
     # views
 
     @property
@@ -685,14 +869,17 @@ class FederatedRunner:
         """Every device's parameter tree, in global client order (views of
         the stacks under the vectorized engine: the cohort's backbone and
         the client's slice of each personal leaf; under a sampler every
-        registered client's, from the store)."""
+        registered client's, from the store).  On a mesh that splits the
+        clients every rank gathers them all: every rank must read it."""
         if self._schedule is not None:
             return [self._loop_client_state(rt, i)[0]
                     for rt in self._cohorts for i in range(rt.n)]
         if self._stacked:
             out = []
             for rt in self._cohorts:
-                personal = lora.partition(rt.stacked_params)
+                personal = self._exchange(
+                    rt, lora.partition(rt.stacked_params) if rt.member
+                    else None, "personal")
                 out += [lora.combine(rt.stacked_params,
                                      lora.gather_client(personal, i))
                         for i in range(rt.n)]
@@ -701,19 +888,22 @@ class FederatedRunner:
 
     @property
     def device_opt(self) -> List:
-        """Every device's optimizer state, in global client order."""
+        """Every device's optimizer state, in global client order (gathered
+        as :attr:`device_params` is on a mesh that splits the clients)."""
         if self._schedule is not None:
             return [self._loop_client_state(rt, i)[1]
                     for rt in self._cohorts for i in range(rt.n)]
         if self._stacked:
             return [o for rt in self._cohorts
-                    for o in lora.unstack_tree(rt.stacked_opt, rt.n)]
+                    for o in lora.unstack_tree(self._exchange(
+                        rt, rt.stacked_opt if rt.member else None, "opt"),
+                        rt.n)]
         return [o for rt in self._cohorts for o in rt.device_opt]
 
     @property
     def stacked_params(self) -> dict:
         """Legacy single-cohort view of the stacked parameters (the
-        vectorized engine)."""
+        vectorized engine; this rank's block on a mesh)."""
         return self._single().stacked_params
 
     @property
@@ -1001,7 +1191,7 @@ class FederatedRunner:
             bcast = lora.broadcast_clients(cur, delivery)
             pres = self._present_for(rt)
             if pres is not None:
-                bcast = _where_clients(pres, bcast, cur)
+                bcast = _where_clients(pres[rt.blk], bcast, cur)
             rt.stacked_params = lora.combine(rt.stacked_params, bcast)
             return
         pres = self._rnd_present
@@ -1102,9 +1292,13 @@ class FederatedRunner:
         batch prefetcher and, under a sampler, round 0's staged gather."""
         if self.device.type == "cuda" and self._srv_stream is None:
             self._srv_stream = torch.cuda.Stream(self.device)
+        bases = {}
         for rt in self._cohorts:
-            rt.anchor_base = self.server_llm
-            rt.anchor_tr = lora.partition(self.server_llm)
+            key = self._placement_key(rt)
+            if key not in bases:
+                bases[key] = self._to_client_placement(rt, self.server_llm)
+            rt.anchor_base = bases[key]
+            rt.anchor_tr = lora.partition(rt.anchor_base)
         self._assemble_idx = self._round_idx
         self._start_prefetch()
         if self._schedule is not None:
@@ -1421,19 +1615,27 @@ class FederatedRunner:
         server LLM (the overlap engine: the cohort's anchor model).
         Offline clients train with the others and are selected back
         (parameters and AdamW state, the step count included).  Under a
-        sampler the stack is the round's working set.  Returns each
-        cohort's uploads stacked on the client axis."""
+        sampler the stack is the round's working set.  On a mesh each rank
+        trains its block of the clients (every cohort first, so that
+        cohorts on disjoint ranks train at once), then the blocks' uploads
+        are gathered.  Returns each cohort's uploads stacked on the client
+        axis."""
         cfg, spec = self.cfg, self.spec
         if batches is None:
             batches = self._assemble_cohorts(self._rnd_no)
-        uploads: List[Dict] = []
+        uploads: List[Optional[Dict]] = []
         for rt, (pub_np, priv_np) in zip(self._cohorts, batches):
+            if not rt.member:
+                uploads.append(None)
+                continue
+            cols = (slice(None), *rt.blk)     # (k, n, B, ...) host stacks
             p0, o0 = rt.stacked_params, rt.stacked_opt
             p, o = p0, o0
             if pub_np is not None:
                 llm = (lora.combine(rt.anchor_base, rt.anchor_tr)
                        if self._overlap else None)
-                pubs = to_tensors(pub_np, self.device)
+                pubs = to_tensors({k: v[cols] for k, v in pub_np.items()},
+                                  self.device)
                 for t in range(spec.cohort_steps_ccl(rt.idx)):
                     pub = {k: v[t] for k, v in pubs.items()}
                     p, o, _ = rt.ccl_step(p, o, pub,
@@ -1441,7 +1643,8 @@ class FederatedRunner:
             gref = rt.last_global if cfg.prox_weight > 0 else None
             k_amt = spec.cohort_steps_amt(rt.idx)
             if priv_np is not None:
-                privs = to_tensors(priv_np, self.device)
+                privs = to_tensors({k: v[cols] for k, v in priv_np.items()},
+                                   self.device)
                 for t in range(k_amt):
                     p, o, _ = rt.amt_step(
                         p, o, {k: v[t] for k, v in privs.items()}, None, gref)
@@ -1449,6 +1652,7 @@ class FederatedRunner:
             if pres is not None:
                 # an offline client's round does not happen: its training
                 # is undone by a per-client select
+                pres = pres[rt.blk]
                 p = lora.combine(p, _where_clients(
                     pres, lora.partition(p), lora.partition(p0)))
                 o = _where_clients(pres, o, o0)
@@ -1456,9 +1660,10 @@ class FederatedRunner:
             up = lora.partition(p, lora.is_lora_leaf)
             scale = self._scale_for(rt)
             if scale is not None:
-                up = _scale_uploads(up, scale)
+                up = _scale_uploads(up, scale[rt.blk])
             uploads.append(up)
-        return uploads
+        return [self._exchange(rt, up, "up")
+                for rt, up in zip(self._cohorts, uploads)]
 
     def run(self) -> List[Dict]:
         """Run ``cfg.rounds`` evaluated rounds, appending to ``history``."""
@@ -1494,9 +1699,14 @@ class FederatedRunner:
             if self._schedule is not None:
                 continue
             sl = rt.slice
-            rt.eval_steps = to_tensors(stack_eval_steps(stacked_eval_batches(
+            steps = stack_eval_steps(stacked_eval_batches(
                 self.priv_test[sl], self.spec.cohort_batch_size(rt.idx),
-                self.masks[sl])), self.device)
+                self.masks[sl]))
+            # (T, n, B, ...): this rank's block of the clients
+            rt.eval_steps = (to_tensors({k: v[(slice(None), *rt.blk)]
+                                         for k, v in steps.items()},
+                                        self.device)
+                             if rt.member else None)
         self._server_eval_steps = to_tensors(stack_eval_steps(
             np_eval_batches(self.public_test, self.cfg.batch_size)),
             self.device)
@@ -1540,13 +1750,20 @@ class FederatedRunner:
         client order (under a sampler: the round's participants, still in
         id order), each cohort at its own batch size: one client at a
         time (loop), or all of a cohort's clients in one pass per padded
-        eval batch (vectorized)."""
+        eval batch (vectorized; on a mesh each rank its block, the sums
+        gathered)."""
         if self._stacked:
-            out = []
+            local = []
             for rt in self._cohorts:
+                if not rt.member:
+                    local.append(None)
+                    continue
                 steps = (rt.eval_steps if self._schedule is None else
                          self._sampled_eval_steps(rt, self._members(rt)))
-                sums = rt.eval_fn(rt.stacked_params, steps)
+                local.append(rt.eval_fn(rt.stacked_params, steps))
+            out = []
+            for rt, sums in zip(self._cohorts, local):
+                sums = self._exchange(rt, sums, "eval")
                 host = {k: v.cpu().numpy() for k, v in sums.items()}
                 out += [seccl.metrics_from_sums({k: v[i]
                                                  for k, v in host.items()})
@@ -1609,6 +1826,10 @@ class FederatedRunner:
         engine), plus the residuals as ``channel`` under a stateful codec
         without a sampler.  Refuses the overlap engine's pending server
         outputs: a non-empty staleness queue is not a round boundary."""
+        if self._partitioned:
+            raise NotImplementedError(
+                "checkpoints on a mesh whose data size is over 1 or that "
+                "leaves out a rank")
         if self._srv_q:
             raise RuntimeError(
                 "cannot checkpoint with pending pipelined server outputs "

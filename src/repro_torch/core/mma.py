@@ -19,6 +19,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.spec import ROBUST
 
@@ -228,3 +229,19 @@ def robust_combine_cohorts(uploads: Sequence[Dict[str, torch.Tensor]],
             {k: cat}, wcat, robust=robust, present=pcat,
             trim_frac=trim_frac, clip=clip)[k].to(out_dtypes[k])
     return out
+
+
+def mma_psum_weights(modality_counts: torch.Tensor, group=None
+                     ) -> torch.Tensor:
+    """SPMD weighting: this shard's share of the modality counts across
+    the data shards, so that a weighted sum of the shards' gradients is
+    Eq. 13 exactly.  ``modality_counts``: (local_batch,) |M_j| of the
+    examples this rank owns; ``group`` the data axes' process group (an
+    ``all_reduce`` sums the shards' counts), None for one shard.  Returns
+    the f32 scalar local / max(total, 1)."""
+    local = torch.sum(modality_counts.to(torch.float32))
+    total = local
+    if group is not None:
+        total = local.clone()
+        dist.all_reduce(total, group=group)
+    return local / torch.clamp(total, min=1.0)

@@ -25,6 +25,7 @@ reference's without atomics and without a host sync.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
@@ -108,3 +109,112 @@ def moe_mlp(p, cfg: ModelConfig, x, clients: int | None = None):
     w = (keep.float() * gate.reshape(G * T * K)).to(out.dtype)
     y = (out[row] * w[:, None]).view(G * T, K, d).sum(dim=1)
     return y.view(Bsz, S, d), aux if clients else aux[0]
+
+
+# ---------------------------------------------------------------------------
+# expert parallelism (the reference's shard_map form, here one process a
+# rank): every "model" rank runs its E / m experts on its data block's
+# tokens, and the ranks' partial outputs are summed
+
+def _gather_blocks(y, mesh, axes):
+    """The data blocks of every rank along ``axes`` (outermost first),
+    concatenated on dim 0 in block order: the innermost axis first."""
+    for a in reversed(axes):
+        group = mesh.get_group(a)
+        parts = [torch.empty_like(y)
+                 for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, y.contiguous(), group=group)
+        y = torch.cat(parts, dim=0)
+    return y
+
+
+def moe_mlp_sharded(p, cfg: ModelConfig, x, clients: int | None = None):
+    """:func:`moe_mlp` with its experts split over the "model" axis of the
+    active :func:`~repro_torch.sharding.partition.sharding_context`'s
+    mesh, and its tokens over the rules' batch axes: the reference's
+    ``moe_mlp_sharded``.  Outside a context it is :func:`moe_mlp`.
+
+    Every rank passes the same x (B, S, d) and gets the whole (y, aux).
+    Each rank routes its data block's tokens (capacity from the LOCAL
+    token count), keeps the assignments to its own experts [r E/m,
+    (r+1) E/m) (views of the replicated expert weights) in per-expert
+    slots ranked among them, and runs them; one ``all_reduce`` over the
+    model group sums the partial outputs, and the data blocks are
+    gathered back (the port's layers around the experts run on the whole
+    batch).  The Switch statistics (mean probs, mean assignment counts)
+    are averaged over the data group before their product.  Where the
+    experts do not split evenly or the batch does not divide the data
+    size it is :func:`moe_mlp`, as in the reference.  A stacked call
+    (``clients``) raises ``NotImplementedError`` inside a context, and so
+    does a call that needs a gradient through the collectives (its
+    backward across ranks is not ported)."""
+    from repro_torch.sharding.partition import current_context, mesh_sizes
+    ctx = current_context()
+    if ctx is None:
+        return moe_mlp(p, cfg, x, clients)
+    if clients:
+        raise NotImplementedError("a stacked (clients=G) moe call inside a "
+                                  "sharding context")
+    mesh, rules = ctx
+    sizes = mesh_sizes(mesh)
+    msz = sizes.get("model", 1)
+    E, K = cfg.n_experts, cfg.top_k
+    batch = rules.axis("batch")
+    data_axes = tuple(a for a in (batch if isinstance(batch, tuple)
+                                  else (batch,)) if a in sizes)
+    n_data = 1
+    for a in data_axes:
+        n_data *= sizes[a]
+    Bsz, S, d = x.shape
+    if E % msz or Bsz % n_data:
+        return moe_mlp(p, cfg, x)
+    if (msz > 1 or n_data > 1) and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, *p.values())):
+        raise NotImplementedError("moe_mlp_sharded's backward across ranks")
+    coord = mesh.get_coordinate()
+    if coord is None:
+        raise ValueError("this rank is not on the sharding context's mesh")
+    names = list(mesh.mesh_dim_names)
+    blk = 0
+    for a in data_axes:
+        blk = blk * sizes[a] + coord[names.index(a)]
+    B_loc = Bsz // n_data
+    xb = x[blk * B_loc:(blk + 1) * B_loc]
+    T = B_loc * S
+    E_loc = E // msz
+    C = capacity(cfg, T)
+    xf = xb.reshape(T, d)
+    probs, gate, idx = route(p, cfg, xf)
+    me = probs.mean(dim=0)
+    ce = F.one_hot(idx, E).float().sum(dim=1).mean(dim=0)
+    if n_data > 1:
+        for a in data_axes:
+            dist.all_reduce(me, group=mesh.get_group(a))
+            dist.all_reduce(ce, group=mesh.get_group(a))
+        me, ce = me / n_data, ce / n_data
+    aux = E * torch.sum(me * ce)
+
+    # the assignments to this rank's experts, ranked within each of them
+    lo = coord[names.index("model")] * E_loc if "model" in names else 0
+    e = idx.reshape(T * K) - lo
+    mine = (e >= 0) & (e < E_loc)
+    e = e.clamp(0, E_loc - 1)
+    onehot = F.one_hot(e, E_loc) * mine[:, None]
+    pos = torch.cumsum(onehot, dim=0).gather(-1, e[:, None])[:, 0] - 1
+    keep = mine & (pos < C)
+    row = e * C + pos.clamp(0, C - 1)
+    buf = xf.new_zeros((E_loc * C + 1, d))
+    buf[torch.where(keep, row, E_loc * C)] = xf.repeat_interleave(K, dim=0)
+    buf = buf[:E_loc * C].view(E_loc, C, d)
+    w_gate, w_up, w_down = (p[k][lo:lo + E_loc]
+                            for k in ("we_gate", "we_up", "we_down"))
+    h = F.silu(torch.bmm(buf, w_gate)) * torch.bmm(buf, w_up)
+    out = torch.bmm(h, w_down).view(E_loc * C, d)
+    w = (keep.float() * gate.reshape(T * K)).to(out.dtype)
+    y = (out[row] * w[:, None]).view(T, K, d).sum(dim=1)
+    if msz > 1:
+        dist.all_reduce(y, group=mesh.get_group("model"))
+    y = y.view(B_loc, S, d)
+    if n_data > 1:
+        y = _gather_blocks(y, mesh, data_axes)
+    return y, aux

@@ -16,8 +16,9 @@ Per-family state beyond the pages (keyed per slot, not per page):
            the encoder's cross K/V, dense per slot
 
 A moe layer routes every slot's row, idle ones included, through
-``moe_mlp`` as one call of n_slots tokens, as the reference does: the
-idle rows take capacity too (ROADMAP, reference fault 3.9).
+``moe_mlp`` (``moe_mlp_sharded`` for ``moe_impl="sharded"``) as one call
+of n_slots tokens, as the reference does: the idle rows take capacity too
+(ROADMAP, reference fault 3.9).
 
 The recurrent families must be prefilled at exact length: padded tokens
 would be folded into the SSM state (the serving engine sees to it).

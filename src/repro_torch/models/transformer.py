@@ -9,8 +9,8 @@ layer (hymba) runs attention and an SSD mixer in parallel on the same
 normed input and averages them, ``0.5 * (attn + ssm)``.  The vlm family is
 the dense trunk behind a projected frontend prefix (``frontend_prefix``).
 A moe layer (phi3.5-moe, qwen3-moe) takes :func:`repro_torch.models.moe.
-moe_mlp` in place of the MLP, and the forward sums its layers' auxiliary
-load-balance losses.
+moe_mlp` in place of the MLP (``moe_impl="sharded"``: ``moe_mlp_sharded``),
+and the forward sums its layers' auxiliary load-balance losses.
 
 ``attn_impl="banded"`` computes the same function as ``"masked"``: every
 layer's attention goes through ``ops.attention`` with the layer's window,
@@ -109,12 +109,14 @@ def n_clients(layers: dict) -> int:
 
 def ffn(lp, cfg: ModelConfig, h, clients: int | None = None):
     """The layer's feed-forward on its normed input: (y, aux), aux the
-    experts' load-balance loss for a moe layer (``moe_impl="sharded"``
-    too: the reference's sharded form is this function outside a mesh,
-    and the port has no mesh yet), each of the ``clients``' own, (G,),
-    in a stacked call; else None."""
+    experts' load-balance loss for a moe layer (``moe_impl="sharded"``:
+    :func:`~repro_torch.models.moe.moe_mlp_sharded`, expert-parallel
+    inside a sharding context), each of the ``clients``' own, (G,), in a
+    stacked call; else None."""
     if cfg.is_moe:
-        return moe_lib.moe_mlp(lp["moe"], cfg, h, clients)
+        fn = (moe_lib.moe_mlp_sharded if cfg.moe_impl == "sharded"
+              else moe_lib.moe_mlp)
+        return fn(lp["moe"], cfg, h, clients)
     return L.mlp(lp["mlp"], cfg, h), None
 
 

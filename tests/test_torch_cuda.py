@@ -1685,3 +1685,40 @@ def test_ssd_bwd_kernel_rejects_what_it_does_not_take(gen):
         ssd_chunk_bwd_cuda(x, dt, cum, Bm, Cm, dy.transpose(2, 3)
                            .contiguous().transpose(2, 3), None, 32)
     assert ssd_chunk_bwd_cuda.launches == n
+
+
+def test_nccl_world1_round_with_a_mesh_is_bit_equal(gen, monkeypatch,
+                                                    tmp_path):
+    """Two evaluated vectorized rounds of tests/_torch_dist_workers.py's toy
+    federation (4 clients; heads of 32, which kernel B takes) on the card,
+    without a mesh and on ``make_federated_mesh()`` over an NCCL group of
+    world size 1: every summary and LoRA leaf bit-equal, and the mesh's
+    round gathered its uploads and eval sums."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    import _torch_dist_workers as W
+    from repro_torch.core.federated import FederatedConfig, FederatedRunner
+    from repro_torch.launch.mesh import make_federated_mesh
+    from repro_torch.models.model import build_model
+
+    def rounds(mesh=None):
+        slm, llm = (build_model(dataclasses.replace(c, head_dim=32))
+                    for c in (W.SLM, W.LLM))
+        cfg = FederatedConfig(n_devices=4, engine="vectorized", **W.ROUND)
+        return W.run_rounds(FederatedRunner(cfg, slm, llm, W.corpus(),
+                                            mesh=mesh, device="cuda"))
+    want = rounds()
+    monkeypatch.setenv("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        got = rounds(make_federated_mesh())
+    finally:
+        dist.destroy_process_group()
+    assert got["summaries"] == want["summaries"]
+    assert got["exchanged_bytes"] > 0 and want["exchanged_bytes"] == 0
+    for n, leaves in want["leaves"].items():
+        for k, v in leaves.items():
+            assert torch.equal(got["leaves"][n][k], v), f"{n}:{k}"
