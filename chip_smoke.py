@@ -57,7 +57,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    time, traces under ``build/profile/``) into a ``{"profile": ...}`` line;
 7. runs one federated round of Algorithm 1 on the loop engine through
    ``FederatedRunner`` at full width (3 devices on ``mlecs-slm-720m``,
-   ``mlecs-llm-6b`` on the server, both with a 1280-wide connector latent;
+   ``mlecs-llm-6b`` on the server, both with a 1280-wide connector latent,
+   the LLM at 4 of its 28 layers here and in every later round but the
+   registered population's, ``ROUND_LLM_LAYERS``;
    bf16, random weights from a seed), checks losses, the frozen backbone,
    the trained leaves, the MMA weights and the launch counters of B (with
    its backward), C and D against the counts the step structure gives,
@@ -123,10 +125,36 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    single-shard value; prints a ``{"distribution": ...}`` line (round
    seconds with and without the mesh, the bytes gathered a round) and
    destroys the group;
-12. drives the registered population on the vectorized engine: one
+12. runs the port past one rank: spawns two ranks (``torch.
+   multiprocessing``, spawn; before phase 11, so that they start and run
+   beside it) of a gloo group from a ``file://`` store,
+   both on cuda:0 (NCCL takes no two ranks on one device), which load the
+   kernels the build made; each checks that gloo takes CUDA tensors for
+   ``all_gather``, ``all_reduce``, ``broadcast`` and ``barrier``; then
+   (a) the registered population at data size 2 (8 registered
+   ``mlecs-slm-720m`` clients at full width and depth, 4 sampled a round,
+   2 a rank; ``mlecs-llm-6b`` at 4 of its 28 layers; trimmed mean under
+   faults, int8 with error feedback): rounds 0 and 1 unevaluated, a
+   checkpoint (rank 0 writes), round 2 evaluated, then fresh runners load
+   it and run round 2 again, bit for bit; (b) the overlap engine at
+   staleness 1 on ``make_cohort_meshes(2)`` (the distribution phase's two
+   cohorts at reduced depth), the server chain on rank 1 only; (c)
+   ``moe_mlp_sharded`` on (data, model) = (1, 2) on one phi3.5-moe layer
+   at full width, f32, capacity that drops nothing: y, aux and the
+   gradients of x, the router and every expert weight against
+   ``moe_mlp``'s, row by row at 2e-4 of each row's largest; every round's
+   exact launches on each rank's own plan.  Here, at world size 1: (a)'s
+   rounds held to rank 0's within 1e-5 (the largest gaps printed) and the
+   world-2 checkpoint loaded and round 2 run again; (b)'s two rounds held
+   to the ranks' (clients from rank 0, server from rank 1), the ranks'
+   launches adding up to world 1's kernel by kernel; a failed rank fails
+   the phase at once (the others are killed), a rank that runs past
+   ``RANKS_TIMEOUT`` fails it too; each rank notes its progress on
+   standard error; prints a ``{"distribution_ranks": ...}`` line;
+13. drives the registered population on the vectorized engine: one
    cohort of 24 ``mlecs-slm-720m`` clients registered in the client store,
-   3 sampled a round (``ParticipantSampler``), ``mlecs-llm-6b`` on the
-   server, trimmed-mean MMA under the heterogeneous phase's faults, the
+   3 sampled a round (``ParticipantSampler``), ``mlecs-llm-6b`` at all
+   its 28 layers on the server, trimmed-mean MMA under the heterogeneous phase's faults, the
    int8 wire with error feedback (the residuals ride in the store and the
    checkpoint), 1 CCL + 1 AMT + 1 SE-CCL step a round; runs rounds 0 and
    1 unevaluated, saves a checkpoint (after checking the temporary
@@ -142,7 +170,7 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    vectorized phase's bounds); every round's exact launches (counted over
    the working set) and tensor-core routes; prints a
    ``{"population_rounds": ...}`` line;
-13. drives the overlap engine on the training configuration at 1 CCL + 1
+14. drives the overlap engine on the training configuration at 1 CCL + 1
    AMT + 1 SE-CCL step a round: a vectorized runner and an
    ``engine="overlap", staleness=0`` runner from one seed run two
    evaluated rounds each and are held against each other (bit-equal, else
@@ -159,10 +187,11 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    (the vectorized engine's count) and tensor-core routes, its wall time
    to ``sync()`` and to ``drain()``; prints an ``{"overlap_rounds":
    ...}`` line (the server stream's use, the drain time);
-14. serves 24 soft-prompted requests each on ``mamba2-2.7b`` (prompts of
+15. serves 24 soft-prompted requests each on ``mamba2-2.7b`` (16 of its
+   64 layers, ``MAMBA2_LAYERS``, here and wherever mamba2 runs; prompts of
    20-700 tokens, no pages) and ``hymba-1.5b`` (20-1200, the window
    bites) at full width, checks budgets, free lists and exact launch
-   counts (G 64 per mamba2 admission; B and G 32 per hymba admission,
+   counts (G 16 per mamba2 admission; B and G 32 per hymba admission,
    A 32 per decode step), every A, B and G launch on the "mma" route (SLM
    serving too), records hymba's fullest decode step for row A, holds
    prefill -> decode at exact length against a full
@@ -171,10 +200,10 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    profiles an
    admission tick and four decode steps, and prints ``{"ssm_serving":
    ...}`` and ``{"hybrid_serving": ...}`` lines;
-15. trains the ssm and hybrid families: one ``FederationSpec`` at full
-   width (bf16, remat, identity wire) of 3 ``mamba2-2.7b`` clients on
-   modalities 0-1 and 2 ``hymba-1.5b`` clients on modality 2,
-   ``mlecs-llm-6b`` on the server (the server SLM is the mamba2 model, so
+16. trains the ssm and hybrid families: one ``FederationSpec`` at full
+   width (bf16, remat, identity wire) of 3 ``mamba2-2.7b`` clients (16
+   layers) on modalities 0-1 and 2 ``hymba-1.5b`` clients on modality 2,
+   ``mlecs-llm-6b`` (4 layers) on the server (the server SLM is the mamba2 model, so
    SE-CCL runs G′ too), every model with a 1280-wide connector latent,
    batch 8, 1 CCL + 1 AMT + 1 SE-CCL step; one evaluated round on the
    vectorized engine (after an evaluation before it), then one on the
@@ -188,9 +217,10 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    and leaves against each other; prints an ``{"ssm_training": ...}``
    line (round wall time, ms per step per cohort, peak memory,
    ``avg_ce`` / ``server_ce`` before and after, launches per route);
-16. serves on the ring cache through ``launch/serve.py:generate`` at full
-   width and published depth (bf16, random weights from a seed):
-   ``mlecs-slm-720m`` (8 rows of 256 tokens), ``mamba2-2.7b`` (8 of 300)
+17. serves on the ring cache through ``launch/serve.py:generate`` at full
+   width and published depth but mamba2's (bf16, random weights from a
+   seed): ``mlecs-slm-720m`` (8 rows of 256 tokens), ``mamba2-2.7b`` (16
+   layers; 8 of 300)
    and ``hymba-1.5b`` (4 of 1,100: its 1024 window bites), 32 tokens a
    row, once with merge=True on the unmerged weights and once counted on
    the merged ones (equal tokens), each beside ``ServingEngine`` on the
@@ -203,18 +233,18 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    the bf16 weights (ring against paged ``E2E_TOL``); then A on the SLM's
    full ring of 288 slots against the same keys as pages of 16 (the same
    capacity); prints a ``{"ring_serving": ...}`` line;
-17. serves the registry's ``gemma-2b`` (8 / 1 heads of 256: every A
+18. serves the registry's ``gemma-2b`` (8 / 1 heads of 256: every A
    launch on the FMA walk, which ``check_tensor_core_routes`` expects
    exactly), ``gemma3-1b`` (window 512), ``internvl2-1b`` (256 frontend
    tokens of 1024 from a seed) and ``granite-20b`` (40.6 GB of weights,
    after every earlier phase's memory is released) at full width and
-   published depth as phase 16 does (4 rows of 590 tokens, 24 new; f32
+   published depth as phase 17 does (4 rows of 590 tokens, 24 new; f32
    consistency on granite's first 13 layers), each model's peak memory,
    granite's decode step beside the bound of reading its weights once;
    A at gemma-2b's and granite's fullest engine step and B at gemma3's
    local layers (SDPA with the window as a mask beside it); prints a
    ``{"registry_serving": ...}`` line;
-18. serves the moe and encdec families as phase 17 does, each after the
+19. serves the moe and encdec families as phase 18 does, each after the
    memory of what ran before is released: ``phi3.5-moe-42b-a6.6b`` (16 of
    its 32 layers, 21.1 B parameters) and ``qwen3-moe-235b-a22b`` (8 of
    94, 21.2 B; 64 / 4 heads of 128) at full width, 4 rows of 590 tokens,
@@ -230,7 +260,7 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    fullest engine step, whisper's decode cross-attention on A (the
    path's) against B at Sq = 1, and B at whisper's encoder (no mask, 4 x
    1,536 frames); prints a ``{"moe_encdec_serving": ...}`` line;
-19. trains through the trainer (``launch/train.py``) at full width,
+20. trains through the trainer (``launch/train.py``) at full width,
    bf16, each model after the memory of what ran before is released:
    the paper's SLM (36 layers, connector latent 1280) through
    ``run_training`` over ``batches`` of the corpus (8 x 256 tokens,
@@ -254,7 +284,7 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    whisper's encoder and cross-attention and gemma-2b's training shape
    beside SDPA, C at gemma-2b's q projection beside the dW matmul, D at
    the SLM trainer's CCL loss; prints a ``{"trainer": ...}`` line;
-20. prints ``{"phase_seconds": ...}`` and a ``{"kernels": [...]}`` line
+21. prints ``{"phase_seconds": ...}`` and a ``{"kernels": [...]}`` line
    (times from CUDA-graph replay, bounds from this run's inputs; rows
    A-G and G′, each with its launches on the main paths; the rows of the five
    two-route kernels, A, B, B's backward, C and G, also time their FMA
@@ -271,6 +301,10 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    mamba2's and hymba's in_proj (the latter on the FMA route); the row
    of C's grouped form at G 3 x 1088 x 1280 x 1280 beside three ungrouped
    launches of the same work, ``ungrouped_x3_ms``).
+
+Standard error gets a line as each phase ends, with its seconds from the
+start; a watchdog stops the run ``WATCHDOG_S`` (1,170) s after the start
+with the last phase that ended and every thread's stack, and exit code 3.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero and prints no result; it also exits
@@ -1558,14 +1592,20 @@ def round_launch_plan(runner, evaluate=True):
     one).  A quantized channel encodes each of a cohort's K LoRA leaves
     once on the uplink and once on the downlink (E 2K) and decodes each of
     them on both (F 2K), plus once more for the uplink's error feedback
-    (F 3K)."""
+    (F 3K).  On a rank of a mesh: the cohorts it trains (the wire runs
+    whole on every rank) and the server where it holds it."""
     cfg, spec, l = runner.cfg, runner.spec, runner.llm.cfg
     s = runner._srv_slm_bundle.cfg
     pres = runner._rnd_present
     stacked = runner.engine in ("vectorized", "overlap")
-    passes, grouped, d, k = [], [], cfg.server_steps, 0
+    serves = runner._serves
+    passes, grouped, d, k = [], [], cfg.server_steps * serves, 0
     evals, grouped_evals = [], []
     for rt in runner.cohorts:
+        k += len(rt.up_like) if runner.channel.spec.codec in (
+            "int8", "int4") else 0
+        if not rt.member:
+            continue
         m = rt.bundle.cfg
         n = rt.work_n if pres is None else int(pres[rt.work_slice].sum())
         k_ccl = spec.cohort_steps_ccl(rt.idx)
@@ -1581,14 +1621,12 @@ def round_launch_plan(runner, evaluate=True):
             passes += [pass_launches(m, True)] * n * steps
             d += n * k_ccl
             evals += [pass_launches(m, True, False)] * sum(blocks)
-        k += len(rt.up_like) if runner.channel.spec.codec in (
-            "int8", "int4") else 0
     server_evals = [pass_launches(l, True, False)] * -(
-        -runner.public_test["tokens"].shape[0] // cfg.batch_size)
-    passes += cfg.server_steps * [pass_launches(l, True),
-                                  pass_launches(l, False),
-                                  pass_launches(s, True),
-                                  pass_launches(s, False)]
+        -runner.public_test["tokens"].shape[0] // cfg.batch_size) * serves
+    passes += cfg.server_steps * serves * [pass_launches(l, True),
+                                           pass_launches(l, False),
+                                           pass_launches(s, True),
+                                           pass_launches(s, False)]
     if evaluate:
         passes += evals + server_evals
         grouped += grouped_evals
@@ -1627,13 +1665,19 @@ def trainable_copy(tree):
     return {k: v.clone() for k, v in partition(tree).items()}
 
 
-def round_models():
+ROUND_LLM_LAYERS = 4      # the server LLM's layers in the rounds (of 28)
+
+
+def round_models(llm_layers=ROUND_LLM_LAYERS):
     """The paper's SLM and LLM at full width, with one 1280-wide connector
     latent on both: the reference's FederationSpec refuses the paper's
-    pair as published (SLM latent 1280, LLM latent 4096)."""
+    pair as published (SLM latent 1280, LLM latent 4096).  The SLM keeps
+    its depth; the LLM its first ``llm_layers`` layers (None: all 28)."""
     from repro_torch.configs.mlecs_paper import LLM, SLM
-    return (dataclasses.replace(SLM, connector_dim=1280),
-            dataclasses.replace(LLM, connector_dim=1280))
+    llm = dataclasses.replace(LLM, connector_dim=1280)
+    if llm_layers is not None:
+        llm = dataclasses.replace(llm, n_layers=llm_layers)
+    return dataclasses.replace(SLM, connector_dim=1280), llm
 
 
 def round_corpus():
@@ -3101,7 +3145,8 @@ def serve_recurrent(cfg, econf, lo, hi, fixed, expect, consistency_lens,
     lat = sorted(engine.finished[r].latency for r in rids)
     P = cfg.n_soft_tokens
     metrics = {
-        "model": cfg.name, "dtype": cfg.dtype, "requests": len(reqs),
+        "model": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
+        "requests": len(reqs),
         "prompt_tokens": [int(min(len(r[0]) for r in reqs)),
                           int(max(len(r[0]) for r in reqs))],
         "chunks_per_prefill": sorted({-(-(P + len(r[0])) // cfg.ssm_chunk)
@@ -3180,16 +3225,27 @@ def recurrent_consistency(cfg, params, soft, lens):
     return out
 
 
-def phase_ssm_serving():
-    """mamba2-2.7b: prompts 20-700 (1, 2 and 3 chunks of 256 with the 8
-    soft tokens); no pages; G 64 launches per admission, nothing else."""
+MAMBA2_LAYERS = 16        # mamba2-2.7b's layers wherever it runs (of 64)
+
+
+def mamba2_config():
+    """mamba2-2.7b at full width, its first :data:`MAMBA2_LAYERS` layers
+    (its layers are alike)."""
     from repro_torch.configs.mamba2_2p7b import CONFIG
+    return dataclasses.replace(CONFIG, n_layers=MAMBA2_LAYERS)
+
+
+def phase_ssm_serving():
+    """mamba2-2.7b (:func:`mamba2_config`): prompts 20-700 (1, 2 and 3
+    chunks of 256 with the 8 soft tokens); no pages; G once a layer of an
+    admission, nothing else."""
     from repro_torch.launch.serve_engine import EngineConfig
+    cfg = mamba2_config()
     econf = EngineConfig(n_slots=16, page_size=16, n_pages=2,
                          max_pages_per_seq=64, max_out=64)
-    L = CONFIG.n_layers
+    L = cfg.n_layers
     metrics, launches, _ = serve_recurrent(
-        CONFIG, econf, 20, 700, (20, 300, 700),
+        cfg, econf, 20, 700, (20, 300, 700),
         lambda prefills, steps: {"ssd_chunk": L * prefills},
         (300,), "ssm")
     return metrics, launches
@@ -4114,6 +4170,715 @@ def phase_distribution():
 
 
 # ---------------------------------------------------------------------------
+# phase: distribution past one rank (two gloo ranks sharing the one card)
+
+RANKS = 2                  # gloo ranks, every one on cuda:0
+RANKS_REGISTERED = 8       # the population's registered clients
+RANKS_PER_ROUND = 4        # sampled a round: 2 a rank at data size 2
+RANKS_TIMEOUT = 360.0      # s the ranks may take together (~85 s alone)
+RANKS_PG_TIMEOUT = 240.0   # s a rank waits in a collective for its peers
+RANKS_TOL = 1e-5           # (b): world 2 against world 1 (the same shapes)
+MOE_GRAD_REL = 2e-4        # gradients row by row, of the row's largest
+RANKS_OVERLAP_ROUNDS = 2   # staleness 1: round 1 applies round 0's output
+
+
+def ranks_pop_kw():
+    """The population runs' options: 4 a round, the LLM at DIST_DEPTH."""
+    return dict(per_round=RANKS_PER_ROUND, llm_layers=DIST_DEPTH["llm"])
+
+
+def ranks_overlap_spec():
+    """:func:`dist_overlap_spec` at staleness 1 for two rounds."""
+    return dataclasses.replace(dist_overlap_spec(), staleness=1,
+                               rounds=RANKS_OVERLAP_ROUNDS)
+
+
+def ranks_gloo_check(rank, world):
+    """The collectives the port calls on the card (``all_gather``,
+    ``all_reduce``, ``broadcast``; ``barrier``), each on CUDA tensors over
+    the gloo group, against the values they must give."""
+    import torch
+    import torch.distributed as dist
+    x = torch.full((3, 5), float(rank + 1), device="cuda")
+    parts = [torch.empty_like(x) for _ in range(world)]
+    dist.all_gather(parts, x)
+    summed = x.clone()
+    dist.all_reduce(summed)
+    cast = torch.full((7,), rank + 1, dtype=torch.bfloat16, device="cuda")
+    dist.broadcast(cast, src=world - 1)
+    dist.barrier()
+    ok = {"all_gather": all(p.is_cuda and bool((p == i + 1).all())
+                            for i, p in enumerate(parts)),
+          "all_reduce": summed.is_cuda and bool(
+              (summed == world * (world + 1) / 2).all()),
+          "broadcast": cast.is_cuda and bool((cast == world).all())}
+    if not all(ok.values()):
+        raise AssertionError(f"gloo on CUDA tensors: {ok}")
+    return {op: "cuda" for op in ok}
+
+
+def ranks_leaves(runner):
+    """Host copies of every registered client's LoRA (from the store) and,
+    where this rank holds the server, the server models' trainables;
+    without a sampler every client's LoRA (``device_params``)."""
+    from repro_torch.core.lora import partition
+    runner.drain()
+    if runner.store is not None:
+        out = pop_lora_on_host(runner, runner.store.ids())
+        return {n: {k: v.cpu() for k, v in t.items()}
+                for n, t in out.items()}
+    out = {f"device{j}": {k: v.cpu() for k, v in lora_leaves(p).items()}
+           for j, p in enumerate(runner.device_params)}
+    if runner.server_slm is not None:
+        out.update({n: {k: v.detach().cpu() for k, v in
+                        partition(getattr(runner, n)).items()}
+                    for n in ("server_slm", "server_llm")})
+    return out
+
+
+def leaves_gap(got, want, what):
+    """The largest |got - want| over the leaves of ``want`` (which ``got``
+    must all have)."""
+    gap = 0.0
+    for n, leaves in want.items():
+        for k, v in leaves.items():
+            if k not in got.get(n, {}):
+                raise AssertionError(f"{what}: no {n}:{k}")
+            gap = max(gap, float((got[n][k].float() - v.float()).abs()
+                                 .max()))
+    return gap
+
+
+def summary_gap(a, b):
+    if set(a) != set(b):
+        raise AssertionError(f"summary keys {sorted(a)} vs {sorted(b)}")
+    return max(abs(a[k] - b[k]) for k in a)
+
+
+def batch_rounding_probe():
+    """Which operations of a client step give a client's rows other bits
+    when the stack holds 4 clients than when it holds 2 (world 1's
+    working set against a rank's block), forward and backward: each at
+    the population's shapes (8 x 136 rows a client, the SLM's d 1280, 20
+    x 64 heads, LoRA rank 8, 36 layers of LoRA for the per-client norm,
+    the vocabulary of 50,257; the server LLM's d 4096 for the anchors,
+    which it computes over the stacked public batch), bf16, the first 2
+    clients' part of the 4-client call against the 2-client call.  {op:
+    (bit-equal, largest |difference|)}; :func:`step_rounding_probe` adds a
+    whole step."""
+    import torch
+    from repro_torch.core import connector as conn
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    slm, _ = round_models()
+    cparams = [conn.init_connector(gen, slm) for _ in range(4)]
+    cstack = {k: torch.stack([c[k] for c in cparams]) for k in cparams[0]}
+    keys = sorted(cstack)
+
+    def rand(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def with_grads(fn, inputs, cot):
+        """fn's output and the gradients of its inputs under ``cot``."""
+        inputs = [t.detach().requires_grad_(True) for t in inputs]
+        y = fn(*inputs)
+        grads = torch.autograd.grad(y, inputs, cot[:y.shape[0]].to(y.dtype))
+        return [y, *grads]
+
+    rows, d, n_max = 8 * 136, 1280, 4
+    x, w, w_q = rand(n_max * rows, d), rand(d, 4 * d), rand(d, d)
+    a, b = rand(n_max, d, 8), rand(n_max, 8, d)
+    x_l, w_l, w_lq = rand(n_max * rows, 4096), rand(4096, 16384), \
+        rand(4096, 4096)
+    a_l, b_l = rand(4096, 8), rand(8, 4096)
+    q, k, v = (rand(8 * n_max, 136, 20, 64) for _ in range(3))
+    vs = rand(8 * n_max, 4, d)
+    lora = rand(n_max, 36, d, 8)
+    logits = rand(8 * n_max, 136, 50257)
+    cot_c, cot_b = rand(n_max * rows, d), rand(8 * n_max, 136, d)
+    cot_d = rand(8 * n_max, dtype=torch.float32)
+    feats = rand(n_max, 8, slm.n_modalities, slm.modality_dim)
+    fmask = torch.ones(feats.shape[:3], dtype=torch.bool, device="cuda")
+    cot_s = rand(n_max, 8, slm.n_soft_tokens, slm.d_model)
+
+    def connector(f, *leaves):
+        soft, _, _ = conn.connector_prefix(dict(zip(keys, leaves)), slm, f,
+                                           fmask[:f.shape[0]])
+        return soft
+    mask = torch.ones((8 * n_max, 4), dtype=torch.bool, device="cuda")
+    cases = {
+        "matmul x@W (cuBLAS)": lambda n: [x[:n * rows] @ w],
+        "matmul x@W at the LLM's MLP (cuBLAS)": lambda n: [
+            x_l[:n * rows] @ w_l],
+        "C at the LLM's projections (the anchors)": lambda n: [
+            ops.lora_matmul(x_l[:n * rows], w_lq, a_l, b_l, 2.0)],
+        "C grouped, forward and backward": lambda n: with_grads(
+            lambda xx, aa, bb: ops.lora_matmul_grouped(xx, w_q, aa, bb, 2.0),
+            [x[:n * rows], a[:n], b[:n]], cot_c),
+        "B forward and backward": lambda n: with_grads(
+            ops.attention, [q[:8 * n], k[:8 * n], v[:8 * n]], cot_b),
+        "D forward and backward": lambda n: with_grads(
+            lambda t: ops.gram_log_volume(t, mask[:t.shape[0]]),
+            [vs[:8 * n]], cot_d),
+        "the connector (products batched over the clients), forward and "
+        "backward": lambda n: with_grads(
+            connector, [feats[:n]] + [cstack[k][:n] for k in keys], cot_s),
+        "per-client sum of squares (AdamW's norm)": lambda n: [torch.sum(
+            lora[:n].float() ** 2, dim=(1, 2, 3))],
+        "log_softmax rows (the CE)": lambda n: [torch.log_softmax(
+            logits[:8 * n].float(), dim=-1)],
+    }
+    out = {}
+    for name, fn in cases.items():
+        whole, part = fn(n_max), fn(n_max // 2)
+        equal, gap = True, 0.0
+        for tw, tp in zip(whole, part):
+            tw, tp = tw[:tp.shape[0]].detach(), tp.detach()
+            equal &= bits_equal(tw, tp)
+            gap = max(gap, float((tw.float() - tp.float()).abs().max()))
+        out[name] = {"bit_equal": equal, "max_abs": gap}
+        del whole, part
+    return out
+
+
+def check_rounding_gap(tag, got, want, lr, steps, acc_tol):
+    """A run whose client blocks have other row counts than ``want``'s
+    (the card's dense products round by their row count) held to it:
+    each CE within ``ROUND_CE_RTOL``, each accuracy within ``acc_tol``,
+    each leaf within ``leaf_bound(lr, steps)``.  ``got`` / ``want``:
+    (summary, leaves).  Returns the largest gaps."""
+    (s1, l1), (s0, l0) = got, want
+    if set(s1) != set(s0):
+        raise AssertionError(f"{tag}: summary keys differ")
+    for k, v in s0.items():
+        lim = ROUND_CE_RTOL * abs(v) if k.endswith("ce") else acc_tol
+        if not abs(s1[k] - v) <= lim:
+            raise AssertionError(f"{tag}: {k} {s1[k]} vs {v}")
+    over = 0.0
+    for n, leaves in l0.items():
+        for k, v in leaves.items():
+            err = (l1[n][k].float() - v.float()).abs()
+            over = max(over, float((err / leaf_bound(lr, steps, v)).max()))
+    if over > 1.0:
+        raise AssertionError(f"{tag}: a leaf {over} of its bound apart")
+    return {"summary": summary_gap(s1, s0),
+            "leaves": leaves_gap(l1, l0, tag), "leaves_of_bound": over}
+
+
+def ranks_population(rank, world, out_dir, total):
+    """(a) The population run on ``make_federated_mesh()``: rounds 0 and 1
+    unevaluated, a checkpoint (rank 0 writes), round 2 evaluated; fresh
+    runners load it and run round 2 again, bit for bit."""
+    import torch
+    from repro_torch.checkpointing import CheckpointManager
+    from repro_torch.launch.mesh import make_federated_mesh
+    mesh = make_federated_mesh()
+    res, rounds = {}, {}
+    runner, res["init_s"] = pop_runner(RANKS_REGISTERED, mesh=mesh,
+                                       **ranks_pop_kw())
+    blk = runner.cohorts[0].blk[0]
+    per = RANKS_PER_ROUND // world
+    if (blk.start, blk.stop) != (rank * per, rank * per + per):
+        raise AssertionError(f"rank {rank}: block {blk}")
+    res["block"] = [blk.start, blk.stop]
+    gathered = []
+    for r in range(2):
+        b0 = runner.exchanged_bytes
+        rounds[f"round{r}"], _ = pop_round(runner, f"rank {rank} round {r}",
+                                           False, total)
+        gathered.append(runner.exchanged_bytes - b0)
+    mgr = CheckpointManager(os.path.join(out_dir, "ckpt"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step = runner.save_checkpoint(mgr)
+    res["save_s"] = time.perf_counter() - t0
+    if rank == 0:
+        # the parent loads it at world 1 while the ranks go on
+        ready = os.path.join(out_dir, "ckpt.ready")
+        with open(ready + ".tmp", "w") as f:
+            f.write(str(step))
+        os.replace(ready + ".tmp", ready)
+    b0 = runner.exchanged_bytes
+    rounds["round2"], first = pop_round(runner, f"rank {rank} round 2",
+                                        True, total)
+    gathered.append(runner.exchanged_bytes - b0)
+    res["gathered_bytes_per_round"] = gathered
+    snap = {"participants": first["participants"],
+            "summary": first["summary"], "leaves": ranks_leaves(runner)}
+    del runner
+    release()
+    again, res["resume_init_s"] = pop_runner(RANKS_REGISTERED, mesh=mesh,
+                                             **ranks_pop_kw())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again.load_checkpoint(mgr, step)
+    torch.cuda.synchronize()
+    res["load_s"] = time.perf_counter() - t0
+    rounds["resumed_round2"], second = pop_round(
+        again, f"rank {rank} resumed round 2", True, total)
+    gap = leaves_gap(ranks_leaves(again), snap["leaves"], "resumed")
+    if second["participants"] != snap["participants"] or \
+            second["summary"] != snap["summary"] or gap != 0.0:
+        raise AssertionError(f"rank {rank}: resumed round 2 differs "
+                             f"({second['summary']} vs {snap['summary']}, "
+                             f"leaves {gap})")
+    del again
+    release()
+    res.update(rounds=rounds, step=step, snapshot=snap,
+               round_wall_s={k: v["wall_s"] for k, v in rounds.items()},
+               resume_bit_equal=True)
+    return res
+
+
+def ranks_overlap(rank, world, total):
+    """(b) The overlap engine at staleness 1 on ``make_cohort_meshes(2)``:
+    every round's launches are this rank's plan (rank 0: cohort A and no
+    server; rank 1: cohort B and the server chain)."""
+    import torch
+    from repro_torch.core.federated import FederatedRunner
+    from repro_torch.launch.mesh import make_cohort_meshes
+    runner = FederatedRunner(ranks_overlap_spec(), round_corpus(),
+                             mesh=make_cohort_meshes(2), device="cuda")
+    holds = runner._serves
+    if holds != (rank == world - 1) or \
+            (runner.server_slm is None) == holds:
+        raise AssertionError(f"rank {rank}: serves {holds}")
+    recs, summaries = [], []
+    for r in range(RANKS_OVERLAP_ROUNDS):
+        zero_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = runner.run_round()
+        runner.drain()
+        wall = time.perf_counter() - t0
+        launches = read_counters()
+        want = round_launch_plan(runner)[0]
+        if launches != want:
+            raise AssertionError(f"rank {rank} overlap round {r}: launches "
+                                 f"{launches} != {want}")
+        check_tensor_core_routes(f"rank {rank} overlap round {r}")
+        for n, v in launches.items():
+            total[n] = total.get(n, 0) + v
+        recs.append({"wall_s": wall, "launches": launches})
+        summaries.append(out["summary"])
+    leaves = ranks_leaves(runner)
+    runner.close()
+    del runner
+    release()
+    return {"serves": holds, "rounds": recs, "summaries": summaries,
+            "leaves": leaves}
+
+
+def ranks_moe(rank, world):
+    """(c) ``moe_mlp_sharded`` on (data, model) = (1, 2) on one phi3.5-moe
+    layer at full width, f32, at a capacity that drops nothing: y, aux and
+    the gradients of x, the router and every expert weight against
+    ``moe_mlp``'s, row by row."""
+    import torch
+    from repro_torch.configs.phi3p5_moe_42b_a6p6b import CONFIG as PHI
+    from repro_torch.launch.mesh import make_federated_mesh
+    from repro_torch.models import moe
+    from repro_torch.sharding.partition import sharding_context
+    from repro_torch.sharding.rules import rules_for
+    cfg = dataclasses.replace(PHI, dtype="float32",
+                              capacity_factor=PHI.n_experts / PHI.top_k)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = {k: v.requires_grad_(True) for k, v in moe.init_moe(gen, cfg)
+         .items()}
+    x = torch.randn((*DIST_MOE_TOKENS, cfg.d_model), generator=gen,
+                    device="cuda", requires_grad=True)
+    proj = torch.randn(x.shape, generator=gen, device="cuda")
+    leaves = {"x": x, **p}
+
+    def grads(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, aux = fn(p, cfg, x)
+        g = torch.autograd.grad(torch.sum(y * proj) + aux,
+                                list(leaves.values()))
+        torch.cuda.synchronize()
+        return (y.detach(), aux.detach(), dict(zip(leaves, g)),
+                1e3 * (time.perf_counter() - t0))
+    mesh = make_federated_mesh(n_model=2)
+    with sharding_context(mesh, rules_for("train", False)):
+        y, aux, got, ms = grads(moe.moe_mlp_sharded)
+    y1, aux1, want, ms1 = grads(moe.moe_mlp)
+    res = {"mesh": list(mesh.shape), "ms": ms, "plain_ms": ms1,
+           "y_max_abs_err": float((y - y1).abs().max()),
+           "aux_abs_err": abs(float(aux) - float(aux1)), "grad_rel": {}}
+    for k, w in want.items():
+        g = got[k].reshape(-1, w.shape[-1])
+        w = w.reshape(-1, w.shape[-1])
+        scale = w.abs().amax(dim=1, keepdim=True)
+        rel = float(((g - w).abs() / scale.clamp(min=1e-30)).max())
+        res["grad_rel"][k] = rel
+        if not (bool(torch.isfinite(g).all()) and bool(
+                ((g - w).abs() <= MOE_GRAD_REL * scale).all())):
+            raise AssertionError(f"rank {rank}: moe d{k} {rel} of its rows'"
+                                 " largest")
+    if not (res["y_max_abs_err"] <= 2e-4 * float(y1.abs().max())
+            and res["aux_abs_err"] <= 1e-4):
+        raise AssertionError(f"rank {rank}: moe y / aux {res}")
+    return res
+
+
+def rank_note(rank, what):
+    """One progress line of a rank on standard error."""
+    print(f"chip_smoke: rank {rank}: {what}", file=sys.stderr, flush=True)
+
+
+def rank_main(rank, world, out_dir):
+    """One gloo rank on cuda:0 (spawned by :func:`phase_distribution_ranks`):
+    the group from the ``file://`` store in ``out_dir``, the gloo check,
+    then (a), (b) and (c); its result and its launches saved to
+    ``<out_dir>/rank<r>.pt`` (the traceback where it failed).  The kernels
+    were built by the parent: this process loads them."""
+    import datetime
+    import traceback
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"file://{out_dir}/store", world_size=world,
+        rank=rank, timeout=datetime.timedelta(seconds=RANKS_PG_TIMEOUT))
+    rank_note(rank, "in the gloo group")
+    res = {}
+    try:
+        res["gloo_cuda"] = ranks_gloo_check(rank, world)
+        total = {}
+        torch.cuda.reset_peak_memory_stats()
+        res["population"] = ranks_population(rank, world, out_dir, total)
+        rank_note(rank, "(a) population done")
+        res["overlap"] = ranks_overlap(rank, world, total)
+        rank_note(rank, "(b) overlap done")
+        res["moe"] = ranks_moe(rank, world)
+        rank_note(rank, "(c) moe done")
+        res["launches"] = total
+        res["device"] = torch.cuda.get_device_name(0)
+        res["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    except Exception:  # noqa: BLE001 — reported by the parent
+        res = {"error": traceback.format_exc()}
+    finally:
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+        dist.destroy_process_group()
+
+
+def start_ranks(out_dir):
+    """Start :data:`RANKS` ranks of :func:`rank_main` (spawn).  gloo binds
+    to the loopback device (``GLOO_SOCKET_IFNAME=lo``), not to whatever
+    address the host name resolves to."""
+    import torch.multiprocessing as mp
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=rank_main, args=(r, RANKS, out_dir))
+             for r in range(RANKS)]
+    for p in procs:
+        p.start()
+    return procs
+
+
+def rank_result(procs, out_dir, r):
+    """Rank ``r``'s saved result once its process has ended (None while
+    it runs; ``{"error": ...}`` where it crashed without one)."""
+    import torch
+    p = procs[r]
+    if p.is_alive():
+        return None
+    path = os.path.join(out_dir, f"rank{r}.pt")
+    if not os.path.exists(path):
+        return {"error": f"rank {r} saved nothing (exit code {p.exitcode})"}
+    return torch.load(path, weights_only=False)
+
+
+def join_ranks(procs, out_dir, deadline):
+    """Join the ranks by ``deadline`` and return their results, in rank
+    order.  Where one rank fails, the others (which would wait for it in
+    their next collective) are killed at once; a rank still running at
+    the deadline is killed; either fails the phase."""
+    results = [None] * len(procs)
+    while time.perf_counter() < deadline:
+        for r in range(len(procs)):
+            if results[r] is None:
+                results[r] = rank_result(procs, out_dir, r)
+        if all(results) or any("error" in x for x in results if x):
+            break
+        time.sleep(0.5)
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    stop_ranks(procs)
+    for r, res in enumerate(results):
+        if res and "error" in res:
+            raise AssertionError(f"rank {r} failed:\n{res['error']}")
+    if hung or not all(results) or any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"ranks hung {hung} (deadline "
+                             f"{RANKS_TIMEOUT} s), exit codes "
+                             f"{[p.exitcode for p in procs]}")
+    return results
+
+
+def stop_ranks(procs):
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+
+
+def wait_for_checkpoint(procs, out_dir, deadline):
+    """The step of the checkpoint rank 0 wrote (``ckpt.ready``), once it
+    is there; raises where a rank ended first or the deadline passed."""
+    ready = os.path.join(out_dir, "ckpt.ready")
+    while not os.path.exists(ready):
+        if not all(p.is_alive() for p in procs):
+            join_ranks(procs, out_dir, deadline)   # raises a rank's error
+        if time.perf_counter() > deadline or \
+                not all(p.is_alive() for p in procs):
+            stop_ranks(procs)
+            raise AssertionError(f"no checkpoint from the ranks (exit codes "
+                                 f"{[p.exitcode for p in procs]})")
+        time.sleep(0.5)
+    with open(ready) as f:
+        return int(f.read())
+
+
+def step_rounding_probe(runner):
+    """A client's trainable leaves after one stacked CCL step of
+    ``runner``'s working set (4 clients, its live state and next batch)
+    against the same step of the first 2 clients alone: (bit-equal,
+    largest |difference|)."""
+    from repro_torch.checkpointing.checkpoint import map_pytree
+    from repro_torch.core import lora
+    from repro_torch.data.pipeline import to_tensors
+    rt = runner.cohorts[0]
+    pub_np, _ = runner._assemble_cohorts(runner._round_idx)[0]
+    pub = to_tensors({k: v[0] for k, v in pub_np.items()}, runner.device)
+    anchors = runner.stacked_anchors(pub)
+
+    def first(tree):
+        return map_pytree(lambda t: t[:2], tree)
+    whole, _, _ = rt.ccl_step(rt.stacked_params, rt.stacked_opt, pub,
+                              anchors)
+    part, _, _ = rt.ccl_step(
+        lora.combine(rt.stacked_params,
+                     first(lora.partition(rt.stacked_params))),
+        first(rt.stacked_opt), first(pub), anchors[:2])
+    whole, part = lora.partition(whole), lora.partition(part)
+    return {"bit_equal": all(bits_equal(whole[k][:2], v)
+                             for k, v in part.items()),
+            "max_abs": max(float((whole[k][:2].float() - v.float()).abs()
+                                 .max()) for k, v in part.items())}
+
+
+def world1_population():
+    """(a) at world 1: rounds 0 and 1 unevaluated, round 2 evaluated;
+    (records, round 2's output, the leaves, the tolerance on the
+    accuracies: a scored token of the smallest test set, or
+    ``ROUND_ACC_ATOL``)."""
+    w1 = {}
+    runner, w1["init_s"] = pop_runner(RANKS_REGISTERED, **ranks_pop_kw())
+    scored = min(float(t["loss_mask"][:, 1:].sum())
+                 for t in runner.priv_test)
+    for r in range(3):
+        w1[f"round{r}"], last = pop_round(runner, f"world-1 round {r}",
+                                          r == 2, {})
+    leaves = ranks_leaves(runner)
+    w1["step_probe"] = step_rounding_probe(runner)
+    del runner
+    release()
+    return w1, last, leaves, max(ROUND_ACC_ATOL, 1.0 / scored)
+
+
+def world1_overlap():
+    """(b) at world 1: two evaluated rounds, counted."""
+    import torch
+    from repro_torch.core.federated import FederatedRunner
+    runner = FederatedRunner(ranks_overlap_spec(), round_corpus(),
+                             device="cuda")
+    ov = {"summaries": [], "wall_s": [], "launches": []}
+    for r in range(RANKS_OVERLAP_ROUNDS):
+        zero_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ov["summaries"].append(runner.run_round()["summary"])
+        runner.drain()
+        ov["wall_s"].append(time.perf_counter() - t0)
+        ov["launches"].append(read_counters())
+    leaves = ranks_leaves(runner)
+    runner.close()
+    del runner
+    release()
+    return ov, leaves
+
+
+def start_distribution_ranks():
+    """Spawn :func:`phase_distribution_ranks`' ranks ahead of it, so that
+    they start and run while this process runs the distribution phase:
+    (processes, their directory, the time they started)."""
+    import tempfile
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    t0 = time.perf_counter()
+    return start_ranks(out_dir), out_dir, t0
+
+
+def phase_distribution_ranks(started=None):
+    """The port past one rank: two gloo ranks spawned on the one card,
+    each on cuda:0 (NCCL takes no two ranks on one device), against world
+    size 1 in this process, which runs its own rounds while the ranks run
+    theirs.  (a) the registered population at data size 2, (b) the
+    overlap engine's server rank, (c) ``moe_mlp_sharded``'s backward; see
+    :func:`rank_main`.  Here: (a) rounds 0-2 at world 1 held to rank 0's
+    (summaries, every registered client's LoRA, the server models')
+    within the bounds of paths that round otherwise
+    (:func:`check_rounding_gap`: a rank's stack holds half the clients),
+    then the world-2 checkpoint loaded at world 1 and round 2 again; (b)
+    two rounds at world 1 (the same shapes as the ranks') held to the
+    ranks' (clients from rank 0, the server from rank 1) at
+    ``RANKS_TOL``, and the ranks' launches adding up to world 1's.
+    ``started``: the ranks :func:`start_distribution_ranks` spawned (by
+    default, spawned here)."""
+    import shutil
+    import torch
+    from repro_torch.checkpointing import CheckpointManager
+    beside = started is not None
+    procs, out_dir, t0 = started or start_distribution_ranks()
+    try:
+        w1, last, w1_leaves, acc_tol = world1_population()
+        ov, ov_leaves = world1_overlap()
+        # (a) the world-2 checkpoint at world 1, once rank 0 wrote it
+        step = wait_for_checkpoint(procs, out_dir, t0 + RANKS_TIMEOUT)
+        ckpt = os.path.join(out_dir, "ckpt")
+        ckpt_bytes = sum(os.path.getsize(os.path.join(ckpt, f))
+                         for f in os.listdir(ckpt))
+        runner, _ = pop_runner(RANKS_REGISTERED, **ranks_pop_kw())
+        t1 = time.perf_counter()
+        runner.load_checkpoint(CheckpointManager(ckpt), step)
+        torch.cuda.synchronize()
+        w1["load_s"] = time.perf_counter() - t1
+        w1["resumed_round2"], resumed = pop_round(
+            runner, "world-1 round 2 from the world-2 checkpoint", True, {})
+        resumed_leaves = ranks_leaves(runner)
+        del runner
+        release()
+        ranks = join_ranks(procs, out_dir, t0 + RANKS_TIMEOUT)
+        ranks_s = time.perf_counter() - t0
+        pop0 = ranks[0]["population"]
+        for r in ranks[1:]:
+            gap = leaves_gap(r["population"]["snapshot"]["leaves"],
+                             pop0["snapshot"]["leaves"], "ranks")
+            if gap or r["population"]["snapshot"]["summary"] != \
+                    pop0["snapshot"]["summary"]:
+                raise AssertionError(f"the ranks' population runs differ "
+                                     f"({gap})")
+        pop = {}
+        snap = pop0["snapshot"]
+        if not last["participants"] == resumed["participants"] == \
+                snap["participants"]:
+            raise AssertionError("world 1 sampled other participants")
+        # a rank trains 2 clients where world 1 stacks 4, and on the card
+        # a stacked step gives a client's leaves other bits in a stack of
+        # 2 than of 4 (``step_rounding_probe``; B, C, D and the other
+        # operations ``batch_rounding_probe`` covers do not), so the runs
+        # are held within the bounds of two paths whose gradients differ
+        # at rounding
+        cfg = pop_spec(RANKS_REGISTERED).to_config()
+        steps = 3 * (cfg.local_steps_ccl + cfg.local_steps_amt
+                     + cfg.server_steps)
+        want = (snap["summary"], snap["leaves"])
+        pop["max_gap"] = {
+            "world1": check_rounding_gap(
+                "world 1", (last["summary"], w1_leaves), want, cfg.lr,
+                steps, acc_tol),
+            "world1_resumed": check_rounding_gap(
+                "world 1 resumed", (resumed["summary"], resumed_leaves),
+                want, cfg.lr, steps, acc_tol)}
+        pop["tolerance"] = {"ce_rtol": ROUND_CE_RTOL, "acc_atol": acc_tol,
+                            "leaves": "2 lr per AdamW step + 2^-8 |leaf|, "
+                                      f"{steps} steps"}
+        pop["batch_rounding_probe"] = {
+            **batch_rounding_probe(),
+            "the stacked CCL step (the leaves after it)": w1.pop(
+                "step_probe")}
+
+        # (b) against world 1, and what each rank left out
+        client_rank, server_rank = ranks[0]["overlap"], ranks[-1]["overlap"]
+        if client_rank["serves"] or not server_rank["serves"]:
+            raise AssertionError("the server is not on the last rank only")
+        ov["max_gap"] = {
+            "summary": max(summary_gap(a, b) for rk in ranks for a, b in
+                           zip(rk["overlap"]["summaries"],
+                               ov["summaries"])),
+            "clients": leaves_gap(client_rank["leaves"], {
+                n: v for n, v in ov_leaves.items()
+                if n.startswith("device")}, "overlap clients"),
+            "server": leaves_gap(server_rank["leaves"], {
+                n: v for n, v in ov_leaves.items()
+                if n.startswith("server")}, "overlap server")}
+        if max(ov["max_gap"].values()) > RANKS_TOL:
+            raise AssertionError(f"overlap world 2 against world 1: {ov}")
+        # every kernel's launches split over the ranks, nothing twice: rank
+        # 0 ran none of the server chain's
+        for r, (mine, whole) in enumerate(zip(
+                zip(*(rk["overlap"]["rounds"] for rk in ranks)),
+                ov["launches"])):
+            summed = {n: sum(m["launches"][n] for m in mine) for n in whole}
+            if summed != whole:
+                raise AssertionError(f"overlap round {r}: the ranks' "
+                                     f"launches {summed} != {whole}")
+    finally:
+        stop_ranks(procs)
+        shutil.rmtree(out_dir, ignore_errors=True)
+    total = {}
+    for rk in ranks:
+        for n, v in rk["launches"].items():
+            total[n] = total.get(n, 0) + v
+    slm, llm = round_models()
+    res = {
+        "ranks": RANKS, "backend": "gloo",
+        "devices": [f"cuda:0, {rk['device']}" for rk in ranks],
+        "gloo_cuda": ranks[0]["gloo_cuda"], "ranks_wall_s": ranks_s,
+        "ranks_ran_beside_the_distribution_phase": beside,
+        "world1_runs_beside_the_ranks": True,
+        "population": {
+            "config": {"slm": slm.name, "llm": llm.name,
+                       "llm_layers": DIST_DEPTH["llm"],
+                       "registered": RANKS_REGISTERED,
+                       "per_round": RANKS_PER_ROUND, "codec": "int8",
+                       "robust": "trimmed_mean", "faults": HET_FAULTS},
+            "blocks": [rk["population"]["block"] for rk in ranks],
+            "round_wall_s": {
+                "world2": [rk["population"]["round_wall_s"]
+                           for rk in ranks],
+                "world1": {k: v["wall_s"] for k, v in w1.items()
+                           if isinstance(v, dict)}},
+            "gathered_bytes_per_round":
+                pop0["gathered_bytes_per_round"],
+            "checkpoint_bytes": ckpt_bytes,
+            "save_s": pop0["save_s"],
+            "load_s": {"world2": [rk["population"]["load_s"]
+                                  for rk in ranks],
+                       "world1": w1["load_s"]},
+            "resume_bit_equal": True, **pop},
+        "overlap": {
+            "staleness": 1, "depth": dict(DIST_DEPTH),
+            "server_rank": RANKS - 1,
+            "round_wall_s": {"world2": [[x["wall_s"] for x in
+                                         rk["overlap"]["rounds"]]
+                                        for rk in ranks],
+                             "world1": ov["wall_s"]},
+            "launches": {"world1": ov["launches"],
+                         "ranks": [[x["launches"] for x in
+                                    rk["overlap"]["rounds"]]
+                                   for rk in ranks]},
+            "max_gap": ov["max_gap"]},
+        "moe_mlp_sharded_backward": [rk["moe"] for rk in ranks],
+        "peak_allocated_bytes": [rk["peak_allocated_bytes"] for rk in ranks],
+        "tolerance": {"overlap_world2_vs_world1": RANKS_TOL,
+                      "moe_grads_row_rel": MOE_GRAD_REL},
+    }
+    return res, total
+
+
+# ---------------------------------------------------------------------------
 # phase: the registered population (a sampler, the client store) and
 # checkpoint / resume
 
@@ -4124,32 +4889,35 @@ POP_ROUNDS = 3            # rounds 0 and 1 unevaluated, then round 2
 POP_MEM_RTOL = 0.01       # device memory at N 8 against N 24
 
 
-def pop_spec(n, engine="vectorized"):
-    """One cohort of ``n`` registered SLM' clients sampled 3 a round,
-    LLM' on the server; trimmed-mean MMA under the heterogeneous phase's
-    faults, the int8 wire with error feedback (the residuals ride in the
-    store), 1 CCL + 1 AMT + 1 SE-CCL step a round."""
+def pop_spec(n, engine="vectorized", per_round=POP_PER_ROUND,
+             llm_layers=None):
+    """One cohort of ``n`` registered SLM' clients sampled ``per_round`` a
+    round, LLM' on the server (its first ``llm_layers`` layers where
+    given); trimmed-mean MMA under the heterogeneous phase's faults, the
+    int8 wire with error feedback (the residuals ride in the store), 1
+    CCL + 1 AMT + 1 SE-CCL step a round."""
     from repro_torch.core.channel import ChannelSpec
     from repro_torch.core.spec import (ClientCohort, FaultSpec,
                                        FederationSpec, ParticipantSampler)
-    slm, llm = round_models()
+    slm, llm = round_models(llm_layers)
     return FederationSpec(
         cohorts=(ClientCohort(slm, n, "population"),), server_llm=llm,
         rounds=POP_ROUNDS, local_steps_ccl=1, local_steps_amt=1,
         server_steps=1, engine=engine, seed=0, robust="trimmed_mean",
         trim_frac=HET_TRIM, faults=FaultSpec(**HET_FAULTS),
-        sampler=ParticipantSampler(per_cohort=POP_PER_ROUND, seed=0),
+        sampler=ParticipantSampler(per_cohort=per_round, seed=0),
         channel=ChannelSpec(codec="int8"))
 
 
-def pop_runner(n, engine="vectorized", store_dir=None):
-    """(runner, seconds to build it) of :func:`pop_spec`."""
+def pop_runner(n, engine="vectorized", store_dir=None, mesh=None, **kw):
+    """(runner, seconds to build it) of :func:`pop_spec` (``kw`` its
+    options), on ``mesh`` where given."""
     import torch
     from repro_torch.core.federated import FederatedRunner
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    runner = FederatedRunner(pop_spec(n, engine), round_corpus(),
-                             device="cuda", store_dir=store_dir)
+    runner = FederatedRunner(pop_spec(n, engine, **kw), round_corpus(),
+                             device="cuda", store_dir=store_dir, mesh=mesh)
     torch.cuda.synchronize()
     return runner, time.perf_counter() - t0
 
@@ -4731,13 +5499,13 @@ SSM_ROUND = dict(local_steps_ccl=1, local_steps_amt=1, server_steps=1,
 
 
 def ssm_models():
-    """mamba2-2.7b, hymba-1.5b and the paper's LLM at their published
-    widths and depths, each with the one 1280-wide connector latent the
-    reference demands of every model of a federation."""
+    """mamba2-2.7b (:func:`mamba2_config`), hymba-1.5b and the paper's LLM
+    (:func:`round_models`) at their published widths, each with the one
+    1280-wide connector latent the reference demands of every model of a
+    federation."""
     from repro_torch.configs.hymba_1p5b import CONFIG as HYMBA
-    from repro_torch.configs.mamba2_2p7b import CONFIG as MAMBA2
     _, llm = round_models()
-    return (dataclasses.replace(MAMBA2, connector_dim=1280),
+    return (dataclasses.replace(mamba2_config(), connector_dim=1280),
             dataclasses.replace(HYMBA, connector_dim=1280), llm)
 
 
@@ -5425,8 +6193,9 @@ RING_CASES = (      # (config module, rows, prompt tokens, tokens generated)
 
 
 def phase_ring_serving():
-    """``generate`` on the ring cache at full width and published depth:
-    ``mlecs-slm-720m``, ``mamba2-2.7b`` and ``hymba-1.5b`` (prompts past
+    """``generate`` on the ring cache at full width and published depth
+    (mamba2's: :func:`mamba2_config`): ``mlecs-slm-720m``,
+    ``mamba2-2.7b`` and ``hymba-1.5b`` (prompts past
     its window), each beside ``ServingEngine`` on the same prompts
     (``serve_both``); then row A on the SLM's ring against pages of the
     same capacity.  Returns (metrics, launches, the ring row)."""
@@ -5436,6 +6205,8 @@ def phase_ring_serving():
     for mod, rows, S, new in RING_CASES:
         m = importlib.import_module(f"repro_torch.configs.{mod}")
         cfg = getattr(m, "SLM", None) or m.CONFIG
+        if mod == "mamba2_2p7b":
+            cfg = mamba2_config()
         out[cfg.name], launches, _ = serve_both(cfg, rows, S, new)
         total = launches if total is None else \
             {n: total[n] + launches[n] for n in total}
@@ -6317,6 +7088,31 @@ def release():
     torch.cuda.empty_cache()
 
 
+WATCHDOG_S = 1170.0     # s after the start: the run stops with a report
+
+
+def start_watchdog(progress):
+    """A daemon thread that, :data:`WATCHDOG_S` s after the start (a run
+    is to end within 1,200 s), prints the last phase that ended and every
+    thread's stack to standard error, kills the processes the script
+    started and exits with code 3."""
+    import faulthandler
+    import multiprocessing
+    import threading
+
+    def fire():
+        time.sleep(WATCHDOG_S)
+        note = (f"chip_smoke: still running {WATCHDOG_S:.0f} s after the "
+                f"start; the last phase that ended: {progress['last']}")
+        print(note, file=sys.stderr, flush=True)
+        faulthandler.dump_traceback(file=sys.stderr, all_threads=True)
+        for child in multiprocessing.active_children():
+            child.kill()
+        print(note + "; stopped", file=sys.stderr, flush=True)
+        os._exit(3)
+    threading.Thread(target=fire, name="watchdog", daemon=True).start()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6324,16 +7120,29 @@ def main() -> int:
               "an NVIDIA GPU", file=sys.stderr)
         return 2
     import repro_torch.kernels.ops  # noqa: F401  (fails here without the port)
-    seconds = {}
-    t0 = time.perf_counter()
+    from repro_torch.configs.mamba2_2p7b import CONFIG as MAMBA2
+    from repro_torch.configs.mlecs_paper import LLM
+    seconds, progress = {}, {"last": None}
+    start = t0 = time.perf_counter()
+    start_watchdog(progress)
 
     def lap(name):
         nonlocal t0
         t1 = time.perf_counter()
         seconds[name] = t1 - t0
         t0 = t1
+        progress["last"] = name
+        print(f"chip_smoke: {name} ended at {t1 - start:.1f} s",
+              file=sys.stderr, flush=True)
 
     phase_card()
+    emit({"phase": "depth", "round_llm_layers": ROUND_LLM_LAYERS,
+          "published_llm_layers": LLM.n_layers,
+          "population_rounds_llm_layers": LLM.n_layers,
+          "distribution_ranks_llm_layers": DIST_DEPTH["llm"],
+          "mamba2_layers": MAMBA2_LAYERS,
+          "published_mamba2_layers": MAMBA2.n_layers,
+          "slm": "full width and depth in every round"})
     phase_build()
     lap("build")
     phase_paged_checks()
@@ -6371,10 +7180,21 @@ def main() -> int:
     emit({"vectorized_round": vectorized})
     release()
     lap("vectorized_round")
-    distribution, dist_launches = phase_distribution()
+    # the ranks start and run beside the distribution phase (its round
+    # times share the card with them; its checks do not depend on time)
+    ranks = start_distribution_ranks()
+    try:
+        distribution, dist_launches = phase_distribution()
+    except BaseException:
+        stop_ranks(ranks[0])
+        raise
     emit({"distribution": distribution})
     release()
     lap("distribution")
+    dist_ranks, dist_ranks_launches = phase_distribution_ranks(ranks)
+    emit({"distribution_ranks": dist_ranks})
+    release()
+    lap("distribution_ranks")
     population, pop_launches = phase_population_rounds()
     emit({"population_rounds": population})
     release()
@@ -6447,6 +7267,7 @@ def main() -> int:
              "cohort_serving": cohort_launches,
              "vectorized_round": vec_launches,
              "distribution": dist_launches,
+             "distribution_ranks": dist_ranks_launches,
              "population_rounds": pop_launches,
              "overlap_rounds": overlap_launches,
              "ssm_serving": ssm_launches, "hybrid_serving": hybrid_launches,

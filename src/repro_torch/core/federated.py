@@ -100,9 +100,20 @@ rank runs the same server side on the same N uploads: the wire, the
 scan-ordered MMA, SE-CCL, the residuals and the server evaluation are
 computed whole on every rank.  Deliveries land in each rank's block, and
 the per-client eval sums are gathered, so a round's metrics are the same
-on every rank.  At data size 1 the placement is a no-op and the gathers
-are copies: the round is bit for bit the one without a mesh.  The loop
-engine runs every client on every rank (the mesh replicates it).
+on every rank.  Under a sampler every rank holds the whole store and
+draws the same members; it trains its block of the working set, and the
+trained blocks (personal leaves, AdamW state) are gathered before every
+rank writes them back, so the stores stay equal.  A checkpoint is the
+tree one rank builds (the stacks gathered); rank 0 writes it, and every
+rank reads it whole and keeps its block, so it loads at any world size.
+Past one rank the overlap engine runs the server chain on the world's
+last rank only (the reference's last device): the server models live
+there, the others keep the anchor base, and each applied delivery (the
+down payload, the anchor trainables) and the server's eval sums are
+broadcast from it.  At data size 1 the placement is a no-op and the
+gathers are copies: the round is bit for bit the one without a mesh.
+The loop engine runs every client on every rank (the mesh replicates
+it).
 
 Covered: the loop and vectorized engines, the modes mlecs / fedavg /
 standalone, the ablations ``use_mma`` / ``use_seccl`` / ``use_ccl``, both
@@ -147,8 +158,14 @@ from repro_torch.data.pipeline import (ClientStreams, RoundPrefetcher,
                                        stacked_eval_batches, to_tensors)
 from repro_torch.models.model import build_model
 from repro_torch.optim.adamw import adamw, apply_updates
+from repro_torch.sharding import collectives as coll
 from repro_torch.sharding import partition as shard_part
 from repro_torch.sharding.rules import TRAIN_RULES
+
+
+# the server's state: its models and their AdamW states
+_SERVER_STATE = ("server_llm", "server_slm", "server_llm_opt",
+                 "server_slm_opt")
 
 
 def _do_ccl(cfg: "FederatedConfig") -> bool:
@@ -401,6 +418,13 @@ class FederatedRunner:
             if m is not None and m.device_type != self.device.type:
                 raise ValueError(f"a {m.device_type!r} mesh for a runner on "
                                  f"{self.device}")
+        # the ranks running this federation (1 without a mesh), and the
+        # overlap engine's server rank past one rank: the world's last
+        self._world = (dist.get_world_size()
+                       if any(m is not None for m in self._meshes or (mesh,))
+                       else 1)
+        self._server_rank = (self._world - 1
+                             if self._overlap and self._world > 1 else None)
         self.channel = (spec.channel or ChannelSpec()).make()
         self.slm = bundles[0]        # legacy alias: cohort 0's bundle
         self.llm = llm_bundle
@@ -596,7 +620,6 @@ class FederatedRunner:
         self._server_eval_fn = seccl.make_eval_fn(self.llm)
         self._server_eval_steps = None
         self.exchanged_bytes = 0     # bytes the client-axis gathers received
-        self._partitioned = False
         if self._stacked:
             self._place_on_mesh()
         self.refresh_eval_shards()
@@ -701,6 +724,17 @@ class FederatedRunner:
     # ------------------------------------------------------------------
     # placement on a mesh
 
+    @property
+    def _serves(self) -> bool:
+        """Does this rank hold the server (every rank but past one rank
+        on the overlap engine, where the last one does)?"""
+        return self._server_rank is None or \
+            dist.get_rank() == self._server_rank
+
+    def _server_state(self) -> Dict:
+        """The server models and their AdamW states, by attribute name."""
+        return {name: getattr(self, name) for name in _SERVER_STATE}
+
     def _mesh_for(self, idx: int):
         """The mesh cohort ``idx`` lives on (shared, per-cohort, or None)."""
         return self._meshes[idx] if self._meshes is not None else self.mesh
@@ -719,13 +753,13 @@ class FederatedRunner:
         return tree if m is None else shard_part.replicated(tree, m)
 
     def _place_on_mesh(self) -> None:
-        """Each cohort's client stack (personal leaves, AdamW state) to this
-        rank's block of its mesh's "data" axis (the whole stack where the
-        data size does not divide it, an empty one on a rank the mesh
-        leaves out), and the server state whole on every rank: an exact
-        no-op at data size 1 (the leaves stay the same tensors).  Records
-        each cohort's block, data group and broadcast root, and the meta
-        templates of its full stacks for :meth:`_exchange`."""
+        """Each cohort's client stack (personal leaves, AdamW state; under
+        a sampler the round's working set) to this rank's block of its
+        mesh's "data" axis (:meth:`_block`), and the server state whole on
+        every rank: an exact no-op at data size 1 (the leaves stay the same
+        tensors).  Records each cohort's block, data group and broadcast
+        root, and the meta templates of its full stacks for
+        :meth:`_exchange`."""
         meshes = {}
         for rt in self._cohorts:
             m = self._mesh_for(rt.idx)
@@ -753,27 +787,39 @@ class FederatedRunner:
                 rt.blk = blk
                 if axes:
                     rt.group = m.get_group(axes[0])
-                place = (lambda t, _m=m: shard_part.place_stacked(
-                    t, _m, TRAIN_RULES))
             else:
                 rt.blk = (slice(0, 0),)
-                place = (lambda t: map_pytree(lambda v: v[:0], t))
             rt.stacked_params = lora.combine(rt.stacked_params,
-                                             place(personal))
-            rt.stacked_opt = place(rt.stacked_opt)
+                                             self._block(rt, personal))
+            rt.stacked_opt = self._block(rt, rt.stacked_opt)
             rt.last_global = self._to_client_placement(rt, rt.last_global)
             rt.weights = self._to_client_placement(rt, rt.weights)
-            self._partitioned |= (rt.root is not None
-                                  or shard_part.mesh_sizes(m)["data"] > 1)
         for m in meshes.values():
-            for name in ("server_llm", "server_slm", "server_llm_opt",
-                         "server_slm_opt"):
+            for name in _SERVER_STATE:
                 setattr(self, name, shard_part.replicated(getattr(self, name),
                                                           m))
-        if self._partitioned and self._schedule is not None:
-            raise NotImplementedError(
-                "a sampler on a mesh whose data size is over 1 or that leaves "
-                "out a rank")
+
+    def _block(self, rt: _Cohort, tree):
+        """This rank's block of a whole (work_n, ...) client stack of
+        cohort ``rt`` on the device: the stack itself (moved) without a
+        mesh or where the block is the whole axis, a copy of the block
+        where the mesh splits it, an empty block on a rank the mesh leaves
+        out."""
+        m = self._mesh_for(rt.idx)
+        if m is None:
+            return _to_device(tree, self.device)
+        if not rt.member:
+            return map_pytree(lambda v: v[:0].to(self.device), tree)
+        return shard_part.place_stacked(tree, m, TRAIN_RULES)
+
+    def _whole_stacks(self, rt: _Cohort) -> Tuple[Dict, Dict]:
+        """Cohort ``rt``'s whole (personal leaves, AdamW state) stacks on
+        every rank (:meth:`_exchange`; collective on a mesh that splits
+        them)."""
+        return (self._exchange(rt, lora.partition(rt.stacked_params)
+                               if rt.member else None, "personal"),
+                self._exchange(rt, rt.stacked_opt if rt.member else None,
+                               "opt"))
 
     def _exchange(self, rt: _Cohort, local, kind: str):
         """The cohort's whole client stack on every rank, from this rank's
@@ -804,10 +850,7 @@ class FederatedRunner:
                 buf = torch.cat([local[k].reshape(local[k].shape[0], -1)
                                  for k in keys], dim=1)
                 if rt.group is not None:
-                    parts = [torch.empty_like(buf) for _ in
-                             range(dist.get_world_size(rt.group))]
-                    dist.all_gather(parts, buf, group=rt.group)
-                    buf = torch.cat(parts, dim=0)
+                    buf = torch.cat(coll.all_gather(buf, rt.group), dim=0)
             else:
                 buf = torch.empty((rt.work_n, sum(widths)), dtype=dtype,
                                   device=self.device)
@@ -1289,7 +1332,11 @@ class FederatedRunner:
     def _init_overlap(self) -> None:
         """The server stream (on the card), each cohort's anchor model
         (the server LLM's own tree: no copy of its frozen leaves), the
-        batch prefetcher and, under a sampler, round 0's staged gather."""
+        batch prefetcher and, under a sampler, round 0's staged gather.
+        Past one rank the server lives on the server rank only: the
+        others keep the templates of what it broadcasts and drop the
+        server models and AdamW states (their anchor base keeps the LLM's
+        frozen leaves)."""
         if self.device.type == "cuda" and self._srv_stream is None:
             self._srv_stream = torch.cuda.Stream(self.device)
         bases = {}
@@ -1299,6 +1346,15 @@ class FederatedRunner:
                 bases[key] = self._to_client_placement(rt, self.server_llm)
             rt.anchor_base = bases[key]
             rt.anchor_tr = lora.partition(rt.anchor_base)
+        if self._server_rank is not None:
+            self._server_like = _meta(self._server_state())
+            self._delivery_like = {
+                "down": _meta(lora.partition(self.server_slm,
+                                             lora.is_lora_leaf)),
+                "anchor_tr": _meta(lora.partition(self.server_llm))}
+            if not self._serves:
+                for name in _SERVER_STATE:
+                    setattr(self, name, None)
         self._assemble_idx = self._round_idx
         self._start_prefetch()
         if self._schedule is not None:
@@ -1373,7 +1429,10 @@ class FederatedRunner:
         the server phase runs; then, once the queue holds more than
         ``staleness`` outputs, the oldest delivered (this round's presence
         mask and downlink round) and the anchor trainables replaced.
-        Under fedavg the queued output is the aggregate itself."""
+        Under fedavg the queued output is the aggregate itself.  Past one
+        rank only the server rank runs the server phase, and it
+        broadcasts the delivery and the anchor trainables as they are
+        applied."""
         cfg = self.cfg
         self._begin_round()
         self._load_working_set(self._rnd_no)
@@ -1384,9 +1443,11 @@ class FederatedRunner:
                 self._encode_uploads(uploads))
             if cfg.mode == "fedavg":
                 self._srv_q.append((agg, None, own_avgs, None))
-            else:
+            elif self._serves:
                 down, anchor_tr, done = self._server_phase(agg, server)
                 self._srv_q.append((down, anchor_tr, own_avgs, done))
+            else:
+                self._srv_q.append((None, None, own_avgs, None))
         client_eval = self.evaluate_clients() if evaluate else None
         if len(self._srv_q) > cfg.staleness:
             down, anchor_tr, own_avgs, done = self._srv_q.popleft()
@@ -1394,6 +1455,12 @@ class FederatedRunner:
                 cur = torch.cuda.current_stream(self.device)
                 cur.wait_event(done)
                 _record_stream((down, anchor_tr), cur)
+            if self._server_rank is not None and cfg.mode != "fedavg":
+                got = coll.broadcast_tree(
+                    {"down": down, "anchor_tr": anchor_tr}
+                    if self._serves else None, self._delivery_like,
+                    self._server_rank, self.device)
+                down, anchor_tr = got["down"], got["anchor_tr"]
             self._apply_deliveries(down, own_avgs)
             if anchor_tr is not None:
                 for rt in self._cohorts:
@@ -1499,9 +1566,11 @@ class FederatedRunner:
         """Gather round ``rnd``'s participants from the store into each
         cohort's stacked buffers (stacked engines under a sampler; one
         host stack and one transfer a leaf; the overlap engine's staged
-        gather when it is this round's): the personal leaves, the AdamW
-        state and the residuals move; the backbone in the buffer never
-        does."""
+        gather when it is this round's): the personal leaves and the AdamW
+        state move, this rank's block of them on a mesh (:meth:`_block`),
+        and the residuals whole (the wire runs whole on every rank); the
+        backbone in the buffer never does.  Every rank holds the whole
+        store and draws the same members."""
         if self._schedule is None or not self._stacked:
             return
         host, box = None, self._staged_gather
@@ -1516,21 +1585,24 @@ class FederatedRunner:
         if host is None:
             host = self._gather_host(rnd)
         for rt, h in zip(self._cohorts, host):
-            rt.stacked_params = lora.combine(
-                rt.stacked_params, _to_device(h["train"], self.device))
-            rt.stacked_opt = _to_device(h["opt"], self.device)
+            rt.stacked_params = lora.combine(rt.stacked_params,
+                                             self._block(rt, h["train"]))
+            rt.stacked_opt = self._block(rt, h["opt"])
             if "chan" in h:
                 rt.chan_state = _to_device(h["chan"], self.device)
 
     def _scatter_working_set(self) -> None:
         """Write the trained working set back to the store: the personal
         leaves, the AdamW state and the residuals, what construction
-        registered (vectorized engine under a sampler)."""
+        registered (stacked engines under a sampler).  On a mesh that
+        splits the working set the blocks are gathered first
+        (:meth:`_whole_stacks`), so every rank writes the same entries and
+        the stores stay equal."""
         if self._schedule is None or not self._stacked:
             return
         for rt in self._cohorts:
-            entry = {"train": lora.partition(rt.stacked_params),
-                     "opt": rt.stacked_opt}
+            train, opt = self._whole_stacks(rt)
+            entry = {"train": train, "opt": opt}
             if self.channel.stateful:
                 entry["chan"] = rt.chan_state
             self._store.scatter([rt.offset + i for i in self._members(rt)],
@@ -1727,14 +1799,15 @@ class FederatedRunner:
                                           self._active_locals())])
 
     def _sampled_eval_steps(self, rt: _Cohort, members: List[int]) -> Dict:
-        """Padded stacked eval shards of one cohort's sampled members,
-        cached by member tuple (at most 8).  The block count is the
-        cohort's ``eval_blocks`` (the most any member needs), so the
-        shapes do not depend on the draw."""
+        """Padded stacked eval shards of this rank's block of one cohort's
+        sampled members (all of them off a split mesh), cached by member
+        tuple (at most 8).  The block count is the cohort's
+        ``eval_blocks`` (the most any member needs), so the shapes do not
+        depend on the draw."""
         key = tuple(members)
         steps = rt.eval_cache.get(key)
         if steps is None:
-            js = [rt.offset + i for i in key]
+            js = [rt.offset + i for i in key][rt.blk[0]]
             steps = to_tensors(stack_eval_steps(stacked_eval_batches(
                 [self.priv_test[j] for j in js],
                 self.spec.cohort_batch_size(rt.idx),
@@ -1779,11 +1852,19 @@ class FederatedRunner:
     def evaluate_server(self) -> Dict:
         """Server LLM ``{"ce", "acc"}`` on the public test set (the
         stacked engines over their prebuilt eval steps, after the server
-        phases queued so far)."""
+        phases queued so far; past one rank on the overlap engine the
+        server rank's sums, broadcast)."""
         self._sync_server()
         if self._stacked:
-            return seccl.metrics_from_sums(self._server_eval_fn(
-                self.server_llm, self._server_eval_steps))
+            sums = (self._server_eval_fn(self.server_llm,
+                                         self._server_eval_steps)
+                    if self._serves else None)
+            if self._server_rank is not None:
+                sums = coll.broadcast_tree(
+                    sums, {k: torch.empty((), device="meta")
+                           for k in seccl.EVAL_SUM_KEYS},
+                    self._server_rank, self.device)
+            return seccl.metrics_from_sums(sums)
         return self._eval_model(self.llm_eval_step, self.server_llm,
                                 self.public_test, None)
 
@@ -1825,11 +1906,11 @@ class FederatedRunner:
         ``(train, opt)`` per cohort, or per-client tuples on the loop
         engine), plus the residuals as ``channel`` under a stateful codec
         without a sampler.  Refuses the overlap engine's pending server
-        outputs: a non-empty staleness queue is not a round boundary."""
-        if self._partitioned:
-            raise NotImplementedError(
-                "checkpoints on a mesh whose data size is over 1 or that "
-                "leaves out a rank")
+        outputs: a non-empty staleness queue is not a round boundary.  On
+        a mesh it is collective: the stacks are gathered whole
+        (:meth:`_whole_stacks`) and the overlap engine's server state is
+        broadcast from the server rank, so every rank builds the tree
+        that one rank builds."""
         if self._srv_q:
             raise RuntimeError(
                 "cannot checkpoint with pending pipelined server outputs "
@@ -1838,19 +1919,20 @@ class FederatedRunner:
         if self._schedule is not None:
             clients = self._store.state_pytree()
         elif self._stacked:
-            clients = tuple((lora.partition(rt.stacked_params),
-                             rt.stacked_opt) for rt in self._cohorts)
+            clients = tuple(self._whole_stacks(rt) for rt in self._cohorts)
         else:
             clients = tuple(
                 (tuple(lora.partition(p) for p in rt.device_params),
                  tuple(rt.device_opt))
                 for rt in self._cohorts)
+        server = self._server_state()
+        if self._server_rank is not None:
+            server = coll.broadcast_tree(
+                server if self._serves else None, self._server_like,
+                self._server_rank, self.device)
         state = {
             "round": torch.tensor(self._round_idx, dtype=torch.int64),
-            "server_llm": self.server_llm,
-            "server_slm": self.server_slm,
-            "server_llm_opt": self.server_llm_opt,
-            "server_slm_opt": self.server_slm_opt,
+            **server,
             "last_global": tuple(rt.last_global for rt in self._cohorts),
             "clients": clients,
         }
@@ -1861,16 +1943,25 @@ class FederatedRunner:
     def save_checkpoint(self, mgr, step: Optional[int] = None) -> int:
         """Write the run state at the current round boundary through
         ``mgr`` (a :class:`repro_torch.checkpointing.CheckpointManager`);
-        returns the step used (default: the completed-round count)."""
+        returns the step used (default: the completed-round count).  On
+        more than one rank every rank calls it: rank 0 of the world writes
+        and the others wait at a barrier until the file is whole."""
         step = self._round_idx if step is None else int(step)
-        mgr.save(step, self.checkpoint_state())
+        state = self.checkpoint_state()
+        if self._world == 1 or dist.get_rank() == 0:
+            mgr.save(step, state)
+        if self._world > 1:
+            dist.barrier()
         return step
 
     def load_checkpoint(self, mgr, step: Optional[int] = None
                         ) -> "FederatedRunner":
         """Restore a state saved by :meth:`save_checkpoint` (of this
-        package or of the reference) into this identically built runner
-        and fast-forward the data streams to the restored round."""
+        package or of the reference, at any world size) into this
+        identically built runner and fast-forward the data streams to the
+        restored round.  On a mesh every rank calls it and reads the whole
+        tree, and keeps its block of each stack (the server, past one rank
+        on the overlap engine, on the server rank only)."""
         self._restore_state(mgr.restore(self.checkpoint_state(), step))
         return self
 
@@ -1884,10 +1975,8 @@ class FederatedRunner:
         self._rnd_present = self._rnd_contrib = self._rnd_weights = None
         self._rnd_locals = self._rnd_ids = self._rnd_no = None
         self._rnd_scale = None
-        self.server_llm = state["server_llm"]
-        self.server_slm = state["server_slm"]
-        self.server_llm_opt = state["server_llm_opt"]
-        self.server_slm_opt = state["server_slm_opt"]
+        for name in _SERVER_STATE:
+            setattr(self, name, state[name])
         for rt, lg in zip(self._cohorts, state["last_global"]):
             rt.last_global = lg
         if self._schedule is not None:
@@ -1896,8 +1985,9 @@ class FederatedRunner:
             self._load_working_set(rnd)
         elif self._stacked:
             for rt, (train, opt) in zip(self._cohorts, state["clients"]):
-                rt.stacked_params = lora.combine(rt.stacked_params, train)
-                rt.stacked_opt = opt
+                rt.stacked_params = lora.combine(rt.stacked_params,
+                                                 self._block(rt, train))
+                rt.stacked_opt = self._block(rt, opt)
         else:
             for rt, (trains, opts) in zip(self._cohorts, state["clients"]):
                 for i, (tr, o) in enumerate(zip(trains, opts)):
@@ -1913,7 +2003,8 @@ class FederatedRunner:
         self._replay_streams(rnd)
         if self._overlap:
             # an empty queue at the boundary: the anchor trainables are
-            # the restored server LLM's (whose frozen leaves it now holds)
+            # the restored server LLM's (whose frozen leaves it now holds;
+            # past one rank only the server rank keeps the server)
             self._init_overlap()
 
     def _replay_streams(self, rounds: int) -> None:

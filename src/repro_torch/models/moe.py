@@ -25,7 +25,6 @@ reference's without atomics and without a host sync.
 from __future__ import annotations
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
@@ -116,38 +115,34 @@ def moe_mlp(p, cfg: ModelConfig, x, clients: int | None = None):
 # rank): every "model" rank runs its E / m experts on its data block's
 # tokens, and the ranks' partial outputs are summed
 
-def _gather_blocks(y, mesh, axes):
-    """The data blocks of every rank along ``axes`` (outermost first),
-    concatenated on dim 0 in block order: the innermost axis first."""
-    for a in reversed(axes):
-        group = mesh.get_group(a)
-        parts = [torch.empty_like(y)
-                 for _ in range(dist.get_world_size(group))]
-        dist.all_gather(parts, y.contiguous(), group=group)
-        y = torch.cat(parts, dim=0)
-    return y
-
-
 def moe_mlp_sharded(p, cfg: ModelConfig, x, clients: int | None = None):
     """:func:`moe_mlp` with its experts split over the "model" axis of the
     active :func:`~repro_torch.sharding.partition.sharding_context`'s
     mesh, and its tokens over the rules' batch axes: the reference's
     ``moe_mlp_sharded``.  Outside a context it is :func:`moe_mlp`.
 
-    Every rank passes the same x (B, S, d) and gets the whole (y, aux).
-    Each rank routes its data block's tokens (capacity from the LOCAL
-    token count), keeps the assignments to its own experts [r E/m,
-    (r+1) E/m) (views of the replicated expert weights) in per-expert
-    slots ranked among them, and runs them; one ``all_reduce`` over the
-    model group sums the partial outputs, and the data blocks are
-    gathered back (the port's layers around the experts run on the whole
-    batch).  The Switch statistics (mean probs, mean assignment counts)
-    are averaged over the data group before their product.  Where the
-    experts do not split evenly or the batch does not divide the data
-    size it is :func:`moe_mlp`, as in the reference.  A stacked call
-    (``clients``) raises ``NotImplementedError`` inside a context, and so
-    does a call that needs a gradient through the collectives (its
-    backward across ranks is not ported)."""
+    Every rank passes the same x (B, S, d) and replicated weights, and
+    gets the whole (y, aux).  Each rank routes its data block's tokens
+    (capacity from the LOCAL token count), keeps the assignments to its
+    own experts [r E/m, (r+1) E/m) (views of the replicated expert
+    weights) in per-expert slots ranked among them, and runs them; one
+    all-reduce over the model group sums the partial outputs, and the
+    data blocks are gathered back (the port's layers around the experts
+    run on the whole batch).  The Switch statistics (mean probs, mean
+    assignment counts) are averaged over the data group before their
+    product.  Where the experts do not split evenly or the batch does not
+    divide the data size it is :func:`moe_mlp`, as in the reference.  A
+    stacked call (``clients``) raises ``NotImplementedError`` inside a
+    context.
+
+    The collectives are differentiable (``sharding/collectives.py``): x
+    and the weights enter as replicated inputs (their gradients summed
+    over the mesh), the partial outputs' sum and the statistics' average
+    pass the gradient on, the gather keeps this rank's block.  The mean
+    probs feed aux's gradient from the model axis's first rank only: the
+    other model ranks of a data block compute the same term, which the
+    mesh-wide sum would count again."""
+    from repro_torch.sharding import collectives as coll
     from repro_torch.sharding.partition import current_context, mesh_sizes
     ctx = current_context()
     if ctx is None:
@@ -168,13 +163,21 @@ def moe_mlp_sharded(p, cfg: ModelConfig, x, clients: int | None = None):
     Bsz, S, d = x.shape
     if E % msz or Bsz % n_data:
         return moe_mlp(p, cfg, x)
-    if (msz > 1 or n_data > 1) and torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, *p.values())):
-        raise NotImplementedError("moe_mlp_sharded's backward across ranks")
     coord = mesh.get_coordinate()
     if coord is None:
         raise ValueError("this rank is not on the sharding context's mesh")
     names = list(mesh.mesh_dim_names)
+    data_groups = [mesh.get_group(a) for a in data_axes]
+    model_group = [mesh.get_group("model")] if msz > 1 else []
+    m_rank = coord[names.index("model")] if "model" in names else 0
+    if msz * n_data > 1:
+        # the ranks of the data and model axes enter with the same x and
+        # weights
+        every = [mesh.get_group(a) for a in (*data_axes, "model")
+                 if sizes.get(a, 1) > 1]
+        x = coll.enter_replicated(x, every)
+        p = {k: coll.enter_replicated(v, every) if v.requires_grad else v
+             for k, v in p.items()}
     blk = 0
     for a in data_axes:
         blk = blk * sizes[a] + coord[names.index(a)]
@@ -186,16 +189,16 @@ def moe_mlp_sharded(p, cfg: ModelConfig, x, clients: int | None = None):
     xf = xb.reshape(T, d)
     probs, gate, idx = route(p, cfg, xf)
     me = probs.mean(dim=0)
+    if m_rank:
+        me = me.detach()
     ce = F.one_hot(idx, E).float().sum(dim=1).mean(dim=0)
     if n_data > 1:
-        for a in data_axes:
-            dist.all_reduce(me, group=mesh.get_group(a))
-            dist.all_reduce(ce, group=mesh.get_group(a))
-        me, ce = me / n_data, ce / n_data
+        me = coll.reduce_partials(me, data_groups) / n_data
+        ce = coll.reduce_partials(ce, data_groups) / n_data
     aux = E * torch.sum(me * ce)
 
     # the assignments to this rank's experts, ranked within each of them
-    lo = coord[names.index("model")] * E_loc if "model" in names else 0
+    lo = m_rank * E_loc
     e = idx.reshape(T * K) - lo
     mine = (e >= 0) & (e < E_loc)
     e = e.clamp(0, E_loc - 1)
@@ -212,9 +215,9 @@ def moe_mlp_sharded(p, cfg: ModelConfig, x, clients: int | None = None):
     out = torch.bmm(h, w_down).view(E_loc * C, d)
     w = (keep.float() * gate.reshape(T * K)).to(out.dtype)
     y = (out[row] * w[:, None]).view(T, K, d).sum(dim=1)
-    if msz > 1:
-        dist.all_reduce(y, group=mesh.get_group("model"))
+    if model_group:
+        y = coll.reduce_partials(y, model_group)
     y = y.view(B_loc, S, d)
     if n_data > 1:
-        y = _gather_blocks(y, mesh, data_axes)
+        y = coll.gather_blocks(y, data_groups, blk, n_data)
     return y, aux

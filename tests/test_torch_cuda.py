@@ -1722,3 +1722,59 @@ def test_nccl_world1_round_with_a_mesh_is_bit_equal(gen, monkeypatch,
     for n, leaves in want["leaves"].items():
         for k, v in leaves.items():
             assert torch.equal(got["leaves"][n][k], v), f"{n}:{k}"
+
+
+def test_two_gloo_ranks_on_the_card_match_world1(gen, tmp_path):
+    """tests/_torch_dist_workers.py's sampled federation (8 registered, 4 a
+    round; trimmed mean under faults, int8 with error feedback; heads of
+    32) for 3 rounds on two spawned gloo ranks that share the card (2 + 2
+    a round), against the same rounds at world size 1 on the card.  The
+    ranks agree bit for bit (summaries, leaves, stores).  On the card a
+    stacked step gives a client other bits in a stack of 2 than of 4
+    (``chip_smoke.py``'s ``step_rounding_probe``), and AdamW's first
+    steps turn a rounding-sized gradient near 0 into up to lr: so against
+    world 1 each CE is held within 2e-2 of world 1's,
+    each accuracy within a scored token (or 0.02), each LoRA leaf within
+    2 lr an AdamW step (the bound ``chip_smoke.py`` holds the loop and
+    vectorized engines to), and the stores' keys and shapes equal (on the
+    CPU every one of these is bit-equal)."""
+    import _torch_dist_workers as W
+    runner = W.sampled_runner(device="cuda")
+    cfg = runner.cfg
+    scored = min(float(t["loss_mask"][:, 1:].sum()) for t in runner.priv_test)
+    want = W.on_host(W.run_rounds(runner))
+    res = W.spawn(2, tmp_path, ["sampled_cuda"], timeout=600.0)
+    steps = cfg.rounds * (cfg.local_steps_ccl + cfg.local_steps_amt
+                          + cfg.server_steps)
+    for rank, got in enumerate(res["sampled_cuda"]):
+        assert got["block"] == (2 * rank, 2 * rank + 2)
+        assert len(got["summaries"]) == len(want["summaries"]) == 3
+        assert got["summaries"] == res["sampled_cuda"][0]["summaries"]
+        for a, b in zip(got["summaries"], want["summaries"]):
+            assert set(a) == set(b)
+            for k in a:
+                lim = 2e-2 * abs(b[k]) if k.endswith("ce") else \
+                    max(0.02, 1.0 / scored)
+                assert abs(a[k] - b[k]) <= lim, (k, a[k], b[k])
+        flat_got, flat_want = _flat(got["leaves"]), _flat(want["leaves"])
+        assert set(flat_got) == set(flat_want)
+        for k, v in flat_want.items():
+            bound = 2.0 * cfg.lr * steps + 2.0 ** -8 * v.abs()
+            assert bool(((flat_got[k] - v).abs() <= bound).all()), k
+            assert torch.equal(
+                flat_got[k], _flat(res["sampled_cuda"][0]["leaves"])[k]), k
+        assert {k: (v.shape, v.dtype) for k, v in got["store"].items()} == \
+            {k: (v.shape, v.dtype) for k, v in want["store"].items()}
+        for k, v in res["sampled_cuda"][0]["store"].items():
+            assert torch.equal(got["store"][k], v), k
+
+
+def _flat(tree, prefix=""):
+    """{"a/b": leaf} of a nested dict."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
