@@ -284,7 +284,18 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    whisper's encoder and cross-attention and gemma-2b's training shape
    beside SDPA, C at gemma-2b's q projection beside the dW matmul, D at
    the SLM trainer's CCL loss; prints a ``{"trainer": ...}`` line;
-21. prints ``{"phase_seconds": ...}`` and a ``{"kernels": [...]}`` line
+21. runs the dry run (``launch/dryrun.py``) on the host's CPU in two
+   processes started before the build and joined after the kernel checks
+   (each starts a fake process group, which the NCCL group of this
+   process rules out here): ``python -m repro_torch.launch.dryrun`` for gemma-2b
+   at decode_32k over 256 fake ranks (the reference's keys, every
+   roofline term finite and non-negative), and ``dryrun_one`` of the
+   trainer phase's gemma-2b step (4 x 1,024) at a (1, 1) fake mesh on the
+   full and the chunked CE, whose argument bytes must equal exactly those
+   of the step's params, AdamW state and batch made on the card; prints
+   the peak each predicts beside the trainer phase's measured one in a
+   ``{"dryrun": ...}`` line;
+22. prints ``{"phase_seconds": ...}`` and a ``{"kernels": [...]}`` line
    (times from CUDA-graph replay, bounds from this run's inputs; rows
    A-G and G′, each with its launches on the main paths; the rows of the five
    two-route kernels, A, B, B's backward, C and G, also time their FMA
@@ -318,6 +329,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -7079,6 +7091,197 @@ def phase_trainer():
     return out, total, rows
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the dry run (launch/dryrun.py) on fake tensors
+
+# the keys of the reference's dry-run result and of its roofline
+# (``repro.launch.dryrun``'s ``res`` and ``terms``; tests/test_torch_dryrun.py
+# holds the port's result to them)
+DRYRUN_KEYS = ("arch", "shape", "variant", "mesh", "chips", "kind", "mode",
+               "lower_s", "compile_s", "cost_analysis", "memory_analysis",
+               "collectives", "model_flops_total", "model_flops_per_chip",
+               "useful_flops_frac", "roofline", "layers_per_body",
+               "n_params", "n_active_params", "n_lora_params")
+DRYRUN_TERMS = ("compute_s", "compute_s_analytic", "memory_s",
+                "memory_s_analytic", "collective_s")
+DRYRUN_TIMEOUT_S = 300      # s for the two dry runs, from their start
+DRYRUN_CASE = ("gemma-2b", "decode_32k")
+# the trainer phase's gemma-2b case (GEMMA_TRAIN), as an InputShape
+GEMMA_DRYRUN_SHAPE = ("gemma_train", GEMMA_TRAIN["seq"], GEMMA_TRAIN["rows"],
+                      "train")
+SUBPROCESSES = []           # what the watchdog kills besides mp children
+
+
+def dryrun_trainer_main(out_path):
+    """The dry run of the trainer phase's gemma-2b step at a (1, 1) mesh
+    over a fake one-rank group, on the full and on the chunked CE, in a
+    process of its own (the parent holds an NCCL group); writes {impl:
+    result} to ``out_path``."""
+    import torch.distributed as dist
+    from repro_torch.configs import InputShape
+    from repro_torch.launch.dryrun import dryrun_one
+    from repro_torch.launch.mesh import fake_world, make_host_mesh
+    fake_world(1)
+    try:
+        mesh = make_host_mesh(device_type="cpu")
+        shape = InputShape(*GEMMA_DRYRUN_SHAPE)
+        out = {impl: dryrun_one("gemma-2b", shape.name, shape=shape,
+                                mesh=mesh, overrides=[f"loss_impl={impl}"])
+               for impl in ("full", "chunked")}
+    finally:
+        dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def start_dryrun():
+    """Start the dry run's two processes, which use only the host's CPU
+    (before the build, whose ``nvcc`` processes they share the host with,
+    so that no timed phase does):
+    (a) ``python -m repro_torch.launch.dryrun`` for ``DRYRUN_CASE`` at 256
+    fake ranks, (b) :func:`dryrun_trainer_main`.  Returns (processes,
+    their directory, the time they started)."""
+    import tempfile
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    arch, shape = DRYRUN_CASE
+    cmds = {
+        "production": [sys.executable, "-m", "repro_torch.launch.dryrun",
+                       "--arch", arch, "--shape", shape, "--out-dir",
+                       out_dir],
+        "trainer": [sys.executable, "-c",
+                    "import chip_smoke as c; c.dryrun_trainer_main("
+                    f"{os.path.join(out_dir, 'trainer.json')!r})"]}
+    t0 = time.perf_counter()
+    procs = {}
+    for name, cmd in cmds.items():
+        log = open(os.path.join(out_dir, f"{name}.log"), "w")
+        procs[name] = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log,
+                                       stderr=subprocess.STDOUT)
+        log.close()
+        SUBPROCESSES.append(procs[name])
+    return procs, out_dir, t0
+
+
+def stop_dryrun(procs):
+    for p in procs.values():
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def join_dryrun(started):
+    """Wait for both dry runs (``DRYRUN_TIMEOUT_S`` from their start) and
+    read their results: (the production JSON, checked by
+    :func:`check_dryrun_result`; the trainer case's {impl: result}; the
+    seconds from their start).  Raises with the end of its log where one
+    failed or ran over."""
+    procs, out_dir, t0 = started
+    try:
+        for name, p in procs.items():
+            try:
+                rc = p.wait(timeout=max(1.0, t0 + DRYRUN_TIMEOUT_S
+                                        - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                rc = None
+            if rc != 0:
+                with open(os.path.join(out_dir, f"{name}.log")) as f:
+                    tail = f.read()[-3000:]
+                raise AssertionError(
+                    f"dry run {name}: exit code {rc} after "
+                    f"{time.perf_counter() - t0:.1f} s\n{tail}")
+        wall = time.perf_counter() - t0
+        arch, shape = DRYRUN_CASE
+        with open(os.path.join(out_dir, f"{arch}__{shape}.json")) as f:
+            prod = json.load(f)
+        check_dryrun_result(prod)
+        with open(os.path.join(out_dir, "trainer.json")) as f:
+            trainer = json.load(f)
+    finally:
+        stop_dryrun(procs)
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return prod, trainer, wall
+
+
+def check_dryrun_result(res):
+    """The production dry run's JSON: the reference's keys, its roofline
+    terms finite and non-negative, the 16 x 16 mesh of 256 ranks."""
+    missing = [k for k in DRYRUN_KEYS if k not in res]
+    terms = {k: res["roofline"].get(k) for k in DRYRUN_TERMS}
+    bad = {k: v for k, v in terms.items()
+           if not (isinstance(v, (int, float)) and math.isfinite(v)
+                   and v >= 0)}
+    if missing or bad or res["roofline"].get("dominant") not in terms \
+            or (res["mesh"], res["chips"]) != ("16x16", 256):
+        raise AssertionError(f"dry run {DRYRUN_CASE}: missing keys "
+                             f"{missing}, bad terms {bad}, roofline "
+                             f"{res['roofline']}, mesh {res['mesh']} "
+                             f"x {res['chips']}")
+
+
+def real_argument_bytes():
+    """The bytes on the card of the trainer phase's gemma-2b step's
+    arguments, made as that phase makes them (``init_train_state``,
+    AdamW over the LoRA partition) with the dry run's batch: each storage
+    once."""
+    import torch
+    from repro_torch.configs import InputShape
+    from repro_torch.configs.gemma_2b import CONFIG
+    from repro_torch.launch.specs import train_batch_structs
+    from repro_torch.launch.train import init_train_state
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import adamw
+    release()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params, opt_state = init_train_state(build_model(CONFIG),
+                                         adamw(TRAIN_LR), gen)
+    batch = train_batch_structs(CONFIG, InputShape(*GEMMA_DRYRUN_SHAPE),
+                                device="cuda")
+    seen = {}
+    for t in torch.utils._pytree.tree_leaves((params, opt_state, batch)):
+        st = t.untyped_storage()
+        seen[st._cdata] = st.nbytes()
+    del params, opt_state, batch
+    release()
+    return sum(seen.values())
+
+
+def phase_dryrun(joined, trainer):
+    """The dry run (``launch/dryrun.py``), started by :func:`start_dryrun`
+    before the build and read by :func:`join_dryrun` after the kernel
+    checks: (a) gemma-2b decode_32k at 256 fake ranks through the command
+    line, its JSON complete and its terms finite; (b) the trainer phase's
+    gemma-2b step at a (1, 1) fake mesh, full and chunked CE: the argument
+    bytes it counts exactly equal to those of the step's params,
+    optimizer state and batch made on the card, and the peak it predicts
+    (arguments + temporaries) beside the trainer phase's measured
+    ``max_memory_allocated`` (a finding, not a check)."""
+    prod, tr, wall = joined
+    real = real_argument_bytes()
+    out = {"production": {k: prod[k] for k in (
+        "arch", "shape", "mesh", "chips", "lower_s", "compile_s",
+        "cost_analysis", "memory_analysis", "collectives", "roofline",
+        "replicated_ops", "path")},
+        "wall_s": wall, "real_argument_bytes": real, "trainer": {}}
+    for impl, res in tr.items():
+        mem = res["memory_analysis"]
+        if mem["argument_size_in_bytes"] != real:
+            raise AssertionError(
+                f"dry run gemma-2b {impl}: argument bytes "
+                f"{mem['argument_size_in_bytes']} != the card's {real}")
+        measured = trainer["gemma-2b"][impl]
+        out["trainer"][impl] = {
+            "memory_analysis": mem,
+            "predicted_peak_bytes": mem["argument_size_in_bytes"]
+            + mem["temp_size_in_bytes"],
+            "measured_peak_bytes": measured["peak_mem_bytes"],
+            "measured_peak_above_start_bytes":
+                measured["peak_above_start_bytes"],
+            "lower_s": res["lower_s"], "compile_s": res["compile_s"],
+            "replicated_ops": res["replicated_ops"]}
+    return out
+
+
 def release():
     """Free what the last phase left: its objects hold reference cycles
     (a runner's step closures refer back to it), so collect them before
@@ -7095,7 +7298,8 @@ def start_watchdog(progress):
     """A daemon thread that, :data:`WATCHDOG_S` s after the start (a run
     is to end within 1,200 s), prints the last phase that ended and every
     thread's stack to standard error, kills the processes the script
-    started and exits with code 3."""
+    started (``multiprocessing``'s and ``SUBPROCESSES``) and exits with
+    code 3."""
     import faulthandler
     import multiprocessing
     import threading
@@ -7107,6 +7311,8 @@ def start_watchdog(progress):
         print(note, file=sys.stderr, flush=True)
         faulthandler.dump_traceback(file=sys.stderr, all_threads=True)
         for child in multiprocessing.active_children():
+            child.kill()
+        for child in SUBPROCESSES:
             child.kill()
         print(note + "; stopped", file=sys.stderr, flush=True)
         os._exit(3)
@@ -7143,17 +7349,26 @@ def main() -> int:
           "mamba2_layers": MAMBA2_LAYERS,
           "published_mamba2_layers": MAMBA2.n_layers,
           "slm": "full width and depth in every round"})
-    phase_build()
-    lap("build")
-    phase_paged_checks()
-    phase_flash_checks()
-    phase_flash_grad_check()
-    phase_quantize_checks()
-    phase_lora_checks()
-    phase_gram_checks()
-    phase_ssd_checks()
-    phase_ssd_bwd_checks()
-    lap("kernel_checks")
+    # the dry run's processes use the host's CPU beside the build and the
+    # kernel checks, which time nothing
+    started = start_dryrun()
+    try:
+        phase_build()
+        lap("build")
+        phase_paged_checks()
+        phase_flash_checks()
+        phase_flash_grad_check()
+        phase_quantize_checks()
+        phase_lora_checks()
+        phase_gram_checks()
+        phase_ssd_checks()
+        phase_ssd_bwd_checks()
+        lap("kernel_checks")
+    except BaseException:
+        stop_dryrun(started[0])
+        raise
+    dry = join_dryrun(started)
+    lap("dryrun_join")
     engine, snap, launches, serving, reqs = phase_serving()
     emit({"serving": serving})
     emit({"profile": phase_profile(engine, reqs)})
@@ -7248,6 +7463,8 @@ def main() -> int:
     emit({"trainer": trainer})
     release()
     lap("trainer")
+    emit({"dryrun": phase_dryrun(dry, trainer)})
+    lap("dryrun")
     kernels += training_kernel_rows()
     kernels.append(grouped_lora_row())
     kernels += channel_kernel_rows()

@@ -5,9 +5,8 @@ with ``ModelConfig(**dataclasses.asdict(ref_cfg))``.  The only change is the
 dtype accessor: :attr:`ModelConfig.torch_dtype` in place of ``param_dtype``.
 
 The registry (``ARCH_IDS``, :func:`get_config`) names the same configs as
-the reference's.  The reference's ``INPUT_SHAPES`` / ``InputShape`` are
-left out: they serve only its XLA dry-run (``launch/dryrun.py``), which
-parses HLO and has no counterpart here.
+the reference's, and ``INPUT_SHAPES`` / :class:`InputShape` the same
+assigned input shapes, which the dry run (``launch/dryrun.py``) costs.
 """
 from __future__ import annotations
 
@@ -267,3 +266,22 @@ def get_config(arch: str) -> ModelConfig:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(_MODULE_FOR)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULE_FOR[arch]}")
     return mod.CONFIGS[arch] if hasattr(mod, "CONFIGS") else mod.CONFIG
+
+
+# ---------------------------------------------------------------------------
+# input shapes (assigned)
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str          # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}

@@ -1,1 +1,3 @@
-"""Serving entry points of the port."""
+"""Entry points of the port: serving (``serve``, ``serve_engine``), the
+trainer (``train``), the meshes (``mesh``) and the production-mesh dry run
+(``specs``, ``dryrun``)."""

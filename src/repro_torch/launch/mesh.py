@@ -70,6 +70,23 @@ def _mesh(device_type: str, ranks, shape, names):
                       .reshape(shape), mesh_dim_names=names)
 
 
+def fake_world(n: int) -> None:
+    """Start a ``"fake"`` default process group of ``n`` ranks in this
+    process (rank 0), the port's counterpart of the reference's
+    ``force_host_device_count``: :func:`make_production_mesh` (with
+    ``device_type="cpu"``) then builds the 256- or 512-rank mesh unchanged.
+    Its collectives move nothing and return at once, so only a dry run on
+    fake tensors (``launch/dryrun.py``) may use it; nothing else calls it.
+    The caller ends it with ``torch.distributed.destroy_process_group()``.
+    Raises if a process group already exists."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("a torch.distributed process group already "
+                           "exists; fake_world starts its own")
+    dist.init_process_group("fake", store=FakeStore(), world_size=n, rank=0)
+
+
 def make_production_mesh(*, multi_pod: bool = False,
                          device_type: str = "cuda"):
     """The (16, 16) ("data", "model") pod, or (2, 16, 16) ("pod", "data",
