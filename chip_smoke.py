@@ -7261,7 +7261,7 @@ def phase_dryrun(joined, trainer):
     out = {"production": {k: prod[k] for k in (
         "arch", "shape", "mesh", "chips", "lower_s", "compile_s",
         "cost_analysis", "memory_analysis", "collectives", "roofline",
-        "replicated_ops", "path")},
+        "replicated_ops", "path", "torch")},
         "wall_s": wall, "real_argument_bytes": real, "trainer": {}}
     for impl, res in tr.items():
         mem = res["memory_analysis"]

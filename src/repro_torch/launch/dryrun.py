@@ -16,28 +16,46 @@ and memory analyses and the post-SPMD HLO.  Here:
 * the step runs once under ``FakeTensorMode`` (no memory, no arithmetic)
   and ``implicit_replication`` (the model mixes DTensors with tensors it
   makes itself, RoPE's angles and the like, which join as replicated);
+* the step runs inside ``sharding_context(mesh, rules)``, as the
+  reference's does, so the model's ``constrain`` points (the reference's
+  eleven outside ``banded.py``) place its activations; its outputs are
+  placed as the reference's ``out_shardings`` place them;
 * :class:`RankCost`, a dispatch mode beneath DTensor, sees each rank's
   local ops and counts: matmul FLOP on local shapes (``torch.utils.
   flop_counter``'s formulas; elementwise ops count none), bytes accessed
   (the input and output bytes of every local op but views: no fusion, so
   an upper bound on what a fused step moves), memory (argument bytes: the
-  local params, optimizer state, batch and cache; output bytes: outputs
-  that alias no argument; temp bytes: the peak of live local storage
-  minus the arguments) and every collective (op, output bytes, group
-  size), which :func:`collective_bytes` turns into per-rank traffic by the
-  reference's ring formulas.  The ops DTensor runs on global shapes to
-  propagate metadata are not a rank's and are not counted.
+  local params, optimizer state, batch and cache that an op reads or an
+  output holds, as ``jax.jit``'s ``keep_unused=False`` drops the rest;
+  output bytes: outputs that alias no argument; temp bytes: the peak of
+  live local storage minus all the arguments) and every collective (op,
+  output bytes, group size), which :func:`collective_bytes` turns into
+  per-rank traffic by the reference's ring formulas.  The ops DTensor runs
+  on global shapes to propagate metadata are not a rank's and are not
+  counted;
+* DTensor lays out some ops otherwise than GSPMD, and the dry run gives
+  those its own split forms for the duration (:func:`_handlers`, in
+  DTensor's custom-handler table, as ``loss_parallel`` does): softmax and
+  log-softmax over a split dim and their gradients, ``new_zeros`` and
+  ``scatter_add`` (the full CE's gradient stays placed like its logits),
+  ``mm`` / ``bmm`` (no partial product left to reduce once a use, no
+  gather of a split batch dim), a view that cuts a split dim into more
+  parts than it has ranks (the split moves to the sequence), a cut or a
+  row of a split dim, and a lookup in a vocab-split table.
 
 Differences from the reference, each a reason its numbers differ:
 
 * the path is the plain twins of ``kernels/ops.py`` (what the port runs on
   CPU tensors), not the card's kernels, as the reference costs its jnp
-  path and not its Pallas kernels; the JSON says so under ``"path"``;
-* the activations' layouts are DTensor's sharding propagation's, op by op
-  from the params' and inputs' placements: the port's model calls no
-  ``constrain`` (``sharding/partition.py``), so none of the reference's
-  activation hints reach it.  Where propagation replicates a large
-  activation, every rank computes and holds it, and the terms show it;
+  path and not its Pallas kernels; the JSON says so under ``"path"``.
+  Their elementwise ops are not fused (the attention twin holds its
+  logits twice), and A's twin reads a decode step's ring through its
+  block table, a gather the reference's ``mha`` over the ring has not;
+* where DTensor cannot hold GSPMD's layout, the activations differ: a
+  head split of fewer heads than ranks (gemma-2b's 8 over 16) becomes a
+  split of the sequence, where GSPMD tiles the head dim; an op DTensor
+  fails on runs replicated (``_run_replicated``, counted in the JSON's
+  ``replicated_ops``);
 * the port runs every layer in Python, so each collective is seen once per
   issue and no scan-trip multiplier applies (``layers_per_body`` is 1);
 * the collective term is bytes over ``NVLINK_BW``, one H100 SXM's NVLink
@@ -45,7 +63,8 @@ Differences from the reference, each a reason its numbers differ:
   bound there;
 * ``lower_s`` is the host seconds to build and place the inputs and
   ``compile_s`` those of the fake step (the reference's lowering and XLA
-  compile).
+  compile); ``torch`` is the version that ran it, since DTensor's
+  propagation differs between versions.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma-2b --shape train_4k
@@ -80,7 +99,7 @@ from repro_torch.launch.serve import make_serve_step
 from repro_torch.launch.train import make_train_step
 from repro_torch.models.model import build_model
 from repro_torch.optim.adamw import adamw
-from repro_torch.sharding.partition import param_pspecs
+from repro_torch.sharding.partition import param_pspecs, sharding_context
 from repro_torch.sharding.rules import Spec, rules_for
 
 ASSIGNED = [a for a in ARCH_IDS if not a.startswith("mlecs")]
@@ -175,32 +194,39 @@ _prop = threading.local()       # .depth: DTensor's propagation, nested
 def _marking_propagation():
     """While DTensor propagates shardings it runs each new op once on fake
     tensors of the global shapes (to learn the output's shape): those ops
-    are no rank's.  Mark them by wrapping the propagator's uncached path
-    for the duration.  It runs outside the dry run's ``FakeTensorMode``:
-    it makes fake tensors of its own, and the small index tensors it reads
-    on the host to split a dim unevenly must be real."""
+    are no rank's.  Mark them by wrapping the propagator's uncached path,
+    and its output-shape pass, which torch 2.11 also calls on its own, for
+    the duration.  They run outside the dry run's ``FakeTensorMode``: they
+    make fake tensors of their own, and the small index tensors read on
+    the host to split a dim unevenly must be real."""
     from torch.distributed.tensor._sharding_prop import ShardingPropagator
     name = "propagate_op_sharding_non_cached"
-    orig = getattr(ShardingPropagator, name, None)
-    if orig is None:
+    if getattr(ShardingPropagator, name, None) is None:
         raise NotImplementedError(
             f"torch {torch.__version__}: ShardingPropagator has no {name}, "
             "so the dry run cannot tell DTensor's global-shape propagation "
             "from a rank's ops")
+    origs = {n: getattr(ShardingPropagator, n) for n in (
+        name, "_propagate_tensor_meta_non_cached")
+        if getattr(ShardingPropagator, n, None) is not None}
 
-    def wrapped(self, *a, **k):
-        from torch._subclasses.fake_tensor import unset_fake_temporarily
-        _prop.depth = getattr(_prop, "depth", 0) + 1
-        try:
-            with unset_fake_temporarily():
-                return orig(self, *a, **k)
-        finally:
-            _prop.depth -= 1
-    setattr(ShardingPropagator, name, wrapped)
+    def marked(orig):
+        def wrapped(self, *a, **k):
+            from torch._subclasses.fake_tensor import unset_fake_temporarily
+            _prop.depth = getattr(_prop, "depth", 0) + 1
+            try:
+                with unset_fake_temporarily():
+                    return orig(self, *a, **k)
+            finally:
+                _prop.depth -= 1
+        return wrapped
+    for n, orig in origs.items():
+        setattr(ShardingPropagator, n, marked(orig))
     try:
         yield
     finally:
-        setattr(ShardingPropagator, name, orig)
+        for n, orig in origs.items():
+            setattr(ShardingPropagator, n, orig)
 
 
 @contextlib.contextmanager
@@ -223,6 +249,535 @@ def _all_to_all_on_cpu_meshes():
         yield
     finally:
         pt.shard_dim_alltoall = orig
+
+
+# ---------------------------------------------------------------------------
+# DTensor ops the reference's partitioner splits and DTensor does not
+
+def _splits(x, dim: int) -> List[int]:
+    """The mesh dims that split dim ``dim`` of DTensor ``x`` (none where a
+    placement other than a split or a copy, a partial sum, is on ``x``)."""
+    if any(not (p.is_shard() or p.is_replicate()) for p in x.placements):
+        return []
+    return [i for i, p in enumerate(x.placements) if p.is_shard(dim)]
+
+
+def _all_reduce(t, op: str, mesh, mesh_dims):
+    """``t`` reduced with ``op`` over each of ``mesh_dims`` (counted by
+    the caller's mode, as every local collective)."""
+    c10d = torch.ops._c10d_functional
+    for d in mesh_dims:
+        t = c10d.wait_tensor(c10d.all_reduce(
+            t, op, mesh.get_group(d).group_name))
+    return t
+
+
+def _dtensor(local, mesh, placements, shape):
+    """``local`` as this rank's block of a contiguous DTensor of ``shape``
+    placed by ``placements`` on ``mesh``."""
+    from torch.distributed.tensor import DTensor
+    stride, n = [], 1
+    for s in reversed(shape):
+        stride.insert(0, n)
+        n *= s
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=tuple(shape), stride=tuple(stride))
+
+
+def _to(x, placements):
+    """DTensor ``x`` at ``placements``: itself where it is there already,
+    else redistributed, detached first (the handlers run beneath autograd,
+    and torch 2.11's ``redistribute`` of a tensor that needs a gradient
+    calls ``detach_``, which DTensor has no rule for)."""
+    if tuple(x.placements) == tuple(placements):
+        return x
+    return x.detach().redistribute(x.device_mesh, tuple(placements))
+
+
+def _like(x):
+    return x.device_mesh, x.placements, x.shape
+
+
+def _unhandled(func, args, kwargs):
+    """``func`` through DTensor's own rule, this table's handler set
+    aside for the call."""
+    from torch.distributed.tensor import DTensor
+    table = DTensor._op_dispatcher._custom_op_handlers
+    handler = table.pop(func)
+    try:
+        return func(*args, **kwargs)
+    finally:
+        table[func] = handler
+
+
+def _softmax(func, args, kwargs):
+    """(log-)softmax over a split dim, as GSPMD splits it: each rank's
+    block shifted by the all-reduced max and normalised by the
+    all-reduced sum of its exponentials (DTensor gathers the dim)."""
+    x, dim, half_to_float = args
+    dim %= x.dim()
+    split = _splits(x, dim)
+    if not split:
+        return _unhandled(func, args, kwargs)
+    t = x._local_tensor
+    t = t.float() if half_to_float else t
+    m = _all_reduce(torch.amax(t, dim, keepdim=True), "max", x.device_mesh,
+                    split)
+    shifted = t - m
+    s = _all_reduce(torch.sum(torch.exp(shifted), dim, keepdim=True), "sum",
+                    x.device_mesh, split)
+    if func is torch.ops.aten._log_softmax.default:
+        return _dtensor(shifted - torch.log(s), *_like(x))
+    return _dtensor(torch.exp(shifted) / s, *_like(x))
+
+
+def _softmax_backward(func, args, kwargs):
+    """The backward of :func:`_softmax` where its output is split on the
+    dim: the row sums all-reduced, the gradient taken to the output's
+    placements."""
+    grad, out, dim, _ = args
+    dim %= out.dim()
+    split = _splits(out, dim)
+    if not split:
+        return _unhandled(func, args, kwargs)
+    g = _to(grad, out.placements)._local_tensor
+    y = out._local_tensor
+    if func is torch.ops.aten._log_softmax_backward_data.default:
+        s = _all_reduce(torch.sum(g, dim, keepdim=True), "sum",
+                        out.device_mesh, split)
+        return _dtensor(g - torch.exp(y) * s, *_like(out))
+    s = _all_reduce(torch.sum(g * y, dim, keepdim=True), "sum",
+                    out.device_mesh, split)
+    return _dtensor(y * (g - s), *_like(out))
+
+
+def _new_zeros(func, args, kwargs):
+    """Zeros are right under any placement.  They keep each split of
+    ``self`` whose dim keeps its size, and a dim that ``self`` holds at
+    size 1 (the gradient of a gather along it) is split over the mesh dims
+    that copy ``self``, as the tensor the gather read is split (DTensor
+    makes every new size replicated)."""
+    from torch.distributed.tensor import Replicate, Shard
+    x, size = args[0], tuple(args[1])
+    mesh = x.device_mesh
+    if len(size) != x.dim() or any(not (p.is_shard() or p.is_replicate())
+                                   for p in x.placements):
+        return _unhandled(func, args, kwargs)
+    placements = [p if p.is_shard() and size[p.dim] == x.shape[p.dim]
+                  else Replicate() for p in x.placements]
+    parts = [1] * len(size)
+    for p, n in zip(placements, mesh.shape):
+        if p.is_shard():
+            parts[p.dim] *= n
+    for i, n in enumerate(mesh.shape):
+        if placements[i].is_shard() or n == 1:
+            continue
+        for d, s in enumerate(size):
+            if x.shape[d] == 1 != s and s % (parts[d] * n) == 0:
+                placements[i] = Shard(d)
+                parts[d] *= n
+                break
+    local = list(size)
+    for d, k in enumerate(parts):
+        local[d] //= k
+    return _dtensor(x._local_tensor.new_zeros(local, **kwargs), mesh,
+                    placements, size)
+
+
+def _scatter_add(func, args, kwargs):
+    """``self.scatter_add(dim, index, src)`` where ``self`` is split on
+    ``dim``: each rank adds the entries whose index falls in its block,
+    shifted to the block (DTensor gathers ``self`` on the dim)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    x, dim, index, src = args
+    dim %= x.dim()
+    split = _splits(x, dim)
+    if not split or not all(isinstance(t, DTensor) for t in (index, src)):
+        return _unhandled(func, args, kwargs)
+    mesh = x.device_mesh
+    keep = tuple(Replicate() if i in split else p
+                 for i, p in enumerate(x.placements))
+    idx = _to(index, keep)._local_tensor
+    val = _to(src, keep)._local_tensor
+    t = x._local_tensor
+    coord, block = mesh.get_coordinate(), 0
+    for i in split:
+        block = block * mesh.shape[i] + coord[i]
+    n = t.shape[dim]
+    local = idx - block * n
+    inside = (local >= 0) & (local < n)
+    out = t.scatter_add(dim, local.clamp(0, n - 1),
+                        val * inside.to(val.dtype))
+    return _dtensor(out, *_like(x))
+
+
+def _matmul(func, args, kwargs):
+    """``a @ b`` (``mm``, ``bmm``) laid out as GSPMD lays out a dot, where
+    DTensor's choice, which weighs only the moves of its inputs, does not:
+
+    * a mesh dim that splits a's contracting dim and b's output dim: DTensor
+      may move b onto its contracting dim, leaving a partial product whose
+      reduction it does not weigh; a's contracting dim is gathered first
+      where that moves fewer bytes than the reduction;
+    * a mesh dim that splits a's rows and b's output dim (the queries and
+      the keys of attention): DTensor may move both onto the batch dim,
+      unevenly, where no later view holds them; the smaller input is
+      gathered first;
+    * a ``bmm`` whose batch dim a mesh dim splits in one input (the heads
+      of a (batch x heads) dim, a strided split) and copies in the other:
+      the copy is cut alike and each rank multiplies its blocks (DTensor
+      gathers the split);
+    * the product is reduced at once where it is a partial sum, scattered
+      over its last dim where that divides (as XLA reduces a dot's
+      partial sums before their uses): DTensor leaves it partial, and each
+      later op that needs the sum reduces its own copy."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    a, b = args
+    if not (isinstance(a, DTensor) and isinstance(b, DTensor)) or \
+            any(p.is_partial() for p in a.placements + b.placements):
+        return _unhandled(func, args, kwargs)
+    mesh = a.device_mesh
+    k, n = a.dim() - 1, b.dim() - 1
+
+    def gathered(x, i):
+        return _to(x, tuple(Replicate() if j == i else p
+                            for j, p in enumerate(x.placements)))
+    rows = a._local_tensor.numel() // a._local_tensor.shape[-1]
+    for i, (p, q) in enumerate(zip(a.placements, b.placements)):
+        if not q.is_shard(n):
+            continue
+        g = mesh.shape[i]
+        if p.is_shard(k) and _nbytes(a._local_tensor) * (g - 1) < \
+                rows * b.shape[-1] * a.element_size() * (g - 1) / g:
+            a = gathered(a, i)
+        elif p.is_shard(k - 1):
+            if _nbytes(b._local_tensor) <= _nbytes(a._local_tensor):
+                b = gathered(b, i)
+            else:
+                a = gathered(a, i)
+    if a.dim() == 3:
+        out = _batched(a, b)
+        if out is not None:
+            return out
+    out = _unhandled(func, (a, b), kwargs)
+    if not any(p.is_partial() for p in out.placements):
+        return out
+    last = out.dim() - 1
+    parts = _prod(n for p, n in zip(out.placements, mesh.shape)
+                  if p.is_shard(last))
+    placements = list(out.placements)
+    for i, (p, n) in enumerate(zip(out.placements, mesh.shape)):
+        if p.is_partial():
+            # (a split nested inside one a later mesh dim holds would
+            # move that one's blocks too)
+            split = out.shape[last] % (parts * n) == 0 and not any(
+                q.is_shard(last) for q in out.placements[i + 1:])
+            parts *= n if split else 1
+            placements[i] = Shard(last) if split else Replicate()
+    return _to(out, tuple(placements))
+
+
+def _slice(func, args, kwargs):
+    """A cut of a split dim (the SSM's ``z``, ``xBC`` and ``dt`` out of its
+    fused projection): its split moved to an earlier dim (an all-to-all),
+    the cut made whole there, and moved back where the cut divides, as
+    GSPMD reshards a slice (DTensor gathers the dim)."""
+    from torch.distributed.tensor import Shard
+    x = args[0]
+    dim = (args[1] if len(args) > 1 else 0) % x.dim()
+    split = _splits(x, dim)
+    step = args[4] if len(args) > 4 else 1
+    if not split or step != 1:
+        return _unhandled(func, args, kwargs)
+    mesh = x.device_mesh
+    parts = [_prod(n for p, n in zip(x.placements, mesh.shape)
+                   if p.is_shard(d)) for d in range(x.dim())]
+    moved = list(x.placements)
+    for i in split:
+        n = mesh.shape[i]
+        for d in reversed(range(dim)):
+            if x.shape[d] % (parts[d] * n) == 0:
+                moved[i] = Shard(d)
+                parts[d] *= n
+                break
+        else:
+            return _unhandled(func, args, kwargs)
+    out = _unhandled(func, (_to(x, tuple(moved)), *args[1:]), kwargs)
+    if out.shape[dim] % _prod(mesh.shape[i] for i in split) == 0:
+        out = _to(out, x.placements)
+    return out
+
+
+def _split_dim(p):
+    """The tensor dim a placement splits (a ``Shard``'s or a strided
+    split's, which torch 2.13 does not count as a ``Shard``), else None."""
+    return None if p.is_replicate() or p.is_partial() else p.dim
+
+
+def _cut(x, placements):
+    """``x`` cut to ``placements`` on each mesh dim that copies it: each
+    rank keeps its block of the local tensor (a view; a strided split's
+    blocks, one from each of its ``split_factor`` pieces, joined in one
+    copy), where DTensor's redistribute cuts it chunk by chunk."""
+    from torch.distributed.tensor import DTensor
+    mesh, coord = x.device_mesh, x.device_mesh.get_coordinate()
+    t = x._local_tensor
+    for i, p in enumerate(placements):
+        if not x.placements[i].is_replicate() or p.is_replicate():
+            continue
+        n, d, shape = mesh.shape[i], p.dim, t.shape
+        sf = getattr(p, "split_factor", 1)
+        t = t.reshape(*shape[:d], sf, n, shape[d] // (sf * n),
+                      *shape[d + 1:]).select(d + 1, coord[i]).reshape(
+            *shape[:d], shape[d] // n, *shape[d + 1:])
+    return DTensor.from_local(t, mesh, tuple(placements), run_check=False,
+                              shape=x.shape, stride=x.stride())
+
+
+def _batched(a, b):
+    """``bmm(a, b)`` on each rank's blocks where no mesh dim splits the
+    contracting dim: each mesh dim splits the batch dim of both alike, or
+    a's rows, or b's columns, or neither.  A mesh dim that splits the
+    batch dim of one input copies the other cut to match; where it splits
+    the other otherwise (another dim, or the batch dim in another order),
+    that input is gathered first if it is the smaller.  None where the
+    placements are otherwise."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = a.device_mesh
+    pa, pb, out = list(a.placements), list(b.placements), []
+    small_b = _nbytes(b._local_tensor) <= _nbytes(a._local_tensor)
+    gather_a, gather_b = list(pa), list(pb)
+    for i, (p, q) in enumerate(zip(pa, pb)):
+        if p != q and not (p.is_replicate() or q.is_replicate()):
+            if _split_dim(p) == 0 and small_b:
+                gather_b[i] = q = Replicate()
+            elif _split_dim(q) == 0 and not small_b:
+                gather_a[i] = p = Replicate()
+        if _split_dim(p) == 0 and q.is_replicate():
+            pb[i] = q = p
+        elif _split_dim(q) == 0 and p.is_replicate():
+            pa[i] = p = q
+        else:
+            pa[i], pb[i] = p, q
+        if _split_dim(p) == 0 and p == q:
+            out.append(p)
+        elif p.is_replicate() and q.is_replicate():
+            out.append(p)
+        elif p.is_shard(1) and q.is_replicate():
+            out.append(Shard(1))
+        elif p.is_replicate() and q.is_shard(2):
+            out.append(Shard(2))
+        else:
+            return None
+    a = _cut(_to(a, tuple(gather_a)), pa)
+    b = _cut(_to(b, tuple(gather_b)), pb)
+    return _dtensor(torch.bmm(a._local_tensor, b._local_tensor), mesh,
+                    tuple(out), (a.shape[0], a.shape[1], b.shape[2]))
+
+
+def _view(func, args, kwargs):
+    """A view DTensor fails on: a split dim cut into more parts than it
+    has ranks (8 heads out of a dim split 16 ways), or (torch 2.11) dims
+    merged with more than their outermost split.  Each split of a dim the
+    view keeps, or of the outermost dim of a merge, stays; each other
+    moves to the innermost such dim it divides (the sequence, for a head
+    reshape: the split GSPMD keeps by tiling the heads), else is
+    gathered.  Then DTensor's view, or the fallback's whole tensors
+    (:func:`_run_replicated`) where it fails again."""
+    from torch.distributed.tensor import Replicate, Shard
+    try:
+        return _unhandled(func, args, kwargs)
+    except Exception:  # noqa: BLE001 (DTensor's failures vary by version)
+        x, shape = args[0], list(args[1])
+        if -1 in shape:
+            shape[shape.index(-1)] = x.numel() // -_prod(shape)
+        kept = 0
+        while kept < min(x.dim(), len(shape)) and x.shape[kept] == \
+                shape[kept]:
+            kept += 1
+        if kept < len(shape) and x.dim() > kept + 1 and \
+                x.shape[kept] * x.shape[kept + 1] <= shape[kept] and \
+                shape[kept] % x.shape[kept] == 0:
+            kept += 1      # a merge's outermost dim: its blocks stay whole
+        placements = [p if p.is_shard() and p.dim < kept else None
+                      for p in x.placements]
+        parts = [1] * kept
+        for p, n in zip(placements, x.device_mesh.shape):
+            if p is not None:
+                parts[p.dim] *= n
+        for i, n in enumerate(x.device_mesh.shape):
+            if placements[i] is not None:
+                continue
+            placements[i] = Replicate()
+            if not x.placements[i].is_shard():
+                continue
+            for d in reversed(range(kept)):
+                if x.shape[d] % (parts[d] * n) == 0:
+                    placements[i] = Shard(d)
+                    parts[d] *= n
+                    break
+        if tuple(placements) == tuple(x.placements):
+            raise
+        return _unhandled(func, (_to(x, tuple(placements)), *args[1:]),
+                          kwargs)
+
+
+def _select(func, args, kwargs):
+    """``x.select(dim, i)`` on a split dim (the ring write of a decode
+    step, the last position of a prefill): a view of one rank's block, as
+    GSPMD updates and reads a split cache in place (DTensor gathers the
+    dim).  The dry run's rank stands for the owner of row ``i``."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    x, dim, i = args
+    dim %= x.dim()
+    split = _splits(x, dim)
+    if not split:
+        return _unhandled(func, args, kwargs)
+    t = x._local_tensor
+    view = t.select(dim, (i % x.shape[dim]) % t.shape[dim])
+    placements = tuple(
+        Replicate() if not p.is_shard() or p.dim == dim else
+        Shard(p.dim - (p.dim > dim)) for p in x.placements)
+    drop = lambda v: tuple(v[:dim]) + tuple(v[dim + 1:])  # noqa: E731
+    return DTensor.from_local(view, x.device_mesh, placements,
+                              run_check=False, shape=drop(x.shape),
+                              stride=drop(x.stride()))
+
+
+def _index(func, args, kwargs):
+    """``x[idx]`` (one index tensor, on dim 0) where x is split on dim 0:
+    each rank looks up the ids in its block and the rows are all-reduced,
+    as GSPMD partitions the gather (a vocab-split embedding), where that
+    moves fewer bytes than moving the table's split onto its outermost
+    other dim that divides (an all-to-all) and looking up whole rows (the
+    ring read through a block table; torch 2.11's DTensor gathers the
+    table)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    x, indices = args
+    idx = indices[0] if len(indices) == 1 else None
+    split = _splits(x, 0)
+    if idx is None or not split:
+        return _unhandled(func, args, kwargs)
+    mesh = x.device_mesh
+    idx_pl = idx.placements if isinstance(idx, DTensor) else \
+        (Replicate(),) * mesh.ndim
+    if any(not q.is_replicate() and not p.is_replicate()
+           for p, q in zip(x.placements, idx_pl)) or \
+            any(q.is_partial() for q in idx_pl):
+        return _unhandled(func, args, kwargs)
+    local_idx = idx._local_tensor if isinstance(idx, DTensor) else idx
+    t = x._local_tensor
+    row = _nbytes(t) // t.shape[0]
+    if 2 * local_idx.numel() * row >= _nbytes(t):
+        moved, parts = list(x.placements), [1] * x.dim()
+        for i in split:
+            n = mesh.shape[i]
+            for d in range(1, x.dim()):
+                if x.shape[d] % (parts[d] * n) == 0 and not any(
+                        p.is_shard(d) for p in x.placements):
+                    moved[i] = Shard(d)
+                    parts[d] *= n
+                    break
+            else:
+                return _unhandled(func, args, kwargs)
+        return _unhandled(func, (_to(x, tuple(moved)), indices), kwargs)
+    coord, block = mesh.get_coordinate(), 0
+    for i in split:
+        block = block * mesh.shape[i] + coord[i]
+    n = t.shape[0]
+    shifted = local_idx.long() - block * n
+    inside = (shifted >= 0) & (shifted < n)
+    rows = t[shifted.clamp(0, n - 1)]
+    rows = rows * inside.reshape(*inside.shape, *(1,) * (t.dim() - 1)) \
+        .to(rows.dtype)
+    rows = _all_reduce(rows, "sum", mesh, split)
+    k = local_idx.dim()
+    placements = tuple(
+        q if p.is_replicate() else
+        Replicate() if p.is_shard(0) else Shard(p.dim - 1 + k)
+        for p, q in zip(x.placements, idx_pl))
+    return _dtensor(rows, mesh, placements,
+                    tuple(idx.shape) + tuple(x.shape[1:]))
+
+
+def _index_put(func, args, kwargs):
+    """``x[..., idx, ...] = values`` in place (a prefill writing its ring
+    cache), ``values`` placed as x.  Where ``idx`` covers a split dim of
+    x whole and ``values`` has x's shape, each rank writes its block of
+    the values into its block of x, as GSPMD writes a ring that has not
+    wrapped (DTensor gathers the whole cache; a wrapped ring's rotation, a
+    permute of blocks, is not counted).  Where the dim is whole on every
+    rank, each writes its blocks at the same indices (torch 2.11's DTensor
+    has no rule for it)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    x, indices, values = args[:3]
+    accumulate = args[3] if len(args) > 3 else kwargs.get("accumulate",
+                                                          False)
+    dims = [d for d, i in enumerate(indices) if i is not None]
+    # (``x[...] = v`` hands index_put_ v without its leading 1-dims)
+    lead = x.dim() - values.dim() if isinstance(values, DTensor) else -1
+    idx = indices[dims[0]] if len(dims) == 1 else None
+    if idx is None or accumulate or lead < 0 or \
+            tuple(values.shape) != tuple(x.shape[lead:]) or \
+            any(n != 1 for n in x.shape[:lead]) or \
+            idx.numel() != x.shape[dims[0]] or \
+            any(p.is_partial() for p in x.placements) or \
+            (isinstance(idx, DTensor) and
+             not all(p.is_replicate() for p in idx.placements)):
+        return _unhandled(func, args, kwargs)
+    placements = tuple(Shard(p.dim - lead) if p.is_shard() else Replicate()
+                       for p in x.placements)
+    v = _to(values, placements)._local_tensor
+    if _splits(x, dims[0]):
+        x._local_tensor.copy_(v)
+    else:
+        local = [None] * x.dim()
+        local[dims[0]] = idx._local_tensor if isinstance(idx, DTensor) \
+            else idx
+        func(x._local_tensor, local, v)
+    return x
+
+
+def _prod(xs) -> int:
+    n = 1
+    for x in xs:
+        n *= x
+    return n
+
+
+def _handlers():
+    """{op: the dry run's split form of it} (see each handler)."""
+    aten = torch.ops.aten
+    return {aten._softmax.default: _softmax,
+            aten._log_softmax.default: _softmax,
+            aten._softmax_backward_data.default: _softmax_backward,
+            aten._log_softmax_backward_data.default: _softmax_backward,
+            aten.new_zeros.default: _new_zeros,
+            aten.scatter_add.default: _scatter_add,
+            aten.mm.default: _matmul, aten.bmm.default: _matmul,
+            aten.view.default: _view, aten._unsafe_view.default: _view,
+            aten.slice.Tensor: _slice, aten.select.int: _select,
+            aten.index.Tensor: _index, aten.index_put_.default: _index_put}
+
+
+@contextlib.contextmanager
+def _split_ops():
+    """Give DTensor the split forms of :func:`_handlers`' ops for the
+    duration (its custom-handler table, as ``loss_parallel`` does); each
+    falls back to DTensor's own rule where its dim is not split."""
+    from torch.distributed.tensor import DTensor
+    table = DTensor._op_dispatcher._custom_op_handlers
+    mine = _handlers()
+    clash = set(mine) & set(table)
+    if clash:
+        raise RuntimeError(
+            f"DTensor already handles {sorted(map(str, clash))}")
+    table.update(mine)
+    try:
+        yield
+    finally:
+        for op in mine:
+            table.pop(op, None)
 
 
 def _whole(x):
@@ -254,8 +809,9 @@ def _whole(x):
         t = t.new_empty(x.shape)
     t = t[tuple(slice(0, n) for n in x.shape)]
     if t.stride() != x.stride():
-        t = torch.empty_strided(x.shape, x.stride(), dtype=t.dtype,
-                                device=t.device).copy_(t)
+        # (a method of the fake block, so fake: a factory function here,
+        # outside the fake mode, would allocate the whole tensor)
+        t = t.new_empty_strided(x.shape, x.stride()).copy_(t)
     return t
 
 
@@ -328,6 +884,7 @@ class RankCost(TorchDispatchMode):
         self._live: Dict[int, int] = {}
         self.live_bytes = 0
         self.peak_bytes = 0
+        self.read = set()           # ids of the storages an op read
         self._in_dtensor = False
 
     def track(self, tensors) -> int:
@@ -396,9 +953,14 @@ class RankCost(TorchDispatchMode):
             self.collectives.append(Collective(
                 _COLLECTIVE_OPS[name], sum(_nbytes(t) for t in outs),
                 _group_size(func, args, kwargs)))
+        ins = _tensors((args, kwargs))
         if not func.is_view and name != "wait_tensor":
-            self.bytes_accessed += sum(
-                _nbytes(t) for t in _tensors((args, kwargs)) + outs)
+            self.bytes_accessed += sum(_nbytes(t) for t in ins + outs)
+        # what an op copies from (a view's schema may copy: ``to``)
+        in_ids = {id(t.untyped_storage()) for t in ins}
+        if not func.is_view or any(id(t.untyped_storage()) not in in_ids
+                                   for t in outs):
+            self.read.update(in_ids)
         self.track(outs)
         return out
 
@@ -410,7 +972,7 @@ def counting(cost: RankCost):
     replicated."""
     from torch.distributed.tensor.experimental import implicit_replication
     with _marking_propagation(), _all_to_all_on_cpu_meshes(), \
-            implicit_replication(), cost:
+            _split_ops(), implicit_replication(), cost:
         yield cost
 
 
@@ -444,6 +1006,25 @@ def _place(tree, placements, mesh):
                         dtype=tree.dtype)
     return DTensor.from_local(local, mesh, placements, run_check=False,
                               shape=tree.shape, stride=tree.stride())
+
+
+def _placed(tree, placements, mesh):
+    """``tree``'s DTensors redistributed to ``placements`` (a tree of the
+    same structure; None keeps a subtree as it is), as the reference's
+    ``out_shardings`` place its step's outputs."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if placements is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: _placed(v, placements.get(k), mesh)
+                for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_placed(v, p, mesh) for v, p in zip(tree, placements))
+    if not isinstance(tree, DTensor):
+        return tree
+    return tree.redistribute(mesh, tuple(
+        Replicate() if size == 1 else p
+        for size, p in zip(mesh.shape, placements)))
 
 
 def _locals(tree) -> List[torch.Tensor]:
@@ -489,7 +1070,8 @@ def _apply_overrides(cfg, overrides):
 def _step(bundle, cfg, shape, mesh, rules, multi_pod, full_finetune,
           ccl_weight, use_mma):
     """(run, args): the step of ``shape.kind`` as a closure over DTensor
-    arguments placed on ``mesh``, and those arguments (a tree)."""
+    arguments placed on ``mesh``, its outputs placed as the reference's
+    ``out_shardings`` place them, and those arguments (a tree)."""
     from torch.distributed.tensor import Replicate
     params_st = S.model_structs(bundle)
     p_sh = S.shardings(param_pspecs(params_st, rules, mesh), mesh)
@@ -513,7 +1095,9 @@ def _step(bundle, cfg, shape, mesh, rules, multi_pod, full_finetune,
         batch = _place(S.train_batch_structs(cfg, shape, device="cpu"),
                        S.shardings(S.train_batch_pspecs(cfg, rules), mesh),
                        mesh)
-        return (lambda: step(params, opt_state, batch),
+        o_sh = {"step": repl, "mu": t_sh, "nu": t_sh}
+        return (lambda: _placed(step(params, opt_state, batch),
+                                (p_sh, o_sh, None), mesh),
                 (params, opt_state, batch))
 
     if shape.kind == "prefill":
@@ -526,7 +1110,13 @@ def _step(bundle, cfg, shape, mesh, rules, multi_pod, full_finetune,
                 dtype=cfg.torch_dtype)
             b_specs["frontend_embeds"] = rules.spec("batch", None, None)
         batch = _place(b_st, S.shardings(b_specs, mesh), mesh)
-        return lambda: bundle.prefill(params, batch), (params, batch)
+
+        def prefill():
+            logits, cache = bundle.prefill(params, batch)
+            c_specs = S.cache_pspecs(cfg, cache, mesh, multi_pod)
+            return _placed((logits, cache),
+                           (repl, S.shardings(c_specs, mesh)), mesh)
+        return prefill, (params, batch)
 
     cache_st = bundle.init_cache(shape.global_batch, shape.seq_len, "cpu")
     c_sh = S.shardings(S.cache_pspecs(cfg, cache_st, mesh, multi_pod), mesh)
@@ -536,7 +1126,9 @@ def _step(bundle, cfg, shape, mesh, rules, multi_pod, full_finetune,
         if shape.global_batch % bsz["data"] == 0 else Spec(None, None)
     toks = _place(inp["tokens"], S.shardings(tok_spec, mesh), mesh)
     serve = make_serve_step(bundle)
-    return (lambda: serve(params, cache, toks, inp["pos"]),
+    out_sh = (S.shardings(Spec(tok_spec[0], "model"), mesh), c_sh)
+    return (lambda: _placed(serve(params, cache, toks, inp["pos"]), out_sh,
+                            mesh),
             (params, cache, toks))
 
 
@@ -566,6 +1158,7 @@ def dryrun_one(arch: str, shape_name: str, multi_pod: bool = False,
                                         device_type="cpu")
         t0 = time.time()
         stack.enter_context(FakeTensorMode(allow_non_fake_inputs=True))
+        stack.enter_context(sharding_context(mesh, rules))
         run, args = _step(bundle, cfg, shape, mesh, rules, multi_pod,
                           full_finetune, ccl_weight, use_mma)
         cost = RankCost()
@@ -574,14 +1167,19 @@ def dryrun_one(arch: str, shape_name: str, multi_pod: bool = False,
         with counting(cost):
             out = run()
         t_compile = time.time() - t0 - t_lower
-        arg_ids = {id(t.untyped_storage()) for t in _locals(args)}
+        arg_st = {id(t.untyped_storage()): t.untyped_storage().nbytes()
+                  for t in _locals(args)}
         out_st = {id(t.untyped_storage()): t.untyped_storage().nbytes()
                   for t in _locals(out)}
-        mem = {"argument_size_in_bytes": arg_bytes,
+        # as jit's keep_unused=False: an argument no op reads and no
+        # output holds is not one
+        mem = {"argument_size_in_bytes": sum(
+                   n for k, n in arg_st.items()
+                   if k in cost.read or k in out_st),
                "output_size_in_bytes": sum(n for k, n in out_st.items()
-                                           if k not in arg_ids),
+                                           if k not in arg_st),
                "alias_size_in_bytes": sum(n for k, n in out_st.items()
-                                          if k in arg_ids),
+                                          if k in arg_st),
                "temp_size_in_bytes": cost.peak_bytes - arg_bytes}
         chips = n_chips(mesh)
         del out, run, args
@@ -618,6 +1216,7 @@ def dryrun_one(arch: str, shape_name: str, multi_pod: bool = False,
         "n_lora_params": cfg.n_lora_params(),
         "path": PATH,
         "replicated_ops": dict(sorted(cost.replicated.items())),
+        "torch": torch.__version__,
     }
 
 

@@ -35,7 +35,7 @@ from repro_torch.models.layers import unembed
 from repro_torch.optim.adamw import Optimizer, adamw, apply_updates
 
 # The reference also imports its sharding hook (``constrain``) here and
-# never calls it in this file; the port has no sharding yet.
+# never calls it in this file; the port's calls sit in the model modules.
 
 
 def _nll(logits, tgt):

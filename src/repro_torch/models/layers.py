@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.sharding.partition import constrain, constrain_kv_cache
 
 BIG_WINDOW = 1 << 30   # stands for "no window" in per-layer window lists
 
@@ -246,6 +247,8 @@ def decode_attention(p, cfg: ModelConfig, x, pos: int, cache_k, cache_v,
     cache_k[:, slot] = k_new[:, 0]
     cache_v[:, slot] = v_new[:, 0]
     cache_positions[slot] = pos
+    cache_k = constrain_kv_cache(cache_k)
+    cache_v = constrain_kv_cache(cache_v)
     tables = torch.arange(B, dtype=torch.int32, device=x.device)[:, None]
     lens = torch.full((B,), min(pos + 1, S_c), dtype=torch.int32,
                       device=x.device)
@@ -276,6 +279,7 @@ def mlp(p, cfg: ModelConfig, x):
         h = F.gelu(x @ p["w_gate"], approximate="tanh") * up
     else:
         h = F.gelu(up, approximate="tanh")
+    h = constrain(h, "batch", "seq", "act_ff") if h.dim() == 3 else h
     return h @ p["w_down"]
 
 
@@ -309,4 +313,6 @@ def embed(p, cfg: ModelConfig, tokens):
 def unembed(p, cfg: ModelConfig, x):
     """Logits in float32 over the padded vocab."""
     w = p["embed"].T if cfg.tie_embeddings else p["unembed"]
-    return (x @ w).float()
+    logits = (x @ w).float()
+    return constrain(logits, "batch", "seq", "vocab") if logits.dim() == 3 \
+        else logits

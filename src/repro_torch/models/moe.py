@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import _dense_init
+from repro_torch.sharding.partition import constrain
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -79,7 +80,12 @@ def moe_mlp(p, cfg: ModelConfig, x, clients: int | None = None):
     within its own assignments, and its own aux, so aux is (G,).  All G
     clients' experts run as one set of three ``torch.bmm`` on (E, G * C,
     d) buffers, client g's slots at rows g * C .. g * C + C - 1 of each
-    expert."""
+    expert.
+
+    An unstacked call constrains its (E, C, d) buffers and the experts'
+    outputs as the reference does (experts over "model"; a no-op outside
+    a ``sharding_context``); the stacked form keeps its layout, as the
+    reference's constraint under ``vmap`` has no counterpart here."""
     Bsz, S, d = x.shape
     G = clients or 1
     T = Bsz * S // G
@@ -101,9 +107,14 @@ def moe_mlp(p, cfg: ModelConfig, x, clients: int | None = None):
     buf = xf.new_zeros((E * G * C + 1, d))
     buf[torch.where(keep, row, E * G * C)] = xf.repeat_interleave(K, dim=0)
     buf = buf[:E * G * C].view(E, G * C, d)
+    if not clients:
+        buf = constrain(buf, "act_experts", "batch", None)
 
     h = F.silu(torch.bmm(buf, p["we_gate"])) * torch.bmm(buf, p["we_up"])
-    out = torch.bmm(h, p["we_down"]).view(E * G * C, d)
+    out = torch.bmm(h, p["we_down"])
+    if not clients:
+        out = constrain(out, "act_experts", "batch", None)
+    out = out.view(E * G * C, d)
 
     w = (keep.float() * gate.reshape(G * T * K)).to(out.dtype)
     y = (out[row] * w[:, None]).view(G * T, K, d).sum(dim=1)

@@ -26,6 +26,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.sharding.partition import constrain
 
 
 # ---------------------------------------------------------------------------
@@ -85,7 +86,8 @@ def ssm_block(p, cfg: ModelConfig, x, return_state: bool = False):
     di, N, H, G, P = (cfg.d_inner, cfg.ssm_state, cfg.ssm_heads,
                       cfg.ssm_groups, cfg.ssm_head_dim)
     Bsz, S, _ = x.shape
-    z, xBC_raw, dt = _split(cfg, L.proj(p, "in_proj", x, cfg))
+    zxbcdt = constrain(L.proj(p, "in_proj", x, cfg), "batch", "seq", "act_ssm")
+    z, xBC_raw, dt = _split(cfg, zxbcdt)
     xBC = F.silu(causal_conv(xBC_raw, p["conv_w"], p["conv_b"]))
     xs = xBC[..., :di].reshape(Bsz, S, H, P)
     B_ = xBC[..., di:di + G * N].reshape(Bsz, S, G, N)
@@ -192,6 +194,7 @@ def forward(params, cfg: ModelConfig, tokens,
     x = L.embed(params["tok"], cfg, tokens)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    x = constrain(x, "batch", "seq", None)
     remat = cfg.remat and torch.is_grad_enabled() and not collect_state
     hs, convs = [], []
     for i in range(cfg.n_layers):

@@ -15,7 +15,11 @@ and the forward sums its layers' auxiliary load-balance losses.
 ``attn_impl="banded"`` computes the same function as ``"masked"``: every
 layer's attention goes through ``ops.attention`` with the layer's window,
 and kernel B starts each query tile's key walk at the window's first key,
-so it does the reference's banded work (``models/banded.py``) and no more.
+so it does the reference's banded work (``models/banded.py``) and no more;
+the five ``constrain`` points of that module have no counterpart here.
+The activation constraints (``sharding.partition.constrain``) sit where
+the reference's do: the residual stream after the prefix and after each
+layer's attention, a decode step's embedding.
 
 Serving from a ring cache (``init_cache``, ``prefill``, ``decode_step``)
 keeps the reference's layout: k / v (L, B, S_c, K, hd), pos (L, S_c).
@@ -33,6 +37,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
+from repro_torch.sharding.partition import constrain
 
 
 # ---------------------------------------------------------------------------
@@ -135,7 +140,7 @@ def _block(lp, cfg: ModelConfig, x, positions, window: int,
         ssm_out, st = ssm_lib.ssm_block(lp["ssm"], cfg, h, return_state=True)
         attn_out = 0.5 * (attn_out + ssm_out)
         state = (st["h"], st["conv"])
-    x = x + attn_out
+    x = constrain(x + attn_out, "batch", "seq", None)
     y, aux = ffn(lp, cfg, L.rms_norm(x, lp["ln2"], cfg.norm_eps), clients)
     return x + y, kv, state, aux
 
@@ -162,6 +167,7 @@ def forward(params, cfg: ModelConfig, tokens,
     x = L.embed(params["tok"], cfg, tokens)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    x = constrain(x, "batch", "seq", None)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     collected = []
@@ -262,7 +268,7 @@ def decode_step(params, cfg: ModelConfig, cache: dict, tokens, pos: int):
 
     Returns (logits (B, V) float32, cache)."""
     pos = int(pos)
-    x = L.embed(params["tok"], cfg, tokens)
+    x = constrain(L.embed(params["tok"], cfg, tokens), "batch", "seq", None)
     hybrid = cfg.family == "hybrid"
     for i, w in enumerate(window_array(cfg)):
         lp = L.layer_params(params["layers"], i)

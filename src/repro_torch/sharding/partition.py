@@ -10,12 +10,15 @@ movement: the stacked engines' client axis (:func:`client_block`,
 :func:`place_stacked`, the runner's gathers), ``moe_mlp_sharded``'s expert
 split and ``mma_psum_weights``.
 
-:func:`constrain` and :func:`constrain_kv_cache` are hints to XLA's
-partitioner in the reference, and eager PyTorch has no partitioner.  So
-here they keep the reference's contract only (a ``ValueError`` on a rank
-mismatch inside a :func:`sharding_context`, the identity outside one) and
-return ``x``.  The port's model code does not call them: the host sets
-the pace of every path, and a no-op call a layer would only add host time.
+The reference's :func:`constrain` and :func:`constrain_kv_cache` are
+``with_sharding_constraint`` hints to XLA's partitioner; the port's model
+calls them at the reference's points (the banded module's five aside: the
+port has no banded module).  Outside a :func:`sharding_context` they
+return ``x`` itself, so the card's paths see nothing of them.  Inside one,
+a ``DTensor`` (the dry run's: ``launch/dryrun.py`` enters the context) is
+redistributed to the placements of the sanitized spec, and its gradient
+to the same placements on the way back, as JAX's transpose of the
+constraint constrains the cotangent; a plain tensor is returned as it is.
 
 A mesh is read through its ``mesh_dim_names`` and ``shape`` (a DeviceMesh),
 or given as a ``(names, shape)`` pair where no process group is needed
@@ -84,13 +87,55 @@ def _sanitize_spec(spec, shape, mesh) -> Spec:
     return Spec(*out)
 
 
+class _Constrain(torch.autograd.Function):
+    """A DTensor redistributed to ``placements``, its gradient too (DTensor's
+    own ``redistribute`` sends the gradient back to the input's
+    placements)."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.placements = placements
+        return x.redistribute(x.device_mesh, placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(g.device_mesh, ctx.placements), None
+
+
+def _constrained(x, spec: Spec):
+    """``x`` (a DTensor) at ``spec``'s placements on its mesh (a split over
+    a mesh dim of one rank is none: replicated, as the dry run places its
+    inputs): ``x`` itself where it already has them and needs no
+    gradient."""
+    from torch.distributed.tensor import Replicate
+    mesh = x.device_mesh
+    placements = tuple(Replicate() if n == 1 else p for n, p in
+                       zip(mesh.shape, tree_shardings(spec, mesh)))
+    if tuple(x.placements) == placements and not x.requires_grad:
+        return x
+    return _Constrain.apply(x, placements)
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
 def constrain(x, *logical: Optional[str]):
-    """The reference's activation constraint: ``x`` itself (eager PyTorch
-    has no partitioner to hint); inside a context the logical axes must
-    match ``x``'s rank."""
-    if current_context() is not None and x.dim() != len(logical):
+    """The reference's activation constraint.  Outside a context ``x``
+    itself; inside one the logical axes must match ``x``'s rank, and a
+    DTensor comes out at the placements of the rules' spec, sanitized
+    against its shape (a plain tensor as it is)."""
+    ctx = current_context()
+    if ctx is None:
+        return x
+    if x.dim() != len(logical):
         raise ValueError(f"rank {x.dim()} vs logical axes {logical}")
-    return x
+    if not _is_dtensor(x):
+        return x
+    mesh, rules = ctx
+    return _constrained(x, _sanitize_spec(rules.spec(*logical),
+                                          tuple(x.shape), mesh))
 
 
 def kv_cache_axes(B: int, Sc: int, K: int, sizes: dict, multi_pod: bool):
@@ -122,12 +167,21 @@ def kv_cache_axes(B: int, Sc: int, K: int, sizes: dict, multi_pod: bool):
 
 
 def constrain_kv_cache(x):
-    """x: (B, Sc, K, hd).  ``x`` itself, as :func:`constrain`; inside a
-    context ``x`` must be rank 4."""
-    if current_context() is not None and x.dim() != 4:
+    """x: (B, Sc, K, hd) under the shared KV-cache policy
+    (:func:`kv_cache_axes`), as :func:`constrain`: ``x`` itself outside a
+    context; inside one ``x`` must be rank 4."""
+    ctx = current_context()
+    if ctx is None:
+        return x
+    if x.dim() != 4:
         raise ValueError(f"KV cache of rank {x.dim()}, expected "
                          "(B, Sc, K, hd)")
-    return x
+    if not _is_dtensor(x):
+        return x
+    sizes = mesh_sizes(ctx[0])
+    B, Sc, K, _ = x.shape
+    b_ax, s_ax, k_ax = kv_cache_axes(B, Sc, K, sizes, "pod" in sizes)
+    return _constrained(x, Spec(b_ax, s_ax, k_ax, None))
 
 
 # ---------------------------------------------------------------------------

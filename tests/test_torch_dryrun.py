@@ -236,8 +236,9 @@ def test_rank_cost_counts_one_ranks_share(fake_256):
     """x (4096, 4096) split over "data" by rows, W1 column- and W2
     row-parallel over "model": the whole product is 2^38 FLOP, a rank's
     local matmuls 2^30 (1/256); the partial sums reduce over the 16 ranks
-    of a "model" group in one all-reduce of the rank's (256, 4096) bf16
-    block."""
+    of a "model" group at the product, scattered over its columns, and the
+    row split asked for gathers them: the bytes of one all-reduce of the
+    rank's (256, 4096) bf16 block."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed.tensor import DTensor, Replicate, Shard
     from torch.utils.flop_counter import FlopCounterMode
@@ -259,7 +260,9 @@ def test_rank_cost_counts_one_ranks_share(fake_256):
             (x @ w1) @ w2
     assert glob.get_total_flops() == 274_877_906_944
     assert cost.flops == 274_877_906_944 // 256
-    assert cost.collectives == [D.Collective("all-reduce", 256 * n * 2, 16)]
+    assert cost.collectives == [
+        D.Collective("reduce-scatter", 256 * n * 2 // 16, 16),
+        D.Collective("all-gather", 256 * n * 2, 16)]
     assert y.to_local().shape == (256, n) and not cost.replicated
     coll = D.collective_bytes(cost.collectives)
     assert coll["total_bytes"] == 2.0 * 256 * n * 2 * 15 / 16

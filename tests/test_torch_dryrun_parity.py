@@ -1,0 +1,267 @@
+"""The port's activation constraints and its dry run's split ops, and the
+dry run held against the reference's own dry run, on the CPU.
+
+* ``constrain`` / ``constrain_kv_cache`` at the reference's eleven call
+  sites (outside ``banded.py``): outside a ``sharding_context`` each call
+  returns its argument itself, for every site's function on a toy config;
+* inside a context on a fake-group mesh, a DTensor comes out at the
+  placements of the sanitized spec (the KV cache's from ``kv_cache_axes``)
+  and its gradient goes back on those placements;
+* ``launch.dryrun``'s table of DTensor ops it splits as GSPMD does: each
+  one installed for the dry run only; ``new_zeros`` follows ``self``;
+  the full CE's gradient comes out placed like its logits;
+* one toy cell through both packages' ``dryrun_one`` in child processes
+  (``tools/dryrun_compare.py``): the port's temp and collective bytes a
+  rank within 4x of the reference's, its argument bytes equal;
+* the reference's own dry run refuses its Explicit-axes mesh (ROADMAP
+  fault 3.11 of the reference).
+"""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.mesh import _mesh, fake_world
+from repro_torch.launch.train import per_example_ce
+from repro_torch.models import layers, moe, ssm, transformer
+from repro_torch.models.model import build_model
+from repro_torch.sharding import partition as part
+from repro_torch.sharding import rules
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parent.parent
+
+DENSE = dict(name="toy", family="dense", n_layers=2, d_model=32, n_heads=4,
+             n_kv_heads=2, head_dim=8, d_ff=64, vocab_size=64,
+             lora_rank=4, remat=False, activation="silu", dtype="float32")
+MOE = dict(DENSE, family="moe", n_experts=4, top_k=2, d_ff_expert=16,
+           capacity_factor=1.25)
+SSM = dict(name="toy-ssm", family="ssm", n_layers=2, d_model=32,
+           vocab_size=64, ssm_state=8, ssm_head_dim=16, ssm_chunk=8,
+           lora_rank=4, lora_targets=("in_proj", "out_proj"), remat=False,
+           dtype="float32")
+
+# each site: (module holding the call, the function that calls it)
+SITES = [(transformer, "forward"), (transformer, "_block"),
+         (transformer, "decode_step"), (layers, "mlp"), (layers, "unembed"),
+         (layers, "decode_attention"), (moe, "moe_mlp"), (ssm, "ssm_block"),
+         (ssm, "forward")]
+
+
+def _spy(monkeypatch):
+    """Every constrain call of the model modules: (caller, out is x)."""
+    calls = []
+
+    def wrap(fn):
+        def spy(x, *a):
+            out = fn(x, *a)
+            calls.append((sys._getframe(1).f_code.co_name, out is x))
+            return out
+        return spy
+    for mod in (transformer, layers, moe, ssm):
+        monkeypatch.setattr(mod, "constrain", wrap(part.constrain))
+    monkeypatch.setattr(layers, "constrain_kv_cache",
+                        wrap(part.constrain_kv_cache))
+    return calls
+
+
+def _run_family(kw):
+    """prefill, one decode step and a forward with logits of a toy model of
+    ``kw``, on the CPU."""
+    bundle = build_model(ModelConfig(**kw))
+    params = bundle.init(torch.Generator().manual_seed(0))
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, kw["vocab_size"], (2, 6)))
+    logits, cache = bundle.prefill(params, {"tokens": tokens})
+    bundle.decode_step(params, cache, tokens[:, :1], 6)
+    bundle.logits(params, {"tokens": tokens})
+    return logits
+
+
+@pytest.mark.parametrize("module,site", SITES,
+                         ids=[f"{m.__name__.split('.')[-1]}.{s}"
+                              for m, s in SITES])
+def test_constrain_outside_a_context_returns_its_argument(module, site,
+                                                         monkeypatch):
+    calls = _spy(monkeypatch)
+    kw = MOE if module is moe else SSM if module is ssm else DENSE
+    _run_family(kw)
+    at_site = [same for caller, same in calls if caller == site]
+    assert at_site and all(at_site), (site, calls)
+
+
+@pytest.fixture
+def mesh16():
+    """A (4, 4) ("data", "model") mesh over a fake 16-rank group."""
+    fake_world(16)
+    try:
+        yield _mesh("cpu", range(16), (4, 4), ("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _replicated(mesh, t):
+    from torch.distributed.tensor import DTensor, Replicate
+    return DTensor.from_local(t, mesh, [Replicate()] * 2, run_check=False)
+
+
+def test_constrain_places_a_dtensor_and_its_gradient(mesh16):
+    """("batch", "seq", "act_ff") on (8, 3, 16): batch over data, the
+    hidden dim over model; a dim the axis does not divide (6 over 4)
+    stays whole.  The gradient, arriving replicated, goes back at the
+    constrained placements (DTensor's own ``redistribute`` would send it
+    back replicated, as its input was).  A plain tensor, and a DTensor
+    already placed that needs no gradient, come back as they are."""
+    from torch.distributed.tensor import Replicate, Shard
+    ctx = (mesh16, rules.TRAIN_RULES)
+    x = _replicated(mesh16, torch.randn(8, 3, 16)).requires_grad_()
+    with part.sharding_context(*ctx):
+        y = part.constrain(x, "batch", "seq", "act_ff")
+        assert y.placements == (Shard(0), Shard(2))
+        assert y.to_local().shape == (2, 3, 4)
+        odd = part.constrain(_replicated(mesh16, torch.zeros(8, 3, 6)),
+                             "batch", "seq", "act_ff")
+        assert odd.placements == (Shard(0), Replicate())
+        again = part.constrain(y.detach(), "batch", "seq", "act_ff")
+        assert again.placements == y.placements
+        plain = torch.zeros(8, 3, 16)
+        assert part.constrain(plain, "batch", "seq", "act_ff") is plain
+        with pytest.raises(ValueError, match="rank 3"):
+            part.constrain(x, "batch", "seq")
+    y.backward(_replicated(mesh16, torch.ones(8, 3, 16)))
+    assert x.grad.placements == (Shard(0), Shard(2))
+    np.testing.assert_array_equal(x.grad.full_tensor().numpy(),
+                                  np.ones((8, 3, 16), np.float32))
+
+
+def test_constrain_kv_cache_takes_the_cache_policy(mesh16):
+    """(B 8, Sc 16, K 2, hd 4) on (4, 4): the batch over data; 2 kv heads
+    do not divide over model, so the sequence splits there, as
+    ``kv_cache_axes`` says."""
+    from torch.distributed.tensor import Shard
+    sizes = {"data": 4, "model": 4}
+    assert part.kv_cache_axes(8, 16, 2, sizes, False) == \
+        (("data",), ("model",), None)
+    cache = _replicated(mesh16, torch.zeros(8, 16, 2, 4))
+    with part.sharding_context(mesh16, rules.DECODE_RULES):
+        out = part.constrain_kv_cache(cache)
+    assert out.placements == (Shard(0), Shard(1))
+    assert out.to_local().shape == (2, 4, 2, 4)
+
+
+def test_split_ops_are_the_dry_runs_only(mesh16):
+    """Each op of the table is DTensor's own outside ``counting`` and the
+    dry run's inside; ``new_zeros`` follows ``self``'s splits where the
+    size is kept, and splits over the mesh dims ``self`` copies a dim
+    ``self`` holds at size 1."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    table = DTensor._op_dispatcher._custom_op_handlers
+    ops = set(D._handlers())
+    assert {str(op) for op in ops} >= {
+        "aten.new_zeros.default", "aten.scatter_add.default",
+        "aten._log_softmax.default", "aten._log_softmax_backward_data."
+        "default", "aten.mm.default", "aten.view.default",
+        "aten.select.int", "aten.index.Tensor", "aten.slice.Tensor"}
+    before = dict(table)
+    assert not ops & set(before)
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        g = DTensor.from_local(torch.empty(2, 31, 1), mesh16,
+                               [Shard(0), Replicate()], run_check=False,
+                               shape=(8, 31, 1), stride=(31, 1, 1))
+        same = DTensor.from_local(torch.empty(2, 4), mesh16,
+                                  [Shard(0), Shard(1)], run_check=False,
+                                  shape=(8, 16), stride=(16, 1))
+        with D.counting(D.RankCost()):
+            assert ops <= set(table)
+            grown = g.new_zeros((8, 31, 64))
+            kept = same.new_zeros((8, 16))
+        outside = g.new_zeros((8, 31, 64))
+    assert dict(table) == before
+    assert grown.placements == (Shard(0), Shard(2))
+    assert grown.to_local().shape == (2, 31, 16)
+    assert kept.placements == (Shard(0), Shard(1))
+    assert outside.placements == (Replicate(), Replicate())
+
+
+def test_full_ce_gradient_is_placed_like_its_logits(mesh16):
+    """The full CE of logits split (batch over data, vocab over model):
+    its log-softmax, gather and their gradients stay split, no op runs
+    replicated but DTensor's one ``neg`` of a masked partial sum (a few
+    bytes a row), and no collective moves a whole row of the vocab."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    B, S, V = 8, 32, 64
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        logits = DTensor.from_local(
+            torch.empty(B // 4, S, V // 4), mesh16, [Shard(0), Shard(2)],
+            run_check=False, shape=(B, S, V),
+            stride=(S * V, V, 1)).requires_grad_()
+        rows = [Shard(0), Replicate()]
+        tokens = DTensor.from_local(torch.empty(B // 4, S, dtype=torch.int32),
+                                    mesh16, rows, run_check=False,
+                                    shape=(B, S), stride=(S, 1))
+        mask = DTensor.from_local(torch.empty(B // 4, S), mesh16, rows,
+                                  run_check=False, shape=(B, S),
+                                  stride=(S, 1))
+        cost = D.RankCost()
+        with D.counting(cost):
+            per_example_ce(logits, tokens, mask).sum().backward()
+    assert logits.grad.placements == (Shard(0), Shard(2))
+    assert logits.grad.to_local().shape == (B // 4, S, V // 4)
+    assert set(cost.replicated) <= {"aten.neg.default"}
+    row = S * V * 4 // 4        # one data block's f32 row of the vocab
+    assert all(c.nbytes < row for c in cost.collectives), cost.collectives
+
+
+TOY_CELL = ["--arch", "gemma-2b", "--shape", "train_4k", "--mesh", "4x4",
+            "--seq-len", "64", "--batch", "16",
+            "--set", "n_layers=2", "--set", "d_model=128", "--set",
+            "n_heads=8", "--set", "n_kv_heads=1", "--set", "head_dim=32",
+            "--set", "d_ff=256", "--set", "vocab_size=1024"]
+
+
+def test_toy_cell_against_the_reference_dry_run(tmp_path):
+    """gemma-2b's shape cut to 2 layers of width 128 (8 heads over a model
+    axis of 4, one kv head), 16 x 64 tokens a step, on a (4, 4) mesh:
+    the reference (Auto axes) and the port in child processes."""
+    out = tmp_path / "cmp"
+    subprocess.run([sys.executable, str(ROOT / "tools" / "dryrun_compare.py"),
+                    *TOY_CELL, "--out-dir", str(out)], check=True,
+                   cwd=ROOT, timeout=240)
+    assert sorted(os.listdir(out)) == ["compare.json", "port.json",
+                                       "ref.json"]
+    fields = json.loads((out / "compare.json").read_text())["fields"]
+    assert fields["argument bytes"]["ratio"] == 1.0
+    for name in ("temp bytes", "collective bytes"):
+        assert 0.25 <= fields[name]["ratio"] <= 4.0, (name, fields[name])
+    port = json.loads((out / "port.json").read_text())
+    assert port["torch"] == torch.__version__
+    assert port["replicated_ops"] == {"aten.neg.default": 1}
+
+
+def test_reference_dryrun_refuses_explicit_axes():
+    """The reference's own production mesh (``jax.make_mesh``: Explicit
+    axes on JAX 0.9) meets its own ``with_sharding_constraint``
+    (``repro/sharding/partition.py:69``), which takes Auto axes only: its
+    ``dryrun_one`` fails before it lowers (fault 3.11 of the reference)."""
+    code = ("from repro.launch import dryrun as D\n"
+            "D.dryrun_one('gemma-2b', 'train_4k', overrides=['n_layers=1', "
+            "'d_model=128', 'n_heads=8', 'n_kv_heads=1', 'head_dim=32', "
+            "'d_ff=256', 'vocab_size=1024'])\n")
+    env = {**os.environ, "JAX_PLATFORMS": "cpu",
+           "PYTHONPATH": str(ROOT / "src")}
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=240)
+    assert res.returncode != 0
+    assert "can only refer to Auto axes" in res.stderr
+    assert "Explicit" in res.stderr
