@@ -276,14 +276,30 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    (24 + 24 layers, 4 x 128 tokens behind 1,536 stub frames, modality
    features, 4 steps on one batch: the CE falls, the encoder's LoRA
    leaves move, the soft-prompt leaves the family does not read do
-   not); then one stacked step (``ccl.make_stacked_step``, SGD) of 3
-   clients x 2 x 256 against their 3 loop steps at f32 on qwen3-moe (2
-   of 94 layers: each client routes alone) and whisper (2 + 2): every
-   updated leaf row by row within 1e-4; exact launches of every case
-   (bf16 on the tensor-core routes, f32 on FMAs); then B and B' at
-   whisper's encoder and cross-attention and gemma-2b's training shape
-   beside SDPA, C at gemma-2b's q projection beside the dW matmul, D at
-   the SLM trainer's CCL loss; prints a ``{"trainer": ...}`` line;
+   not); gemma3-1b (26 layers; 4 x 1,024 tokens, the 512 window bites on
+   the local layers), qwen3-1.7b (28), internvl2-1b (24; 4 x 768 behind
+   256 stub vision tokens: every frontend and LoRA leaf moves),
+   granite-20b (52 layers, 48 / 1 heads: 4 x 512), mamba2-2.7b (16 of 64
+   layers; 4 rows of 4 chunks of 256) and hymba-1.5b (32; 4 rows of 5
+   chunks, the 1,024 window bites, in_proj on C's FMA route both ways),
+   2 AdamW steps each on one batch whose CE falls, each case's peak
+   memory and ms a step; one f32 step (SGD at lr 1) of gemma3-1b,
+   internvl2-1b, mamba2-2.7b and hymba-1.5b (2 layers at full width,
+   every kernel on its FMA route, the window biting and the SSD over
+   ragged chunks) against the same step on the CPU's plain path from
+   copies of the same params and batch: the loss within 1e-5 relative,
+   every updated leaf row by row within 1e-4; then one stacked step
+   (``ccl.make_stacked_step``, SGD) of 3 clients x 2 x 256 against their
+   3 loop steps at f32 on qwen3-moe (2 of 94 layers: each client routes
+   alone), whisper (2 + 2) and internvl2-1b (2 of 24): every updated leaf
+   row by row within 1e-4; exact launches of every case (C, B, B', D, G,
+   G'; bf16 on the tensor-core routes, f32 on FMAs); then B and B' at
+   whisper's encoder and cross-attention, gemma-2b's training shape,
+   gemma3-1b's local layers (the window as SDPA's mask) and granite-20b's
+   beside SDPA, C at gemma-2b's and granite-20b's q projections beside
+   cuBLAS and the dW matmul, D at the SLM trainer's CCL loss, G' at
+   mamba2's trainer case (4 x 4 chunks, a state gradient); prints a
+   ``{"trainer": ...}`` line;
 21. runs the dry run (``launch/dryrun.py``) on the host's CPU in two
    processes started before the build and joined after the kernel checks
    (each starts a fake process group, which the NCCL group of this
@@ -3345,55 +3361,58 @@ def ssd_kernel_rows():
         "at_other_shapes": others}]
 
 
-def ssd_bwd_kernel_row():
-    """Row G′ at mamba2's training shape (batch 8, one chunk of 256, 80
-    heads, bf16, no state gradient: the round's launches), from CUDA-graph
-    replay, on the route function's choice ("mma") beside the FMA route
-    and the plain version on the same inputs in the same replays;
-    hymba's training shape and three chunks with a state gradient also
-    timed.  The bound counts the bytes of every input and output once and
-    the products the causal triangle needs (dy.x^T, sum_i M dy_i, and dCB
-    times B and C per head; C.B^T once per group; dS B_j and dS^T x_j per
-    row and head where dS is given) at the tensor cores' bf16 rate."""
+def ssd_bwd_case(gen, B, S, H, P, G, N, L, st):
+    """G′ at one shape (bf16 inputs, ``st``: with a state gradient) on the
+    route function's choice ("mma") beside the FMA route and the plain
+    version on the same inputs in the same replays, each route's gradient
+    rows held against the plain version's.  The bound counts the bytes of
+    every input and output once and the products the causal triangle needs
+    (dy.x^T, sum_i M dy_i, and dCB times B and C per head; C.B^T once per
+    group; dS B_j and dS^T x_j per row and head where dS is given) at the
+    tensor cores' bf16 rate."""
     import torch
     from repro_torch.kernels.ssd_scan import (ssd_chunk_bwd_cuda,
                                               ssd_chunk_bwd_plain,
                                               ssd_chunk_bwd_route)
+    ins = ssd_bwd_inputs(gen, B, S, H, P, G, N, L, st, torch.bfloat16)
+    route = ssd_chunk_bwd_route(*ins, L)
+    if route != "mma":
+        raise AssertionError(f"ssd bwd row: route {route}")
+    want = ssd_chunk_bwd_plain(*ins, L)
+    err = max(max(r["max_rel_err"] for r in ssd_bwd_rows(
+        f"row/{rt}", ssd_chunk_bwd_cuda(*ins, L, route=rt),
+        want).values()) for rt in ("mma", "fma"))
+    times = graphs_ms({
+        "ms": lambda i: ssd_chunk_bwd_cuda(*ins, L),
+        "ms_fma_route": lambda i: ssd_chunk_bwd_cuda(*ins, L, route="fma"),
+        "plain_ms": lambda i: ssd_chunk_bwd_plain(*ins, L)},
+        n_calls=10)
+    nc, es = S // L, ins[0].element_size()
+    rows_h, rows_g = B * S * H, B * S * G * N
+    bytes_ = (rows_h * P * es + 2 * rows_g * es + 2 * rows_h * 4
+              + rows_h * P * 4 + (B * nc * H * P * N * 4 if st else 0)
+              + rows_h * P * 4 + 2 * rows_h * 4 + 2 * rows_g * 4)
+    tri = L * (L + 1) // 2
+    flops = 2 * B * nc * (G * tri * N + H * tri * (2 * P + 2 * N)
+                          + (2 * H * L * P * N if st else 0))
+    bound, by = _bound(bytes_, flops)
+    return {**times, "kernel_route": route, "bound_ms": bound,
+            "bound_by": by, "max_abs_err": err, "bytes": bytes_,
+            "flops": flops, "library_ms": None,
+            "shape": {"B": B, "S": S, "H": H, "P": P, "G": G, "N": N,
+                      "chunk": L, "dstates": st,
+                      "dtype": str(ins[0].dtype)}}
+
+
+def ssd_bwd_kernel_row():
+    """Row G′ at mamba2's training shape (batch 8, one chunk of 256, 80
+    heads, bf16, no state gradient: the round's launches) by
+    :func:`ssd_bwd_case`; hymba's training shape and three chunks with a
+    state gradient also timed."""
+    import torch
     gen = torch.Generator(device="cuda").manual_seed(14)
-
-    def case(B, S, H, P, G, N, L, st):
-        ins = ssd_bwd_inputs(gen, B, S, H, P, G, N, L, st, torch.bfloat16)
-        route = ssd_chunk_bwd_route(*ins, L)
-        if route != "mma":
-            raise AssertionError(f"ssd bwd row: route {route}")
-        want = ssd_chunk_bwd_plain(*ins, L)
-        err = max(max(r["max_rel_err"] for r in ssd_bwd_rows(
-            f"row/{rt}", ssd_chunk_bwd_cuda(*ins, L, route=rt),
-            want).values()) for rt in ("mma", "fma"))
-        times = graphs_ms({
-            "ms": lambda i: ssd_chunk_bwd_cuda(*ins, L),
-            "ms_fma_route": lambda i: ssd_chunk_bwd_cuda(*ins, L,
-                                                         route="fma"),
-            "plain_ms": lambda i: ssd_chunk_bwd_plain(*ins, L)},
-            n_calls=10)
-        nc, es = S // L, ins[0].element_size()
-        rows_h, rows_g = B * S * H, B * S * G * N
-        bytes_ = (rows_h * P * es + 2 * rows_g * es + 2 * rows_h * 4
-                  + rows_h * P * 4 + (B * nc * H * P * N * 4 if st else 0)
-                  + rows_h * P * 4 + 2 * rows_h * 4 + 2 * rows_g * 4)
-        tri = L * (L + 1) // 2
-        flops = 2 * B * nc * (G * tri * N + H * tri * (2 * P + 2 * N)
-                              + (2 * H * L * P * N if st else 0))
-        bound, by = _bound(bytes_, flops)
-        return {**times, "kernel_route": route, "bound_ms": bound,
-                "bound_by": by, "max_abs_err": err, "bytes": bytes_,
-                "flops": flops,
-                "shape": {"B": B, "S": S, "H": H, "P": P, "G": G, "N": N,
-                          "chunk": L, "dstates": st,
-                          "dtype": str(ins[0].dtype)}}
-
-    main = case(*SSD_BWD_CASES["mamba2_train"])
-    others = {n: case(*SSD_BWD_CASES[n])
+    main = ssd_bwd_case(gen, *SSD_BWD_CASES["mamba2_train"])
+    others = {n: ssd_bwd_case(gen, *SSD_BWD_CASES[n])
               for n in ("hymba_train", "mamba2_chunks3")}
     return {
         "name": "ssd_chunk_bwd", "route": "cuda",
@@ -6455,6 +6474,32 @@ STACKED_TRAIN = dict(G=3, rows=2, seq=256)
 STACKED_LR = 1.0
 STACKED_LEAF_TOL = 1e-4
 STACKED_LOSS_RTOL = 1e-5
+# the registry's archs through train_model (bf16, AdamW, full width, 2
+# steps on one batch); "layers": the first layers kept, else all.  The 8
+# soft tokens make mamba2's rows 4 chunks of 256 and hymba's 5 (its 1,024
+# window bites), gemma3's 1,032 positions pass its 512 window on the local
+# layers, internvl2's 768 tokens sit behind its 256 vision tokens.  All
+# train at TRAIN_LR: unlike phi3.5's, their batch's CE falls there (the
+# widest on an H100 80GB HBM3 at 700 W: qwen3-1.7b 12.22 -> 8.09,
+# granite-20b 11.40 -> 5.23, mamba2-2.7b 11.15 -> 9.14).
+ARCH_TRAIN = {
+    "gemma3-1b": dict(rows=4, seq=1024, steps=2, lr=TRAIN_LR),
+    "qwen3-1.7b": dict(rows=4, seq=1024, steps=2, lr=TRAIN_LR),
+    "internvl2-1b": dict(rows=4, seq=768, steps=2, lr=TRAIN_LR),
+    "granite-20b": dict(rows=4, seq=512, steps=2, lr=TRAIN_LR),
+    "mamba2-2.7b": dict(layers=MAMBA2_LAYERS, rows=4, seq=1016, steps=2,
+                        lr=TRAIN_LR),
+    "hymba-1.5b": dict(rows=4, seq=1272, steps=2, lr=TRAIN_LR)}
+# the trainer's kernels inside one step against the CPU's plain path: arch
+# -> (rows, tokens a row) at full width, the first CPU_STEP_LAYERS layers,
+# f32 (TF32 off: every kernel on its FMA route), SGD at STACKED_LR, held
+# to STACKED_LOSS_RTOL and STACKED_LEAF_TOL.  gemma3's 648 positions pass
+# its 512 window; hymba's 1,108 its 1,024 window, in 4 chunks of 256 and
+# a ragged fifth; mamba2's 608 are 2 chunks and a ragged third;
+# internvl2's 128 tokens sit behind its 256 vision tokens
+CPU_STEP_CASES = {"gemma3-1b": (2, 640), "internvl2-1b": (2, 128),
+                  "mamba2-2.7b": (2, 600), "hymba-1.5b": (2, 1100)}
+CPU_STEP_LAYERS = 2
 
 
 def trainer_corpus(seq_len, vocab):
@@ -6497,7 +6542,10 @@ def trainer_launches(mc, steps, stacked=False):
     (self- and cross-attention) forward and again under remat, B' twice,
     the self-attention's adapted projections' C forward (twice under
     remat) and dx but at layer 0, whose input is the frozen embedding.
-    At f32 every C, B and B' launch takes the FMA route."""
+    The ssm and hybrid families launch G twice a layer (remat) and G'
+    once.  A vlm pass runs behind the projected vision tokens and the
+    soft prompt, so its entry projections take their dx at layer 0 too.
+    At f32 every C, B, B', G and G' launch takes the FMA route."""
     import torch
     routes = projection_routes(mc)
     c = {"wgmma": 0, "fma": 0}
@@ -6507,7 +6555,8 @@ def trainer_launches(mc, steps, stacked=False):
         for t, (fwd, dx) in routes.items():
             c[fwd] += Le + L * rem
             c[dx] += Le + L - (1 if t in ENTRY_PROJECTIONS else 0)
-        p = {"c": c, "b": Le + 2 * L * rem, "b_bwd": Le + 2 * L}
+        p = {"c": c, "b": Le + 2 * L * rem, "b_bwd": Le + 2 * L, "g": 0,
+             "g_bwd": 0}
     else:
         p = pass_launches(mc, True)
         c = p["c"]
@@ -6515,11 +6564,13 @@ def trainer_launches(mc, steps, stacked=False):
     want = {cname: steps * (c["wgmma"] + c["fma"]),
             "flash_attention": steps * p["b"],
             "flash_attention_backward": steps * p["b_bwd"],
-            "gram_log_volume": steps, "gram_log_volume_backward": steps}
+            "gram_log_volume": steps, "gram_log_volume_backward": steps,
+            "ssd_chunk": steps * p["g"], "ssd_chunk_bwd": steps * p["g_bwd"]}
     fma = {cname: steps * c["fma"]}
     if mc.torch_dtype == torch.float32:
-        fma.update({k: want[k] for k in (cname, "flash_attention",
-                                         "flash_attention_backward")})
+        fma.update({k: want[k] for k in (
+            cname, "flash_attention", "flash_attention_backward",
+            "ssd_chunk", "ssd_chunk_bwd")})
     return want, fma
 
 
@@ -6805,6 +6856,46 @@ def check_whisper(init, new, hist):
     return {"encoder_lora_leaves_moved": len(enc)}
 
 
+def check_vlm(init, new, hist):
+    """Every frontend projector leaf and every LoRA leaf moved: the
+    projector's gradient reaches it through B' and C's dx behind the
+    vision tokens."""
+    import torch
+    front = [k for k in new if k.startswith("frontend/")]
+    ada = [k for k in new if "_lora_" in k]
+    still = [k for k in front + ada if torch.equal(new[k], init[k])]
+    if not front or still:
+        raise AssertionError(f"vlm: unmoved {still} of {front} and the "
+                             "LoRA leaves")
+    return {"frontend_leaves_moved": len(front),
+            "lora_leaves_moved": len(ada)}
+
+
+def no_checks(init, new, hist):
+    return {}
+
+
+def train_arch(name, total, gen):
+    """``train_model`` on the registry's ``name`` at ``ARCH_TRAIN``'s
+    spec, with the positions a row, the window and the SSD chunks it
+    spans beside the result."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import with_overrides
+    spec = ARCH_TRAIN[name]
+    full = get_config(name)
+    mc = with_overrides(full, n_layers=spec.get("layers", full.n_layers))
+    S = spec["seq"] + mc.n_soft_tokens + mc.frontend_tokens
+    if mc.sliding_window and S <= mc.sliding_window or \
+            mc.ssm_state and S <= 2 * mc.ssm_chunk:
+        raise AssertionError(f"{name}: {S} positions bite nothing")
+    out, total = train_model(name, mc, spec, total, gen,
+                             check_vlm if mc.frontend else no_checks)
+    out.update(published_layers=full.n_layers, positions=S,
+               window=mc.sliding_window,
+               ssd_chunks=-(-S // mc.ssm_chunk) if mc.ssm_state else 0)
+    return out, total
+
+
 def stacked_against_loop(tag, mc, gen, total):
     """One stacked step of G clients (``ccl.make_stacked_step``, SGD at
     lr 1) against each client's loop step (``ccl.make_local_step``) at
@@ -6882,10 +6973,80 @@ def stacked_against_loop(tag, mc, gen, total):
         summed(total, got)
 
 
-def attn_rows(B, Sq, Sk, H, K, D, causal, gen):
-    """B and B' at one of the trainer's attention shapes (bf16), each
-    against its plain version and SDPA (B': its forward + backward less
-    its forward), replayed in turn; bounds from the pairs the mask keeps.
+def card_against_cpu(name, total, gen):
+    """One ``make_train_step`` of the registry's ``name`` at its first
+    ``CPU_STEP_LAYERS`` layers (f32, SGD at lr 1: an updated leaf is
+    p - g) on the card, where every kernel takes its FMA route, against
+    the same step on the CPU (the kernels' plain versions) from ``.cpu()``
+    copies of the same params (LoRA B drawn non-zero, so A's gradient is
+    too) and batch (``CPU_STEP_CASES``' rows and tokens): the losses,
+    every updated leaf row by row, and the card's launches, exact."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.ccl import init_unified
+    from repro_torch.core.lora import flatten, partition, unflatten
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.model import build_model, with_overrides
+    from repro_torch.optim.adamw import sgd
+    tag = f"card against cpu {name}"
+    rows, seq = CPU_STEP_CASES[name]
+    mc = with_overrides(get_config(name), n_layers=CPU_STEP_LAYERS,
+                        dtype="float32")
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError(f"{tag}: TF32 is on")
+    release()
+    bundle = build_model(mc)
+    flat = flatten(init_unified(gen, bundle))
+    flat.update({k: 0.02 * torch.randn(v.shape, generator=gen,
+                                       device="cuda")
+                 for k, v in flat.items() if k.endswith("_lora_b")})
+    batch = trainer_batches(mc, rows, seq, 1, 3, gen)[0]
+    opt = sgd(STACKED_LR)
+    step = make_train_step(bundle, opt)
+    params = unflatten(flat)
+    zero_counters()
+    new, _, m = step(params, opt.init(partition(params)), batch)
+    torch.cuda.synchronize()
+    want, fma = trainer_launches(mc, 1)
+    got = exact(tag, read_counters(), want)
+    routes = active_routes(tag, fma)
+    card = {k: v.cpu() for k, v in partition(new).items()}
+    loss = float(m["loss"])
+    del params, new
+    host = unflatten({k: v.cpu() for k, v in flat.items()})
+    t0 = time.perf_counter()
+    hnew, _, hm = step(host, opt.init(partition(host)),
+                       {k: v.cpu() for k, v in batch.items()})
+    cpu_s = time.perf_counter() - t0
+    rel = abs(loss - float(hm["loss"])) / abs(float(hm["loss"]))
+    if rel > STACKED_LOSS_RTOL:
+        raise AssertionError(f"{tag}: loss {loss} on the card, "
+                             f"{float(hm['loss'])} on the CPU")
+    errs = {k: rel_check(f"{tag} {k}", card[k].reshape(-1, w.shape[-1]),
+                         w.reshape(-1, w.shape[-1]),
+                         dict(atol=STACKED_LEAF_TOL, rtol=0.0))[
+                             "max_rel_err"]
+            for k, w in partition(hnew).items()}
+    S = seq + mc.n_soft_tokens + mc.frontend_tokens
+    del flat, host, hnew
+    return {"layers": mc.n_layers, "rows": rows, "seq": seq,
+            "positions": S, "window": mc.sliding_window,
+            "ssd_chunks": -(-S // mc.ssm_chunk) if mc.ssm_state else 0,
+            "loss_card": loss, "loss_cpu": float(hm["loss"]),
+            "loss_rel_err": rel, "leaf_row_rel_err": max(errs.values()),
+            "leaf_row_rel_err_by_leaf": errs, "cpu_step_s": cpu_s,
+            "launches": got, "launches_by_route": routes,
+            "tolerance": {"leaf_rows": STACKED_LEAF_TOL,
+                          "loss_rtol": STACKED_LOSS_RTOL,
+                          "optimizer": f"sgd(lr={STACKED_LR})"}}, \
+        summed(total, got)
+
+
+def attn_rows(B, Sq, Sk, H, K, D, causal, window, gen):
+    """B and B' at one of the trainer's attention shapes (bf16; ``window``
+    > 0: causal within it), each against its plain version and SDPA (the
+    window as a boolean mask; B': its forward + backward less its
+    forward), replayed in turn; bounds from the pairs the mask keeps.
     Returns (forward row, backward row)."""
     import torch
     import torch.nn.functional as F
@@ -6902,10 +7063,10 @@ def attn_rows(B, Sq, Sk, H, K, D, causal, gen):
             flash_attention_backward_route(q, k, v) != "mma":
         raise AssertionError("trainer attention rows: not on mma")
     err = check_close("trainer flash row",
-                      flash_attention_cuda(q, k, v, causal, 0),
-                      flash_attention_plain(q, k, v, causal, 0), BF16_TOL)
-    o, lse = flash_attention_cuda(q, k, v, causal, 0, with_lse=True)
-    args = (q, k, v, o, do, lse, causal, 0)
+                      flash_attention_cuda(q, k, v, causal, window),
+                      flash_attention_plain(q, k, v, causal, window), BF16_TOL)
+    o, lse = flash_attention_cuda(q, k, v, causal, window, with_lse=True)
+    args = (q, k, v, o, do, lse, causal, window)
     berr = max((grad_rows("trainer flash bwd row", g, w, BF16_TOL)
                 for g, w in zip(flash_attention_backward_cuda(*args),
                                 flash_attention_backward_plain(*args))),
@@ -6913,58 +7074,77 @@ def attn_rows(B, Sq, Sk, H, K, D, causal, gen):
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
                   for x in (q, k, v))
     dot = do.transpose(1, 2).contiguous()
+    qpos = torch.arange(Sk - Sq, Sk, device="cuda")[:, None]
+    kpos = torch.arange(Sk, device="cuda")[None, :]
+    mask = ((kpos <= qpos) & (qpos - kpos < window)) if window else None
 
     def sdpa(i):
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
-                                              enable_gqa=True)
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal and not window,
+            enable_gqa=True)
     t = graphs_ms({
-        "fwd": lambda i: flash_attention_cuda(q, k, v, causal, 0),
-        "fwd_plain": lambda i: flash_attention_plain(q, k, v, causal, 0),
+        "fwd": lambda i: flash_attention_cuda(q, k, v, causal, window),
+        "fwd_plain": lambda i: flash_attention_plain(q, k, v, causal, window),
         "sdpa": sdpa,
         "bwd": lambda i: flash_attention_backward_cuda(*args),
         "bwd_plain": lambda i: flash_attention_backward_plain(*args),
         "sdpa_both": lambda i: torch.autograd.grad(sdpa(i), (qt, kt, vt),
                                                    dot)})
-    pairs = sum(min(Sk - Sq + i + 1, Sk) for i in range(Sq)) if causal \
-        else Sq * Sk
+    pairs = sum(min(Sk - Sq + i + 1, window or Sk) for i in range(Sq)) \
+        if causal else Sq * Sk
     es = q.element_size()
     nq, nk = B * Sq * H * D, B * Sk * K * D
     fb, fby = _bound((2 * nq + 2 * nk) * es, 4 * D * B * H * pairs)
     bb, bby = _bound((3 * nq + 2 * nk) * es + B * H * Sq * 4
                      + (nq + 2 * nk) * es, 10 * D * B * H * pairs)
     shape = {"B": B, "Sq": Sq, "Sk": Sk, "H": H, "K": K, "D": D,
-             "causal": causal, "dtype": str(dt)}
+             "causal": causal, "window": window, "dtype": str(dt)}
+    lib = ("scaled_dot_product_attention(" + ("attn_mask=the window, "
+                                               if window else "")
+           + "enable_gqa=True) on (B, H, S, D) copies")
     return ({"ms": t["fwd"], "plain_ms": t["fwd_plain"],
-             "library_ms": t["sdpa"], "bound_ms": fb, "bound_by": fby,
+             "library_ms": t["sdpa"], "library_call": lib,
+             "bound_ms": fb, "bound_by": fby,
              "max_abs_err": err, "kernel_route": "mma", "shape": shape},
             {"ms": t["bwd"], "plain_ms": t["bwd_plain"],
              "library_ms": t["sdpa_both"] - t["sdpa"],
              "library_fwd_bwd_ms": t["sdpa_both"],
-             "library_fwd_ms": t["sdpa"], "bound_ms": bb, "bound_by": bby,
+             "library_fwd_ms": t["sdpa"], "library_call": lib,
+             "bound_ms": bb, "bound_by": bby,
              "max_abs_err": berr["max_abs_err"],
              "max_rel_err": berr["max_rel_err"], "kernel_route": "mma",
              "shape": shape})
 
 
-# the trainer's new shapes for rows B / B' (B, Sq, Sk, H, K, D, causal),
-# C (M, K, N, r: gemma-2b's q projection) and D (B, k, d: the SLM
-# trainer's CCL loss)
+# the trainer's shapes for rows B / B' (B, Sq, Sk, H, K, D, causal,
+# window), C (M, K, N, r: a q projection), D (B, k, d: the SLM trainer's
+# CCL loss) and G' (B, S, H, P, G, N, chunk, state gradient: mamba2's
+# trainer case, 4 rows of 4 chunks); the decoder-only shapes count the 8
+# soft tokens
 TRAINER_ATTN_SHAPES = {
-    "whisper_encoder": (4, 1536, 1536, 16, 16, 64, False),
-    "whisper_cross": (4, 128, 1536, 16, 16, 64, False),
-    "gemma2b_train": (4, 1032, 1032, 8, 1, 256, True)}
-TRAINER_C_SHAPE = (4 * 1032, 2048, 2048, 8)
+    "whisper_encoder": (4, 1536, 1536, 16, 16, 64, False, 0),
+    "whisper_cross": (4, 128, 1536, 16, 16, 64, False, 0),
+    "gemma2b_train": (4, 1032, 1032, 8, 1, 256, True, 0),
+    "gemma3_local_train": (4, 1032, 1032, 4, 1, 256, True, 512),
+    "granite_train": (4, 520, 520, 48, 1, 128, True, 0)}
+TRAINER_C_SHAPES = {"gemma2b_q": (4 * 1032, 2048, 2048, 8),
+                    "granite_q": (4 * 520, 6144, 6144, 8)}
 TRAINER_D_SHAPE = (128, 4, 1280)
+TRAINER_SSD_BWD_SHAPE = (4, 1024, 80, 64, 1, 128, 256, True)
 
 
 def trainer_kernel_rows(gen):
-    """The trainer's new shapes for rows B, B', C and D (bf16): B and B'
+    """The trainer's shapes for rows B, B', C, D and G' (bf16): B and B'
     at whisper-medium's encoder (4 x 1,536 frames, no mask) and
-    cross-attention (128 queries over 1,536 frames) and at gemma-2b's
-    training shape (4 x 1,032, 8 / 1 heads of 256, causal); C at gemma-2b's
-    q projection with a full fine-tune's dW (x^T dy, one ``torch.matmul``)
-    timed beside it; D and its backward at the SLM trainer's CCL loss (8
-    rows: 2 x (1 + 7) candidate sets, 128 samples of 4 x 1280)."""
+    cross-attention (128 queries over 1,536 frames), gemma-2b's training
+    shape (4 x 1,032, 8 / 1 heads of 256, causal), gemma3-1b's local
+    layers (4 / 1 heads of 256 within the 512 window) and granite-20b's (4
+    x 520, 48 / 1 heads of 128); C at gemma-2b's and granite-20b's q
+    projections, each with a full fine-tune's dW (x^T dy, one
+    ``torch.matmul``) timed beside it; D and its backward at the SLM
+    trainer's CCL loss (8 rows: 2 x (1 + 7) candidate sets, 128 samples of
+    4 x 1280); G' at mamba2's trainer case (4 rows of 4 chunks of 256,
+    with the state gradient)."""
     import torch
     from repro_torch.kernels.gram_volume import (
         gram_log_volume_backward_cuda, gram_log_volume_cuda,
@@ -6979,33 +7159,40 @@ def trainer_kernel_rows(gen):
         rows["flash_attention_backward"][f"trainer_{name}"] = bwd
         release()
 
-    M, K, N, r = TRAINER_C_SHAPE
     dt = torch.bfloat16
-    x, w, a, b = lora_inputs(gen, M, K, N, r, dt)
-    dy = torch.randn((M, N), generator=gen, device="cuda").to(dt)
-    if lora_matmul_route(x, w, a, b) != "wgmma":
-        raise AssertionError("trainer C row: not on wgmma")
-    err = check_close("trainer lora row", lora_matmul_cuda(x, w, a, b, 2.0),
-                      lora_matmul_plain(x, w, a, b, 2.0), BF16_TOL)
-    xt = x.t()
-    t = graphs_ms({"kernel": lambda i: lora_matmul_cuda(x, w, a, b, 2.0),
-                   "plain": lambda i: lora_matmul_plain(x, w, a, b, 2.0),
-                   "library": lambda i: torch.matmul(x, w),
-                   "dw": lambda i: torch.matmul(xt, dy)})
-    es = x.element_size()
-    bound, by = _bound((M * K + K * N + K * r + r * N + M * N) * es,
-                       2 * M * K * N + 2 * M * K * r + 2 * M * r * N)
-    dw_bound, dw_by = _bound((M * K + M * N + K * N) * es, 2 * M * K * N)
-    rows["lora_matmul"] = {"trainer_gemma2b_q_forward": {
-        "ms": t["kernel"], "plain_ms": t["plain"], "library_ms":
-        t["library"], "bound_ms": bound, "bound_by": by, "max_abs_err": err,
-        "kernel_route": "wgmma", "dw_ms": t["dw"], "dw_bound_ms": dw_bound,
-        "dw_bound_by": dw_by, "dw_is": "a full fine-tune's dW = x^T dy, "
-        "one bf16 torch.matmul (no kernel of the port)",
-        "shape": {"M": M, "K": K, "N": N, "r": r, "dtype": str(dt)}}}
+    rows["lora_matmul"] = {}
+    for name, (M, K, N, r) in TRAINER_C_SHAPES.items():
+        x, w, a, b = lora_inputs(gen, M, K, N, r, dt)
+        dy = torch.randn((M, N), generator=gen, device="cuda").to(dt)
+        if lora_matmul_route(x, w, a, b) != "wgmma":
+            raise AssertionError(f"trainer C row {name}: not on wgmma")
+        err = check_close(f"trainer lora row {name}",
+                          lora_matmul_cuda(x, w, a, b, 2.0),
+                          lora_matmul_plain(x, w, a, b, 2.0), BF16_TOL)
+        xt = x.t()
+        t = graphs_ms({"kernel": lambda i: lora_matmul_cuda(x, w, a, b, 2.0),
+                       "plain": lambda i: lora_matmul_plain(x, w, a, b, 2.0),
+                       "library": lambda i: torch.matmul(x, w),
+                       "dw": lambda i: torch.matmul(xt, dy)})
+        es = x.element_size()
+        bound, by = _bound((M * K + K * N + K * r + r * N + M * N) * es,
+                           2 * M * K * N + 2 * M * K * r + 2 * M * r * N)
+        dw_bound, dw_by = _bound((M * K + M * N + K * N) * es, 2 * M * K * N)
+        rows["lora_matmul"][f"trainer_{name}_forward"] = {
+            "ms": t["kernel"], "plain_ms": t["plain"], "library_ms":
+            t["library"], "library_call": "cuBLAS x @ W (torch.matmul)",
+            "bound_ms": bound, "bound_by": by, "max_abs_err": err,
+            "kernel_route": "wgmma", "dw_ms": t["dw"],
+            "dw_bound_ms": dw_bound, "dw_bound_by": dw_by,
+            "dw_is": "a full fine-tune's dW = x^T dy, one bf16 "
+                     "torch.matmul (no kernel of the port)",
+            "shape": {"M": M, "K": K, "N": N, "r": r, "dtype": str(dt)}}
+        del x, w, a, b, dy, xt
+        release()
 
     Bg, k, d = TRAINER_D_SHAPE
     vs, mask = gram_inputs(gen, Bg, k, d, dt)
+    es = vs.element_size()
     gout = torch.randn((Bg,), generator=gen, device="cuda")
     y, dots = gram_log_volume_cuda(vs, mask, return_dots=True)
     err = check_close("trainer gram row", y, gram_log_volume_plain(vs, mask),
@@ -7031,6 +7218,9 @@ def trainer_kernel_rows(gen):
         "ms": t["bwd"], "bound_ms": bb, "bound_by": bby,
         "max_abs_err": berr["max_abs_err"],
         "max_rel_err": berr["max_rel_err"], "shape": shape}}
+    release()
+    rows["ssd_chunk_bwd"] = {"trainer_mamba2": ssd_bwd_case(
+        gen, *TRAINER_SSD_BWD_SHAPE)}
     return rows
 
 
@@ -7040,11 +7230,16 @@ def phase_trainer():
     (LoRA-only, then a full fine-tune) through ``run_training``;
     gemma-2b's chunked CE against its full CE; phi3.5-moe (8 of 32
     layers) and whisper-medium (full depth, modality features: the
-    connector feeds CCL) through ``make_train_step``; then the moe and
-    encdec stacked steps against the loop steps at f32 (qwen3-moe 2 of 94
-    layers, whisper 2 + 2).  Returns (metrics, launches, the trainer's
-    kernel rows at its new shapes)."""
+    connector feeds CCL) through ``make_train_step``; the registry's
+    gemma3-1b, qwen3-1.7b, internvl2-1b, granite-20b, mamba2-2.7b and
+    hymba-1.5b at ``ARCH_TRAIN``'s specs; one f32 step of gemma3-1b,
+    internvl2-1b, mamba2-2.7b and hymba-1.5b (2 layers) on the card
+    against the CPU's plain path; then the moe, encdec and vlm stacked
+    steps against the loop steps at f32 (qwen3-moe 2 of 94 layers,
+    whisper 2 + 2, internvl2-1b 2 of 24).  Returns (metrics, launches, the
+    trainer's kernel rows at its shapes)."""
     import torch
+    from repro_torch.configs.internvl2_1b import CONFIG as INTERNVL2
     from repro_torch.configs.phi3p5_moe_42b_a6p6b import CONFIG as PHI
     from repro_torch.configs.qwen3_moe_235b_a22b import CONFIG as QWEN3_MOE
     from repro_torch.configs.whisper_medium import CONFIG as WHISPER
@@ -7073,13 +7268,23 @@ def phase_trainer():
     out["whisper-medium"], total = train_model(
         "whisper-medium", WHISPER, WHISPER_TRAIN, total, gen, check_whisper)
     lap("whisper-medium")
+    for name in ARCH_TRAIN:
+        out[name], total = train_arch(name, total, gen)
+        lap(name)
+    out["card_against_cpu"] = {}
+    for name in CPU_STEP_CASES:
+        out["card_against_cpu"][name], total = card_against_cpu(name, total,
+                                                                gen)
+        lap(f"card_against_cpu {name}")
     out["stacked"] = {}
     for name, mc in (
             ("qwen3-moe", with_overrides(QWEN3_MOE, n_layers=2,
                                          dtype="float32")),
             ("whisper-medium", with_overrides(WHISPER, n_layers=2,
                                               n_enc_layers=2,
-                                              dtype="float32"))):
+                                              dtype="float32")),
+            ("internvl2-1b", with_overrides(INTERNVL2, n_layers=2,
+                                            dtype="float32"))):
         out["stacked"][name], total = stacked_against_loop(
             f"stacked {name}", mc, gen, total)
     lap("stacked")
