@@ -6029,13 +6029,86 @@ def consistency(bundle, params, toks, extra, f32_layers=None):
     return {"f32": f32, "bf16": bf16}
 
 
+def sdpa_ring_call(qs, ks, vs, lens, windows):
+    """The one PyTorch call that computes A's function on a ring (one page
+    a row): ``scaled_dot_product_attention`` at Sq = 1 with each layer's
+    (B, 1, 1, S_c) mask (slot s of row b kept where s < lens[b] and
+    lens[b] - 1 - s < the layer's window, A's test) and ``enable_gqa``,
+    on (B, H, 1, D) / (B, K, S_c, D) copies of qs (L, B, 1, H, D) and ks /
+    vs (L, B, S_c, K, D).  Returns i -> layer i % L's output as (B, 1,
+    H, D)."""
+    import torch
+    import torch.nn.functional as F
+    L = qs.shape[0]
+    qt = qs.transpose(2, 3).contiguous()                 # (L, B, H, 1, D)
+    kt, vt = (x.transpose(2, 3).contiguous() for x in (ks, vs))
+    kpos = torch.arange(ks.shape[2], device=lens.device)[None, :]
+    last = lens.long()[:, None] - 1
+    masks = {w: ((kpos <= last) & (last - kpos < w))[:, None, None]
+             for w in set(windows)}
+
+    def call(i):
+        out = F.scaled_dot_product_attention(
+            qt[i % L], kt[i % L], vt[i % L],
+            attn_mask=masks[windows[i % L]], enable_gqa=True)
+        return out.transpose(1, 2)
+    return call
+
+
+def pages_as_ring_row(engine, snap, windows, gen):
+    """Row A's ring form (block tables None, the ring path's call) beside
+    SDPA on the same ring (:func:`sdpa_ring_call`) at a serving run's
+    fullest decode step: each live row's pages laid out as one page of
+    S_c = its longest length, every layer's pool copied so, with queries
+    from ``gen``; their replays taken in turn, SDPA's output held to
+    A's."""
+    import torch
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    cfg = engine.cfg
+    H, D, L = cfg.n_heads, cfg.head_dim, cfg.n_layers
+    bt, seq_lens, active = snap
+    live = active.nonzero().flatten()
+    lens = (seq_lens[live] + 1).int().contiguous()
+    S_c = int(lens.max())
+    kp, vp = engine.pstate["k_pages"], engine.pstate["v_pages"]
+    K = kp.shape[3]
+    rows = bt[live].long()
+
+    def ring(pool):
+        return pool[:, rows].reshape(L, len(live), -1, K, D)[:, :, :S_c] \
+            .contiguous()
+    ks, vs = ring(kp), ring(vp)
+    qs = torch.randn((L, len(live), 1, H, D), generator=gen,
+                     device="cuda").to(kp.dtype)
+    windows = list(windows)
+
+    def a(i):
+        return paged_attention_cuda(qs[i % L], ks[i % L], vs[i % L], None,
+                                    lens, windows[i % L])
+    sdpa = sdpa_ring_call(qs, ks, vs, lens, windows)
+    err = max(check_close(f"SDPA on the ring, layer {i}", sdpa(i), a(i),
+                          BF16_TOL) for i in range(L))
+    t = graphs_ms({"a_ring": a, "sdpa": sdpa}, n_calls=L, reps=7)
+    return {"ms": t["a_ring"], "library_ms": t["sdpa"],
+            "library_vs_a_max_abs_err": err,
+            "library_call": "scaled_dot_product_attention(attn_mask=(B, 1, "
+                            "1, S_c) length and window mask, "
+                            "enable_gqa=True) on (B, H, 1, D) / (B, K, S_c, "
+                            "D) copies",
+            "shape": {"rows": len(live), "ring_slots": S_c,
+                      "cached_keys": int(lens.sum()), "H": H, "K": K, "D": D,
+                      "layers": L, "dtype": str(kp.dtype)}}
+
+
 def ring_row(cfg, B, S_c, gen):
     """Row A on a ring at ``cfg``'s decode shape: B rows, a full ring of
     S_c slots a layer (the ring run's fullest step), each layer's (B, S_c,
-    K, D) ring read as B pages of S_c entries; against the same keys read
-    as pages of 16 (S_c / 16 a row: the same capacity, so the split rule
-    picks the same cluster), their replays taken in turn; the bound from
-    the bytes of the keys kept."""
+    K, D) ring read in place as B pages of S_c entries (block tables None,
+    ``layers.decode_attention``'s call), bit for bit the launch on the
+    arange table [[0], ..., [B - 1]]; against the same keys read as pages
+    of 16 (S_c / 16 a row: the same capacity, so the split rule picks the
+    same cluster) and SDPA with the length mask (the library call), their
+    replays taken in turn; the bound from the bytes of the keys kept."""
     import torch
     from repro_torch.kernels.paged_attention import (
         paged_attention_cuda, paged_attention_plain, paged_attention_splits)
@@ -6052,8 +6125,8 @@ def ring_row(cfg, B, S_c, gen):
     bt = torch.arange(B * M, dtype=torch.int32, device="cuda").reshape(B, M)
     lens = torch.full((B,), S_c, dtype=torch.int32, device="cuda")
 
-    def ring(i, fn=paged_attention_cuda):
-        return fn(qs[i % L], kv[i % L, 0], kv[i % L, 1], tables, lens,
+    def ring(i, fn=paged_attention_cuda, tab=None):
+        return fn(qs[i % L], kv[i % L, 0], kv[i % L, 1], tab, lens,
                   BIG_WINDOW)
 
     def pages(i):
@@ -6064,18 +6137,30 @@ def ring_row(cfg, B, S_c, gen):
     err = 0.0
     for i in range(L):
         got = ring(i)
+        if not torch.equal(got, ring(i, tab=tables)):
+            raise AssertionError(f"ring layer {i}: the ring form's bits "
+                                 "differ from the arange table's")
         err = max(err, check_close(f"ring layer {i}", got,
                                    ring(i, paged_attention_plain), BF16_TOL),
                   check_close(f"ring vs pages layer {i}", got, pages(i),
                               BF16_TOL))
+    windows = [BIG_WINDOW] * L
+    sdpa = sdpa_ring_call(qs, kv[:, 0], kv[:, 1], lens, windows)
+    lib_err = max(check_close(f"SDPA on the ring, layer {i}", sdpa(i),
+                              ring(i), BF16_TOL) for i in range(L))
     t = graphs_ms({"ring": ring, "pages": pages,
-                   "plain": lambda i: ring(i, paged_attention_plain)},
-                  n_calls=L, reps=7)
+                   "plain": lambda i: ring(i, paged_attention_plain),
+                   "sdpa": sdpa}, n_calls=L, reps=7)
     esz = kv.element_size()
     bytes_ = 2 * B * S_c * K * D * esz + 2 * B * H * D * esz + 8 * B
     bound, by = _bound(bytes_, 4 * B * S_c * H * D)
     return {"max_abs_err": err, "ms": t["ring"],
+            "ring_form_bit_equal_to_table": True,
             "ms_pages_same_capacity": t["pages"], "plain_ms": t["plain"],
+            "library_ms": t["sdpa"], "library_vs_a_max_abs_err": lib_err,
+            "library_call": "scaled_dot_product_attention(attn_mask=(B, 1, "
+                            "1, S_c) length mask, enable_gqa=True) on (B, H, "
+                            "1, D) / (B, K, S_c, D) copies",
             "bound_ms": bound, "bound_by": by,
             "splits": paged_attention_splits(B, K, H // K, 1, S_c),
             "shape": {"rows": B, "ring_slots": S_c, "H": H, "K": K, "D": D,
@@ -6292,7 +6377,11 @@ def phase_registry_serving():
         grab = None
         if mod in ("gemma_2b", "granite_20b"):
             def grab(engine, snap):
-                return paged_row(engine, snap, window_array(engine.cfg), gen)
+                windows = window_array(engine.cfg)
+                row = paged_row(engine, snap, windows, gen)
+                row["as_a_ring"] = pages_as_ring_row(engine, snap, windows,
+                                                     gen)
+                return row
         metrics, launches, row = serve_both(
             cfg, rows, S, new,
             extra=stub_frontend(cfg) if cfg.frontend else None,
@@ -6324,8 +6413,10 @@ def cross_row(cfg, B, gen):
     """The decode cross-attention of ``cfg`` (whisper-medium: 16 heads of
     64 over 1,536 frames), one token a row against each decoder layer's
     own cross cache (L x 25 MB at B 4, past the 50 MB L2): A with the
-    cache read as one page a row (``layers.cross_attention_decode``, the
-    path's choice) against B at Sq = 1 with ``causal=False``, the plain
+    cache read in place as one page a row (block tables None, ``layers.
+    cross_attention_decode``'s call, the path's choice; bit for bit the
+    launch on the arange table) against B at Sq = 1 with ``causal=False``,
+    the plain
     version and SDPA, their replays taken in turn; the bound from the
     bytes of the keys read."""
     import torch
@@ -6346,8 +6437,8 @@ def cross_row(cfg, B, gen):
     qt = qs.transpose(2, 3).contiguous()                    # (L, B, H, 1, D)
     kvt = kv.transpose(3, 4).contiguous()                   # (L, 2, B, K, T, D)
 
-    def a(i, fn=paged_attention_cuda):
-        return fn(qs[i % L], kv[i % L, 0], kv[i % L, 1], tables, lens, 0)
+    def a(i, fn=paged_attention_cuda, tab=None):
+        return fn(qs[i % L], kv[i % L, 0], kv[i % L, 1], tab, lens, 0)
 
     def b(i):
         return flash_attention_cuda(qs[i % L], kv[i % L, 0], kv[i % L, 1],
@@ -6356,6 +6447,9 @@ def cross_row(cfg, B, gen):
     err = 0.0
     for i in range(L):
         want = a(i, paged_attention_plain)
+        if not torch.equal(a(i), a(i, tab=tables)):
+            raise AssertionError(f"cross A layer {i}: the ring form's bits "
+                                 "differ from the arange table's")
         err = max(err, check_close(f"cross A layer {i}", a(i), want,
                                    BF16_TOL),
                   check_close(f"cross B layer {i}", b(i), want, BF16_TOL))
@@ -6368,6 +6462,7 @@ def cross_row(cfg, B, gen):
     bound, by = _bound(2 * B * T * K * D * esz + 2 * B * H * D * esz + 8 * B,
                        4 * B * T * H * D)
     return {"max_abs_err": err, "ms": t["a"], "ms_b_sq1": t["b"],
+            "ring_form_bit_equal_to_table": True,
             "plain_ms": t["plain"], "library_ms": t["sdpa"],
             "library_call": "scaled_dot_product_attention(enable_gqa=True) "
                             "on (B, H, 1, D) / (B, K, T, D) copies",
@@ -7311,6 +7406,13 @@ DRYRUN_TERMS = ("compute_s", "compute_s_analytic", "memory_s",
                 "memory_s_analytic", "collective_s")
 DRYRUN_TIMEOUT_S = 300      # s for the two dry runs, from their start
 DRYRUN_CASE = ("gemma-2b", "decode_32k")
+# DRYRUN_CASE's collective bytes a rank may be at most 4x the reference's:
+# 11,622,720 B, the reference's own dry run of the cell (16 x 16, full
+# depth, JAX 0.9 on a CPU host), each loop body counted once a layer
+# (``tools/dryrun_compare.py --arch gemma-2b --shape decode_32k``, field
+# "collective bytes, loops x trips"; the reference's own count, 2,850,720
+# B, counts its layer loop's body once: ROADMAP fault 3.12)
+DRYRUN_COLLECTIVE_CEILING = 4 * 11_622_720
 # the trainer phase's gemma-2b case (GEMMA_TRAIN), as an InputShape
 GEMMA_DRYRUN_SHAPE = ("gemma_train", GEMMA_TRAIN["seq"], GEMMA_TRAIN["rows"],
                       "train")
@@ -7410,7 +7512,15 @@ def join_dryrun(started):
 
 def check_dryrun_result(res):
     """The production dry run's JSON: the reference's keys, its roofline
-    terms finite and non-negative, the 16 x 16 mesh of 256 ranks."""
+    terms finite and non-negative, the 16 x 16 mesh of 256 ranks, its
+    collective bytes a rank under ``DRYRUN_COLLECTIVE_CEILING`` (a decode
+    step that reads the ring through a block table moved 576,611,280)."""
+    coll = res.get("collectives", {}).get("total_bytes")
+    if not (isinstance(coll, (int, float)) and
+            0 <= coll <= DRYRUN_COLLECTIVE_CEILING):
+        raise AssertionError(f"dry run {DRYRUN_CASE}: collective bytes "
+                             f"{coll} a rank, over the ceiling of "
+                             f"{DRYRUN_COLLECTIVE_CEILING}")
     missing = [k for k in DRYRUN_KEYS if k not in res]
     terms = {k: res["roofline"].get(k) for k in DRYRUN_TERMS}
     bad = {k: v for k, v in terms.items()

@@ -70,9 +70,11 @@ def paged_attention(q, k_pages, v_pages, block_tables, lens, window: int):
     """Decode-mode (Sq=1) attention over a paged KV cache, GQA-aware.
 
     q: (B, 1, H, D);  k_pages/v_pages: (P, ps, K, D);  block_tables: (B, M)
-    int32 page ids;  lens: (B,) int32 valid entries per slot including the
-    newest token (0 = idle slot);  window: a plain int per layer (<= 0 or
-    ``layers.BIG_WINDOW`` = none).  Returns (B, 1, H * D)."""
+    int32 page ids, or None for a ring: the pool is B pages of ps entries
+    and row b's only page is page b, read in place (no gather);  lens:
+    (B,) int32 valid entries per slot including the newest token (0 = idle
+    slot);  window: a plain int per layer (<= 0 or ``layers.BIG_WINDOW`` =
+    none).  Returns (B, 1, H * D)."""
     B, _, H, D = q.shape
     fn = paged_attention_cuda if q.is_cuda else paged_attention_plain
     return fn(q, k_pages, v_pages, block_tables, lens, window).reshape(

@@ -26,12 +26,13 @@ import torch
 
 from repro_torch.kernels import _build, _route
 from repro_torch.kernels.ref import paged_attention_ref as paged_attention_plain
+from repro_torch.kernels.ref import paged_rows
 
 __all__ = ["paged_attention_cuda", "paged_attention_plain",
            "paged_attention_route", "paged_attention_splits",
            "paged_attention_key_tile",
            "paged_attention_partials_plain", "paged_attention_merge_plain",
-           "SUPPORTED_HEAD_DIMS", "SPLITS"]
+           "ring_table", "SUPPORTED_HEAD_DIMS", "SPLITS"]
 
 SUPPORTED_HEAD_DIMS = (32, 64, 128, 256)
 SPLITS = (1, 2, 4, 8)           # cluster sizes (8 is the portable limit)
@@ -130,19 +131,18 @@ def paged_attention_partials_plain(q, k_pages, v_pages, block_tables, lens,
     """The kernel's per-rank partial states in plain PyTorch: for each of
     ``splits`` ranks, its running max m (S, B, H), sum l (S, B, H) and
     unnormalised output acc (S, B, H, D), f32, over its share of the keys
-    (natural-log logits).  A rank with no key keeps m = NEG_INF, l = 0,
-    acc = 0."""
+    (natural-log logits; ``block_tables`` None: a ring, as
+    :func:`paged_attention_plain` reads it).  A rank with no key keeps
+    m = NEG_INF, l = 0, acc = 0."""
     B, _, H, D = q.shape
-    ps, K = k_pages.shape[1], k_pages.shape[2]
-    M = block_tables.shape[1]
+    K = k_pages.shape[2]
     G = H // K
-    bt = block_tables.long()
-    k = k_pages[bt].reshape(B, M * ps, K, D).float()
-    v = v_pages[bt].reshape(B, M * ps, K, D).float()
+    k, v, n = paged_rows(k_pages, v_pages, block_tables, B)
+    k, v = k.float(), v.float()
     logits = torch.einsum("bkgd,bskd->bkgs", q.float().reshape(B, K, G, D),
                           k) / math.sqrt(D)
-    lo, hi = _key_ranges(lens, window, M * ps, splits, tile)
-    kpos = torch.arange(M * ps, device=q.device)[None, :]
+    lo, hi = _key_ranges(lens, window, n, splits, tile)
+    kpos = torch.arange(n, device=q.device)[None, :]
     ms, ls, accs = [], [], []
     for r in range(splits):
         keep = ((kpos >= lo[r][:, None]) & (kpos < hi[r][:, None])
@@ -168,14 +168,36 @@ def paged_attention_merge_plain(m, l, acc, dtype):
     return out.reshape(B, 1, H, D).to(dtype)
 
 
+_RING_TABLES: dict = {}
+
+
+def ring_table(B: int, device) -> torch.Tensor:
+    """The block table of a ring, [[0], [1], ..., [B - 1]] int32 on
+    ``device``: made once per (B, device) and kept, so a launch on a ring
+    allocates nothing (a CUDA graph captures it once it is made; made
+    inside a capture, its values would exist only in the graph, so that
+    raises)."""
+    key = (B, torch.device(device))
+    table = _RING_TABLES.get(key)
+    if table is None:
+        if key[1].type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"the ring table of {B} rows is made inside "
+                               "a CUDA graph capture: launch once before it")
+        table = torch.arange(B, dtype=torch.int32, device=device)[:, None]
+        _RING_TABLES[key] = table
+    return table
+
+
 def paged_attention_cuda(q, k_pages, v_pages, block_tables, lens,
                          window: int, splits: int | None = None,
                          route: str | None = None):
     """Launch the paged decode kernel.
 
     q: (B, 1, H, D);  k_pages/v_pages: (P, ps, K, D) in q's dtype (float32
-    or bfloat16);  block_tables: (B, M) int32;  lens: (B,) int32, valid
-    entries per slot including the newest token (0 = idle slot, zeros out);
+    or bfloat16);  block_tables: (B, M) int32, or None for a ring (P = B,
+    row b's only page is page b: the kernel reads :func:`ring_table`);
+    lens: (B,) int32, valid entries per slot including the newest token
+    (0 = idle slot, zeros out);
     window: keys with ``len - 1 - kpos >= window`` are masked (<= 0: none);
     splits: the cluster size, one of ``SPLITS`` (None: the one
     :func:`paged_attention_splits` gives);  route: the walk ("fma" takes
@@ -188,6 +210,11 @@ def paged_attention_cuda(q, k_pages, v_pages, block_tables, lens,
     route = _route.pick(paged_attention_route(q, k_pages, v_pages), route)
     B, one, H, D = q.shape
     P, ps, K, Dk = k_pages.shape
+    if block_tables is None:
+        if P != B:
+            raise ValueError(f"a ring needs one page a row: {P} pages, "
+                             f"{B} rows")
+        block_tables = ring_table(B, q.device)
     if one != 1 or Dk != D or tuple(v_pages.shape) != (P, ps, K, D):
         raise ValueError(f"bad shapes q{tuple(q.shape)} k{tuple(k_pages.shape)} "
                          f"v{tuple(v_pages.shape)}")

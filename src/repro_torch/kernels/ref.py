@@ -36,23 +36,39 @@ def attention_ref(q, k, v, causal: bool = True,
     return torch.einsum("bhqk,bhkd->bhqd", w, v.float())
 
 
+def paged_rows(k_pages, v_pages, block_tables, B: int):
+    """Each row's keys and values (B, n, K, D) and n: the pages of its
+    block table in order, or, with ``block_tables`` None (a ring: the pool
+    is B pages, row b's only page is page b), the pool itself, read in
+    place with no index."""
+    P, ps, K, D = k_pages.shape
+    if block_tables is None:
+        if P != B:
+            raise ValueError(f"a ring needs one page a row: {P} pages, "
+                             f"{B} rows")
+        return k_pages, v_pages, ps
+    M = block_tables.shape[1]
+    bt = block_tables.long()
+    return (k_pages[bt].reshape(B, M * ps, K, D),
+            v_pages[bt].reshape(B, M * ps, K, D), M * ps)
+
+
 def paged_attention_ref(q, k_pages, v_pages, block_tables, lens,
                         window: Optional[int] = None):
     """Decode-mode oracle.  q: (B,1,H,D);  k_pages/v_pages: (P,ps,K,D);
-    block_tables: (B,M) page ids;  lens: (B,) valid entries incl. the newest
-    token.  KV heads are grouped (GQA); idle slots (len 0) return zeros.
-    Returns (B, 1, H, D) in q's dtype."""
+    block_tables: (B,M) page ids, or None for a ring (P = B, row b's only
+    page is page b, :func:`paged_rows`);  lens: (B,) valid entries incl.
+    the newest token.  KV heads are grouped (GQA); idle slots (len 0)
+    return zeros.  Returns (B, 1, H, D) in q's dtype."""
     B, _, H, D = q.shape
-    ps, K = k_pages.shape[1], k_pages.shape[2]
-    M = block_tables.shape[1]
+    K = k_pages.shape[2]
     G = H // K
-    bt = block_tables.long()
-    k = k_pages[bt].reshape(B, M * ps, K, D).float()
-    v = v_pages[bt].reshape(B, M * ps, K, D).float()
+    k, v, n = paged_rows(k_pages, v_pages, block_tables, B)
+    k, v = k.float(), v.float()
     qf = q.float().reshape(B, K, G, D)
     logits = torch.einsum("bkgd,bskd->bkgs", qf, k) / math.sqrt(D)
     qpos = lens.long()[:, None] - 1
-    kpos = torch.arange(M * ps, device=q.device)[None, :]
+    kpos = torch.arange(n, device=q.device)[None, :]
     mask = kpos <= qpos
     if window is not None and window > 0:
         mask &= (qpos - kpos) < window

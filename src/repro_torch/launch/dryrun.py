@@ -956,10 +956,13 @@ class RankCost(TorchDispatchMode):
         ins = _tensors((args, kwargs))
         if not func.is_view and name != "wait_tensor":
             self.bytes_accessed += sum(_nbytes(t) for t in ins + outs)
-        # what an op copies from (a view's schema may copy: ``to``)
+        # what an op copies from (a view's schema may copy: ``to``); a
+        # ``prim`` op (``prim.device``, which DTensor asks of every leaf a
+        # layer's ``v[i]`` selects) reads metadata, not the storage
         in_ids = {id(t.untyped_storage()) for t in ins}
-        if not func.is_view or any(id(t.untyped_storage()) not in in_ids
-                                   for t in outs):
+        if func.namespace != "prim" and (
+                not func.is_view or any(id(t.untyped_storage()) not in in_ids
+                                        for t in outs)):
             self.read.update(in_ids)
         self.track(outs)
         return out

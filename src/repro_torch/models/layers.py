@@ -193,16 +193,16 @@ def cross_attention(p, cfg: ModelConfig, x, enc_k, enc_v):
 def cross_attention_decode(p, cfg: ModelConfig, x, enc_k, enc_v):
     """:func:`cross_attention` for one token a row, x (B, 1, d), through
     ``ops.paged_attention`` (kernel A on the card): the (B, T, K, hd)
-    cross cache read as one page of T entries a row (block table [b],
-    every row T keys, no window), as ``decode_attention`` reads a ring.
-    The same function as kernel B at Sq = 1 with ``causal=False``; the
-    smoke script times both at whisper-medium's decode shape."""
+    cross cache read in place as one page of T entries a row (block
+    tables None, every row T keys, no window), as ``decode_attention``
+    reads a ring.  The same function as kernel B at Sq = 1 with
+    ``causal=False``; the smoke script times both at whisper-medium's
+    decode shape."""
     B, T = enc_k.shape[:2]
     H, hd = cfg.n_heads, cfg.head_dim
     q = proj(p, "wq", x, cfg).reshape(B, 1, H, hd)
-    tables = torch.arange(B, dtype=torch.int32, device=x.device)[:, None]
     lens = torch.full((B,), T, dtype=torch.int32, device=x.device)
-    out = ops.paged_attention(q, enc_k, enc_v, tables, lens, 0)
+    out = ops.paged_attention(q, enc_k, enc_v, None, lens, 0)
     return proj(p, "wo", out, cfg)
 
 
@@ -224,11 +224,12 @@ def decode_attention(p, cfg: ModelConfig, x, pos: int, cache_k, cache_v,
     empty);  pos: the new token's absolute position, one for every row.
     The new K and V go into slot ``pos % S_c`` and its position into
     ``cache_positions``, in place; then the query attends through
-    ``ops.paged_attention`` (kernel A on the card), the ring read as one
-    page per row: the pool is ``cache_k`` itself (B pages of S_c entries),
-    row b's block table is [b], and every row holds min(pos + 1, S_c)
-    entries.  That is the reference's mask (``valid = 0 <= cache_pos <=
-    pos and pos - cache_pos < window``) exactly:
+    ``ops.paged_attention`` (kernel A on the card), the ring read in place
+    as one page per row: the pool is ``cache_k`` itself (B pages of S_c
+    entries), the block tables None (row b's only page is page b), and
+    every row holds min(pos + 1, S_c) entries.  That is the reference's
+    mask (``valid = 0 <= cache_pos <= pos and pos - cache_pos < window``)
+    exactly:
 
     * until the ring wraps, slot = position, so A's window test
       ``len - 1 - slot < window`` is ``pos - cache_pos < window``, and the
@@ -249,10 +250,9 @@ def decode_attention(p, cfg: ModelConfig, x, pos: int, cache_k, cache_v,
     cache_positions[slot] = pos
     cache_k = constrain_kv_cache(cache_k)
     cache_v = constrain_kv_cache(cache_v)
-    tables = torch.arange(B, dtype=torch.int32, device=x.device)[:, None]
     lens = torch.full((B,), min(pos + 1, S_c), dtype=torch.int32,
                       device=x.device)
-    out = ops.paged_attention(q, cache_k, cache_v, tables, lens, window)
+    out = ops.paged_attention(q, cache_k, cache_v, None, lens, window)
     return proj(p, "wo", out, cfg)
 
 

@@ -207,11 +207,11 @@ def cache_len(cfg: ModelConfig, seq_len: int) -> int:
 
 def empty_ring(cfg: ModelConfig, batch: int, S_c: int, device) -> dict:
     """An empty ring of S_c slots a layer: k / v (L, B, S_c, K, hd) zeros,
-    pos (L, S_c) -1."""
+    pos (L, S_c) int32 -1 (the reference's)."""
     shape = (cfg.n_layers, batch, S_c, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
-            "pos": torch.full((cfg.n_layers, S_c), -1, dtype=torch.long,
+            "pos": torch.full((cfg.n_layers, S_c), -1, dtype=torch.int32,
                               device=device)}
 
 
@@ -224,11 +224,11 @@ def ring_of(k, v, S_c: int) -> dict:
     slots = kept % S_c
     ring = {"k": torch.empty_like(k[:, :, :S_c]),
             "v": torch.empty_like(v[:, :, :S_c]),
-            "pos": torch.empty((k.shape[0], S_c), dtype=torch.long,
+            "pos": torch.empty((k.shape[0], S_c), dtype=torch.int32,
                                device=k.device)}
     ring["k"][:, :, slots] = k[:, :, S - S_c:]
     ring["v"][:, :, slots] = v[:, :, S - S_c:]
-    ring["pos"][:, slots] = kept
+    ring["pos"][:, slots] = kept.to(torch.int32)
     return ring
 
 

@@ -232,6 +232,37 @@ def test_paged_kernel_on_a_ring(gen, dtype, S_c, pos, window, D):
                                **TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S_c,lens,window,D", [
+    (288, [288] * 8, BIG_WINDOW, 64),          # the SLM's full ring
+    (1536, [1536] * 4, 0, 64),                 # whisper's cross cache
+    (600, [600, 0, 17, 599], 512, 256),        # D 256 (FMA), an idle row
+])
+def test_paged_kernel_ring_form_is_the_table_form(gen, dtype, S_c, lens,
+                                                  window, D):
+    """``block_tables`` None launches A on the cached ring table: the
+    bits of the arange table's launch, one launch each, and no
+    allocation on the second call."""
+    B, K = len(lens), 2
+    q = torch.randn((B, 1, 4 * K, D), generator=gen, device="cuda").to(dtype)
+    ck, cv = (torch.randn((B, S_c, K, D), generator=gen,
+                          device="cuda").to(dtype) for _ in range(2))
+    tables = torch.arange(B, dtype=torch.int32, device="cuda")[:, None]
+    lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    n = paged_attention_cuda.launches
+    ring = paged_attention_cuda(q, ck, cv, None, lens, window)
+    table = paged_attention_cuda(q, ck, cv, tables, lens, window)
+    torch.cuda.synchronize()
+    assert paged_attention_cuda.launches == n + 2
+    assert torch.equal(ring, table)
+    before = torch.cuda.memory_allocated()
+    again = paged_attention_cuda(q, ck, cv, None, lens, window)
+    assert torch.cuda.memory_allocated() - before == again.nbytes
+    torch.testing.assert_close(
+        ring.float(), paged_attention_plain(q, ck, cv, None, lens,
+                                            window).float(), **TOL[dtype])
+
+
 @pytest.mark.parametrize("H,window", [(8, BIG_WINDOW), (4, 512)])
 def test_paged_kernel_head_dim_256_takes_the_fma_walk(gen, H, window):
     """gemma-2b's (8 heads over 1 KV head of 256) and gemma3-1b's (4

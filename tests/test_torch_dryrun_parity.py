@@ -12,7 +12,9 @@ dry run held against the reference's own dry run, on the CPU.
   the full CE's gradient comes out placed like its logits;
 * one toy cell through both packages' ``dryrun_one`` in child processes
   (``tools/dryrun_compare.py``): the port's temp and collective bytes a
-  rank within 4x of the reference's, its argument bytes equal;
+  rank within 4x of the reference's, its argument bytes equal; and the
+  toy's two decode cells (a batch over data, and one row whose ring
+  splits over both axes) held alike;
 * the reference's own dry run refuses its Explicit-axes mesh (ROADMAP
   fault 3.11 of the reference).
 """
@@ -223,11 +225,22 @@ def test_full_ce_gradient_is_placed_like_its_logits(mesh16):
     assert all(c.nbytes < row for c in cost.collectives), cost.collectives
 
 
-TOY_CELL = ["--arch", "gemma-2b", "--shape", "train_4k", "--mesh", "4x4",
-            "--seq-len", "64", "--batch", "16",
-            "--set", "n_layers=2", "--set", "d_model=128", "--set",
-            "n_heads=8", "--set", "n_kv_heads=1", "--set", "head_dim=32",
-            "--set", "d_ff=256", "--set", "vocab_size=1024"]
+TOY_MODEL = ["--arch", "gemma-2b", "--mesh", "4x4",
+             "--set", "n_layers=2", "--set", "d_model=128", "--set",
+             "n_heads=8", "--set", "n_kv_heads=1", "--set", "head_dim=32",
+             "--set", "d_ff=256", "--set", "vocab_size=1024"]
+TOY_CELL = TOY_MODEL + ["--shape", "train_4k", "--seq-len", "64",
+                        "--batch", "16"]
+
+
+def _compare(cell, out):
+    """``tools/dryrun_compare.py`` on ``cell``: its fields, port / ref."""
+    subprocess.run([sys.executable, str(ROOT / "tools" / "dryrun_compare.py"),
+                    *cell, "--out-dir", str(out)], check=True,
+                   cwd=ROOT, timeout=240)
+    assert sorted(os.listdir(out)) == ["compare.json", "port.json",
+                                       "ref.json"]
+    return json.loads((out / "compare.json").read_text())["fields"]
 
 
 def test_toy_cell_against_the_reference_dry_run(tmp_path):
@@ -235,18 +248,46 @@ def test_toy_cell_against_the_reference_dry_run(tmp_path):
     axis of 4, one kv head), 16 x 64 tokens a step, on a (4, 4) mesh:
     the reference (Auto axes) and the port in child processes."""
     out = tmp_path / "cmp"
-    subprocess.run([sys.executable, str(ROOT / "tools" / "dryrun_compare.py"),
-                    *TOY_CELL, "--out-dir", str(out)], check=True,
-                   cwd=ROOT, timeout=240)
-    assert sorted(os.listdir(out)) == ["compare.json", "port.json",
-                                       "ref.json"]
-    fields = json.loads((out / "compare.json").read_text())["fields"]
+    fields = _compare(TOY_CELL, out)
     assert fields["argument bytes"]["ratio"] == 1.0
     for name in ("temp bytes", "collective bytes"):
         assert 0.25 <= fields[name]["ratio"] <= 4.0, (name, fields[name])
     port = json.loads((out / "port.json").read_text())
     assert port["torch"] == torch.__version__
     assert port["replicated_ops"] == {"aten.neg.default": 1}
+
+
+# the toy's decode cells, in float32: the reference's CPU backend converts
+# every bf16 operand of a dot to an f32 copy (the stacked weights of all
+# layers at once, the cache), which would outweigh the toy's own buffers
+TOY_DECODE = {
+    # batch 8 over the data axis of 4; the cache's sequence over model
+    "decode_32k": ["--shape", "decode_32k", "--seq-len", "4096",
+                   "--batch", "8"],
+    # one row: the ring (the sliding-window variant's 4,096 slots) over
+    # data and model
+    "long_500k": ["--shape", "long_500k", "--seq-len", "4096",
+                  "--batch", "1"],
+}
+
+
+@pytest.mark.parametrize("shape", list(TOY_DECODE))
+def test_toy_decode_cell_against_the_reference_dry_run(tmp_path, shape):
+    """The toy's decode step on the (4, 4) mesh: the port's temp and
+    collective bytes a rank within 4x of the reference's (its two layers'
+    collectives: the reference's own count takes its layer loop's once,
+    ROADMAP 3.12), and its arguments equal but the reference's 4-byte
+    ``pos`` scalar (the port's step takes the position as a host int).  Decode reads the ring in
+    place (``ops.paged_attention`` with no block table), as the
+    reference's ``mha`` reads it; through a block table DTensor moved the
+    cache block for the index (38x the reference's collectives at
+    decode_32k)."""
+    fields = _compare(TOY_MODEL + TOY_DECODE[shape]
+                      + ["--set", "dtype=float32"], tmp_path / "cmp")
+    args = fields["argument bytes"]
+    assert args["ref"] - args["port"] == 4, args
+    for name in ("temp bytes", "collective bytes, loops x trips"):
+        assert 0.25 <= fields[name]["ratio"] <= 4.0, (name, fields[name])
 
 
 def test_reference_dryrun_refuses_explicit_axes():

@@ -148,6 +148,68 @@ def test_paged_attention_split_partials_merge_to_the_reference(
     assert np.all(got[1] == 0.0)               # idle slot: zeros, not NaN
 
 
+# the ring form (block tables None): (B, S_c, K, D, window, lens, dtype)
+RING_CASES = {
+    "gqa": (3, 24, 2, 16, BIG_WINDOW, [24, 7, 13], torch.float32),
+    "window": (3, 40, 2, 16, 9, [40, 30, 10], torch.float32),
+    "idle_row": (4, 16, 4, 8, BIG_WINDOW, [16, 0, 5, 1], torch.float32),
+    "wrapped": (2, 32, 1, 32, 32, [32, 32], torch.float32),   # S_c = window
+    "bf16": (3, 24, 2, 16, 12, [24, 0, 17], torch.bfloat16),
+}
+
+
+def _ring_case(B, S_c, K, D, lens, dtype, H_per_K=3):
+    gen = torch.Generator().manual_seed(S_c + B)
+    q = torch.randn((B, 1, K * H_per_K, D), generator=gen).to(dtype)
+    ck, cv = (torch.randn((B, S_c, K, D), generator=gen).to(dtype)
+              for _ in range(2))
+    tables = torch.arange(B, dtype=torch.int32)[:, None]
+    return q, ck, cv, tables, torch.tensor(lens, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("case", list(RING_CASES))
+def test_paged_attention_ring_form_is_the_table_form(case):
+    """``block_tables`` None (the pool is B pages, row b's only page is
+    page b, as ``layers.decode_attention`` and ``cross_attention_decode``
+    read a ring) gives the bits of the arange table [[0], ..., [B - 1]]
+    through ``ops.paged_attention`` and the kernel's split partials, and
+    the plain version indexes nothing in that form."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_partials_plain)
+    B, S_c, K, D, window, lens, dtype = RING_CASES[case]
+    q, ck, cv, tables, lens = _ring_case(B, S_c, K, D, lens, dtype)
+
+    class Ops(TorchDispatchMode):
+        seen = set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.seen.add(func._overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+    with Ops() as mode:
+        ring = ops.paged_attention(q, ck, cv, None, lens, window)
+    table = ops.paged_attention(q, ck, cv, tables, lens, window)
+    assert not mode.seen & {"index", "gather", "index_select"}, mode.seen
+    assert ring.dtype == dtype
+    assert torch.equal(ring, table)
+    assert torch.all(ring[lens == 0] == 0)
+    for splits, tile in ((1, 16), (4, 4)):
+        w = window if window < BIG_WINDOW else 0
+        got = paged_attention_partials_plain(q, ck, cv, None, lens, w,
+                                             splits, tile)
+        want = paged_attention_partials_plain(q, ck, cv, tables, lens, w,
+                                              splits, tile)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+def test_paged_attention_ring_form_refuses_a_pool_of_other_rows():
+    q, ck, cv, _, lens = _ring_case(3, 8, 2, 8, [8, 8, 8], torch.float32)
+    with pytest.raises(ValueError, match="one page a row"):
+        ops.paged_attention(q, ck[:2], cv[:2], None, lens, 0)
+
+
 # ---------------------------------------------------------------------------
 # kernel B: prefill (flash) attention
 

@@ -4,7 +4,10 @@ Runs ``repro.launch.dryrun.dryrun_one`` and ``repro_torch.launch.dryrun.
 dryrun_one`` on the same (arch x input shape), each in a child process of
 its own, and prints both values of every field beside their ratio (port
 over reference): argument, output, alias and temp bytes a rank; the
-collective bytes a rank, in all and by op; FLOP and bytes accessed.
+collective bytes a rank, in all and by op; FLOP and bytes accessed; and
+the FLOP of the reference's dot ops alone (summed from its post-SPMD HLO:
+XLA's cost analysis also counts a FLOP for each element of an elementwise
+op, the port's counter only matmuls and convolutions).
 
 The reference's production mesh comes from ``jax.make_mesh``, whose axes
 are Explicit on JAX 0.9, and its ``with_sharding_constraint`` refuses
@@ -21,30 +24,56 @@ Usage, from the root of a checkout (CPU only):
 ``--seq-len`` / ``--batch`` the input shape's sizes (its name and kind
 stay).  Writes ``ref.json``, ``port.json`` and ``compare.json`` under
 ``--out-dir`` and nothing else.
+
+The grid: every assigned arch x input shape (40 cells), or those of the
+``--arch`` / ``--shape`` given (each may repeat), one cell after another
+(``--jobs`` at once), each as above in ``<out-dir>/<arch>__<shape>/``:
+
+    python tools/dryrun_compare.py --grid --set n_layers=1 \\
+        --out-dir /tmp/grid [--shape decode_32k --shape long_500k]
+
+writes ``grid.json`` (every cell's fields, its yardstick and the error of
+a side that failed; the other side then stands alone) and prints one
+table of port / reference ratios: argument, temp and collective bytes,
+in all ("coll": the reference's loop bodies counted once a trip;
+"coll0": its own count) and by op, FLOP and dot FLOP.  A cell is within
+the yardstick where its temp and collective bytes lie within
+``YARDSTICK`` of the reference's.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
+import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 
-# (label, path into a dry run's JSON)
+# (label, path into the reference's JSON, path into the port's)
 FIELDS = [
     ("argument bytes", ("memory_analysis", "argument_size_in_bytes")),
     ("output bytes", ("memory_analysis", "output_size_in_bytes")),
     ("alias bytes", ("memory_analysis", "alias_size_in_bytes")),
     ("temp bytes", ("memory_analysis", "temp_size_in_bytes")),
     ("collective bytes", ("collectives", "total_bytes")),
+    ("collective bytes, loops x trips", ("collectives_by_trip",
+                                         "total_bytes"),
+     ("collectives", "total_bytes")),
     ("flops", ("cost_analysis", "flops")),
+    ("dot flops", ("dot_flops",), ("cost_analysis", "flops")),
     ("bytes accessed", ("cost_analysis", "bytes accessed")),
 ]
 COLLECTIVE_OPS = ("all-gather", "all-reduce", "reduce-scatter",
                   "all-to-all", "collective-permute", "broadcast")
+# temp and collective bytes a rank, port / reference, that a cell keeps
+YARDSTICK = (0.25, 4.0)
+CELL_TIMEOUT_S = 3600       # a side of a grid cell (full depth: minutes)
 
 
 def _mesh(text: str):
@@ -61,9 +90,85 @@ def _shape(mod, args):
                       args.batch or base.global_batch, base.kind)
 
 
+_DEF = re.compile(r"^\s*(?:ROOT\s+)?%?([\w.\-]+)\s*=\s*\w+\[([\d,]*)\]")
+_DOT = re.compile(r"\sdot\(%?([\w.\-]+),")
+
+
+def hlo_dot_flops(text: str) -> int:
+    """2 x output elements x contracted size, summed over every ``dot`` of
+    an HLO module's text (each computation once, as XLA's cost analysis
+    counts a loop body)."""
+    shapes, total = {}, 0
+    for line in text.splitlines():
+        m = _DEF.match(line)
+        if m is None:
+            continue
+        shapes[m.group(1)] = [int(d) for d in m.group(2).split(",") if d]
+        dot = _DOT.search(line)
+        if dot is None:
+            continue
+        lhs = shapes[dot.group(1)]
+        contracted = re.search(r"lhs_contracting_dims=\{([\d,]*)\}", line)
+        k = 1
+        for d in contracted.group(1).split(","):
+            k *= lhs[int(d)] if d else 1
+        n = 1
+        for d in shapes[m.group(1)]:
+            n *= d
+        total += 2 * n * k
+    return total
+
+
+_COMP = re.compile(r"^(?:ENTRY\s+)?%?([\w.\-]+)\s+\(.*\{\s*$")
+_WHILE = re.compile(r"\swhile\(.*body=%?([\w.\-]+)")
+_TRIPS = re.compile(r'known_trip_count"\s*:\s*\{\s*"n"\s*:\s*"(\d+)"')
+
+
+def hlo_collectives_by_trip(text: str, per_line) -> dict:
+    """The collective bytes of an HLO module's text with each loop body's
+    counted once a trip (its ``known_trip_count``, nested loops
+    multiplied), each line costed by ``per_line(line)`` (the reference's
+    ``collective_bytes``): ``{"total_bytes", "per_op"}``.  (The
+    reference's own count multiplies a body whose computation's name
+    holds "body" or "while", which JAX 0.9's names do not.)"""
+    comp, entry, loops, lines = "", None, {}, {}
+    for line in text.splitlines():
+        m = _COMP.match(line)
+        if m:
+            comp = m.group(1)
+            entry = comp if line.startswith("ENTRY") else entry
+            continue
+        w = _WHILE.search(line)
+        if w:
+            trips = _TRIPS.search(line)
+            loops.setdefault(comp, []).append(
+                (w.group(1), int(trips.group(1)) if trips else 1))
+        lines.setdefault(comp, []).append(line)
+    mult = {}
+
+    def walk(name, k):
+        mult[name] = mult.get(name, 0) + k
+        for body, trips in loops.get(name, ()):
+            walk(body, k * trips)
+    walk(entry, 1)
+    per_op, total = {}, 0.0
+    for name, k in mult.items():
+        for line in lines.get(name, ()):
+            one = per_line(line)
+            for op, v in one["per_op"].items():
+                d = per_op.setdefault(op, {"count": 0, "bytes": 0.0})
+                d["count"] += v["count"]
+                d["bytes"] += v["bytes"] * k
+            total += one["total_bytes"] * k
+    return {"total_bytes": total, "per_op": per_op}
+
+
 def run_reference(args) -> dict:
     """The reference's ``dryrun_one`` on an Auto-axes mesh of
-    ``args.mesh`` (it forces 512 host devices when imported)."""
+    ``args.mesh`` (it forces 512 host devices when imported), with the dot
+    FLOP of its compiled module (``"dot_flops"``) and its collectives
+    with each loop body counted once a trip (``"collectives_by_trip"``,
+    :func:`hlo_collectives_by_trip`)."""
     import jax
     from jax.sharding import AxisType
 
@@ -72,8 +177,18 @@ def run_reference(args) -> dict:
     D.make_production_mesh = lambda multi_pod=False: jax.make_mesh(
         dims, names, axis_types=(AxisType.Auto,) * len(dims))
     D.INPUT_SHAPES = {**D.INPUT_SHAPES, args.shape: _shape(D, args)}
-    return D.dryrun_one(args.arch, args.shape, multi_pod=len(dims) == 3,
-                        overrides=args.overrides)
+    texts = []
+    count = D.collective_bytes      # the one reader of the compiled text
+
+    def reading(text, *a, **k):
+        texts.append(text)
+        return count(text, *a, **k)
+    D.collective_bytes = reading
+    res = D.dryrun_one(args.arch, args.shape, multi_pod=len(dims) == 3,
+                       overrides=args.overrides)
+    res["dot_flops"] = hlo_dot_flops(texts[0])
+    res["collectives_by_trip"] = hlo_collectives_by_trip(texts[0], count)
+    return res
 
 
 def run_port(args) -> dict:
@@ -97,7 +212,7 @@ def run_port(args) -> dict:
         dist.destroy_process_group()
 
 
-def _get(res: dict, path):
+def _get(res, path):
     for k in path:
         if not isinstance(res, dict) or k not in res:
             return None
@@ -105,15 +220,17 @@ def _get(res: dict, path):
     return res
 
 
-def compare(ref: dict, port: dict) -> dict:
+def compare(ref, port) -> dict:
     """{field: {"ref", "port", "ratio"}} (ratio = port / ref; None where
-    either is missing or the reference's is 0)."""
+    either is missing or the reference's is 0).  A side that failed
+    (None) leaves its values None."""
     fields = list(FIELDS) + [
-        (f"collective {op}", ("collectives", "per_op", op, "bytes"))
+        (f"collective {op}", ("collectives_by_trip", "per_op", op, "bytes"),
+         ("collectives", "per_op", op, "bytes"))
         for op in COLLECTIVE_OPS]
     out = {}
-    for label, path in fields:
-        r, p = _get(ref, path), _get(port, path)
+    for label, ref_path, *port_path in fields:
+        r, p = _get(ref, ref_path), _get(port, (port_path or [ref_path])[0])
         if r is None and p is None:
             continue
         out[label] = {"ref": r, "port": p,
@@ -121,28 +238,73 @@ def compare(ref: dict, port: dict) -> dict:
     return out
 
 
-def _children(argv, out_dir: Path):
-    """Both sides' results, each side run in a child process of its own,
-    the two at once."""
+def within_yardstick(fields: dict):
+    """True where temp and collective bytes (the reference's loop bodies
+    counted once a trip) both lie within ``YARDSTICK`` of the
+    reference's (a cell that moves no collective bytes on either side
+    keeps it); None where a side is missing."""
+    lo, hi = YARDSTICK
+    ok = True
+    for name in ("temp bytes", "collective bytes, loops x trips"):
+        v = fields.get(name)
+        if v is None or v["ref"] is None or v["port"] is None:
+            return None
+        if v["ref"] == 0:
+            ok &= v["port"] == 0
+        else:
+            ok &= lo <= v["ratio"] <= hi
+    return bool(ok)
+
+
+def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(ROOT / "src"), str(ROOT)]
         + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
     env["JAX_PLATFORMS"] = "cpu"
-    procs = {side: subprocess.Popen(
-        [sys.executable, str(Path(__file__).resolve()), "--side", side,
-         *argv], env=env) for side in ("ref", "port")}
-    failed = [side for side, p in procs.items() if p.wait() != 0]
-    if failed:
-        raise RuntimeError(f"the {' and '.join(failed)} dry run failed")
-    return [json.loads((out_dir / f"{side}.json").read_text())
-            for side in ("ref", "port")]
+    return env
+
+
+def _children(argv, out_dir: Path, timeout=None):
+    """Both sides' results ({side: result or None}) and the failures
+    ({side: the end of its stderr}), each side run in a child process of
+    its own, the two at once."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for side in ("ref", "port"):
+        err = tempfile.TemporaryFile("w+")
+        procs[side] = (subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--side", side,
+             *argv, "--out-dir", str(out_dir)], env=_env(),
+            stdout=subprocess.DEVNULL, stderr=err), err)
+    results, failed = {}, {}
+    for side, (p, err) in procs.items():
+        try:
+            rc = p.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+            rc = f"timed out after {timeout} s"
+        err.seek(0)
+        tail = err.read()[-2000:]
+        err.close()
+        path = out_dir / f"{side}.json"
+        if rc == 0 and path.exists():
+            results[side] = json.loads(path.read_text())
+        else:
+            results[side] = None
+            failed[side] = f"exit {rc}: {tail}"
+    return results, failed
 
 
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", required=True)
-    ap.add_argument("--shape", required=True)
+    ap.add_argument("--arch", action="append", default=[])
+    ap.add_argument("--shape", action="append", default=[])
+    ap.add_argument("--grid", action="store_true",
+                    help="every assigned arch x shape (or those given)")
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="grid cells run at once (two processes each)")
     ap.add_argument("--set", action="append", default=[], dest="overrides",
                     help="config override key=value (e.g. n_layers=1)")
     ap.add_argument("--mesh", type=_mesh, default=_mesh("16x16"))
@@ -153,26 +315,144 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
+def _cell_argv(args, arch: str, shape: str):
+    argv = ["--arch", arch, "--shape", shape,
+            "--mesh", "x".join(map(str, args.mesh[1]))]
+    for ov in args.overrides:
+        argv += ["--set", ov]
+    if args.seq_len:
+        argv += ["--seq-len", str(args.seq_len)]
+    if args.batch:
+        argv += ["--batch", str(args.batch)]
+    return argv
+
+
+def _record(args, arch, shape, results, failed) -> dict:
+    ref, port = results["ref"], results["port"]
+    fields = compare(ref, port)
+    kind = (port or ref or {}).get("kind")
+    return {"arch": arch, "shape": shape, "kind": kind,
+            "mesh": "x".join(map(str, args.mesh[1])),
+            "overrides": args.overrides, "fields": fields,
+            "within_yardstick": within_yardstick(fields),
+            "errors": failed,
+            "seconds": {side: r["lower_s"] + r["compile_s"]
+                        for side, r in results.items() if r},
+            "torch": (port or {}).get("torch"),
+            "port_replicated_ops": (port or {}).get("replicated_ops")}
+
+
+def run_cell(args, arch: str, shape: str, out_dir: Path) -> dict:
+    """One cell: both sides in child processes, ``compare.json`` written
+    beside their JSONs."""
+    t0 = time.time()
+    results, failed = _children(_cell_argv(args, arch, shape), out_dir,
+                                timeout=CELL_TIMEOUT_S)
+    rec = _record(args, arch, shape, results, failed)
+    rec["wall_s"] = round(time.time() - t0, 1)
+    (out_dir / "compare.json").write_text(json.dumps(rec, indent=1))
+    return rec
+
+
+def _fmt(v) -> str:
+    if v is None:
+        return "-"
+    return f"{v:,.0f}" if float(v).is_integer() or abs(v) > 1e3 else f"{v:.4g}"
+
+
+def _ratio(v) -> str:
+    """A field's ratio for the grid's table: '-' where the port has
+    nothing, '+<MB>' where only the port moves bytes."""
+    r, p = (None, None) if v is None else (v["ref"], v["port"])
+    if not p:
+        return "0" if r and p == 0 else "-"
+    mb = p / 1e6
+    return (f"+{mb:.0f}M" if mb >= 100 else f"+{mb:.3g}M") if not r \
+        else f"{p / r:.3g}"
+
+
+GRID_COLUMNS = [("arg", "argument bytes"), ("temp", "temp bytes"),
+                ("coll", "collective bytes, loops x trips"),
+                ("coll0", "collective bytes"),
+                ("ag", "collective all-gather"),
+                ("ar", "collective all-reduce"),
+                ("rs", "collective reduce-scatter"),
+                ("a2a", "collective all-to-all"),
+                ("cp", "collective collective-permute"),
+                ("flop", "flops"), ("dot", "dot flops")]
+
+
+def grid_table(records) -> str:
+    """One line a cell: port / reference of each of ``GRID_COLUMNS``,
+    the yardstick, and which side failed."""
+    head = f"{'arch':<22}{'shape':<13}" + "".join(
+        f"{c:>11}" for c, _ in GRID_COLUMNS) + "  within"
+    lines = [head]
+    for r in records:
+        f = r["fields"]
+        row = f"{r['arch']:<22}{r['shape']:<13}" + "".join(
+            f"{_ratio(f.get(label)):>11}" for _, label in GRID_COLUMNS)
+        ok = {True: "yes", False: "NO", None: "-"}[r["within_yardstick"]]
+        if r["errors"]:
+            ok += " (" + " and ".join(r["errors"]) + " failed)"
+        lines.append(row + "  " + ok)
+    return "\n".join(lines)
+
+
+def run_grid(args) -> dict:
+    """Every cell of ``args``' archs x shapes (all assigned by default),
+    ``args.jobs`` at once; ``grid.json`` and the table."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch.dryrun import ASSIGNED, INPUT_SHAPES
+    archs = args.arch or ASSIGNED
+    shapes = args.shape or list(INPUT_SHAPES)
+    cells = [(a, s) for a in archs for s in shapes]
+    out_dir = Path(args.out_dir)
+    t0 = time.time()
+
+    def one(cell):
+        arch, shape = cell
+        rec = run_cell(args, arch, shape, out_dir / f"{arch}__{shape}")
+        failed = ", ".join(rec["errors"])
+        print(f"[{time.time() - t0:7.1f} s] {arch} x {shape}: "
+              f"{'failed: ' + failed if failed else 'done'}", flush=True)
+        return rec
+    with ThreadPoolExecutor(max(1, args.jobs)) as pool:
+        records = list(pool.map(one, cells))
+    grid = {"mesh": "x".join(map(str, args.mesh[1])),
+            "overrides": args.overrides, "yardstick": YARDSTICK,
+            "wall_s": round(time.time() - t0, 1), "cells": records}
+    (out_dir / "grid.json").write_text(json.dumps(grid, indent=1))
+    print(f"grid on {grid['mesh']} {' '.join(args.overrides)}: port / "
+          f"reference ({len(records)} cells, {grid['wall_s']} s)")
+    print(grid_table(records))
+    return grid
+
+
 def main(argv=None) -> dict:
     argv = list(sys.argv[1:] if argv is None else argv)
     args = _parser().parse_args(argv)
     out_dir = Path(args.out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
+    if args.grid:
+        return run_grid(args)
+    if len(args.arch) != 1 or len(args.shape) != 1:
+        raise SystemExit("one --arch and one --shape, or --grid")
+    args.arch, args.shape = args.arch[0], args.shape[0]
     if args.side:
         res = (run_reference if args.side == "ref" else run_port)(args)
         (out_dir / f"{args.side}.json").write_text(json.dumps(res, indent=1))
         return res
-    ref, port = _children(argv, out_dir)
-    table = compare(ref, port)
-    (out_dir / "compare.json").write_text(json.dumps(
-        {"arch": args.arch, "shape": args.shape,
-         "mesh": "x".join(map(str, args.mesh[1])),
-         "overrides": args.overrides, "fields": table,
-         "seconds": {"ref": ref["lower_s"] + ref["compile_s"],
-                     "port": port["lower_s"] + port["compile_s"]},
-         "torch": port.get("torch"), "port_replicated_ops":
-         port.get("replicated_ops")}, indent=1))
-    print(f"{args.arch} x {args.shape} on {'x'.join(map(str, args.mesh[1]))}"
+    results, failed = _children(_cell_argv(args, args.arch, args.shape),
+                                out_dir)
+    if failed:
+        for side, tail in failed.items():
+            print(f"the {side} dry run failed, {tail}", file=sys.stderr)
+        raise RuntimeError(f"the {' and '.join(failed)} dry run failed")
+    rec = _record(args, args.arch, args.shape, results, failed)
+    (out_dir / "compare.json").write_text(json.dumps(rec, indent=1))
+    table = rec["fields"]
+    print(f"{args.arch} x {args.shape} on {rec['mesh']}"
           f" {' '.join(args.overrides)}")
     print(f"{'field':<28}{'reference':>22}{'port':>22}{'port/ref':>12}")
     for label, v in table.items():
@@ -180,12 +460,6 @@ def main(argv=None) -> dict:
         print(f"{label:<28}{_fmt(v['ref']):>22}{_fmt(v['port']):>22}"
               f"{ratio:>12}")
     return table
-
-
-def _fmt(v) -> str:
-    if v is None:
-        return "-"
-    return f"{v:,.0f}" if float(v).is_integer() or abs(v) > 1e3 else f"{v:.4g}"
 
 
 if __name__ == "__main__":
