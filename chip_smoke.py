@@ -300,12 +300,16 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
    cuBLAS and the dW matmul, D at the SLM trainer's CCL loss, G' at
    mamba2's trainer case (4 x 4 chunks, a state gradient); prints a
    ``{"trainer": ...}`` line;
-21. runs the dry run (``launch/dryrun.py``) on the host's CPU in two
+21. runs the dry run (``launch/dryrun.py``) on the host's CPU in
    processes started before the build and joined after the kernel checks
    (each starts a fake process group, which the NCCL group of this
    process rules out here): ``python -m repro_torch.launch.dryrun`` for gemma-2b
    at decode_32k over 256 fake ranks (the reference's keys, every
-   roofline term finite and non-negative), and ``dryrun_one`` of the
+   roofline term finite and non-negative), the same at one layer for
+   whisper-medium, mamba2-2.7b and qwen3-moe decode_32k and qwen3-1.7b
+   train_4k (``DRYRUN_CELLS``: temp and collective bytes a rank at most
+   2x torch 2.13's, no op run replicated that 2.13 does not), and
+   ``dryrun_one`` of the
    trainer phase's gemma-2b step (4 x 1,024) at a (1, 1) fake mesh on the
    full and the chunked CE, whose argument bytes must equal exactly those
    of the step's params, AdamW state and batch made on the card; prints
@@ -7413,6 +7417,23 @@ DRYRUN_CASE = ("gemma-2b", "decode_32k")
 # "collective bytes, loops x trips"; the reference's own count, 2,850,720
 # B, counts its layer loop's body once: ROADMAP fault 3.12)
 DRYRUN_COLLECTIVE_CEILING = 4 * 11_622_720
+# cells at one layer on the 16 x 16 mesh whose layout the card host's
+# torch 2.11 once took otherwise than 2.13 (whisper's, mamba2's and the moe
+# models' decode; the train cells' Gram path: roll and the batched
+# Cholesky): each one's temp and collective bytes a rank at most
+# DRYRUN_CELL_FACTOR x those of
+#   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch A --shape S \
+#       --set n_layers=1
+# on a CPU host with torch 2.13.0+cpu (the constants below), and its
+# replicated ops among that run's
+DRYRUN_CELLS = {
+    ("whisper-medium", "decode_32k"): (207_922_688, 123_060, ()),
+    ("mamba2-2.7b", "decode_32k"): (25_611_408, 910_440, ()),
+    ("qwen3-moe-235b-a22b", "decode_32k"): (114_502_656, 4_356_780, ()),
+    ("qwen3-1.7b", "train_4k"): (10_266_943_716, 8_861_090_422,
+                                 ("aten.neg.default",)),
+}
+DRYRUN_CELL_FACTOR = 2
 # the trainer phase's gemma-2b case (GEMMA_TRAIN), as an InputShape
 GEMMA_DRYRUN_SHAPE = ("gemma_train", GEMMA_TRAIN["seq"], GEMMA_TRAIN["rows"],
                       "train")
@@ -7441,13 +7462,28 @@ def dryrun_trainer_main(out_path):
         json.dump(out, f)
 
 
+def dryrun_cells_main(out_dir):
+    """Each of ``DRYRUN_CELLS`` at one layer on the 16 x 16 production mesh
+    over a fake 256-rank group, one after another in this process (one
+    core, beside the build's ``nvcc``); writes ``<arch>__<shape>.json``
+    under ``out_dir``, as ``python -m repro_torch.launch.dryrun``
+    does."""
+    from repro_torch.launch.dryrun import dryrun_one
+    os.makedirs(out_dir, exist_ok=True)
+    for arch, shape in DRYRUN_CELLS:
+        res = dryrun_one(arch, shape, overrides=["n_layers=1"])
+        with open(os.path.join(out_dir, f"{arch}__{shape}.json"), "w") as f:
+            json.dump(res, f)
+
+
 def start_dryrun():
     """Start the dry run's two processes, which use only the host's CPU
     (before the build, whose ``nvcc`` processes they share the host with,
     so that no timed phase does):
     (a) ``python -m repro_torch.launch.dryrun`` for ``DRYRUN_CASE`` at 256
-    fake ranks, (b) :func:`dryrun_trainer_main`.  Returns (processes,
-    their directory, the time they started)."""
+    fake ranks, (b) :func:`dryrun_trainer_main`, (c)
+    :func:`dryrun_cells_main`.  Returns (processes, their directory, the
+    time they started)."""
     import tempfile
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
@@ -7459,6 +7495,9 @@ def start_dryrun():
         "trainer": [sys.executable, "-c",
                     "import chip_smoke as c; c.dryrun_trainer_main("
                     f"{os.path.join(out_dir, 'trainer.json')!r})"]}
+    cmds["cells"] = [sys.executable, "-c",
+                     "import chip_smoke as c; c.dryrun_cells_main("
+                     f"{os.path.join(out_dir, 'cells')!r})"]
     t0 = time.perf_counter()
     procs = {}
     for name, cmd in cmds.items():
@@ -7478,12 +7517,14 @@ def stop_dryrun(procs):
 
 
 def join_dryrun(started):
-    """Wait for both dry runs (``DRYRUN_TIMEOUT_S`` from their start) and
+    """Wait for the dry runs (``DRYRUN_TIMEOUT_S`` from their start) and
     read their results: (the production JSON, checked by
     :func:`check_dryrun_result`; the trainer case's {impl: result}; the
-    seconds from their start).  Raises with the end of its log where one
-    failed or ran over."""
+    seconds from their start; {cell: its JSON}, each checked by
+    :func:`check_dryrun_cell`; the seconds this call waited for them).
+    Raises with the end of its log where one failed or ran over."""
     procs, out_dir, t0 = started
+    waited = time.perf_counter()
     try:
         for name, p in procs.items():
             try:
@@ -7498,16 +7539,40 @@ def join_dryrun(started):
                     f"dry run {name}: exit code {rc} after "
                     f"{time.perf_counter() - t0:.1f} s\n{tail}")
         wall = time.perf_counter() - t0
+        waited = time.perf_counter() - waited
         arch, shape = DRYRUN_CASE
         with open(os.path.join(out_dir, f"{arch}__{shape}.json")) as f:
             prod = json.load(f)
         check_dryrun_result(prod)
         with open(os.path.join(out_dir, "trainer.json")) as f:
             trainer = json.load(f)
+        cells = {}
+        for arch, shape in DRYRUN_CELLS:
+            name = f"{arch}__{shape}"
+            with open(os.path.join(out_dir, "cells", f"{name}.json")) as f:
+                cells[name] = json.load(f)
+            check_dryrun_cell(cells[name], DRYRUN_CELLS[arch, shape])
     finally:
         stop_dryrun(procs)
         shutil.rmtree(out_dir, ignore_errors=True)
-    return prod, trainer, wall
+    return prod, trainer, wall, cells, waited
+
+
+def check_dryrun_cell(res, limits):
+    """One of ``DRYRUN_CELLS``' JSONs: its temp and collective bytes a
+    rank at most ``DRYRUN_CELL_FACTOR`` x the torch 2.13 run's, and its
+    replicated ops among that run's."""
+    temp, coll, replicated = limits
+    got = (res["memory_analysis"]["temp_size_in_bytes"],
+           res["collectives"]["total_bytes"])
+    if not (0 <= got[0] <= DRYRUN_CELL_FACTOR * temp and
+            0 <= got[1] <= DRYRUN_CELL_FACTOR * coll) or \
+            not set(res["replicated_ops"]) <= set(replicated):
+        raise AssertionError(
+            f"dry run {res['arch']} {res['shape']} at one layer, torch "
+            f"{res['torch']}: temp / collective bytes a rank {got}, over "
+            f"{DRYRUN_CELL_FACTOR} x {(temp, coll)}, or ops run replicated "
+            f"{res['replicated_ops']} beyond {replicated}")
 
 
 def check_dryrun_result(res):
@@ -7565,19 +7630,30 @@ def phase_dryrun(joined, trainer):
     """The dry run (``launch/dryrun.py``), started by :func:`start_dryrun`
     before the build and read by :func:`join_dryrun` after the kernel
     checks: (a) gemma-2b decode_32k at 256 fake ranks through the command
-    line, its JSON complete and its terms finite; (b) the trainer phase's
+    line, its JSON complete and its terms finite, and each of
+    ``DRYRUN_CELLS`` at one layer within its bounds (their bytes, host
+    seconds and torch version printed); (b) the trainer phase's
     gemma-2b step at a (1, 1) fake mesh, full and chunked CE: the argument
     bytes it counts exactly equal to those of the step's params,
     optimizer state and batch made on the card, and the peak it predicts
     (arguments + temporaries) beside the trainer phase's measured
     ``max_memory_allocated`` (a finding, not a check)."""
-    prod, tr, wall = joined
+    prod, tr, wall, cells, waited = joined
     real = real_argument_bytes()
     out = {"production": {k: prod[k] for k in (
         "arch", "shape", "mesh", "chips", "lower_s", "compile_s",
         "cost_analysis", "memory_analysis", "collectives", "roofline",
         "replicated_ops", "path", "torch")},
-        "wall_s": wall, "real_argument_bytes": real, "trainer": {}}
+        "wall_s": wall, "join_waited_s": waited,
+        "real_argument_bytes": real, "trainer": {},
+        "cells": {name: {
+            "temp_bytes": res["memory_analysis"]["temp_size_in_bytes"],
+            "collective_bytes": res["collectives"]["total_bytes"],
+            "argument_bytes": res["memory_analysis"][
+                "argument_size_in_bytes"],
+            "replicated_ops": res["replicated_ops"],
+            "host_s": res["lower_s"] + res["compile_s"],
+            "torch": res["torch"]} for name, res in cells.items()}}
     for impl, res in tr.items():
         mem = res["memory_analysis"]
         if mem["argument_size_in_bytes"] != real:

@@ -306,3 +306,252 @@ def test_reference_dryrun_refuses_explicit_axes():
     assert res.returncode != 0
     assert "can only refer to Auto axes" in res.stderr
     assert "Explicit" in res.stderr
+
+
+# ---------------------------------------------------------------------------
+# the ops whose DTensor handling differs between torch versions (the card
+# host's 2.11, this CPU's 2.13): each run on DTensors placed as in its
+# dry-run cell, on the (4, 4) mesh, under the dry run's counting
+
+def _placed(mesh, shape, placements, dtype=torch.float32):
+    """A DTensor of global ``shape`` whose block is a fresh fake tensor."""
+    from torch.distributed.tensor import DTensor
+    local = list(shape)
+    for n, p in zip(mesh.shape, placements):
+        if p.is_shard():
+            local[p.dim] //= n
+    stride, k = [], 1
+    for s in reversed(shape):
+        stride.insert(0, k)
+        k *= s
+    return DTensor.from_local(torch.empty(local, dtype=dtype), mesh,
+                              list(placements), run_check=False,
+                              shape=tuple(shape), stride=tuple(stride))
+
+
+def _counted(fn):
+    """``fn()`` under the dry run's counting (inside a fake mode): its
+    result, the collective bytes a rank and the ops run replicated."""
+    cost = D.RankCost()
+    with D.counting(cost):
+        out = fn()
+    return out, D.collective_bytes(cost.collectives)["total_bytes"], \
+        cost.replicated
+
+
+def test_ring_attention_keeps_batch_and_heads_split(mesh16):
+    """A's twin on a ring split on batch (data) and kv heads (model), as
+    at whisper-medium decode_32k: its two einsums merge batch and heads
+    into one batch of a ``bmm``, a strided split of the merged dim, and
+    cut it back, so each rank keeps its rows and heads: no byte moves
+    (torch 2.11's DTensor gathered the heads of the whole ring: 2,013,
+    281,280 B a rank in that cell)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.kernels import ref
+    split = (Shard(0), Shard(2))
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        q = _placed(mesh16, (8, 1, 8, 16), split)
+        k = _placed(mesh16, (8, 32, 4, 16), split)
+        v = _placed(mesh16, (8, 32, 4, 16), split)
+        lens = _placed(mesh16, (8,), (Shard(0), Replicate()), torch.int32)
+        out, moved, replicated = _counted(
+            lambda: ref.paged_attention_ref(q, k, v, None, lens))
+    assert out.placements == split and out.shape == (8, 1, 8, 16)
+    assert moved == 0 and replicated == {}
+
+
+def test_ssm_decode_keeps_batch_and_heads_split(mesh16):
+    """mamba2's decode step as at decode_32k (batch over data, the fused
+    projection and the heads over model): ``_split``'s three cuts of the
+    projection gather its last dim alike on both torch versions (the
+    batch does not divide over all 16 ranks, so the split cannot move to
+    it), and the state einsum over batch and heads moves nothing (torch
+    2.11's DTensor gathered the heads of the state: 19,660,800 B a rank in
+    that cell)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import Shard
+    cfg = ModelConfig(**SSM)
+    di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    width = 2 * di + 2 * cfg.ssm_groups * N + H
+    split = (Shard(0), Shard(1))
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        zxbcdt = _placed(mesh16, (8, width), split)
+        h = _placed(mesh16, (8, H, P, N), split)
+        c = _placed(mesh16, (8, H, N), split)
+        (z, xbc, dt), cut, rep_cut = _counted(lambda: ssm._split(cfg, zxbcdt))
+        y, moved, replicated = _counted(
+            lambda: torch.einsum("bhpn,bhn->bhp", h, c))
+    block = 8 // 4 * width // 4 * 4          # one rank's f32 block, bytes
+    assert cut == 3 * block * 4 * 3 / 4      # three all-gathers over model
+    assert [t.shape[-1] for t in (z, xbc, dt)] == [di, di + 2 * N, H]
+    assert y.placements == split and moved == 0
+    assert rep_cut == {} and replicated == {}
+
+
+def test_merged_rows_are_gathered_before_a_matmul(mesh16):
+    """Batch and sequence, split over data and model (the sequence holds
+    the model split where the heads are fewer than its ranks), merged
+    into the rows of a projection whose weight is split on its
+    contracting dim, as at gemma-2b prefill_32k: the rows' strided split
+    is all-gathered, the product's partial sums reduce-scattered over its
+    columns, as torch 2.13's DTensor lays it out (2.11's ran the product
+    on whole tensors)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import Replicate, Shard
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        x = _placed(mesh16, (8, 16, 32), (Shard(0), Shard(1)))
+        w = _placed(mesh16, (32, 32), (Replicate(), Shard(0)))
+        out, moved, replicated = _counted(lambda: x.reshape(128, 32) @ w)
+    assert out.placements == (Shard(0), Shard(1)) and replicated == {}
+    block = 128 // 16 * 32 * 4              # one rank's f32 rows, bytes
+    # an all-gather of the rows over model, a reduce-scatter of the sums
+    assert moved == 4 * block * 3 / 4 + block * 3
+
+
+def test_product_cuts_the_copy_to_the_split(mesh16):
+    """hymba's SSM input (batch over data, its channels whole) times its
+    conv weight (channels over model), as at prefill_32k: the input is cut
+    to the weight's split, a local slice, no byte moved and the product
+    split over model, as torch 2.13's DTensor lays it out (2.11's gathered
+    the weight, and the SSD path after it ran copied over model: 0.144x
+    2.13's collectives in that cell)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import Replicate, Shard
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        x = _placed(mesh16, (8, 6, 32), (Shard(0), Replicate()))
+        w = _placed(mesh16, (32,), (Replicate(), Shard(0)))
+        out, moved, replicated = _counted(lambda: x * w)
+    assert out.placements == (Shard(0), Shard(2))
+    assert moved == 0 and replicated == {}
+
+
+def test_moe_buffer_write_gathers_only_the_rows(mesh16):
+    """The moe's scatter of routed rows into its (E·C + 1, d) buffer, as
+    at qwen3-moe decode_32k (rows over data, d over model, the buffer's
+    rows whole): the indices and the rows are gathered over data and each
+    rank writes its columns; the gradient's write into a copy moves the
+    values' split off the indexed dim.  torch 2.11's DTensor ran both on
+    whole tensors (4.95x 2.13's collectives in that cell)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import Replicate, Shard
+    TK, d, rows_ = 32, 16, 41
+    cols = (Replicate(), Shard(1))
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        buf = _placed(mesh16, (rows_, d), cols)
+        idx = _placed(mesh16, (TK,), (Shard(0), Replicate()), torch.int64)
+        vals = _placed(mesh16, (TK, d), (Shard(0), Shard(1)))
+
+        def write():
+            buf[idx] = vals
+            return buf
+        out, moved, replicated = _counted(write)
+        grad = _placed(mesh16, (TK, d), (Shard(0), Shard(0)))
+        copy, moved_copy, rep_copy = _counted(
+            lambda: torch.ops.aten.index_put.default(buf, [idx], grad))
+    assert out is buf and out.placements == cols
+    # all-gathers over data of the indices (8 B each) and of the rows'
+    # blocks of d
+    assert moved == (TK * 8 + TK * d // 4 * 4) * 3 / 4
+    assert copy.placements == cols and rep_copy == {} and replicated == {}
+    assert 0 < moved_copy < TK * d * 4
+
+
+def test_roll_and_pad_move_the_split_off_their_dims(mesh16):
+    """``roll`` along a batch split over data (the CCL loss's negatives):
+    the split moves to the innermost other dim it divides (an all-to-all)
+    or, where none divides, is gathered; ``constant_pad_nd`` and ``flip``
+    along a split sequence (the SSD's chunks) alike.  torch 2.11's DTensor
+    ran each on whole tensors."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import Replicate, Shard
+    rows = (Shard(0), Replicate())
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        mods = _placed(mesh16, (16, 3, 8), rows)
+        mask = _placed(mesh16, (16, 3), rows)
+        seq = _placed(mesh16, (2, 16, 8), (Replicate(), Shard(1)))
+        r, moved, rep = _counted(lambda: torch.roll(mods, 1, 0))
+        m, moved_m, rep_m = _counted(lambda: torch.roll(mask, 1, 0))
+        p, moved_p, rep_p = _counted(
+            lambda: torch.nn.functional.pad(seq, (0, 0, 0, 4)))
+        f, moved_f, rep_f = _counted(lambda: torch.flip(seq, (1,)))
+    assert r.placements == (Shard(2), Replicate())
+    assert moved == 16 * 3 * 8 * 4 / 4 * 3 / 4     # one all-to-all
+    assert m.placements == (Replicate(), Replicate())
+    assert moved_m == 16 * 3 * 4 * 3 / 4           # one all-gather
+    assert p.shape == (2, 20, 8) and p.placements == (Replicate(), Shard(2))
+    assert f.placements == (Replicate(), Shard(2))
+    assert moved_p == moved_f == 2 * 16 * 8 * 4 / 4 * 3 / 4
+    assert rep == rep_m == rep_p == rep_f == {}
+
+
+def test_gram_linalg_maps_over_the_batch(mesh16):
+    """The Gram log-volume's linalg (kernel D's twin and its gradient) on
+    samples split over data: the Cholesky, the triangular solve of its
+    gradient, the diagonal's gradient and ``cholesky_inverse`` (D's
+    backward from the dots) each work on every rank's own samples, no
+    byte moved, and the whole log-volume and its gradient run nothing
+    replicated (torch 2.11's DTensor ran the linalg on whole tensors)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.kernels.gram_volume import gram_log_volume_plain
+    aten = torch.ops.aten
+    rows = (Shard(0), Replicate())
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        g = _placed(mesh16, (16, 4, 4), rows)
+        diag = _placed(mesh16, (16, 4), rows)
+        ops = {
+            "cholesky_ex": lambda: torch.linalg.cholesky_ex(g).L,
+            "cholesky_inverse": lambda: torch.cholesky_inverse(g),
+            "solve_triangular": lambda: torch.linalg.solve_triangular(
+                g, g, upper=False),
+            "diagonal_backward": lambda: aten.diagonal_backward(
+                diag, [16, 4, 4], 0, -2, -1)}
+        done = {name: _counted(fn) for name, fn in ops.items()}
+        vs = _placed(mesh16, (16, 4, 8), rows).requires_grad_()
+        mask = _placed(mesh16, (16, 4), rows, torch.bool)
+
+        def step():
+            lv = gram_log_volume_plain(vs, mask)
+            lv.backward(torch.ones_like(lv))
+            return lv
+        _, _, replicated = _counted(step)
+    for name, (out, moved, rep) in done.items():
+        assert out.placements == rows and out.shape == (16, 4, 4), name
+        assert moved == 0 and rep == {}, (name, moved, rep)
+    assert replicated == {} and vs.grad.placements == rows
+
+
+def test_masked_sum_is_reduced_before_an_add(mesh16):
+    """A gather from a vocab-split row (the full CE's: each rank's vocab
+    block, a masked partial sum over model) met by an add of a plain
+    tensor (the loss's aux term, in the train cells): the masked sum is
+    all-reduced over model first and nothing runs replicated (torch
+    2.11's DTensor reduced it through the gather's mask, which the summed
+    loss no longer fits, and failed)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import Replicate, Shard
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        logp = _placed(mesh16, (8, 6, 64), (Shard(0), Shard(2)))
+        tgt = _placed(mesh16, (8, 6, 1), (Shard(0), Replicate()),
+                      torch.int64)
+        aux = torch.zeros(())
+        out, moved, replicated = _counted(
+            lambda: torch.gather(logp, -1, tgt)[..., 0] + aux)
+    assert out.placements == (Shard(0), Replicate())
+    assert replicated == {}
+    assert moved == 2 * (2 * 6 * 4) * 3 / 4     # one all-reduce over model
+
+
+@pytest.mark.parametrize("key", list(D.VERSION_GAPS))
+def test_version_gap_has_an_answer_and_a_test(key):
+    """Each entry of the dry run's table of torch-version gaps names what
+    DTensor does, where it was seen, the dry run's answer (the handler of
+    each op it keys) and a test of this file that holds it."""
+    gap = D.VERSION_GAPS[key]
+    assert gap.wrong and gap.seen_on
+    answer = getattr(D, gap.answer)
+    assert callable(answer) and callable(globals()[gap.test])
+    table = {str(op): fn for op, fn in D._handlers().items()}
+    for op in key.split():
+        assert table.get(op, answer) is answer, (op, table.get(op))

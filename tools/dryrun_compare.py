@@ -73,6 +73,9 @@ COLLECTIVE_OPS = ("all-gather", "all-reduce", "reduce-scatter",
                   "all-to-all", "collective-permute", "broadcast")
 # temp and collective bytes a rank, port / reference, that a cell keeps
 YARDSTICK = (0.25, 4.0)
+# temp and collective bytes a rank, one port run over another (two torch
+# versions), that a cell keeps
+PORT_BAND = (0.5, 2.0)
 CELL_TIMEOUT_S = 3600       # a side of a grid cell (full depth: minutes)
 
 
@@ -310,6 +313,13 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--mesh", type=_mesh, default=_mesh("16x16"))
     ap.add_argument("--seq-len", type=int, default=0)
     ap.add_argument("--batch", type=int, default=0)
+    ap.add_argument("--ports", nargs=2, metavar=("RUN", "BASE"),
+                    help="two directories of the port's dry-run JSONs: "
+                         "RUN against BASE, cell by cell (no JAX)")
+    ap.add_argument("--ref-grid", metavar="GRID_JSON",
+                    help="with --ports: a --grid run's grid.json, each "
+                         "side's temp and collective bytes against the "
+                         "reference's")
     ap.add_argument("--out-dir", required=True)
     ap.add_argument("--side", choices=("ref", "port"), help=argparse.SUPPRESS)
     return ap
@@ -429,11 +439,137 @@ def run_grid(args) -> dict:
     return grid
 
 
+def _port_json(directory: Path) -> dict:
+    """{(arch, shape): the port's dry-run JSON} of a directory written by
+    ``python -m repro_torch.launch.dryrun --out-dir`` (``<arch>__<shape>
+    .json``; tagged or multi-pod files are left out)."""
+    out = {}
+    for path in sorted(directory.glob("*.json")):
+        parts = path.stem.split("__")
+        if len(parts) == 2:
+            out[tuple(parts)] = json.loads(path.read_text())
+    return out
+
+
+def compare_ports(run: dict, base: dict) -> dict:
+    """One port run against another on the same cell (ratios ``run`` over
+    ``base``): temp, collective and argument bytes a rank and each
+    collective op's bytes, the ``replicated_ops`` only one side ran, and
+    whether the cell stands within ``PORT_BAND`` (temp and collectives
+    within the band, argument bytes equal, ``run``'s replicated ops a
+    subset of ``base``'s)."""
+    def ratio(path):
+        r, b = _get(run, path), _get(base, path)
+        if r is None or b is None:
+            return {"run": r, "base": b, "ratio": None}
+        return {"run": r, "base": b,
+                "ratio": r / b if b else (1.0 if r == 0 else None)}
+    fields = {label: ratio(path) for label, path in (
+        ("temp bytes", ("memory_analysis", "temp_size_in_bytes")),
+        ("collective bytes", ("collectives", "total_bytes")),
+        ("argument bytes", ("memory_analysis", "argument_size_in_bytes")))}
+    for op in COLLECTIVE_OPS:
+        v = ratio(("collectives", "per_op", op, "bytes"))
+        if v["run"] is not None or v["base"] is not None:
+            fields[f"collective {op}"] = v
+    rep_run = run.get("replicated_ops") or {}
+    rep_base = base.get("replicated_ops") or {}
+    lo, hi = PORT_BAND
+    within = all(v["ratio"] is not None and lo <= v["ratio"] <= hi
+                 for k, v in fields.items()
+                 if k in ("temp bytes", "collective bytes")) and \
+        fields["argument bytes"]["run"] == fields["argument bytes"]["base"] \
+        and set(rep_run) <= set(rep_base)
+    return {"fields": fields,
+            "replicated_only_in_run": {k: v for k, v in rep_run.items()
+                                       if k not in rep_base},
+            "replicated_only_in_base": {k: v for k, v in rep_base.items()
+                                        if k not in rep_run},
+            "torch": [run.get("torch"), base.get("torch")],
+            "within": within}
+
+
+def _band(v) -> str:
+    return "-" if v is None or v["ratio"] is None else f"{v['ratio']:.4g}"
+
+
+def run_ports(args) -> dict:
+    """``--ports RUN BASE``: every cell both directories hold, ``RUN``
+    against ``BASE`` (:func:`compare_ports`); ``ports.json`` under
+    ``--out-dir`` and one table."""
+    run_dir, base_dir = (Path(p) for p in args.ports)
+    runs, bases = _port_json(run_dir), _port_json(base_dir)
+    cells = {}
+    for key in sorted(set(runs) | set(bases)):
+        if key in runs and key in bases:
+            cells["__".join(key)] = compare_ports(runs[key], bases[key])
+        else:
+            cells["__".join(key)] = {"missing_in": "run" if key not in runs
+                                     else "base", "within": False}
+    if args.ref_grid:
+        # each side against the reference's own dry run (a --grid run's
+        # grid.json): temp and collective bytes (loops x trips) ratios
+        grid = json.loads(Path(args.ref_grid).read_text())
+        refs = {f"{c['arch']}__{c['shape']}": c["fields"]
+                for c in grid["cells"]}
+        for name, c in cells.items():
+            ref = refs.get(name, {})
+            for side in ("run", "base"):
+                if side not in c.get("fields", {}).get("temp bytes", {}):
+                    continue
+                for label, ref_label in (
+                        ("temp bytes", "temp bytes"),
+                        ("collective bytes",
+                         "collective bytes, loops x trips")):
+                    r = (ref.get(ref_label) or {}).get("ref")
+                    v = c["fields"][label][side]
+                    c.setdefault(f"{side} / reference", {})[label] = \
+                        v / r if r and v is not None else None
+    out = {"run": str(run_dir), "base": str(base_dir), "band": PORT_BAND,
+           "cells": cells}
+    Path(args.out_dir, "ports.json").write_text(json.dumps(out, indent=1))
+    some = next((c for c in cells.values() if "torch" in c), None)
+    print(f"{run_dir} / {base_dir} (torch {some['torch'][0]} / "
+          f"{some['torch'][1]}), band {PORT_BAND[0]}-{PORT_BAND[1]}x"
+          if some else f"{run_dir} / {base_dir}: no cell in both")
+    cols = [("temp", "temp bytes"), ("coll", "collective bytes"),
+            ("arg", "argument bytes")] + [
+        (short, f"collective {op}") for short, op in (
+            ("ag", "all-gather"), ("ar", "all-reduce"),
+            ("rs", "reduce-scatter"), ("a2a", "all-to-all"))]
+    vs_ref = [(f"{side[0]}/ref {short}", side, label)
+              for side in ("run", "base")
+              for short, label in (("temp", "temp bytes"),
+                                   ("coll", "collective bytes"))
+              if args.ref_grid]
+    print(f"{'cell':<44}" + "".join(f"{c:>10}" for c, _ in cols)
+          + "".join(f"{c:>13}" for c, _, _ in vs_ref)
+          + "  within  replicated only in run / only in base")
+    for name, c in cells.items():
+        if "missing_in" in c:
+            print(f"{name:<44}  missing in {c['missing_in']}")
+            continue
+        row = f"{name:<44}" + "".join(
+            f"{_band(c['fields'].get(label)):>10}" for _, label in cols)
+        for _, side, label in vs_ref:
+            ratio = c.get(f"{side} / reference", {}).get(label)
+            row += f"{_band({'ratio': ratio}):>13}"
+        rep = (f"{c['replicated_only_in_run'] or ''} / "
+               f"{c['replicated_only_in_base'] or ''}")
+        print(f"{row}  {'yes' if c['within'] else 'NO':<6}  "
+              f"{rep if rep != ' / ' else ''}")
+    n_in = sum(c["within"] for c in cells.values())
+    print(f"{n_in} of {len(cells)} cells within")
+    return out
+
+
 def main(argv=None) -> dict:
     argv = list(sys.argv[1:] if argv is None else argv)
     args = _parser().parse_args(argv)
     out_dir = Path(args.out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
+    if args.ports:
+        return run_ports(args)
     if args.grid:
         return run_grid(args)
     if len(args.arch) != 1 or len(args.shape) != 1:

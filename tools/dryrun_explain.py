@@ -49,9 +49,20 @@ def _where() -> str:
     return "(the dry run's own placement)"
 
 
+def _placed(tree) -> list:
+    """[global shape, placements] of each DTensor leaf of ``tree``."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    return [[list(t.shape), [str(p) for p in t.placements]]
+            for t in torch.utils._pytree.tree_leaves(tree)
+            if isinstance(t, DTensor)]
+
+
 def port_side(args) -> dict:
     """{"collectives": [[where, op, bytes a rank, count]], "peak": [[op,
-    where, bytes, count]], "memory_analysis", "collective_total"}."""
+    where, bytes, count]], "memory_analysis", "collective_total", "ops":
+    [every op DTensor dispatched, in order: {"op", "where", "in", "out"
+    (:func:`_placed`), "collective_bytes" a rank, "replicated"}]}."""
     from repro_torch.launch import dryrun as D
     plain = D.RankCost
 
@@ -62,6 +73,7 @@ def port_side(args) -> dict:
             self.made = {}             # storage id -> (op, where)
             self.at_peak = {}
             self.flops_at = {}         # where -> matmul FLOP
+            self.ops = []              # one per op DTensor dispatched
             self.op = "argument"
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -77,6 +89,18 @@ def port_side(args) -> dict:
                     if self.flops > f and not self._in_dtensor:
                         self.flops_at[here] = self.flops_at.get(here, 0) \
                             + self.flops - f
+
+        def _dtensor_op(self, func, args, kwargs):
+            n = len(self.collectives)
+            replicated = sum(self.replicated.values())
+            out = super()._dtensor_op(func, args, kwargs)
+            moved = D.collective_bytes(self.collectives[n:])["total_bytes"]
+            self.ops.append({
+                "op": str(func), "where": _where(),
+                "in": _placed(args), "out": _placed(out),
+                "collective_bytes": moved,
+                "replicated": sum(self.replicated.values()) > replicated})
+            return out
 
         def track(self, tensors):
             new = super().track(tensors)
@@ -122,7 +146,8 @@ def port_side(args) -> dict:
             "flops": res["cost_analysis"]["flops"],
             "flops_at": sorted(cost.flops_at.items(), key=lambda r: -r[1]),
             "peak": sorted([[op, w, b, n] for (op, w), (b, n)
-                            in peak.items()], key=lambda r: -r[2])}
+                            in peak.items()], key=lambda r: -r[2]),
+            "ops": cost.ops}
 
 
 _OP_NAME = re.compile(r'op_name="([^"]*)"')
@@ -209,6 +234,15 @@ def _print(title, side, top):
         print("  live at the peak (no argument):")
         for op, where, b, n in side["peak"][:top]:
             print(f"  {b:>16,}  {op:<34} x{n:<4} {where}")
+    if "ops" in side:
+        ops = sorted((o for o in side["ops"]
+                      if o["collective_bytes"] or o["replicated"]),
+                     key=lambda o: -o["collective_bytes"])
+        print("  the ops that moved bytes or ran replicated (R), by bytes:")
+        for o in ops[:top]:
+            mark = "R" if o["replicated"] else " "
+            print(f"  {o['collective_bytes']:>16,.0f} {mark} {o['op']:<34} "
+                  f"{o['where']}\n{'':>22}in {o['in']} out {o['out']}")
 
 
 def main(argv=None):
